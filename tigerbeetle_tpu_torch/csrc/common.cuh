@@ -1,0 +1,85 @@
+// Shared device helpers for the commit kernels (ops/commit.py binds them).
+//
+// Layout: a u128 is four little-endian uint32 limbs, so one (A, 4) uint32
+// table row is 16 bytes and, read as two little-endian u64 words, is
+// (lo, hi). Rows are 16-byte aligned (the wrappers check).
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace tb {
+
+constexpr int kThreads = 256;
+
+inline unsigned int blocks_for(long long n, long long cap = 1 << 16) {
+  long long b = (n + kThreads - 1) / kThreads;
+  if (b < 1) b = 1;
+  return (unsigned int)(b < cap ? b : cap);
+}
+
+// True where a + b overflows 128 bits (upstream sum_overflows,
+// src/state_machine.zig:1645).
+__device__ __forceinline__ bool sum_overflows(uint4 a, uint4 b) {
+  unsigned long long alo = ((unsigned long long)a.y << 32) | a.x;
+  unsigned long long ahi = ((unsigned long long)a.w << 32) | a.z;
+  unsigned long long blo = ((unsigned long long)b.y << 32) | b.x;
+  unsigned long long bhi = ((unsigned long long)b.w << 32) | b.z;
+  unsigned long long lo = alo + blo;
+  unsigned long long c = lo < alo;
+  unsigned long long s1 = ahi + bhi;
+  unsigned long long s2 = s1 + c;
+  return (s1 < ahi) || (s2 < s1);
+}
+
+// row (a 16-byte u128 in device memory) += v, exactly, with atomics.
+// Returns true if this addition carried out of bit 127.
+//
+// The low word's atomicAdd returns the old value, so a wrap of the low
+// word is seen by exactly the one thread that caused it, which then adds
+// the carry into the high word with its own high part. The number of
+// carries is therefore exactly floor((lo + sum of lo parts) / 2^64), the
+// final row is (old + sum) mod 2^128 in any order, and the high word's
+// running sum wraps past 2^64 (seen by one thread) iff the true total
+// reached 2^128: the overflow flag is order-independent.
+__device__ __forceinline__ bool atomic_add_u128(uint32_t* row, uint4 v) {
+  unsigned long long* w = reinterpret_cast<unsigned long long*>(row);
+  unsigned long long vlo = ((unsigned long long)v.y << 32) | v.x;
+  unsigned long long vhi = ((unsigned long long)v.w << 32) | v.z;
+  unsigned long long carry = 0;
+  if (vlo) {
+    unsigned long long old = atomicAdd(w, vlo);
+    carry = (old + vlo) < old;
+  }
+  if (carry && vhi == ~0ull) {
+    return true;  // adds 2^128: the row is unchanged mod 2^128
+  }
+  unsigned long long add = vhi + carry;
+  if (!add) return false;
+  unsigned long long old = atomicAdd(w + 1, add);
+  return (old + add) < old;
+}
+
+// Four table pointers chosen by a select chain rather than an indexed
+// array, which keeps the kernel argument in registers.
+struct Four {
+  const uint4* t0;
+  const uint4* t1;
+  const uint4* t2;
+  const uint4* t3;
+  __device__ const uint4* operator[](int i) const {
+    return i == 0 ? t0 : i == 1 ? t1 : i == 2 ? t2 : t3;
+  }
+};
+
+struct FourOut {
+  uint4* t0;
+  uint4* t1;
+  uint4* t2;
+  uint4* t3;
+  __device__ uint4* operator[](int i) const {
+    return i == 0 ? t0 : i == 1 ? t1 : i == 2 ? t2 : t3;
+  }
+};
+
+}  // namespace tb

@@ -1,0 +1,112 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+Each source is compiled by `nvcc` for Hopper (`sm_90a`) into a shared
+library with a plain C interface, in this package's build directory
+(tigerbeetle_tpu_torch/build/, listed in .gitignore), and loaded with
+ctypes. Every pointer and the stream cross as `c_void_p`, sizes as
+`c_int64`, and each entry returns the `cudaError_t` of its launches.
+
+Libraries are built at first use, or all at once by `build_all()` (one
+`nvcc` per source, started together). A library's file name carries a
+hash of its source and of common.cuh, so an edited source is rebuilt and
+a stale library is never loaded. A failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, List
+
+from tigerbeetle_tpu_torch.native import BUILD_DIR
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int64
+
+# entry symbol and argtypes of each source's C interface.
+SIGNATURES = {
+    "create_transfers_fast": ("tb_create_transfers_fast", [_P] * 22 + [_I, _I, _P]),
+    "register_accounts": ("tb_register_accounts", [_P] * 6 + [_I, _I, _P]),
+    "read_balances": ("tb_read_balances", [_P] * 9 + [_I, _I, _P]),
+    "write_balances": ("tb_write_balances", [_P] * 9 + [_I, _I, _P]),
+}
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes._CFuncPtr] = {}
+BUILD_LOG: Dict[str, str] = {}  # kernel -> nvcc's output (-Xptxas -v)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _lib_path(name: str) -> str:
+    h = hashlib.sha256()
+    for f in (f"{name}.cu", "common.cuh"):
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}.{h.hexdigest()[:12]}.so")
+
+
+def build_all(names: List[str] = None) -> None:
+    """Compile every missing library, one nvcc process per source, all
+    started together; raises with nvcc's output if any build fails."""
+    names = list(SIGNATURES) if names is None else names
+    todo = [n for n in names if not os.path.exists(_lib_path(n))]
+    if not todo:
+        return
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    exe = _nvcc()
+    procs = []
+    for n in todo:
+        out = _lib_path(n)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [exe, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{n}.cu")]
+        procs.append((n, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )))
+    failed = []
+    for n, out, tmp, p in procs:
+        log, _ = p.communicate()
+        BUILD_LOG[n] = log
+        if p.returncode != 0:
+            failed.append(f"{n}:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+
+
+def entry(name: str):
+    """The C entry of kernel `name`, building its library if needed."""
+    fn = _loaded.get(name)
+    if fn is not None:
+        return fn
+    with _lock:
+        fn = _loaded.get(name)
+        if fn is None:
+            build_all([name])
+            symbol, argtypes = SIGNATURES[name]
+            fn = getattr(ctypes.CDLL(_lib_path(name)), symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _loaded[name] = fn
+    return fn

@@ -6,18 +6,26 @@
 Phases, in order; any failure exits non-zero and no phase's failure is
 caught:
 
-  1. Build: compile the four CUDA kernels (tigerbeetle_tpu_torch/csrc,
+  1. Build: compile the six CUDA kernels (tigerbeetle_tpu_torch/csrc,
      one nvcc per source, all started together) and print the seconds.
   2. Kernels vs plain, at the main path's shapes (A = 2^20 accounts,
      n = 8192 events, k = 16384 / 8192 slot rows): each kernel must be
      byte-equal to its plain PyTorch version on the same inputs on the
      card. create_transfers_fast runs four batches: every ladder rung
      (bails), a clean post, and the post over a pending + posted overflow
-     on an untouched row and on a touched row (each must bail). Per
-     kernel: median time by CUDA events, the bound (bytes the function
-     must move over 3.35 TB/s; integer operations over 67 TOP/s never
-     dominate), the plain version's time and, where one exists, the
-     PyTorch call computing the same function.
+     on an untouched row and on a touched row (each must bail).
+     create_transfers_exact runs a config-3 batch (with the host's sort
+     plan and with the device's), a config-4 batch, a batch reaching every
+     rung of both ladders, a relay that needs 12 sweeps (at max_sweeps 11
+     it must bail, at 12 not), pending removals that underflow (bail),
+     posts whose pending + posted overflows only after posting (bail) and
+     an overflow a void cures (no bail), and every (has_pv, has_chains)
+     setting; the device sort plan must equal build_sort_plan's, and the
+     exact wrapper runs once under sync-debug mode "error". Per kernel:
+     median time by CUDA events, the bound (bytes the function must move
+     over 3.35 TB/s; integer operations over 67 TOP/s never dominate), the
+     plain version's time and, where one exists, the PyTorch call
+     computing the same function.
   3. Main path, BASELINE config 1: StateMachine(PRODUCTION) on CUDA,
      10,000 accounts, 64 batches of 8190 uniform simple transfers (over
      all accounts but the last two, which take the bail batch), a
@@ -28,10 +36,22 @@ caught:
   4. Main path, BASELINE config 2: 1,000,000 accounts, 32 batches of 8190
      Zipf(1.1)-skewed transfers, the same window and bail; the 1,000
      hottest accounts' lookup bytes equal the CPU run's.
+  5. Main path, BASELINE config 3 (bench.py:247-300's mix): 10,000
+     accounts, 32 batches of 8190 events: linked chains of 2-4 (some
+     with a failing member), pending creates (some with a 1 s timeout,
+     then the clock jumps 2 s), post/void of earlier pendings (some named
+     twice, some already fulfilled), and one batch posting a pending of
+     its own (serial route).
+  6. Main path, BASELINE config 4: 10,000 accounts, a quarter with
+     debits_must_not_exceed_credits and 1% with history, funded by simple
+     transfers, then 32 batches of 8190 events, half balancing.
+  In 5 and 6 every result, every account's lookup bytes, every transfer's
+  lookup bytes and every history account's history equal the port's CPU
+  run, and the first two batches equal the serial Oracle.
 
 Kernel launch counts are reset to 0 just before each main-path run and
-read just after; each kernel must have launched in each run. The last
-lines are the kernels' JSON, the card's name and power limit, and
+read just after; each kernel of that path must have launched in it. The
+last lines are the kernels' JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. Without CUDA (or without the repository
 beside it) the script exits non-zero and prints no result.
 """
@@ -40,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -308,6 +329,149 @@ def record(torch, name, source, replaces, kernel, plain, library, nbytes, ops, e
         f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}")
 
 
+# --- phase 2: the exact route's kernels -----------------------------------
+
+
+def exact_staged(torch, C, E, dev, kind, seed, pv=True, chains=True, baseline=False):
+    """One staged exact-route batch at A = 2^20, n = 8192 (generators in
+    tests/exact_batches.py), on the card, with its host sort plan.
+    baseline: accounts uniform over BASELINE's 10,000 (no hot rows), as
+    the main path's config-3 and config-4 batches; otherwise 40% of the
+    events fall on four hot rows, a contention that needs more sweeps."""
+    import exact_batches as X
+
+    rng = np.random.default_rng(seed)
+    st = X.state(rng, A_MAX, heavy=kind == "ladder")
+    if kind == "relay":
+        b, p, chain, host = X.relay(st, N, 12)
+    elif kind in ("after_posting", "cured"):
+        b, p, chain, host = X.pending_plus_posted(rng, st, N, cured=kind == "cured")
+    else:
+        kw = {"span": 10_000, "hot_frac": 0.0} if baseline else {}
+        b, p, chain, host = X.batch(rng, kind, N, A_MAX, **kw)
+    X.strip(b, p, chain, host, pv, chains)
+    plan = E.build_sort_plan(b["flags"], b["dr_slot"], b["cr_slot"], p["dr_slot"],
+                             p["cr_slot"], chain, p["group"], A_MAX)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    return (C.state_from_reference(st, dev), C.TransferBatch(**{k: t(v) for k, v in b.items()}),
+            t(host), E.PendingInfo(**{k: t(v) for k, v in p.items()}), t(chain),
+            E.SortPlan(*(t(x) for x in plan)))
+
+
+def sweeps_of(torch, E, dev, fn):
+    """Run fn() once with the exact kernel's sweep counters reset; returns
+    (fn's result, sweeps of that one launch)."""
+    E.reset_sweep_stats(dev)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, int(E.sweep_stats(dev)[0])
+
+
+def phase_exact(torch, C, dev):
+    from tigerbeetle_tpu_torch.ops import commit_exact as E
+
+    err = 0
+    cases = (
+        # label, kind, seed, (has_pv, has_chains), kwargs, with_plan, must bail
+        ("config3 host plan", "config3", 31, (True, True), {}, True, None),
+        ("config3 device plan", "config3", 31, (True, True), {}, False, None),
+        ("config4", "config4", 32, (True, True), {}, True, None),
+        ("ladder", "ladder", 33, (True, True), {}, False, None),
+        ("relay max_sweeps=11", "relay", 34, (False, False), {"max_sweeps": 11}, True, True),
+        ("relay max_sweeps=12", "relay", 34, (False, False), {"max_sweeps": 12}, True, False),
+        ("underflow", "underflow", 35, (True, False), {}, True, True),
+        ("overflow after posting", "after_posting", 36, (True, True), {}, True, True),
+        ("overflow cured by voids", "cured", 37, (True, True), {}, True, False),
+        ("has_pv=False", "config3", 38, (False, True), {}, False, None),
+        ("has_chains=False", "config3", 39, (True, False), {}, True, None),
+        ("has_pv=has_chains=False", "config4", 40, (False, False), {}, False, None),
+    )
+    for label, kind, seed, (pv, chains), kw, with_plan, must_bail in cases:
+        state, b, host, p, chain, plan = exact_staged(torch, C, E, dev, kind, seed, pv, chains)
+        kw = dict(kw, has_pv=pv, has_chains=chains)
+        got, sweeps = sweeps_of(torch, E, dev, lambda: E.create_transfers_exact(
+            state, b, host, p, chain, plan if with_plan else None, **kw))
+        want = E.create_transfers_exact_plain(state, b, host, p, chain, plan, **kw)
+        err = max(err, max_abs_err(torch, f"create_transfers_exact {label}", got, want))
+        codes = want[1].view(torch.int32).cpu().numpy()
+        vals, counts = np.unique(codes, return_counts=True)
+        log(f"create_transfers_exact {label}: bail={bool(want[5])} sweeps={sweeps} "
+            f"codes={dict(zip(vals.tolist(), counts.tolist()))}")
+        if must_bail is not None and bool(want[5]) != must_bail:
+            raise SystemExit(f"exact batch {label}: bail {bool(want[5])}, expected {must_bail}")
+        if kind in ("config3", "ladder") and pv and chains:
+            dplan = E.sort_plan(b, p, chain, A_MAX)
+            if not all(torch.equal(g, w) for g, w in zip(dplan, plan)):
+                raise SystemExit(f"exact_sort_plan {label}: differs from build_sort_plan")
+            log(f"exact_sort_plan {label}: equal to build_sort_plan")
+        del state, got, want
+
+    # The wrapper hides no device sync (with and without a plan).
+    c3 = exact_staged(torch, C, E, dev, "config3", 41, baseline=True)
+    c4 = exact_staged(torch, C, E, dev, "config4", 42, baseline=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        E.create_transfers_exact(*c3[:5], None)
+        E.create_transfers_exact(*c3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("create_transfers_exact: dispatched under sync-debug mode 'error'")
+
+    n = N
+    table_bytes = 4 * A_MAX * 16
+
+    def io_bytes(staged, with_plan):
+        state, b, host, p, chain, plan = staged
+        inputs = sum(t.numel() * t.element_size() for t in (*b, host, *p, chain))
+        if with_plan:
+            inputs += sum(t.numel() * t.element_size() for t in plan)
+        gathers = 2 * 2 * n * 4  # ledger and flags rows of both slots
+        outputs = n * (4 + 16 + 2 * 64) + 1
+        return 2 * table_bytes + inputs + gathers + outputs
+
+    timed = {}
+    for label, st in (("config3", c3), ("config4", c4)):
+        got, sw = sweeps_of(torch, E, dev, lambda: E.create_transfers_exact(*st))
+        err = max(err, max_abs_err(torch, f"create_transfers_exact {label} (timed)", got,
+                                   E.create_transfers_exact_plain(*st)))
+        if bool(got[5]):
+            raise SystemExit(f"the timed {label} batch bailed")
+        timed[label] = {
+            "sweeps": sw,
+            "ms": cuda_ms(torch, lambda: E.create_transfers_exact(*st), 10),
+            "plain_ms": cuda_ms(torch, lambda: E.create_transfers_exact_plain(*st), 2),
+        }
+        log(f"create_transfers_exact {label}: {timed[label]}")
+    # integer operations: the table copy and check, then per sweep ~10
+    # per lane of 52 over 2n records plus ~200 per event of ladder
+    ops = 8 * A_MAX + timed["config3"]["sweeps"] * (2 * n * 52 * 10 + n * 200)
+    record(torch, "create_transfers_exact", "create_transfers_exact.cu",
+           "tigerbeetle_tpu/ops/commit_exact.py:902",
+           lambda: E.create_transfers_exact(*c3), lambda: E.create_transfers_exact_plain(*c3),
+           None, io_bytes(c3, True), ops, err,
+           sweeps_config3=timed["config3"]["sweeps"], sweeps_config4=timed["config4"]["sweeps"],
+           ms_config4=timed["config4"]["ms"], plain_ms_config4=timed["config4"]["plain_ms"],
+           bound_bytes_config4=io_bytes(c4, True))
+
+    state, b, host, p, chain, plan = c3
+    plain = lambda: E.sort_plan_plain(b, p, chain, A_MAX)
+    dplan = E.sort_plan(b, p, chain, A_MAX)
+    err = max_abs_err(torch, "exact_sort_plan config3", dplan, plain())
+    is_pv = (b.flags.view(torch.int32) & (C.F_POST | C.F_VOID)) != 0
+    rec_slot = torch.cat([torch.where(is_pv, p.dr_slot, b.dr_slot),
+                          torch.where(is_pv, p.cr_slot, b.cr_slot)]).long()
+    key = ((torch.where(rec_slot >= 0, rec_slot, A_MAX) << 32)
+           | (torch.cat([chain, chain]).long() << 16) | torch.cat([torch.arange(n, device=dev)] * 2))
+    sort_ms = cuda_ms(torch, lambda: torch.sort(key, stable=True), 10)
+    plan_bytes = 7 * 4 * n + 4 * (2 * n * 4 + n * 4)
+    record(torch, "exact_sort_plan", "exact_sort_plan.cu",
+           "tigerbeetle_tpu/ops/commit_exact.py:474",
+           lambda: E.sort_plan(b, p, chain, A_MAX), plain,
+           None, plan_bytes, 14 * 2 * n * 40, err, torch_sort_records_ms=sort_ms)
+    del c3, c4, state
+
+
 # --- phases 3 and 4 -------------------------------------------------------
 
 
@@ -434,7 +598,8 @@ def run_config(torch, name, n_accounts, n_batches, pick, rng, check_ids, oracle_
     launches = dict(C.LAUNCHES)
     stats = dict(gpu.stats)
     snap = tracer.snapshot()
-    if stats["fast_batches"] < n_batches or min(launches.values()) == 0:
+    slice1 = ("create_transfers_fast", "register_accounts", "read_balances", "write_balances")
+    if stats["fast_batches"] < n_batches or min(launches[k] for k in slice1) == 0:
         raise SystemExit(f"{name}: stats {stats}, launches {launches}")
     lat_ms = np.array(lat[1:]) * 1e3  # the first batch pays one-time setup
     tps = TX_BATCH * len(lat_ms) / (lat_ms.sum() / 1e3)
@@ -457,6 +622,230 @@ def run_config(torch, name, n_accounts, n_batches, pick, rng, check_ids, oracle_
     return launches
 
 
+# --- phases 5 and 6: the exact route's main path -------------------------
+
+F_LINKED, F_PENDING, F_POST, F_VOID, F_BAL_DR, F_BAL_CR = 1, 2, 4, 8, 16, 32
+
+
+class Config3:
+    """BASELINE config 3's traffic (bench.py:247-300): ~20% of events in
+    linked chains of 2-4 (a fifth of the chains with a failing member),
+    ~15% pending creates (a tenth with a 1 s timeout), ~10% post (60%) or
+    void (40%) of pendings created in earlier batches (some named twice
+    in a batch, some already fulfilled), the rest simple transfers. It
+    tracks which pendings the machine created and fulfilled."""
+
+    def __init__(self, rng, n_accounts, first_id):
+        self.rng, self.n_accounts = rng, n_accounts
+        self.first_id = self.next_id = first_id
+        self.open = {}  # pending id -> amount, created and not fulfilled
+        self.fulfilled = []
+        self.pv_targets = None
+        self.pend_ids = None
+
+    def batch(self, types, own_post=False):
+        rng, n = self.rng, TX_BATCH
+        ev = np.zeros(n, dtype=types.TRANSFER_DTYPE)
+        ids = np.arange(self.next_id, self.next_id + n, dtype=np.uint64)
+        self.next_id += n
+        ev["id_lo"] = ids
+        dr, cr = distinct_pair(rng.integers(0, self.n_accounts, n),
+                               rng.integers(0, self.n_accounts, n), self.n_accounts)
+        ev["debit_account_id_lo"] = dr + 1
+        ev["credit_account_id_lo"] = cr + 1
+        ev["amount_lo"] = rng.integers(1, 1000, n)
+        ev["ledger"] = 1
+        ev["code"] = 7
+        flags = np.zeros(n, np.uint16)
+        open_ids = list(self.open)
+        targets = np.zeros(n, np.uint64)
+        i = 0
+        while i < n:
+            r = rng.random()
+            if r < 0.08 and i + 4 < n:  # a linked chain
+                k = int(rng.integers(2, 5))
+                flags[i:i + k - 1] = F_LINKED
+                if rng.random() < 0.2:
+                    ev["amount_lo"][i + int(rng.integers(0, k))] = 0  # fails: rollback
+                i += k
+                continue
+            if r < 0.22:
+                flags[i] = F_PENDING
+                ev["timeout"][i] = 1 if rng.random() < 0.1 else 0
+            elif r < 0.31 and open_ids:
+                if rng.random() < 0.03 and self.fulfilled:
+                    targets[i] = self.fulfilled[int(rng.integers(0, len(self.fulfilled)))]
+                elif rng.random() < 0.05 and i and targets[i - 1]:
+                    targets[i] = targets[i - 1]  # the same pending twice
+                else:
+                    targets[i] = open_ids[int(rng.integers(0, len(open_ids)))]
+                post = rng.random() < 0.6
+                flags[i] = F_POST if post else F_VOID
+                amt = self.open.get(int(targets[i]), 0)
+                ev["amount_lo"][i] = rng.integers(0, amt + 1) if post and amt else 0
+                for f in ("debit_account_id_lo", "credit_account_id_lo", "ledger", "code"):
+                    ev[f][i] = 0
+                ev["pending_id_lo"][i] = targets[i]
+            i += 1
+        if own_post:  # a post of a pending created in this same batch
+            flags[n - 2], flags[n - 1] = F_PENDING, F_POST
+            ev["timeout"][n - 2] = 0
+            ev["amount_lo"][n - 2] = 10
+            ev["pending_id_lo"][n - 1] = ev["id_lo"][n - 2]
+            for f in ("debit_account_id_lo", "credit_account_id_lo", "ledger", "code", "amount_lo"):
+                ev[f][n - 1] = 0
+        ev["flags"] = flags
+        return ev
+
+    def feedback(self, ev, results):
+        """Record the batch's outcome: OK pendings open, OK post/voids
+        fulfil theirs."""
+        ok = np.ones(len(ev), bool)
+        ok[results["index"]] = False
+        pend = ok & (ev["flags"] == F_PENDING)
+        for i, a in zip(ev["id_lo"][pend].tolist(), ev["amount_lo"][pend].tolist()):
+            self.open[i] = a
+        pv = ok & ((ev["flags"] & (F_POST | F_VOID)) != 0)
+        for t in ev["pending_id_lo"][pv].tolist():
+            if self.open.pop(t, None) is not None:
+                self.fulfilled.append(t)
+
+
+class Config4:
+    """BASELINE config 4's traffic: half the events balancing debits or
+    credits (a twentieth with the zero-amount sentinel), the rest simple,
+    over 10,000 accounts of which a quarter must not exceed credits."""
+
+    def __init__(self, rng, n_accounts, first_id):
+        self.rng, self.n_accounts = rng, n_accounts
+        self.first_id = self.next_id = first_id
+
+    def funding(self, types, limit_ids, source_ids):
+        """One simple transfer into each limit account from a free one."""
+        ev = transfer_batch(types, self.next_id, self.rng.choice(source_ids, len(limit_ids)),
+                            limit_ids, self.rng.integers(1000, 100_000, len(limit_ids)))
+        self.next_id += len(ev)
+        return ev
+
+    def batch(self, types, own_post=False):
+        rng, n = self.rng, TX_BATCH
+        dr, cr = distinct_pair(rng.integers(0, self.n_accounts, n),
+                               rng.integers(0, self.n_accounts, n), self.n_accounts)
+        ev = transfer_batch(types, self.next_id, dr + 1, cr + 1, rng.integers(1, 1000, n))
+        self.next_id += n
+        bal = rng.random(n) < 0.5
+        ev["flags"][bal] = np.where(rng.random(int(bal.sum())) < 0.5, F_BAL_DR, F_BAL_CR)
+        ev["amount_lo"][bal & (rng.random(n) < 0.05)] = 0
+        return ev
+
+    def feedback(self, ev, results):
+        pass
+
+
+def run_exact_config(torch, name, n_accounts, acc_flags, traffic, n_batches, rng, funding=None):
+    """One exact-route configuration on the CUDA machine against the CPU
+    machine (and the serial Oracle for the first two batches)."""
+    from tigerbeetle_tpu_torch import tracer, types
+    from tigerbeetle_tpu_torch.constants import PRODUCTION
+    from tigerbeetle_tpu_torch.flags import AccountFlags
+    from tigerbeetle_tpu_torch.models.oracle import (
+        Oracle, account_from_numpy, transfer_from_numpy,
+    )
+    from tigerbeetle_tpu_torch.models.state_machine import StateMachine
+    from tigerbeetle_tpu_torch.ops import commit as C
+    from tigerbeetle_tpu_torch.ops import commit_exact as E
+
+    dev = torch.device("cuda", 0)
+    C.reset_launches()
+    tracer.reset()
+    E.reset_sweep_stats(dev)
+    gpu = StateMachine(PRODUCTION)
+    cpu = StateMachine(PRODUCTION, device="cpu")
+    orc = Oracle()
+    for ev in account_batches(types, n_accounts):
+        lo = ev["id_lo"].astype(np.int64) - 1
+        ev["flags"] = acc_flags[lo]
+        got = gpu.create_accounts(ev)
+        expect_equal(got, cpu.create_accounts(ev), f"{name} create_accounts")
+        orc.create_accounts([account_from_numpy(r) for r in ev], orc.prepare("create_accounts", len(ev)))
+
+    batches = [] if funding is None else [(b, False) for b in funding]
+    traffic_at = len(batches)
+    batches += [(None, i == 3) for i in range(n_batches)]
+    lat, oracle_left = [], traffic_at + 2
+    results = {}  # result code -> count over the run
+    jump_at = traffic_at + n_batches // 2
+    for i, (ev, own_post) in enumerate(batches):
+        if ev is None:
+            ev = traffic.batch(types, own_post=own_post)
+        if i == jump_at:  # the clock moves 2 s: 1 s pendings expire
+            for sm in (gpu, cpu, orc):
+                sm.prepare("create_transfers", 2_000_000_000)
+        ts = gpu.prepare("create_transfers", len(ev))
+        if cpu.prepare("create_transfers", len(ev)) != ts:
+            raise SystemExit(f"{name}: the machines' clocks differ")
+        tracer.enable()
+        t = time.perf_counter()
+        got = gpu.create_transfers(ev, ts)
+        elapsed = time.perf_counter() - t
+        tracer.disable()
+        if i >= traffic_at:
+            lat.append(elapsed)
+        expect_equal(got, cpu.create_transfers(ev, ts), f"{name} batch {i}")
+        if i < oracle_left:
+            pairs = orc.create_transfers([transfer_from_numpy(r) for r in ev],
+                                         orc.prepare("create_transfers", len(ev)))
+            want = np.array(pairs, dtype=np.uint32).reshape(-1, 2)
+            if not (np.array_equal(got["index"], want[:, 0]) and np.array_equal(got["result"], want[:, 1])):
+                raise SystemExit(f"{name} batch {i}: differs from the serial Oracle")
+        traffic.feedback(ev, got)
+        for c in got["result"].tolist():
+            results[c] = results.get(c, 0) + 1
+    sweeps = E.sweep_stats(dev).tolist()
+    stats = dict(gpu.stats)
+    snap = tracer.snapshot()
+
+    ids = np.arange(1, n_accounts + 1, dtype=np.uint64)
+    for lo in range(0, len(ids), TX_BATCH):
+        part = ids[lo:lo + TX_BATCH]
+        zero = np.zeros(len(part), np.uint64)
+        expect_equal(gpu.lookup_accounts(part, zero), cpu.lookup_accounts(part, zero), f"{name} lookup")
+    tids = np.arange(traffic.first_id, traffic.next_id, dtype=np.uint64)
+    for lo in range(0, len(tids), TX_BATCH):
+        part = tids[lo:lo + TX_BATCH]
+        zero = np.zeros(len(part), np.uint64)
+        expect_equal(gpu.lookup_transfers(part, zero), cpu.lookup_transfers(part, zero),
+                     f"{name} lookup_transfers")
+    hist = np.nonzero(acc_flags & int(AccountFlags.HISTORY))[0] + 1
+    for a in hist.tolist():
+        if gpu.get_account_history(a) != cpu.get_account_history(a):
+            raise SystemExit(f"{name}: account {a}'s history differs from the CPU run")
+    torch.cuda.synchronize()
+    launches = dict(C.LAUNCHES)
+    need = ("create_transfers_exact", "exact_sort_plan", "register_accounts", "read_balances")
+    if stats["exact_batches"] == 0 or min(launches[k] for k in need) == 0:
+        raise SystemExit(f"{name}: stats {stats}, launches {launches}")
+    lat_ms = np.array(lat[1:]) * 1e3
+    tps = TX_BATCH * len(lat_ms) / (lat_ms.sum() / 1e3)
+    span = snap.get("sm.create_transfers.exact", {"count": 0, "total_ms": 0.0})
+    win = snap.get("device.step.create_transfers_exact", {"count": 0, "total_ms": 0.0})
+    log(f"{name}: accounts={n_accounts} batches={len(batches)} timed={len(lat_ms)} "
+        f"transfers_per_s={tps:.0f} batch_p50_ms={np.percentile(lat_ms, 50):.3f} "
+        f"batch_p99_ms={np.percentile(lat_ms, 99):.3f} batch_max_ms={lat_ms.max():.3f} "
+        f"exact_span_mean_ms={span['total_ms'] / max(span['count'], 1):.3f} "
+        f"exact_window_mean_ms={win['total_ms'] / max(win['count'], 1):.4f} "
+        f"sweeps_total={sweeps[0]} sweep_batches={sweeps[1]} sweeps_max={sweeps[2]} "
+        f"history_accounts={len(hist)} stats={stats} launches={launches}")
+    log(f"{name}: failed events by result code {dict(sorted(results.items()))}")
+    log(f"{name}: batch latencies ms " + json.dumps([round(x * 1e3, 2) for x in lat]))
+    top = sorted(snap.items(), key=lambda kv: -kv[1]["total_ms"])[:16]
+    log(f"{name} spans: " + json.dumps({
+        k: {"count": v["count"], "total_ms": round(v["total_ms"], 3), "max_ms": round(v["max_us"] / 1e3, 3)}
+        for k, v in top
+    }))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=20261017)
@@ -464,10 +853,11 @@ def main() -> int:
 
     import torch
 
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from tigerbeetle_tpu_torch import native
+    from tigerbeetle_tpu_torch import native, types
     from tigerbeetle_tpu_torch.ops import commit as C
     from tigerbeetle_tpu_torch.ops import kernels
 
@@ -492,6 +882,7 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     log("phase 2: kernels vs plain versions at A=2^20, n=8192")
     phase_kernels(torch, C, rng, dev)
+    phase_exact(torch, C, dev)
 
     log("phase 3: BASELINE config 1 (10,000 accounts, uniform)")
     n1 = 10_000
@@ -511,9 +902,27 @@ def main() -> int:
 
     l2 = run_config(torch, "config2", n2, 32, zipf, rng, np.arange(1, 1001), 0)
 
+    log("phase 5: BASELINE config 3 (10,000 accounts: chains, pending, post/void)")
+    n3 = 10_000
+    l3 = run_exact_config(torch, "config3", n3, np.zeros(n3, np.uint16),
+                          Config3(rng, n3, 1 << 41), 32, rng)
+
+    log("phase 6: BASELINE config 4 (10,000 accounts: balancing, limits, history)")
+    n4 = 10_000
+    flags4 = np.zeros(n4, np.uint16)
+    flags4[::4] = 2  # debits_must_not_exceed_credits (bench.py:376-377)
+    flags4[1::100] |= 8  # history
+    t4 = Config4(rng, n4, 1 << 42)
+    limit_ids = np.nonzero(flags4 & 2)[0] + 1
+    free_ids = np.nonzero((flags4 & 2) == 0)[0] + 1
+    l4 = run_exact_config(torch, "config4", n4, flags4, t4, 32, rng,
+                          funding=[t4.funding(types, limit_ids, free_ids)])
+
     for name, row in RESULTS.items():
-        row["launches"] = l1[name]
-        row["launches_config2"] = l2[name]
+        counts = [l[name] for l in (l1, l2, l3, l4)]
+        row["launches"] = sum(counts)
+        for k, c in enumerate(counts, 1):
+            row[f"launches_config{k}"] = c
     print(json.dumps({"kernels": list(RESULTS.values())}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

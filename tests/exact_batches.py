@@ -1,0 +1,276 @@
+"""Staged exact-route batches made with numpy from a seed, shared by the
+CPU parity tests (tests/test_torch_commit_exact.py), the card's tests
+(tests/test_torch_cuda.py) and chip_smoke.py. numpy only: no JAX, no
+torch.
+
+`batch(rng, kind, n, a)` gives (b, pending, chain_id, host_code) for an
+A = a table: "config3" (linked chains with failing members, pending
+creates, post/void of pendings with shared groups, pre-batch fulfillments,
+expiries and not-found pendings), "config4" (balancing debits and credits,
+zero-amount sentinels, limit accounts from `state`), "ladder" (every
+static and dynamic rung of both ladders) and "underflow" (pending removals
+above the pending balance). `relay` builds a batch that settles one link
+per sweep.
+"""
+
+import numpy as np
+
+U32 = np.uint32
+MAX32 = 0xFFFFFFFF
+TOP = 1 << 31  # the top bit of a u32 limb
+F_LINKED, F_PENDING, F_POST, F_VOID, F_BAL_DR, F_BAL_CR = 1, 2, 4, 8, 16, 32
+AF_DR_LIMIT, AF_CR_LIMIT = 2, 4
+FULFILL_NONE = -1
+BALANCE_FIELDS = ("debits_pending", "debits_posted", "credits_pending", "credits_posted")
+# CreateTransferResult codes the generators place (results.py).
+ID_MUST_NOT_BE_ZERO = 5
+LINKED_EVENT_CHAIN_OPEN = 2
+PENDING_TRANSFER_NOT_FOUND = 25
+
+
+def limbs(v: int) -> list:
+    return [(v >> (32 * i)) & MAX32 for i in range(4)]
+
+
+def state(rng, a, heavy=False):
+    """Random state: balances on the first half of the slots (and at
+    A − 1), ledger 1 there, limit flags on a quarter of them."""
+    bal = {f: np.zeros((a, 4), U32) for f in BALANCE_FIELDS}
+    live = np.r_[np.arange(a // 2), a - 1]
+    for f in bal:
+        bal[f][live, 0] = rng.integers(0, 1 << 32, len(live), dtype=np.uint64)
+        bal[f][live, 1] = rng.integers(0, 1 << 3 if heavy else 2, len(live))
+    ledger = np.zeros(a, U32)
+    ledger[live] = 1
+    flags = np.zeros(a, U32)
+    flags[live] = rng.choice([0, 0, AF_DR_LIMIT, AF_CR_LIMIT, 8], len(live))
+    return {**bal, "ledger": ledger, "flags": flags}
+
+
+def empty(n):
+    b = {
+        "id": np.zeros((n, 4), U32), "dr_slot": np.full(n, -1, np.int32),
+        "cr_slot": np.full(n, -1, np.int32), "amount": np.zeros((n, 4), U32),
+        "pending_id": np.zeros((n, 4), U32), "timeout": np.zeros(n, U32),
+        "ledger": np.ones(n, U32), "code": np.ones(n, U32),
+        "flags": np.zeros(n, U32),
+        "timestamp": np.stack([np.arange(1, n + 1), np.full(n, 1000)], 1).astype(U32),
+    }
+    p = {
+        "found": np.zeros(n, bool), "amount": np.zeros((n, 4), U32),
+        "dr_slot": np.full(n, -1, np.int32), "cr_slot": np.full(n, -1, np.int32),
+        "timestamp": np.zeros((n, 2), U32), "timeout": np.zeros(n, U32),
+        "base_fulfillment": np.full(n, FULFILL_NONE, np.int32),
+        "group": np.full(n, n, np.int32),
+    }
+    return b, p
+
+
+def ids(rng, n, lo=1):
+    """Unique ids with the top bit of a u64 word set on some."""
+    ids = np.zeros((n, 4), U32)
+    ids[:, 0] = np.arange(lo, lo + n)
+    ids[:, 1] = rng.integers(0, 4, n)
+    ids[rng.random(n) < 0.2, 1] |= U32(TOP)
+    ids[rng.random(n) < 0.2, 3] |= U32(TOP)
+    return ids
+
+
+def _slots(rng, n, hot, span, hot_frac):
+    s = rng.integers(0, span, n)
+    h = rng.random(n) < hot_frac
+    s[h] = rng.choice(hot, int(h.sum()))
+    return s
+
+
+def _chains(rng, n, frac):
+    """Linked runs of 2-4 events over about `frac` of the batch; returns
+    (linked flag mask, chain_id = index of the run's first event)."""
+    linked = np.zeros(n, bool)
+    chain = np.arange(n, dtype=np.int32)
+    i = 0
+    while i < n - 4:
+        if rng.random() < frac / 3:
+            k = int(rng.integers(2, 5))
+            linked[i:i + k - 1] = True
+            chain[i:i + k] = i
+            i += k
+        else:
+            i += 1
+    return linked, chain
+
+
+def batch(rng, kind, n, a, span=None, hot_frac=0.4):
+    """(b, pending, chain_id, host_code) numpy dicts/arrays for one staged
+    batch of `kind`: accounts drawn uniformly from the first `span` slots
+    (default a // 2), and `hot_frac` of them from four hot slots (the
+    contention that makes sweeps many)."""
+    span = a // 2 if span is None else span
+    b, p = empty(n)
+    b["id"] = ids(rng, n)
+    hot = np.r_[rng.integers(0, a // 2, 3), a - 1]
+    dr, cr = _slots(rng, n, hot, span, hot_frac), _slots(rng, n, hot, span, hot_frac)
+    cr = np.where(cr == dr, (cr + 1) % span, cr)
+    b["dr_slot"], b["cr_slot"] = dr.astype(np.int32), cr.astype(np.int32)
+    b["amount"][:, 0] = rng.integers(1, 1 << 30, n)
+    host = np.zeros(n, U32)
+    chain = np.arange(n, dtype=np.int32)
+    r = rng.random(n)
+    if kind in ("config3", "ladder", "underflow"):
+        linked, chain = _chains(rng, n, 0.2 if kind != "underflow" else 0.0)
+        b["flags"][linked] |= F_LINKED
+        pend = (r < 0.15) & ~linked
+        b["flags"][pend] |= F_PENDING
+        b["timeout"][pend] = rng.integers(0, 3, int(pend.sum()))
+        pv = (r >= 0.15) & (r < 0.3)
+        k = int(pv.sum())
+        post = rng.random(k) < 0.6
+        b["flags"][pv] |= np.where(post, F_POST, F_VOID).astype(U32)
+        # pendings: a few referenced twice (one group), some resolved on
+        # the store as already posted/voided, some expired
+        groups = rng.integers(0, max(1, k - 3), k)
+        p["group"][pv] = groups
+        pid = np.zeros((k, 4), U32)
+        pid[:, 0] = 50_000 + groups
+        pid[:, 2] = TOP
+        b["pending_id"][pv] = pid
+        p["found"][pv] = rng.random(k) < 0.9
+        pa = rng.integers(1, 1 << 20, max(k, 1))[groups] if k else groups
+        p["amount"][pv, 0] = pa
+        p["dr_slot"][pv] = dr[pv]
+        p["cr_slot"][pv] = cr[pv]
+        p["timestamp"][pv, 1] = 999
+        p["timeout"][pv] = np.where(rng.random(k) < 0.2, 1, 0)
+        p["timestamp"][pv, 1] = np.where(p["timeout"][pv] == 1, 990, 999)
+        p["base_fulfillment"][pv] = rng.choice([-1, -1, -1, -1, 0, 1], k)
+        # post/void amounts: 0 (resolve to p.amount), equal, less, more
+        amt = np.where(rng.random(k) < 0.5, 0, pa + rng.integers(-2, 3, k))
+        b["amount"][pv, 0] = np.maximum(amt, 0)
+        b["amount"][pv & ~p["found"], 0] = rng.integers(1, 9, int((pv & ~p["found"]).sum()))
+        host[pv & ~p["found"]] = PENDING_TRANSFER_NOT_FOUND
+        # a failing member in some chains: amount 0
+        bad = linked & (rng.random(n) < 0.15)
+        b["amount"][bad] = 0
+        if kind == "underflow":
+            # removals larger than the pending balance they come from
+            p["amount"][pv, 1] = 1 << 20
+            b["amount"][pv] = 0
+    if kind in ("config4", "ladder"):
+        bal = (r >= 0.3) & (r < 0.8)
+        b["flags"][bal] |= np.where(rng.random(int(bal.sum())) < 0.5, F_BAL_DR, F_BAL_CR).astype(U32)
+        zero = bal & (rng.random(n) < 0.2)
+        b["amount"][zero] = 0  # the maxInt(u64) sentinel
+        b["amount"][bal & ~zero, 1] = rng.integers(0, 3, int((bal & ~zero).sum()))
+    if kind == "ladder":
+        q = rng.integers(0, 24, n)
+        b["flags"][q == 0] |= 1 << 9
+        b["id"][q == 1] = 0
+        b["id"][q == 2] = MAX32
+        b["pending_id"][(q == 3) & ((b["flags"] & (F_POST | F_VOID)) == 0), 1] = 3
+        b["timeout"][q == 4] = 5
+        b["amount"][q == 5] = 0
+        b["ledger"][q == 6] = 0
+        b["code"][q == 7] = 0
+        b["dr_slot"][q == 8] = -1
+        b["cr_slot"][q == 9] = -1
+        b["ledger"][q == 10] = 2
+        b["flags"][q == 11] |= F_PENDING
+        b["timeout"][q == 11] = MAX32
+        b["timestamp"][q == 11] = MAX32 - 4
+        b["amount"][q == 12, 1:] = MAX32  # overflow rungs on hot rows
+        b["dr_slot"][q == 12] = hot[0]
+        b["flags"][q == 13] |= F_POST | F_VOID
+        b["flags"][q == 14] |= F_POST | F_PENDING
+        b["flags"][q == 15] |= F_VOID | F_BAL_DR
+        b["flags"][(q >= 16) & (q <= 18)] = F_VOID
+        b["pending_id"][q == 16] = 0
+        b["pending_id"][q == 17] = MAX32
+        b["pending_id"][q == 18] = b["id"][q == 18]
+        host[q == 19] = rng.choice([8, 9, 10, 11, 12, 25, 26, 27, 28, 29, 30], int((q == 19).sum()))
+        b["amount"][q == 20, 2] = MAX32  # near 2^96 on limit rows
+        b["flags"][q == 21] |= F_PENDING
+        b["amount"][q == 21, 3] = MAX32 >> 1
+        b["dr_slot"][q == 22] = a - 1
+        b["cr_slot"][q == 23] = a - 1
+    if kind in ("config3", "ladder") and b["flags"][n - 1] & F_LINKED == 0:
+        # an unterminated trailing chain
+        b["flags"][n - 2] |= F_LINKED
+        b["flags"][n - 1] |= F_LINKED
+        chain[n - 2:] = chain[n - 3] if b["flags"][n - 3] & F_LINKED else n - 2
+    if b["flags"][n - 1] & F_LINKED:
+        host[n - 1] = LINKED_EVENT_CHAIN_OPEN
+    # padding events at the end: nonzero host code, own chain, group n
+    pad = 4
+    for k, v in b.items():
+        v[n - pad - 2:n - 2] = 0 if k not in ("dr_slot", "cr_slot") else -1
+    p["group"][n - pad - 2:n - 2] = n
+    p["found"][n - pad - 2:n - 2] = False
+    p["dr_slot"][n - pad - 2:n - 2] = -1
+    p["cr_slot"][n - pad - 2:n - 2] = -1
+    host[n - pad - 2:n - 2] = ID_MUST_NOT_BE_ZERO
+    return b, p, chain, host
+
+
+def relay(st, n, depth):
+    """A relay through `depth` limit accounts (debits must not exceed
+    credits, all empty): event i debits the account event i - 1 credited,
+    so it passes only once its predecessor does, and each sweep settles
+    one more link. The rest of the batch pads it."""
+    b, p = empty(n)
+    b["id"] = ids(np.random.default_rng(0), n)
+    rows = np.arange(100, 100 + depth + 1)
+    for f in BALANCE_FIELDS:
+        st[f][rows] = 0
+    st["flags"][rows[1:]] = AF_DR_LIMIT
+    st["flags"][rows[0]] = 0
+    st["ledger"][rows] = 1
+    b["dr_slot"][:depth] = rows[:-1]
+    b["cr_slot"][:depth] = rows[1:]
+    b["amount"][:depth, 0] = 5
+    host = np.where(np.arange(n) < depth, 0, ID_MUST_NOT_BE_ZERO).astype(U32)
+    return b, p, np.arange(n, dtype=np.int32), host
+
+
+def pending_plus_posted(rng, st, n, cured):
+    """Post/void events against rows whose pending + posted sum is at the
+    edge of 2^128. cured False: posts whose pending the store did not
+    resolve (so no amount rung stops them) add to a row whose sum
+    overflows only after posting: the batch must bail. cured True: a row
+    that overflows before the batch, whose pending eight voids remove, so
+    no row overflows after it: no bail. Mutates `st`."""
+    b, p = empty(n)
+    b["id"] = ids(rng, n)
+    row, other = 11, 12
+    st["debits_pending"][row] = limbs(1 << 127)
+    st["debits_posted"][row] = limbs((1 << 127) - 6)
+    st["credits_pending"][other] = limbs(1 << 40)
+    b["flags"][:8] = F_VOID if cured else F_POST
+    b["pending_id"][:8, 0] = 777 + np.arange(8)
+    p["group"][:8] = np.arange(8)
+    p["dr_slot"][:8] = row
+    p["cr_slot"][:8] = other
+    if cured:
+        st["debits_posted"][row] = limbs((1 << 127) - 1)
+        st["debits_pending"][row] = limbs((1 << 127) + (8 << 20))  # overflows already
+        st["credits_pending"][other] = limbs(1 << 30)
+        p["found"][:8] = True
+        p["amount"][:8, 0] = 1 << 20
+    else:
+        b["amount"][:8, 0] = 10  # p.amount 0: found stays False
+    host = np.where(np.arange(n) < 8, 0, ID_MUST_NOT_BE_ZERO).astype(U32)
+    return b, p, np.arange(n, dtype=np.int32), host
+
+
+def strip(b, p, chain, host, pv: bool, chains: bool):
+    """Drop the post/void events (pv False) or the linked chains (chains
+    False) of a staged batch, in place: a batch that the kernels'
+    has_pv / has_chains specialisation covers."""
+    if not pv:
+        is_pv = (b["flags"] & (F_POST | F_VOID)) != 0
+        b["flags"][is_pv] &= ~U32(F_POST | F_VOID)
+        b["pending_id"][is_pv] = 0
+        host[is_pv] = 0
+    if not chains:
+        b["flags"] &= ~U32(F_LINKED)
+        chain[:] = np.arange(len(chain), dtype=np.int32)
+        host[host == LINKED_EVENT_CHAIN_OPEN] = 0

@@ -142,3 +142,71 @@ def test_cuda_tensor_never_takes_the_plain_version(dev):
     state = C.init_state(64, dev)
     with pytest.raises(ValueError):
         C.read_balances(state, torch.zeros(16, dtype=torch.int64, device=dev))
+
+
+def _exact_inputs(kind, dev, n=1024, seed=3):
+    """One staged exact-route batch (tests/exact_batches.py) on the card."""
+    from exact_batches import batch, relay, state
+
+    from tigerbeetle_tpu_torch.ops import commit_exact as E
+
+    rng = np.random.default_rng(seed)
+    st = state(rng, A, heavy=kind == "ladder")
+    if kind == "relay":
+        b, p, chain, host = relay(st, n, 12)
+    else:
+        b, p, chain, host = batch(rng, kind, n, A)
+    plan = E.build_sort_plan(b["flags"], b["dr_slot"], b["cr_slot"], p["dr_slot"],
+                             p["cr_slot"], chain, p["group"], A)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    return (C.state_from_reference(st, dev), C.TransferBatch(**{k: t(v) for k, v in b.items()}),
+            t(host), E.PendingInfo(**{k: t(v) for k, v in p.items()}), t(chain),
+            E.SortPlan(*(t(x) for x in plan)))
+
+
+def _exact_equal(got, want):
+    for g, w in zip(got[0], want[0]):
+        assert _equal(g, w)
+    assert _equal(got[1], want[1]) and _equal(got[2], want[2])
+    for g, w in zip((*got[3], *got[4]), (*want[3], *want[4])):
+        assert _equal(g, w)
+    assert bool(got[5]) == bool(want[5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,with_plan,kw", [
+    ("config3", True, {}), ("config3", False, {}), ("config4", True, {}),
+    ("ladder", False, {}), ("underflow", True, {"has_chains": False}),
+    ("relay", True, {"max_sweeps": 11, "has_pv": False, "has_chains": False}),
+    ("relay", True, {"max_sweeps": 12, "has_pv": False, "has_chains": False}),
+    ("config4", False, {"has_pv": False, "has_chains": False}),
+])
+def test_create_transfers_exact_kernel(dev, kind, with_plan, kw):
+    """The sweep kernel (and, without a plan, the device sort plan) against
+    the plain version on the same inputs: every output byte-equal."""
+    from tigerbeetle_tpu_torch.ops import commit_exact as E
+
+    state, b, host, p, chain, plan = _exact_inputs(kind, dev)
+    before = dict(C.LAUNCHES)
+    got = E.create_transfers_exact(state, b, host, p, chain, plan if with_plan else None, **kw)
+    want = E.create_transfers_exact_plain(state, b, host, p, chain, plan, **kw)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["create_transfers_exact"] == before["create_transfers_exact"] + 1
+    assert C.LAUNCHES["exact_sort_plan"] == before["exact_sort_plan"] + (not with_plan)
+    _exact_equal(got, want)
+    if kind == "relay":
+        assert bool(want[5]) == (kw["max_sweeps"] == 11)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["config3", "ladder"])
+def test_exact_sort_plan_kernel(dev, kind):
+    """The device sort plan equals build_sort_plan's."""
+    from tigerbeetle_tpu_torch.ops import commit_exact as E
+
+    state, b, host, p, chain, plan = _exact_inputs(kind, dev)
+    before = C.LAUNCHES["exact_sort_plan"]
+    got = E.sort_plan(b, p, chain, A)
+    assert C.LAUNCHES["exact_sort_plan"] == before + 1
+    for f, g, w in zip(E.SortPlan._fields, got, plan):
+        assert torch.equal(g, w), f

@@ -22,7 +22,9 @@ def test_port_imports_without_jax_or_reference():
         "sys.modules['jax'] = None\n"  # any `import jax` now raises
         "import tigerbeetle_tpu_torch\n"
         "import tigerbeetle_tpu_torch.models.state_machine\n"
-        "import tigerbeetle_tpu_torch.ops.commit\n"
+        "import tigerbeetle_tpu_torch.ops.commit, tigerbeetle_tpu_torch.ops.commit_exact\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import chip_smoke, exact_batches\n"
         "import tigerbeetle_tpu_torch.lsm.scan, tigerbeetle_tpu_torch.lsm.groove\n"
         "bad = [m for m in sys.modules if m == 'tigerbeetle_tpu'"
         " or m.startswith('tigerbeetle_tpu.')]\n"

@@ -61,6 +61,24 @@ def _case(name, rng):
         b[:3] = [[1, 0, 0, 0], [MAX32] * 4, [0, 0, 0, 0]]
         f = getattr(ref, name), getattr(port, name)
         return lambda: f[0](jnp.asarray(a), jnp.asarray(b)), lambda: f[1](_t(a), _t(b))
+    if name in ("eq", "lt", "le", "gt", "ge", "min_", "sat_sub", "sum_overflows"):
+        a, b = _limbs(rng, n), _limbs(rng, n)
+        b[:40] = a[:40]  # equal rows
+        b[40:80, 1:] = a[40:80, 1:]  # differing only in the low limb
+        f = getattr(ref, name), getattr(port, name)
+        return lambda: f[0](jnp.asarray(a), jnp.asarray(b)), lambda: f[1](_t(a), _t(b))
+    if name == "select":
+        a, b = _limbs(rng, n), _limbs(rng, n)
+        pred = rng.random(len(a)) < 0.5
+        return (lambda: ref.select(jnp.asarray(pred), jnp.asarray(a), jnp.asarray(b)),
+                lambda: port.select(_t(pred), _t(a), _t(b)))
+    if name == "widen":  # zero-extension to u160 (`extend` in the port)
+        a = _limbs(rng, n)
+        return lambda: ref.widen(jnp.asarray(a), 5), lambda: port.extend(_t(a), 5)
+    if name == "from_int":
+        v = (1 << 127) + (0xDEADBEEF << 40) + 7
+        return (lambda: (ref.from_int(v), ref.zeros((3,)), ref.broadcast_to(ref.from_int(v >> 80, 2), (5,))),
+                lambda: (port.from_int(v), port.zeros((3,)), port.broadcast_to(port.from_int(v >> 80, 2), (5,))))
     if name in ("is_zero", "is_max"):
         a = _limbs(rng, n)
         f = getattr(ref, name), getattr(port, name)
@@ -97,7 +115,8 @@ def _case(name, rng):
 
 @pytest.mark.parametrize("name", [
     "add", "sub", "is_zero", "is_max", "mul_u32", "split_u16", "combine_u16",
-    "scatter_add", "scatter_sub",
+    "scatter_add", "scatter_sub", "eq", "lt", "le", "gt", "ge", "select", "min_",
+    "sat_sub", "sum_overflows", "widen", "from_int",
 ])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_matches_reference(name, seed):

@@ -60,6 +60,70 @@ __device__ __forceinline__ bool atomic_add_u128(uint32_t* row, uint4 v) {
   return (old + add) < old;
 }
 
+// row (a 16-byte u128 in device memory) -= v, exactly, with atomics.
+// Returns true if this subtraction borrowed out of bit 127.
+//
+// The mirror of atomic_add_u128: the low word's atomicAdd of -v.lo borrows
+// iff its old value was below v.lo, seen by exactly the thread that
+// caused it, which then subtracts the borrow from the high word too. A
+// row only ever decreases in this pass, so the high word's running value
+// drops below zero (seen by one thread) iff the total subtracted exceeds
+// the row's value: the underflow flag is order-independent, and the row
+// ends as (old - sum) mod 2^128 in any order.
+__device__ __forceinline__ bool atomic_sub_u128(uint32_t* row, uint4 v) {
+  unsigned long long* w = reinterpret_cast<unsigned long long*>(row);
+  unsigned long long vlo = ((unsigned long long)v.y << 32) | v.x;
+  unsigned long long vhi = ((unsigned long long)v.w << 32) | v.z;
+  unsigned long long borrow = 0;
+  if (vlo) {
+    unsigned long long old = atomicAdd(w, ~vlo + 1ull);
+    borrow = old < vlo;
+  }
+  if (borrow && vhi == ~0ull) {
+    return true;  // takes 2^128: the row is unchanged mod 2^128
+  }
+  unsigned long long sub = vhi + borrow;
+  if (!sub) return false;
+  unsigned long long old = atomicAdd(w + 1, ~sub + 1ull);
+  return old < sub;
+}
+
+// u128 values in registers (nvcc supports unsigned __int128 on the device).
+typedef unsigned __int128 u128;
+
+__device__ __forceinline__ u128 to_u128(uint4 v) {
+  return ((u128)(((unsigned long long)v.w << 32) | v.z) << 64) |
+         (((unsigned long long)v.y << 32) | v.x);
+}
+
+__device__ __forceinline__ uint4 from_u128(u128 x) {
+  unsigned long long lo = (unsigned long long)x;
+  unsigned long long hi = (unsigned long long)(x >> 64);
+  return make_uint4((uint32_t)lo, (uint32_t)(lo >> 32), (uint32_t)hi,
+                    (uint32_t)(hi >> 32));
+}
+
+// An exact sum of up to three u128 values: a u128 and the carries above it
+// (the reference's u160 `_add3_wide`).
+struct Wide {
+  u128 lo;
+  uint32_t hi;
+};
+
+__device__ __forceinline__ Wide add3(u128 a, u128 b, u128 c) {
+  Wide w;
+  u128 s = a + b;
+  w.hi = s < a;
+  w.lo = s + c;
+  w.hi += w.lo < s;
+  return w;
+}
+
+// a > b for a wide sum and a u128.
+__device__ __forceinline__ bool wide_gt(Wide a, u128 b) {
+  return a.hi != 0 || a.lo > b;
+}
+
 // Four table pointers chosen by a select chain rather than an indexed
 // array, which keeps the kernel argument in registers.
 struct Four {

@@ -11,11 +11,14 @@ re-expresses upstream's StateMachine (src/state_machine.zig:34):
   - Each batch is classified: simple batches (no linked chains, no
     post/void/balancing, no duplicate ids, no limit/history accounts
     touched) commit through the device kernel
-    (ops/commit.create_transfers_fast); everything else runs through the
-    byte-exact serial oracle over lazily-prefetched state, then writes
-    balances back to the device. The reference's fixed-point exact kernel
-    is not ported yet, so its batches take the serial route here, as on
-    the reference's host backend (`stats["serial_batches"]` counts them).
+    (ops/commit.create_transfers_fast); order-dependent batches (linked
+    chains, post/void of earlier pendings, balancing, limit and history
+    accounts) through the fixed-point sweep kernel
+    (ops/commit_exact.create_transfers_exact); batches with duplicate or
+    stored ids, or a post/void of a pending created in the same batch, run
+    through the byte-exact serial oracle over lazily-prefetched state, then
+    write balances back to the device. `stats` counts the batches of each
+    route.
 
 The device is CUDA unless the caller passes `device="cpu"`, where every
 kernel entry runs its plain PyTorch version. Results are byte-identical to
@@ -33,7 +36,7 @@ from tigerbeetle_tpu_torch import devicestats, tracer, types
 from tigerbeetle_tpu_torch.constants import (
     Config, PIPELINE_PREPARE_QUEUE_MAX, PRODUCTION,
 )
-from tigerbeetle_tpu_torch.flags import AccountFlags
+from tigerbeetle_tpu_torch.flags import AccountFlags, TransferFlags
 from tigerbeetle_tpu_torch.lsm.store import (
     KEY_DTYPE,
     NOT_FOUND,
@@ -46,6 +49,7 @@ from tigerbeetle_tpu_torch.lsm.store import (
 from tigerbeetle_tpu_torch.models import oracle as oracle_mod
 from tigerbeetle_tpu_torch.models.oracle import Oracle
 from tigerbeetle_tpu_torch.ops import commit as commit_ops
+from tigerbeetle_tpu_torch.ops import commit_exact
 from tigerbeetle_tpu_torch.results import CreateAccountResult as AR
 from tigerbeetle_tpu_torch.results import CreateTransferResult as TR
 
@@ -110,6 +114,22 @@ def _codes_to_results(codes: np.ndarray) -> np.ndarray:
     out["index"] = nz.astype(np.uint32)
     out["result"] = codes[nz].astype(np.uint32)
     return out
+
+
+_PV_FLAGS = int(
+    TransferFlags.POST_PENDING_TRANSFER | TransferFlags.VOID_PENDING_TRANSFER
+)
+
+
+def _names_batch_id(events: np.ndarray, is_pv: np.ndarray) -> bool:
+    """Does a post/void event's pending_id name an id of this batch?"""
+    p_lo = events["pending_id_lo"][is_pv]
+    cand = np.isin(p_lo, events["id_lo"])
+    if not cand.any():
+        return False
+    ids = set(zip(events["id_lo"].tolist(), events["id_hi"].tolist()))
+    p_hi = events["pending_id_hi"][is_pv][cand]
+    return any(k in ids for k in zip(p_lo[cand].tolist(), p_hi.tolist()))
 
 
 def _staged_nbytes(batch, host_code) -> int:
@@ -265,7 +285,8 @@ class StateMachine:
 
         # telemetry: how many batches took which path
         self.stats = {
-            "fast_batches": 0, "serial_batches": 0, "bail_batches": 0,
+            "fast_batches": 0, "exact_batches": 0, "serial_batches": 0,
+            "bail_batches": 0,
         }
 
     def flush_deferred(self) -> None:  # tidy: thread=commit
@@ -774,8 +795,9 @@ class StateMachine:
         staged = self._ct_stage(events, timestamp)
         (code, host_code, dr_slots, cr_slots, _alo, _ahi,
          _pend, maybe_u8, bits) = staged
-        # bit 1: in-batch duplicate ids → serial; bit 2: exact route
-        # (serial here); bit 8: post/void of an id in this batch → serial.
+        # bit 1: in-batch duplicate ids → serial; bit 2: exact route;
+        # bit 8: post/void (their batches are exact or serial). The exact
+        # route is synchronous: its batches run at their op's turn.
         if bits & (1 | 2 | 8):
             return None
         if self._ct_pending:
@@ -920,10 +942,8 @@ class StateMachine:
         n = len(events)
         ts = np.uint64(timestamp) - np.uint64(n) + 1 + np.arange(n, dtype=np.uint64)
 
-        # bit 1: duplicate ids within the batch; bit 2: exact-route flags
-        # or accounts; bit 8: post/void of a pending created in this batch.
-        # All three run serially (the exact kernel is not ported).
-        hard = bool(bits & (1 | 2 | 8))
+        # bit 1: duplicate ids within the batch → serial.
+        hard = bool(bits & 1)
         if not hard and (bits & 4):
             # Bloom hits: stored ids (or ~2% false positives) — confirm
             # against the durable id index for just the flagged keys.
@@ -932,10 +952,24 @@ class StateMachine:
                 hard = self._confirm_maybe_ids(
                     pack_keys(events["id_lo"][m], events["id_hi"][m])
                 )
+        is_pv = None
+        if not hard and (bits & 8):
+            # bit 8: post/void events. One naming a pending created in this
+            # same batch → serial (the store cannot resolve it yet).
+            is_pv = (events["flags"] & np.uint16(_PV_FLAGS)) != 0
+            hard = _names_batch_id(events, is_pv)
         if hard:
             self.stats["serial_batches"] += 1
             with tracer.span("sm.create_transfers.serial"):
                 return self._create_transfers_serial(events, timestamp)
+        # bit 2: exact-route flags or limit/history accounts.
+        if bits & 2:
+            if is_pv is None:
+                is_pv = (events["flags"] & np.uint16(_PV_FLAGS)) != 0
+            with tracer.span("sm.create_transfers.exact"):
+                return self._create_transfers_exact(
+                    events, ts, dr_slots, cr_slots, host_code, timestamp, is_pv
+                )
         return self._commit_fast_device(
             events, ts, dr_slots, cr_slots, host_code, timestamp
         )
@@ -948,7 +982,36 @@ class StateMachine:
         ("pending_id", 4), ("timeout", 1), ("ledger", 1), ("code", 1),
         ("flags", 1), ("timestamp", 2), ("host_code", 1),
     )
-    _BATCH_WORDS = sum(w for _, w in _BATCH_COLS)
+
+    def _staging(self, scratch: dict, kind: str, spec, n_pad: int):
+        """The pinned host block of `spec` (column, uint32 words per
+        event) for `kind` in one scratch-ring slot, allocated at first
+        use per bucket: (buffer, {column: (n_pad, words) numpy view})."""
+        buf = scratch.get((kind, n_pad))
+        if buf is None:
+            buf = scratch[(kind, n_pad)] = torch.empty(
+                sum(w for _, w in spec) * n_pad, dtype=torch.uint32,
+                pin_memory=self.device.type == "cuda",
+            )
+        host = buf.numpy()
+        cols = {}
+        off = 0
+        for name, w in spec:
+            cols[name] = host[off * n_pad:(off + w) * n_pad].reshape(n_pad, w)
+            off += w
+        return buf, cols
+
+    def _to_device_cols(self, buf: torch.Tensor, spec, n_pad: int) -> dict:
+        """One non-blocking copy of a staging block to the device, cut
+        into its columns ((n_pad,) for one word, (n_pad, w) otherwise)."""
+        dev = buf.to(self.device, non_blocking=True)
+        out = {}
+        off = 0
+        for name, w in spec:
+            t = dev[off * n_pad:(off + w) * n_pad]
+            out[name] = t.view(n_pad, w) if w > 1 else t
+            off += w
+        return out
 
     def _device_batch(self, events, ts, dr_slots, cr_slots, host_code):
         """Pack events into the kernel's SoA form, padded to a power-of-two
@@ -968,18 +1031,7 @@ class StateMachine:
         n_pad = 1 << max(4, (n - 1).bit_length())
         scratch = self._disp_scratch[self._disp_seq % DISPATCH_WINDOW_MAX]
         self._disp_seq += 1
-        buf = scratch.get(("batch", n_pad))
-        if buf is None:
-            buf = scratch[("batch", n_pad)] = torch.empty(
-                self._BATCH_WORDS * n_pad, dtype=torch.uint32,
-                pin_memory=self.device.type == "cuda",
-            )
-        host = buf.numpy()
-        cols = {}
-        off = 0
-        for name, w in self._BATCH_COLS:
-            cols[name] = host[off * n_pad:(off + w) * n_pad].reshape(n_pad, w)
-            off += w
+        buf, cols = self._staging(scratch, "batch", self._BATCH_COLS, n_pad)
         with tracer.span("sm.ct.pack"):
             for name in ("id", "amount", "pending_id"):
                 pair = cols[name][:n].view(np.uint64)  # (n, 2): lo, hi
@@ -997,18 +1049,269 @@ class StateMachine:
                 cols["dr_slot"].view(np.int32)[n:] = commit_ops.NOT_FOUND
                 cols["cr_slot"].view(np.int32)[n:] = commit_ops.NOT_FOUND
                 cols["host_code"][n:] = int(TR.ID_MUST_NOT_BE_ZERO)
-        dev = buf.to(self.device, non_blocking=True)
-        out = {}
-        off = 0
-        for name, w in self._BATCH_COLS:
-            t = dev[off * n_pad:(off + w) * n_pad]
-            out[name] = t.view(n_pad, w) if w > 1 else t
-            off += w
+        out = self._to_device_cols(buf, self._BATCH_COLS, n_pad)
         for name in ("dr_slot", "cr_slot"):
             out[name] = out[name].view(torch.int32)
         host_code_p = out.pop("host_code")
         self._scratch_note(n_pad)
         return self._ops.TransferBatch(**out), host_code_p
+
+    # The exact route's pending context and chains, staged like the batch:
+    # (column, uint32 words per event), in one pinned block per (ring
+    # slot, bucket), crossing to the device in one asynchronous copy.
+    _EXACT_COLS = (
+        ("found", 1), ("amount", 4), ("dr_slot", 1), ("cr_slot", 1),
+        ("timestamp", 2), ("timeout", 1), ("base_fulfillment", 1),
+        ("group", 1), ("chain_id", 1),
+    )
+
+    def _device_exact(self, pinfo: Dict[str, np.ndarray], chain_id: np.ndarray, n_pad: int):
+        """PendingInfo and chain_id padded to the bucket (padding events:
+        not found, no accounts, their own chain, group n_pad) and copied
+        to the device from the scratch slot `_device_batch` just used."""
+        n = len(chain_id)
+        scratch = self._disp_scratch[(self._disp_seq - 1) % DISPATCH_WINDOW_MAX]
+        buf, cols = self._staging(scratch, "exact", self._EXACT_COLS, n_pad)
+        with tracer.span("sm.ct.pack"):
+            cols["found"][:n, 0] = pinfo["found"]
+            cols["amount"][:n] = pinfo["amount"]
+            cols["timestamp"][:n].view(np.uint64)[:, 0] = pinfo["timestamp"]
+            for name in ("dr_slot", "cr_slot", "timeout", "base_fulfillment", "group"):
+                cols[name][:n, 0] = pinfo[name].view(np.uint32)
+            cols["chain_id"][:n, 0] = chain_id
+            if n_pad != n:
+                for name, _ in self._EXACT_COLS:
+                    cols[name][n:] = 0
+                for name in ("dr_slot", "cr_slot"):
+                    cols[name].view(np.int32)[n:] = -1
+                cols["base_fulfillment"].view(np.int32)[n:] = commit_exact.FULFILL_NONE
+                cols["group"][n:] = n_pad
+                cols["chain_id"][n:, 0] = np.arange(n, n_pad, dtype=np.uint32)
+        out = self._to_device_cols(buf, self._EXACT_COLS, n_pad)
+        for name in ("dr_slot", "cr_slot", "base_fulfillment", "group", "chain_id"):
+            out[name] = out[name].view(torch.int32)
+        out["found"] = out["found"].view(torch.int32) != 0
+        chain_t = out.pop("chain_id")
+        return commit_exact.PendingInfo(**out), chain_t
+
+    def _exact_prefetch(self, events: np.ndarray, is_pv: np.ndarray):
+        """Host prefetch of post/void events: resolve pending_id against
+        the id index and object log, and evaluate the store-dependent
+        rungs (codes 25-30) the device cannot (upstream prefetch,
+        state_machine.zig:560-655).
+
+        Returns (pv_code, pinfo dict of per-event numpy arrays,
+        pending_recs, p_rec_idx), where p_rec_idx maps each event to its
+        row of pending_recs (-1 for other and not-found events)."""
+        n = len(events)
+        found = np.zeros(n, dtype=bool)
+        amount = np.zeros((n, 4), dtype=np.uint32)
+        p_dr = np.full(n, -1, dtype=np.int32)
+        p_cr = np.full(n, -1, dtype=np.int32)
+        p_ts = np.zeros(n, dtype=np.uint64)
+        p_timeout = np.zeros(n, dtype=np.uint32)
+        base = np.full(n, commit_exact.FULFILL_NONE, dtype=np.int32)
+        group = np.full(n, n, dtype=np.int32)
+        pv_code = np.zeros(n, dtype=np.uint32)
+        p_rec_idx = np.full(n, -1, dtype=np.int64)
+        pending_recs = np.zeros(0, dtype=types.TRANSFER_DTYPE)
+        pinfo = dict(
+            found=found, amount=amount, dr_slot=p_dr, cr_slot=p_cr,
+            timestamp=p_ts, timeout=p_timeout, base_fulfillment=base, group=group,
+        )
+        if not np.any(is_pv):
+            return pv_code, pinfo, pending_recs, p_rec_idx
+
+        pv_ix = np.nonzero(is_pv)[0]
+        pkeys = pack_keys(events["pending_id_lo"][is_pv], events["pending_id_hi"][is_pv])
+        # Same referenced pending ⇒ same fulfillment group (the first
+        # successful post/void wins).
+        _, inv = np.unique(pkeys, return_inverse=True)
+        group[pv_ix] = inv.astype(np.int32)
+        rows = self.transfer_index.lookup_batch(pkeys)
+        has = rows != NOT_FOUND
+        pv_code[pv_ix[~has]] = np.uint32(int(TR.PENDING_TRANSFER_NOT_FOUND))
+        if np.any(has):
+            hit = pv_ix[has]
+            urows, uinv = np.unique(rows[has].astype(np.int64), return_inverse=True)
+            pending_recs = self.transfer_log.gather(urows)
+            p_rec_idx[hit] = uinv
+            prec = pending_recs[uinv]
+            c = np.zeros(len(hit), dtype=np.uint32)
+
+            def fl(cond, result):
+                np.copyto(c, np.uint32(int(result)), where=(c == 0) & cond)
+
+            fl((prec["flags"] & np.uint16(TransferFlags.PENDING)) == 0,
+               TR.PENDING_TRANSFER_NOT_PENDING)
+            for side, result in (
+                ("debit", TR.PENDING_TRANSFER_HAS_DIFFERENT_DEBIT_ACCOUNT_ID),
+                ("credit", TR.PENDING_TRANSFER_HAS_DIFFERENT_CREDIT_ACCOUNT_ID),
+            ):
+                lo = events[f"{side}_account_id_lo"][hit]
+                hi = events[f"{side}_account_id_hi"][hit]
+                given = (lo != 0) | (hi != 0)
+                differs = (lo != prec[f"{side}_account_id_lo"]) | (hi != prec[f"{side}_account_id_hi"])
+                fl(given & differs, result)
+            for f, result in (
+                ("ledger", TR.PENDING_TRANSFER_HAS_DIFFERENT_LEDGER),
+                ("code", TR.PENDING_TRANSFER_HAS_DIFFERENT_CODE),
+            ):
+                fl((events[f][hit] != 0) & (events[f][hit] != prec[f]), result)
+            pv_code[hit] = c
+
+            found[hit] = True
+            amount[hit] = types.u64_pair_to_limbs(prec["amount_lo"], prec["amount_hi"])
+            for out, side in ((p_dr, "debit"), (p_cr, "credit")):
+                slots = self.account_index.lookup_batch(
+                    pack_keys(prec[f"{side}_account_id_lo"], prec[f"{side}_account_id_hi"])
+                )
+                out[hit] = np.where(slots == NOT_FOUND, -1, slots.astype(np.int64))
+            p_ts[hit] = prec["timestamp"]
+            p_timeout[hit] = prec["timeout"]
+            base_u = self.posted.get_many(pending_recs["timestamp"], commit_exact.FULFILL_NONE)
+            base[hit] = base_u[uinv]
+        return pv_code, pinfo, pending_recs, p_rec_idx
+
+    def _create_transfers_exact(
+        self, events, ts, dr_slots, cr_slots, host_code, timestamp, is_pv
+    ) -> np.ndarray:
+        """Order-dependent batches through the fixed-point sweep kernel
+        (ops/commit_exact.py): balancing clamps, limit flags, history,
+        linked chains and pending post/void. The device builds the batch's
+        sort plan (the kernel's plan=None branch); a bail re-runs the
+        batch serially."""
+        # The prefetch reads the id index, object log and posted groove:
+        # the caller (_create_transfers_impl) flushed the deferred store.
+        n = len(events)
+        pv_code, pinfo_np, pending_recs, p_rec_idx = self._exact_prefetch(events, is_pv)
+
+        # The post/void store rungs (25-30) sit between the host ladder's
+        # early rungs and the device's late ones: nonzero minimum.
+        big = np.uint32(0xFFFFFFFF)
+        merged = np.minimum(
+            np.where(host_code == 0, big, host_code), np.where(pv_code == 0, big, pv_code)
+        )
+        host_code = np.where(merged == big, np.uint32(0), merged)
+
+        # Linked-chain segments: contiguous, chain id = head index. An
+        # unterminated trailing chain fails with CHAIN_OPEN before any other
+        # rung (oracle._execute).
+        linked = (events["flags"] & np.uint16(TransferFlags.LINKED)) != 0
+        new_chain = np.ones(n, dtype=bool)
+        new_chain[1:] = ~linked[:-1]
+        chain_id = np.maximum.accumulate(np.where(new_chain, np.arange(n), 0)).astype(np.int32)
+        if linked[n - 1]:
+            host_code[n - 1] = np.uint32(int(TR.LINKED_EVENT_CHAIN_OPEN))
+
+        b, host_code_p = self._device_batch(events, ts, dr_slots, cr_slots, host_code)
+        n_pad = int(b.flags.shape[0])
+        pinfo, chain_t = self._device_exact(pinfo_np, chain_id, n_pad)
+        has_pv, has_chains = bool(np.any(is_pv)), bool(np.any(linked))
+        devicestats.note_call(
+            "create_transfers_exact",
+            (self.state, b, host_code_p, pinfo, chain_t, has_pv, has_chains),
+            bucket=n_pad,
+        )
+        t_disp = tracer.device_dispatch(
+            "create_transfers_exact",
+            h2d_bytes=_staged_nbytes(b, host_code_p) + _staged_nbytes(pinfo, chain_t),
+        )
+        new_state, codes_dev, amounts_dev, dr_after, cr_after, bail = (
+            self._ops.create_transfers_exact(
+                self.state, b, host_code_p, pinfo, chain_t, None,
+                has_pv=has_pv, has_chains=has_chains,
+            )
+        )
+        if bool(bail):  # waits for the kernel: the step's sync point
+            tracer.device_finish("create_transfers_exact", t_disp)
+            self.stats["bail_batches"] += 1
+            return self._create_transfers_serial(events, timestamp)
+        self.state = new_state
+        self.stats["exact_batches"] += 1
+        codes_h = codes_dev.cpu().numpy()
+        amounts_h = amounts_dev.cpu().numpy()
+        tracer.device_finish(
+            "create_transfers_exact", t_disp, d2h_bytes=codes_h.nbytes + amounts_h.nbytes
+        )
+        codes = codes_h[:n]
+        ok = codes == 0
+        if not np.any(ok):
+            return _codes_to_results(codes)
+
+        # Transfers are stored with their post-clamp amounts
+        # (state_machine.zig:1330); post/void records take their accounts,
+        # ledger, code and unset user data from the pending
+        # (state_machine.zig:1462-1480).
+        amt_lo, amt_hi = types.limbs_to_u64_pair(amounts_h[:n])
+        recs = events[ok].copy()
+        recs["timestamp"] = ts[ok]
+        recs["amount_lo"] = amt_lo[ok]
+        recs["amount_hi"] = amt_hi[ok]
+        sel = is_pv[ok]
+        if np.any(sel):
+            pi = p_rec_idx[ok][sel]
+            assert np.all(pi >= 0), "an ok post/void resolved its pending"
+            prec = pending_recs[pi]
+            for f in (
+                "debit_account_id_lo", "debit_account_id_hi",
+                "credit_account_id_lo", "credit_account_id_hi", "ledger", "code",
+            ):
+                recs[f][sel] = prec[f]
+            recs["timeout"][sel] = 0
+            ud128_zero = (recs["user_data_128_lo"][sel] == 0) & (recs["user_data_128_hi"][sel] == 0)
+            for f in ("user_data_128_lo", "user_data_128_hi"):
+                recs[f][sel] = np.where(ud128_zero, prec[f], recs[f][sel])
+            for f in ("user_data_64", "user_data_32"):
+                recs[f][sel] = np.where(recs[f][sel] == 0, prec[f], recs[f][sel])
+        self._store_new_transfers(recs)
+        self.commit_timestamp = int(ts[ok][-1])
+
+        # Posted-groove updates (upstream PostedGroove insert).
+        pv_ok_ix = np.nonzero(ok & is_pv)[0]
+        if len(pv_ok_ix):
+            posted_ok = (
+                events["flags"][pv_ok_ix] & np.uint16(TransferFlags.POST_PENDING_TRANSFER)
+            ) != 0
+            self.posted.insert_arrays(
+                pending_recs["timestamp"][p_rec_idx[pv_ok_ix]],
+                np.where(
+                    posted_ok, np.uint32(oracle_mod.FULFILLMENT_POSTED),
+                    np.uint32(oracle_mod.FULFILLMENT_VOIDED),
+                ),
+            )
+
+        # History rows from the kernel's post-event balances
+        # (state_machine.zig:1342-1364), in event order; post/void writes
+        # no history row.
+        hist_flag = np.uint32(AccountFlags.HISTORY)
+        dr_hist = np.zeros(n, dtype=bool)
+        cr_hist = np.zeros(n, dtype=bool)
+        dr_valid, cr_valid = dr_slots >= 0, cr_slots >= 0
+        dr_hist[dr_valid] = (self.acc_flags[dr_slots[dr_valid]] & hist_flag) != 0
+        cr_hist[cr_valid] = (self.acc_flags[cr_slots[cr_valid]] & hist_flag) != 0
+        need = ok & (dr_hist | cr_hist) & ~is_pv
+        if np.any(need):
+            from tigerbeetle_tpu_torch.lsm.groove import HISTORY_DTYPE
+
+            ix = np.nonzero(need)[0]
+            rows = np.zeros(len(ix), dtype=HISTORY_DTYPE)
+            rows["timestamp"] = ts[ix]
+            for side, side_hist, slots_all, after in (
+                ("dr", dr_hist, dr_slots, dr_after), ("cr", cr_hist, cr_slots, cr_after),
+            ):
+                m = side_hist[ix]
+                if not m.any():
+                    continue
+                s = slots_all[ix[m]]
+                rows[f"{side}_account_id_lo"][m] = self.acc_key["lo"][s]
+                rows[f"{side}_account_id_hi"][m] = self.acc_key["hi"][s]
+                for fld, limbs in zip(commit_ops.BALANCE_FIELDS, after):
+                    lo_c, hi_c = types.limbs_to_u64_pair(limbs.cpu().numpy()[:n][ix[m]])
+                    rows[f"{side}_{fld}_lo"][m] = lo_c
+                    rows[f"{side}_{fld}_hi"][m] = hi_c
+            self.history.append_batch(rows)
+        return _codes_to_results(codes)
 
     # Dispatches a scratch bucket may sit idle before retirement. Large
     # enough that a bucket in ANY live dispatch window (≤ DISPATCH_

@@ -9,7 +9,8 @@ models/state_machine.py) the result is byte-identical to the serial oracle,
 and a u128 overflow raises `bail` so the host re-runs the batch serially.
 
 Each entry — `create_transfers_fast`, `register_accounts`,
-`read_balances`, `write_balances` — launches its hand-written CUDA kernel
+`read_balances`, `write_balances`, and the exact route's
+`create_transfers_exact` (ops/commit_exact.py) — launches its hand-written CUDA kernel
 (csrc/<entry>.cu, built and bound by ops/kernels.py) when its tensors lie
 on a CUDA device, and runs its plain PyTorch version (`*_plain`, beside
 it here) when they lie on the CPU. There is no fallback between the two:
@@ -49,6 +50,11 @@ F_BAL_DR = 1 << 4
 F_BAL_CR = 1 << 5
 F_PADDING = 0xFFFF & ~0x3F
 
+# AccountFlags bits.
+AF_DEBITS_MUST_NOT_EXCEED_CREDITS = 1 << 1
+AF_CREDITS_MUST_NOT_EXCEED_DEBITS = 1 << 2
+AF_HISTORY = 1 << 3
+
 NS_PER_S = 1_000_000_000
 
 # Slot sentinel for "account not found" (host uses -1; any negative works).
@@ -70,6 +76,7 @@ assert all(int(getattr(TR, k)) == v for k, v in LADDER_CODES.items())
 LAUNCHES: Dict[str, int] = {
     "create_transfers_fast": 0, "register_accounts": 0,
     "read_balances": 0, "write_balances": 0,
+    "create_transfers_exact": 0, "exact_sort_plan": 0,
 }
 
 
@@ -126,6 +133,29 @@ def state_from_reference(arrays: Dict[str, np.ndarray], device) -> LedgerState:
     ))
 
 
+def exact_inputs_from_reference(pending, chain_id, plan, device):
+    """The exact route's staged context from the reference package's
+    numpy PendingInfo, chain_id and SortPlan (or None) — any NamedTuples
+    with the same fields — as the port's tensors: (PendingInfo, chain_id,
+    SortPlan or None), on `device`."""
+    from tigerbeetle_tpu_torch.ops import commit_exact as ce
+
+    def t(x, dtype):
+        return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
+
+    p = pending._asdict()
+    pinfo = ce.PendingInfo(
+        found=t(p["found"], np.bool_), amount=t(p["amount"], np.uint32),
+        dr_slot=t(p["dr_slot"], np.int32), cr_slot=t(p["cr_slot"], np.int32),
+        timestamp=t(p["timestamp"], np.uint32), timeout=t(p["timeout"], np.uint32),
+        base_fulfillment=t(p["base_fulfillment"], np.int32),
+        group=t(p["group"], np.int32),
+    )
+    if plan is not None:
+        plan = ce.SortPlan(*(t(x, np.int32) for x in plan))
+    return pinfo, t(chain_id, np.int32), plan
+
+
 def state_to_numpy(state: LedgerState) -> Dict[str, np.ndarray]:
     """field name → host numpy uint32 array (the reference's layout)."""
     return {f: getattr(state, f).cpu().numpy() for f in LedgerState._fields}
@@ -169,6 +199,13 @@ def _launch(name: str, device, *args) -> None:
 # --- create_transfers_fast ------------------------------------------------
 
 
+def _ladder(code: torch.Tensor, cond: torch.Tensor, result) -> torch.Tensor:
+    """One rung (int64 codes): where no earlier rung fired and cond
+    holds, set `result` — the reference's precedence order
+    (state_machine.zig:1239-1368) as a chain of selects."""
+    return torch.where((code == 0) & cond, int(result), code)
+
+
 def merge_codes(code: torch.Tensor, host_code: torch.Tensor) -> torch.Tensor:
     """Nonzero minimum of device and host codes (both int64): results are
     ordered by precedence and each side emits its first failing rung."""
@@ -185,37 +222,34 @@ def validate_simple(state: LedgerState, b: TransferBatch):
     flags = u128.widen(b.flags)
     pend = (flags & F_PENDING) != 0
     code = torch.zeros(flags.shape, dtype=torch.int64, device=flags.device)
-
-    def rung(cond, result):
-        nonlocal code
-        code = torch.where((code == 0) & cond, int(result), code)
-
     unsupported = (flags & (F_LINKED | F_POST | F_VOID | F_BAL_DR | F_BAL_CR)) != 0
-    rung((flags & F_PADDING) != 0, TR.RESERVED_FLAG)
-    rung(u128.is_zero(b.id), TR.ID_MUST_NOT_BE_ZERO)
-    rung(u128.is_max(b.id), TR.ID_MUST_NOT_BE_INT_MAX)
-    rung(~u128.is_zero(b.pending_id), TR.PENDING_ID_MUST_BE_ZERO)
-    rung(~pend & (u128.widen(b.timeout) != 0), TR.TIMEOUT_RESERVED_FOR_PENDING_TRANSFER)
-    rung(u128.is_zero(b.amount), TR.AMOUNT_MUST_NOT_BE_ZERO)
+    code = _ladder(code, (flags & F_PADDING) != 0, TR.RESERVED_FLAG)
+    code = _ladder(code, u128.is_zero(b.id), TR.ID_MUST_NOT_BE_ZERO)
+    code = _ladder(code, u128.is_max(b.id), TR.ID_MUST_NOT_BE_INT_MAX)
+    code = _ladder(code, ~u128.is_zero(b.pending_id), TR.PENDING_ID_MUST_BE_ZERO)
+    code = _ladder(
+        code, ~pend & (u128.widen(b.timeout) != 0), TR.TIMEOUT_RESERVED_FOR_PENDING_TRANSFER
+    )
+    code = _ladder(code, u128.is_zero(b.amount), TR.AMOUNT_MUST_NOT_BE_ZERO)
     ledger = u128.widen(b.ledger)
-    rung(ledger == 0, TR.LEDGER_MUST_NOT_BE_ZERO)
-    rung(u128.widen(b.code) == 0, TR.CODE_MUST_NOT_BE_ZERO)
-    rung(b.dr_slot < 0, TR.DEBIT_ACCOUNT_NOT_FOUND)
-    rung(b.cr_slot < 0, TR.CREDIT_ACCOUNT_NOT_FOUND)
+    code = _ladder(code, ledger == 0, TR.LEDGER_MUST_NOT_BE_ZERO)
+    code = _ladder(code, u128.widen(b.code) == 0, TR.CODE_MUST_NOT_BE_ZERO)
+    code = _ladder(code, b.dr_slot < 0, TR.DEBIT_ACCOUNT_NOT_FOUND)
+    code = _ladder(code, b.cr_slot < 0, TR.CREDIT_ACCOUNT_NOT_FOUND)
     a = state.ledger.shape[0]
     acc_ledger = state.ledger.view(torch.int32)
     dr_ledger = acc_ledger[b.dr_slot.clamp(0, a - 1).long()]
     cr_ledger = acc_ledger[b.cr_slot.clamp(0, a - 1).long()]
-    rung(dr_ledger != cr_ledger, TR.ACCOUNTS_MUST_HAVE_THE_SAME_LEDGER)
-    rung(
-        b.ledger.view(torch.int32) != dr_ledger,
+    code = _ladder(code, dr_ledger != cr_ledger, TR.ACCOUNTS_MUST_HAVE_THE_SAME_LEDGER)
+    code = _ladder(
+        code, b.ledger.view(torch.int32) != dr_ledger,
         TR.TRANSFER_MUST_HAVE_THE_SAME_LEDGER_AS_ACCOUNTS,
     )
     # overflows_timeout: timestamp + timeout * 1e9 > maxInt(u64)
     # (state_machine.zig:1326); the product is exact in two limbs.
     ns = torch.tensor(NS_PER_S, dtype=torch.int32, device=flags.device)
     _, ts_over = u128.add(b.timestamp, u128.mul_u32(b.timeout, ns))
-    rung(ts_over, TR.OVERFLOWS_TIMEOUT)
+    code = _ladder(code, ts_over, TR.OVERFLOWS_TIMEOUT)
     return code, unsupported
 
 
@@ -389,9 +423,16 @@ def write_balances(state: LedgerState, slots, dp, dpo, cp, cpo) -> LedgerState:
     return state
 
 
-def create_transfers_exact(*args, **kwargs):
-    """The exact (fixed-point sweep) kernel is not ported yet: the port's
-    state machine routes exact-route batches to the serial oracle."""
-    raise NotImplementedError(
-        "create_transfers_exact is not ported: exact-route batches run serially"
+def create_transfers_exact(
+    state, b, host_code, pending, chain_id, plan=None, max_sweeps=64,
+    has_pv=True, has_chains=True,
+):
+    """The exact route's commit (ops/commit_exact.py), re-exported so the
+    state machine reaches every kernel entry through this module. Lazy
+    import: commit_exact imports from this module."""
+    from tigerbeetle_tpu_torch.ops import commit_exact
+
+    return commit_exact.create_transfers_exact(
+        state, b, host_code, pending, chain_id, plan,
+        max_sweeps=max_sweeps, has_pv=has_pv, has_chains=has_chains,
     )

@@ -4,7 +4,9 @@ Each source is compiled by `nvcc` for Hopper (`sm_90a`) into a shared
 library with a plain C interface, in this package's build directory
 (tigerbeetle_tpu_torch/build/, listed in .gitignore), and loaded with
 ctypes. Every pointer and the stream cross as `c_void_p`, sizes as
-`c_int64`, and each entry returns the `cudaError_t` of its launches.
+`c_int64`, and each entry returns the `cudaError_t` of its launches. The
+exact route's two entries, which take some fifty pointers, take them as
+one host array of pointers and one array of int64 sizes.
 
 Libraries are built at first use, or all at once by `build_all()` (one
 `nvcc` per source, started together). A library's file name carries a
@@ -39,9 +41,12 @@ SIGNATURES = {
     "register_accounts": ("tb_register_accounts", [_P] * 6 + [_I, _I, _P]),
     "read_balances": ("tb_read_balances", [_P] * 9 + [_I, _I, _P]),
     "write_balances": ("tb_write_balances", [_P] * 9 + [_I, _I, _P]),
+    "create_transfers_exact": ("tb_create_transfers_exact", [_P, _P, _P]),
+    "exact_sort_plan": ("tb_exact_sort_plan", [_P, _P, _P]),
 }
 
 _lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
 _loaded: Dict[str, ctypes._CFuncPtr] = {}
 BUILD_LOG: Dict[str, str] = {}  # kernel -> nvcc's output (-Xptxas -v)
 
@@ -95,18 +100,44 @@ def build_all(names: List[str] = None) -> None:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
 
 
+def _library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, building it if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build_all([name])
+            lib = _libs[name] = ctypes.CDLL(_lib_path(name))
+    return lib
+
+
 def entry(name: str):
     """The C entry of kernel `name`, building its library if needed."""
     fn = _loaded.get(name)
-    if fn is not None:
-        return fn
-    with _lock:
-        fn = _loaded.get(name)
-        if fn is None:
-            build_all([name])
-            symbol, argtypes = SIGNATURES[name]
-            fn = getattr(ctypes.CDLL(_lib_path(name)), symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _loaded[name] = fn
+    if fn is None:
+        symbol, argtypes = SIGNATURES[name]
+        fn = getattr(_library(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _loaded[name] = fn
     return fn
+
+
+def helper(name: str, symbol: str, argtypes, restype):
+    """A host-side helper `symbol` of kernel `name`'s library (a size
+    query: it launches nothing)."""
+    fn = _loaded.get(symbol)
+    if fn is None:
+        fn = getattr(_library(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _loaded[symbol] = fn
+    return fn
+
+
+def pointer_array(ptrs) -> ctypes.Array:
+    """A host array of device pointers (ints), for the array entries."""
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def size_array(sizes) -> ctypes.Array:
+    return (ctypes.c_int64 * len(sizes))(*sizes)

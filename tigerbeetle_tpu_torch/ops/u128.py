@@ -148,3 +148,81 @@ def scatter_sub(table, slots, values, mask):
     delta_over = carry != 0
     new_table, under = sub(table, narrow(torch.stack(out, dim=-1)))
     return new_table, under | delta_over
+
+
+# --- comparisons, selects and widths (the exact route's ladder) -----------
+
+
+def from_int(value: int, width: int = 4) -> torch.Tensor:
+    """Python int → (width,) uint32 limb constant."""
+    assert 0 <= value < (1 << (32 * width))
+    return narrow(torch.tensor([(value >> (32 * i)) & LIMB_MASK for i in range(width)]))
+
+
+def zeros(shape, width: int = 4, device=None) -> torch.Tensor:
+    return torch.zeros((*shape, width), dtype=torch.int32, device=device).view(torch.uint32)
+
+
+def broadcast_to(limbs: torch.Tensor, shape) -> torch.Tensor:
+    return limbs.expand(*shape, limbs.shape[-1])
+
+
+def extend(limbs: torch.Tensor, width: int) -> torch.Tensor:
+    """Zero-extend (..., W) limbs to (..., width) (the reference's
+    `widen(limbs, width)`; here `widen` converts limbs to int64)."""
+    have = limbs.shape[-1]
+    assert have <= width
+    if have == width:
+        return limbs
+    pad = torch.zeros((*limbs.shape[:-1], width - have), dtype=torch.int32, device=limbs.device)
+    return torch.cat([limbs.view(torch.int32), pad], dim=-1).view(torch.uint32)
+
+
+def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a.view(torch.int32) == b.view(torch.int32)).all(dim=-1)
+
+
+def lt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a < b, lexicographic from the most significant limb."""
+    wa, wb = widen(a), widen(b)
+    shape = torch.broadcast_shapes(wa.shape[:-1], wb.shape[:-1])
+    less = torch.zeros(shape, dtype=torch.bool, device=a.device)
+    equal = torch.ones(shape, dtype=torch.bool, device=a.device)
+    for i in reversed(range(a.shape[-1])):
+        less = less | (equal & (wa[..., i] < wb[..., i]))
+        equal = equal & (wa[..., i] == wb[..., i])
+    return less
+
+
+def le(a, b):
+    return ~lt(b, a)
+
+
+def gt(a, b):
+    return lt(b, a)
+
+
+def ge(a, b):
+    return ~lt(a, b)
+
+
+def select(pred: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise where over limb tensors; pred has shape a.shape[:-1]."""
+    a, b = torch.broadcast_tensors(a.view(torch.int32), b.view(torch.int32))
+    return torch.where(pred[..., None], a, b).view(torch.uint32)
+
+
+def min_(a, b):
+    return select(lt(a, b), a, b)
+
+
+def sat_sub(a, b):
+    """Saturating a - b (Zig `-|`): 0 on underflow."""
+    d, under = sub(a, b)
+    return select(under, zeros(d.shape[:-1], d.shape[-1], d.device), d)
+
+
+def sum_overflows(a, b) -> torch.Tensor:
+    """True where a + b overflows the limb width (upstream
+    state_machine.zig:1645)."""
+    return add(a, b)[1]

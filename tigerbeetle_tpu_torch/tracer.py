@@ -36,7 +36,7 @@ _device_mem_hw = [0]
 
 # The kernel entries whose device windows the state machine opens.
 DEVICE_ENTRIES = frozenset({
-    "create_transfers_fast", "register_accounts",
+    "create_transfers_fast", "create_transfers_exact", "register_accounts",
     "read_balances", "write_balances",
 })
 

@@ -6,7 +6,7 @@
 Phases, in order; any failure exits non-zero and no phase's failure is
 caught:
 
-  1. Build: compile the six CUDA kernels (tigerbeetle_tpu_torch/csrc,
+  1. Build: compile the ten CUDA kernels (tigerbeetle_tpu_torch/csrc,
      one nvcc per source, all started together) and print the seconds.
   2. Kernels vs plain, at the main path's shapes (A = 2^20 accounts,
      n = 8192 events, k = 16384 / 8192 slot rows): each kernel must be
@@ -25,7 +25,14 @@ caught:
      median time by CUDA events, the bound (bytes the function must move
      over 3.35 TB/s; integer operations over 67 TOP/s never dominate), the
      plain version's time and, where one exists, the PyTorch call
-     computing the same function.
+     computing the same function. The store stage's and the query path's
+     kernels at their main-path shapes: both key builds at n = 8190 (fold56
+     edge values, random columns, and the query mix of phase 7), the tiled
+     merge at each flush shape of the query tree (40,960 + 40,960,
+     81,920 + 40,960 and 122,880 + 40,960 rows) and on top-bit keys with
+     heavy duplicates across both runs, the intersect at 2^17 candidates
+     in a 2^20-row run; the store's dispatch runs under sync-debug mode
+     "error".
   3. Main path, BASELINE config 1: StateMachine(PRODUCTION) on CUDA,
      10,000 accounts, 64 batches of 8190 uniform simple transfers (over
      all accounts but the last two, which take the bail batch), a
@@ -48,6 +55,22 @@ caught:
   In 5 and 6 every result, every account's lookup bytes, every transfer's
   lookup bytes and every history account's history equal the port's CPU
   run, and the first two batches equal the serial Oracle.
+  In 3-6 the CUDA machine stores the query index through the device route
+  (key build and sort, lazy runs, the flush's device fold) and the CPU
+  machine through the host route: the key and value bytes of every
+  level-0 table of the query tree must be equal.
+  7. Query traffic (bench.py:777-880's mix): 10,000 accounts, 64 batches
+     of 8190 transfers with Zipf(1.1) debit and credit accounts, codes
+     1-16, ledger 1, amount 1 and a 1024-value user_data_64 pool, through
+     create_transfers on both machines (bench_query preloads 10M rows: cut
+     for the run's time limit). After batch 34, eight queries whose read
+     barrier materializes lazy runs, so the next flush takes the host
+     merge; one store runs under sync-debug mode "error". At the end 100
+     queries (debit_account and code and ledger over a 1/8 timestamp
+     window, limit 8190) through query_transfers, each equal to the CPU
+     run's, with their p50/p99 on the card, and ScanBuilder.execute
+     ("materialize") for 16 of them on the CUDA machine, equal to the host
+     gallop's rows.
 
 Kernel launch counts are reset to 0 just before each main-path run and
 read just after; each kernel of that path must have launched in it. The
@@ -472,6 +495,192 @@ def phase_exact(torch, C, dev):
     del c3, c4, state
 
 
+# --- phase 2: the store stage's and the query path's kernels -------------
+
+N_ACC_QUERY = 10_000  # phase 7's accounts (bench.py:810)
+
+
+def query_mix(rng, n, pool, first_id, draw=None):
+    """n transfers in bench_query's mix (bench.py:819-831): debit and credit
+    accounts by `draw` (uniform over 10,000 without one), amount 1, ledger
+    1, codes 1-16, user_data_64 from `pool`."""
+    from tigerbeetle_tpu_torch import types
+
+    draw = draw or (lambda r, k: r.integers(1, N_ACC_QUERY + 1, k).astype(np.uint64))
+    recs = np.zeros(n, dtype=types.TRANSFER_DTYPE)
+    recs["id_lo"] = np.arange(first_id, first_id + n, dtype=np.uint64)
+    dr = draw(rng, n)
+    cr = draw(rng, n)
+    recs["debit_account_id_lo"] = dr
+    recs["credit_account_id_lo"] = np.where(cr == dr, cr % N_ACC_QUERY + 1, cr)
+    recs["amount_lo"] = 1
+    recs["ledger"] = 1
+    recs["code"] = rng.integers(1, 17, n)
+    recs["user_data_64"] = rng.choice(pool, n)
+    return recs
+
+
+def edge_columns(rng, n):
+    """n transfers with random queryable columns, the first rows at the
+    fold56 edges (>= 2^56 and >= 2^63, u128 hi words set)."""
+    from tigerbeetle_tpu_torch import types
+
+    recs = np.zeros(n, dtype=types.TRANSFER_DTYPE)
+    for f in ("user_data_128_lo", "user_data_128_hi", "user_data_64"):
+        recs[f] = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+    recs["user_data_32"] = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+    recs["ledger"] = rng.integers(1, 1 << 32, n, dtype=np.uint64)
+    recs["code"] = rng.integers(1, 1 << 16, n)
+    edges = np.array([0, (1 << 56) - 1, 1 << 56, (1 << 56) + 1, 1 << 63,
+                      (1 << 64) - 1, 1 << 55, (1 << 55) - 1], np.uint64)
+    for f in ("user_data_128_lo", "user_data_128_hi", "user_data_64"):
+        recs[f][:len(edges)] = edges
+        edges = np.roll(edges, 3)
+    return recs
+
+
+def packed_key(torch, keys):
+    """(pad << 60 | lo1 << 32 | lo0) as int64, for the library sorts: exact
+    for query-index keys, whose lo1 is below 2^28 (tag <= 10 in the top
+    byte)."""
+    w = keys.view(torch.int32).long() & 0xFFFFFFFF
+    return (w[:, 2] << 60) | (w[:, 1] << 32) | w[:, 0]
+
+
+def phase_qindex(torch, dev, rng):
+    from tigerbeetle_tpu_torch import devicestats
+    from tigerbeetle_tpu_torch.ops import merge as M
+    from tigerbeetle_tpu_torch.ops import qindex as Q
+    from tigerbeetle_tpu_torch.ops import scanops as S
+
+    n = TX_BATCH
+    pool = rng.integers(1, 1 << 62, 1024, dtype=np.uint64)
+
+    def staged_of(recs, row0=0):
+        rows = np.arange(row0, row0 + len(recs), dtype=np.uint32)
+        ts = np.arange(1, len(recs) + 1, dtype=np.uint64) + np.uint64(row0 + (1 << 40))
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in Q.stage_query_batch(recs, rows, ts)]
+
+    # Both key builds: fold56 edges and random columns, then the query mix.
+    edge = staged_of(edge_columns(rng, n))
+    mix = staged_of(query_mix(rng, n, pool, 1))
+    err = {"query_index_keys": 0, "query_index_keys_sorted": 0}
+    for label, st in (("fold56 edges", edge), ("query mix", mix)):
+        for name in err:
+            got = getattr(Q, name)(*st)
+            want = getattr(Q, f"{name}_plain")(*st)
+            err[name] = max(err[name], max_abs_err(torch, f"{name} {label} n={n}", got, want))
+    nbytes, ops = devicestats.cost("query_index_keys", edge)
+    record(torch, "query_index_keys", "query_index_keys.cu", "tigerbeetle_tpu/ops/qindex.py:129",
+           lambda: Q.query_index_keys(*edge), lambda: Q.query_index_keys_plain(*edge),
+           None, nbytes, ops, err["query_index_keys"])
+    keys_p, pay_p = Q.query_index_keys_plain(*edge)
+    key64 = packed_key(torch, keys_p)
+    k32, p32 = keys_p.view(torch.int32), pay_p.view(torch.int32)
+
+    def sort_gather():
+        idx = torch.sort(key64, stable=True).indices
+        return k32.index_select(0, idx), p32.index_select(0, idx)
+
+    nbytes, ops = devicestats.cost("query_index_keys_sorted", edge)
+    record(torch, "query_index_keys_sorted", "query_index_keys_sorted.cu",
+           "tigerbeetle_tpu/ops/qindex.py:136",
+           lambda: Q.query_index_keys_sorted(*edge), lambda: Q.query_index_keys_sorted_plain(*edge),
+           sort_gather, nbytes, ops, err["query_index_keys_sorted"],
+           ms_query_mix=cuda_ms(torch, lambda: Q.query_index_keys_sorted(*mix), 10),
+           library_is="torch.sort(stable=True) of the built block's packed keys + 2 index_select")
+
+    # The tiled merge at the query tree's flush shapes: four sorted runs of
+    # the query mix, folded oldest first as the flush folds them.
+    runs = [Q.query_index_keys_sorted(*staged_of(query_mix(rng, n, pool, 1 + i * n), i * n))
+            for i in range(4)]
+    merr = 0
+    shapes = {}
+    ka, pa = runs[0]
+    for i, (kb, pb) in enumerate(runs[1:], 1):
+        got = M.merge_kernel_tiled(ka, pa, kb, pb)
+        want = M.merge_kernel_tiled_plain(ka, pa, kb, pb)
+        label = f"{ka.shape[0]}+{kb.shape[0]}"
+        merr = max(merr, max_abs_err(torch, f"merge_kernel_tiled flush {label}", got, want))
+        a, b = (ka, pa), (kb, pb)
+        shapes[label] = cuda_ms(torch, lambda: M.merge_kernel_tiled(*a, *b), 10)
+        last = (ka, pa, kb, pb)
+        ka, pa = got
+    # Top-bit keys (lo1 >= 2^31) with heavy duplicates across both runs.
+    def top_run(rows):
+        k = np.zeros((rows, 3), np.uint32)
+        k[:, 1] = np.sort(rng.integers(0, 8, rows)).astype(np.uint32) | np.uint32(0xFFFFFFF0)
+        k[:, 0] = rng.integers(0, 4, rows)
+        k = k[np.lexsort((k[:, 0], k[:, 1]))]
+        p = rng.integers(0, 1 << 32, (rows, 3), dtype=np.uint64).astype(np.uint32)
+        return torch.from_numpy(k).to(dev), torch.from_numpy(p).to(dev)
+
+    top = (*top_run(5 * N), *top_run(5 * N))
+    merr = max(merr, max_abs_err(torch, "merge_kernel_tiled top-bit duplicates",
+                                 M.merge_kernel_tiled(*top), M.merge_kernel_tiled_plain(*top)))
+    cat_key = torch.cat([packed_key(torch, last[0]), packed_key(torch, last[2])])
+    cat_k = torch.cat([last[0].view(torch.int32), last[2].view(torch.int32)])
+    cat_p = torch.cat([last[1].view(torch.int32), last[3].view(torch.int32)])
+
+    def merge_library():
+        idx = torch.sort(cat_key, stable=True).indices
+        return cat_k.index_select(0, idx), cat_p.index_select(0, idx)
+
+    nbytes, ops = devicestats.cost("merge_kernel_tiled", last)
+    record(torch, "merge_kernel_tiled", "merge_kernel_tiled.cu", "tigerbeetle_tpu/ops/merge.py:104",
+           lambda: M.merge_kernel_tiled(*last), lambda: M.merge_kernel_tiled_plain(*last),
+           merge_library, nbytes, ops, merr, shape=f"{last[0].shape[0]}+{last[2].shape[0]}",
+           ms_by_shape=shapes,
+           library_is="torch.sort(stable=True) of the concatenation's packed keys + 2 index_select")
+
+    # The intersect: 2^17 candidates in a 2^20-row run, rows >= 2^31 too.
+    run = np.unique(rng.integers(0, (1 << 32) - 1, (1 << 20) - 4096, dtype=np.uint64)).astype(np.uint32)
+    cand = np.unique(np.concatenate([
+        rng.choice(run, 1 << 16),
+        rng.integers(0, (1 << 32) - 1, 1 << 16, dtype=np.uint64).astype(np.uint32),
+    ]))
+    cand_d = torch.from_numpy(S._pad_sorted_u32(cand)).to(dev)
+    run_d = torch.from_numpy(S._pad_sorted_u32(run)).to(dev)
+    ierr = max_abs_err(torch, f"scan_intersect_mask {cand_d.shape[0]} in {run_d.shape[0]}",
+                       S.scan_intersect_mask(cand_d, run_d).view(torch.uint8),
+                       S.scan_intersect_mask_plain(cand_d, run_d).view(torch.uint8))
+    c64 = cand_d.view(torch.int32).long() & 0xFFFFFFFF
+    r64 = run_d.view(torch.int32).long() & 0xFFFFFFFF
+    last_ix = r64.shape[0] - 1
+
+    def searchsorted_eq():
+        ix = torch.searchsorted(r64, c64).clamp_(max=last_ix)
+        return r64[ix] == c64
+
+    nbytes, ops = devicestats.cost("scan_intersect_mask", (cand_d, run_d))
+    record(torch, "scan_intersect_mask", "scan_intersect_mask.cu", "tigerbeetle_tpu/ops/scanops.py:38",
+           lambda: S.scan_intersect_mask(cand_d, run_d),
+           lambda: S.scan_intersect_mask_plain(cand_d, run_d),
+           searchsorted_eq, nbytes, ops, ierr,
+           library_is="torch.searchsorted + gather + eq on int64 widenings")
+
+    # The store's dispatch hides no device sync: two runs built and folded
+    # under sync-debug mode "error"; the fold's one sync comes after.
+    recs = query_mix(rng, n, pool, 1)
+    rows = np.arange(n, dtype=np.uint32)
+    ts = np.arange(1, n + 1, dtype=np.uint64)
+    Q.build_run(recs, rows, ts, dev).materialize()  # warm the pinned pool
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handles = [Q.build_run(recs, rows, ts, dev) for _ in range(2)]
+        folded = Q.fold_runs_device(handles)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = Q.materialize_fold(*folded)
+    want = Q.materialize_fold(*Q.fold_runs_device(
+        [Q.build_run(recs, rows, ts, "cpu") for _ in range(2)]))
+    if got[0].tobytes() != want[0].tobytes() or not np.array_equal(got[1], want[1]):
+        raise SystemExit("the device fold of two runs differs from the CPU's")
+    log("query index: build_run and fold_runs_device dispatched under sync-debug mode 'error'")
+
+
 # --- phases 3 and 4 -------------------------------------------------------
 
 
@@ -502,6 +711,49 @@ def transfer_batch(types, first_id, dr, cr, amount_lo, amount_hi=None):
 def expect_equal(got, want, what):
     if got.tobytes() != want.tobytes():
         raise SystemExit(f"{what}: the CUDA run and the CPU run differ")
+
+
+QUERY_KERNELS = ("query_index_keys", "query_index_keys_sorted", "merge_kernel_tiled")
+
+
+def query_tables(sm) -> list:
+    """The key and value bytes of every level-0 table of a machine's query
+    tree, in table order."""
+    t = sm.query_rows
+    out = []
+    for table in t.levels[0]:
+        parts = []
+        for f in t._table_fences(table):
+            bk, bv = t._read_data_block(int(f["block"]), int(f["count"]))
+            parts += [bk.tobytes(), bv.tobytes()]
+        out.append(b"".join(parts))
+    return out
+
+
+def check_query_tree(name, gpu, cpu, launches) -> None:
+    """The CUDA machine's query tree (device route) against the CPU
+    machine's (host route): equal tables, built through the store
+    stage's kernels."""
+    g, c = query_tables(gpu), query_tables(cpu)
+    if not g or g != c:
+        raise SystemExit(f"{name}: the query tree's tables differ from the CPU run's")
+    if min(launches[k] for k in QUERY_KERNELS) == 0:
+        raise SystemExit(f"{name}: a query-index kernel did not launch: {launches}")
+    log(f"{name}: query tree: {len(g)} level-0 tables, {sum(map(len, g))} bytes, "
+        f"equal to the CPU run's; launches " + json.dumps({k: launches[k] for k in QUERY_KERNELS}))
+
+
+def log_spans(name, snap) -> None:
+    """Where a batch's time goes: the top spans, then the store's."""
+    top = sorted(snap.items(), key=lambda kv: -kv[1]["total_ms"])[:16]
+    fmt = lambda items: json.dumps({
+        k: {"count": v["count"], "total_ms": round(v["total_ms"], 3), "max_ms": round(v["max_us"] / 1e3, 3)}
+        for k, v in items
+    })
+    log(f"{name} spans: " + fmt(top))
+    store = ("sm.ct.store", "sm.store", "qindex.", "lsm.query_rows.flush",
+             "device.step.query_index", "device.step.merge_kernel_tiled")
+    log(f"{name} store spans: " + fmt(sorted((k, v) for k, v in snap.items() if k.startswith(store))))
 
 
 def run_config(torch, name, n_accounts, n_batches, pick, rng, check_ids, oracle_batches):
@@ -550,6 +802,11 @@ def run_config(torch, name, n_accounts, n_batches, pick, rng, check_ids, oracle_
             want = np.array(pairs, dtype=np.uint32).reshape(-1, 2)
             if not (np.array_equal(got["index"], want[:, 0]) and np.array_equal(got["result"], want[:, 1])):
                 raise SystemExit(f"{name} batch {i}: differs from the serial Oracle")
+    # The last batch's deferred store may flush the query tree, whose
+    # device fold ends in its one sanctioned sync: store it before the
+    # window, whose dispatches must not synchronise.
+    for sm in (gpu, cpu):
+        sm.flush_deferred()
     # Depth-2 split-phase window: both dispatches before either finish, and
     # neither dispatch may synchronise with the device.
     window = []
@@ -601,6 +858,7 @@ def run_config(torch, name, n_accounts, n_batches, pick, rng, check_ids, oracle_
     slice1 = ("create_transfers_fast", "register_accounts", "read_balances", "write_balances")
     if stats["fast_batches"] < n_batches or min(launches[k] for k in slice1) == 0:
         raise SystemExit(f"{name}: stats {stats}, launches {launches}")
+    check_query_tree(name, gpu, cpu, launches)
     lat_ms = np.array(lat[1:]) * 1e3  # the first batch pays one-time setup
     tps = TX_BATCH * len(lat_ms) / (lat_ms.sum() / 1e3)
     log(f"{name}: accounts={n_accounts} create_accounts_s={create_s:.3f} "
@@ -611,11 +869,7 @@ def run_config(torch, name, n_accounts, n_batches, pick, rng, check_ids, oracle_
     # Where a batch's time goes (the CUDA machine's traffic batches;
     # device.step.* are CUDA-event windows from dispatch to finish).
     log(f"{name}: batch latencies ms " + json.dumps([round(x * 1e3, 2) for x in lat]))
-    top = sorted(snap.items(), key=lambda kv: -kv[1]["total_ms"])[:16]
-    log(f"{name} spans: " + json.dumps({
-        k: {"count": v["count"], "total_ms": round(v["total_ms"], 3), "max_ms": round(v["max_us"] / 1e3, 3)}
-        for k, v in top
-    }))
+    log_spans(name, snap)
     win = snap.get("device.step.create_transfers_fast", {"total_ms": 0.0, "count": 0})
     log(f"{name}: create_transfers_fast dispatch-to-finish windows {win['count']}, "
         f"mean {win['total_ms'] / max(win['count'], 1):.4f} ms")
@@ -825,6 +1079,7 @@ def run_exact_config(torch, name, n_accounts, acc_flags, traffic, n_batches, rng
     need = ("create_transfers_exact", "exact_sort_plan", "register_accounts", "read_balances")
     if stats["exact_batches"] == 0 or min(launches[k] for k in need) == 0:
         raise SystemExit(f"{name}: stats {stats}, launches {launches}")
+    check_query_tree(name, gpu, cpu, launches)
     lat_ms = np.array(lat[1:]) * 1e3
     tps = TX_BATCH * len(lat_ms) / (lat_ms.sum() / 1e3)
     span = snap.get("sm.create_transfers.exact", {"count": 0, "total_ms": 0.0})
@@ -838,12 +1093,147 @@ def run_exact_config(torch, name, n_accounts, acc_flags, traffic, n_batches, rng
         f"history_accounts={len(hist)} stats={stats} launches={launches}")
     log(f"{name}: failed events by result code {dict(sorted(results.items()))}")
     log(f"{name}: batch latencies ms " + json.dumps([round(x * 1e3, 2) for x in lat]))
-    top = sorted(snap.items(), key=lambda kv: -kv[1]["total_ms"])[:16]
-    log(f"{name} spans: " + json.dumps({
-        k: {"count": v["count"], "total_ms": round(v["total_ms"], 3), "max_ms": round(v["max_us"] / 1e3, 3)}
-        for k, v in top
-    }))
+    log_spans(name, snap)
     return launches
+
+
+# --- phase 7: query traffic ----------------------------------------------
+
+
+def query_filter(types, acct, code, w0, w1):
+    f = np.zeros(1, dtype=types.QUERY_FILTER_V2_DTYPE)[0]
+    f["debit_account_id_lo"], f["code"], f["ledger"], f["limit"] = acct, code, 1, TX_BATCH
+    f["timestamp_min"], f["timestamp_max"] = w0, w1
+    return f
+
+
+def run_query_config(torch, rng, n_batches=64):
+    """bench_query's traffic through both machines; the CUDA machine's
+    query-index route end to end: key builds, device folds, a host merge
+    after a read barrier, queries, and the device intersect."""
+    from tigerbeetle_tpu_torch import tracer, types
+    from tigerbeetle_tpu_torch.constants import PRODUCTION
+    from tigerbeetle_tpu_torch.lsm import scan
+    from tigerbeetle_tpu_torch.models.state_machine import StateMachine
+    from tigerbeetle_tpu_torch.ops import commit as C
+
+    name = "query"
+    C.reset_launches()
+    tracer.reset()
+    gpu = StateMachine(PRODUCTION)
+    cpu = StateMachine(PRODUCTION, device="cpu")
+    for ev in account_batches(types, N_ACC_QUERY):
+        expect_equal(gpu.create_accounts(ev), cpu.create_accounts(ev), f"{name} create_accounts")
+    cdf = np.cumsum(np.arange(1, N_ACC_QUERY + 1, dtype=np.float64) ** -1.1)
+    cdf /= cdf[-1]
+
+    def draw(r, k):
+        return (np.searchsorted(cdf, r.random(k)) + 1).clip(1, N_ACC_QUERY).astype(np.uint64)
+
+    pool = rng.integers(1, 1 << 62, 1024, dtype=np.uint64)
+    ts_lo = gpu.commit_timestamp + 1
+
+    def filters(k, ts_hi):
+        span = (ts_hi - ts_lo) // 8
+        out = []
+        for _ in range(k):
+            w0 = int(rng.integers(ts_lo, ts_hi - span))
+            out.append(query_filter(types, int(draw(rng, 1)[0]), int(rng.integers(1, 17)), w0, w0 + span))
+        return out
+
+    def both(f, what):
+        t = time.perf_counter()
+        got = gpu.query_transfers(f)
+        elapsed = time.perf_counter() - t
+        expect_equal(got, cpu.query_transfers(f), what)
+        return elapsed, len(got)
+
+    next_id = 1 << 43
+    lat, store_checked, barrier_at = [], False, 34
+    for i in range(n_batches):
+        ev = query_mix(rng, TX_BATCH, pool, next_id, draw)
+        next_id += TX_BATCH
+        tracer.enable()
+        t = time.perf_counter()
+        got = gpu.create_transfers(ev)
+        lat.append(time.perf_counter() - t)
+        tracer.disable()
+        expect_equal(got, cpu.create_transfers(ev), f"{name} batch {i}")
+        tree = gpu.query_rows
+        if not store_checked and i >= 1 and tree._mem_count + 5 * TX_BATCH < tree.memtable_max:
+            # A store that does not flush the query tree hides no sync.
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                gpu.flush_deferred()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            cpu.flush_deferred()
+            store_checked = True
+            log(f"{name}: the store of batch {i} ran under sync-debug mode 'error'")
+        if i + 1 == barrier_at:
+            for sm in (gpu, cpu):
+                sm.flush_deferred()
+            lazy = sum(not isinstance(m, tuple) for m in tree._mem)
+            for k, f in enumerate(filters(8, gpu.commit_timestamp)):
+                both(f, f"{name} barrier query {k}")
+            resolved = sum(isinstance(m, tuple) for m in tree._mem)
+            log(f"{name}: after batch {barrier_at}, 8 queries materialized the "
+                f"memtable's {lazy} lazy runs ({resolved} host runs after)")
+            if not lazy or resolved != len(tree._mem):
+                raise SystemExit(f"{name}: the read barrier materialized no lazy run")
+    if not store_checked:
+        raise SystemExit(f"{name}: no store ran under sync-debug mode 'error'")
+
+    final = filters(100, gpu.commit_timestamp)
+    qlat, hits = [], 0
+    for k, f in enumerate(final):
+        elapsed, n_rows = both(f, f"{name} query {k}")
+        qlat.append(elapsed)
+        hits += n_rows
+    # The materializing strategy's AND-merge through the device intersect.
+    gpu.flush_deferred()
+    inter = 0
+    for k, f in enumerate(final[:16]):
+        w0, w1 = int(f["timestamp_min"]), int(f["timestamp_max"])
+        dev_b = gpu.scan_builder(w0, w1)
+        host_b = scan.ScanBuilder(gpu.query_rows, gpu.account_rows, w0, w1)
+        for b in (dev_b, host_b):
+            b.where_account(int(f["debit_account_id_lo"]), 0)
+            b.where_field(scan.TAG_CODE, int(f["code"]))
+            b.where_field(scan.TAG_LEDGER, 1)
+        got, want = dev_b.execute("materialize"), host_b.execute("materialize")
+        if not np.array_equal(got, want):
+            raise SystemExit(f"{name}: materialized filter {k} differs from the host gallop")
+        inter += len(got)
+    torch.cuda.synchronize()
+    launches = dict(C.LAUNCHES)
+    snap = tracer.snapshot()
+    check_query_tree(name, gpu, cpu, launches)
+    tables = len(gpu.query_rows.levels[0])
+    folds = launches["merge_kernel_tiled"] // 3
+    if launches["scan_intersect_mask"] == 0 or folds == 0 or tables <= folds:
+        raise SystemExit(f"{name}: tables {tables}, device folds {folds}, launches {launches}")
+    lat_ms = np.array(lat[1:]) * 1e3
+    q_ms = np.array(qlat) * 1e3
+    log(f"{name}: transfers={n_batches * TX_BATCH} batches={n_batches} "
+        f"transfers_per_s={TX_BATCH * len(lat_ms) / (lat_ms.sum() / 1e3):.0f} "
+        f"batch_p50_ms={np.percentile(lat_ms, 50):.3f} batch_p99_ms={np.percentile(lat_ms, 99):.3f} "
+        f"tables={tables} device_folds={folds} host_flushes={tables - folds} "
+        f"queries={len(final)} rows={hits} query_p50_ms={np.percentile(q_ms, 50):.3f} "
+        f"query_p99_ms={np.percentile(q_ms, 99):.3f} query_max_ms={q_ms.max():.3f} "
+        f"materialized_rows={inter} launches={launches} on {gpu_name_power()}")
+    log(f"{name}: query latencies ms " + json.dumps([round(x, 3) for x in q_ms]))
+    log_spans(name, snap)
+    return launches
+
+
+def gpu_name_power() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def main() -> int:
@@ -883,6 +1273,7 @@ def main() -> int:
     log("phase 2: kernels vs plain versions at A=2^20, n=8192")
     phase_kernels(torch, C, rng, dev)
     phase_exact(torch, C, dev)
+    phase_qindex(torch, dev, rng)
 
     log("phase 3: BASELINE config 1 (10,000 accounts, uniform)")
     n1 = 10_000
@@ -918,17 +1309,16 @@ def main() -> int:
     l4 = run_exact_config(torch, "config4", n4, flags4, t4, 32, rng,
                           funding=[t4.funding(types, limit_ids, free_ids)])
 
+    log("phase 7: query traffic (10,000 accounts, Zipf(1.1), 16 codes, 64 batches)")
+    l7 = run_query_config(torch, rng)
+
+    phases = {"config1": l1, "config2": l2, "config3": l3, "config4": l4, "query": l7}
     for name, row in RESULTS.items():
-        counts = [l[name] for l in (l1, l2, l3, l4)]
-        row["launches"] = sum(counts)
-        for k, c in enumerate(counts, 1):
-            row[f"launches_config{k}"] = c
+        row["launches"] = sum(l[name] for l in phases.values())
+        for label, l in phases.items():
+            row[f"launches_{label}"] = l[name]
     print(json.dumps({"kernels": list(RESULTS.values())}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi)
+    print(gpu_name_power())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

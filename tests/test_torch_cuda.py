@@ -210,3 +210,172 @@ def test_exact_sort_plan_kernel(dev, kind):
     assert C.LAUNCHES["exact_sort_plan"] == before + 1
     for f, g, w in zip(E.SortPlan._fields, got, plan):
         assert torch.equal(g, w), f
+
+
+# --- the store stage's query index and the query intersect ---------------
+
+
+def _query_recs(rng, n):
+    """n transfers with random queryable columns, fold56 edge values in
+    the first rows (>= 2^56, >= 2^63, u128 hi words set)."""
+    from tigerbeetle_tpu_torch import types
+
+    recs = np.zeros(n, dtype=types.TRANSFER_DTYPE)
+    for f in ("user_data_128_lo", "user_data_128_hi", "user_data_64"):
+        recs[f] = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+    recs["user_data_32"] = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+    recs["ledger"] = rng.integers(1, 5, n)
+    recs["code"] = rng.integers(1, 5, n)
+    edges = np.array([(1 << 56) - 1, 1 << 56, 1 << 63, (1 << 64) - 1], np.uint64)
+    k = min(n, len(edges))
+    recs["user_data_64"][:k] = edges[:k]
+    recs["user_data_128_hi"][:k] = edges[::-1][:k]
+    recs["timestamp"] = rng.integers(1, 1 << 63, n, dtype=np.uint64)
+    return recs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 300, 8190])
+def test_query_index_keys_kernels(dev, n):
+    """Both key builds (the build kernel; the build and the sort kernel)
+    against their plain versions on the same staged batch on the card."""
+    from tigerbeetle_tpu_torch.ops import qindex as Q
+
+    rng = np.random.default_rng(n)
+    recs = _query_recs(rng, n)
+    rows = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    staged = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for a in Q.stage_query_batch(recs, rows, recs["timestamp"])]
+    for name in ("query_index_keys", "query_index_keys_sorted"):
+        before = dict(C.LAUNCHES)
+        got = getattr(Q, name)(*staged)
+        want = getattr(Q, f"{name}_plain")(*staged)
+        torch.cuda.synchronize()
+        assert C.LAUNCHES["query_index_keys"] == before["query_index_keys"] + 1
+        assert C.LAUNCHES[name] == before[name] + 1
+        assert _equal(got[0], want[0]) and _equal(got[1], want[1]), name
+
+
+@pytest.mark.cuda
+def test_query_index_keys_sorted_refuses_a_block_above_8192(dev):
+    from tigerbeetle_tpu_torch.ops import qindex as Q
+
+    n = 16384
+    args = [torch.zeros(s, dtype=torch.int32, device=dev).view(torch.uint32)
+            for s in ((n, 9), (n, 2), (n,), (n,))]
+    before = C.LAUNCHES["query_index_keys"]
+    with pytest.raises(ValueError):
+        Q.query_index_keys_sorted(*args)
+    assert C.LAUNCHES["query_index_keys"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [256, 64])
+def test_merge_kernel_tiled_kernel(dev, tile):
+    """Top-bit keys with heavy duplicates across both runs, and padding."""
+    from tigerbeetle_tpu_torch.ops import merge as M
+
+    rng = np.random.default_rng(tile)
+
+    def run(n):
+        k = np.zeros((n, 3), np.uint32)
+        k[:, 1] = np.sort(rng.integers(0, 4, n)).astype(np.uint32) | np.uint32(1 << 31)
+        k[:, 0] = rng.integers(0, 3, n)
+        o = np.lexsort((k[:, 0], k[:, 1]))
+        k = k[o]
+        k[n - 7:] = [0, 0, 1]  # padding rows sort last
+        p = rng.integers(0, 1 << 32, (n, 3), dtype=np.uint64).astype(np.uint32)
+        return torch.from_numpy(k).to(dev), torch.from_numpy(p).to(dev)
+
+    ka, pa = run(1024)
+    kb, pb = run(3072)
+    before = C.LAUNCHES["merge_kernel_tiled"]
+    got = M.merge_kernel_tiled(ka, pa, kb, pb, tile)
+    want = M.merge_kernel_tiled_plain(ka, pa, kb, pb, tile)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["merge_kernel_tiled"] == before + 1
+    assert _equal(got[0], want[0]) and _equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_scan_intersect_mask_kernel(dev):
+    from tigerbeetle_tpu_torch.ops import scanops as S
+
+    rng = np.random.default_rng(7)
+    run = np.unique(rng.integers(1 << 31, (1 << 32) - 1, 50_000, dtype=np.uint64)).astype(np.uint32)
+    cand = np.unique(np.concatenate([rng.choice(run, 3000),
+                                     rng.integers(0, (1 << 32) - 1, 3000, dtype=np.uint64).astype(np.uint32)]))
+    c = torch.from_numpy(S._pad_sorted_u32(cand)).to(dev)
+    r = torch.from_numpy(S._pad_sorted_u32(run)).to(dev)
+    before = C.LAUNCHES["scan_intersect_mask"]
+    got = S.scan_intersect_mask(c, r)
+    want = S.scan_intersect_mask_plain(c, r)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["scan_intersect_mask"] == before + 1
+    assert torch.equal(got, want)
+    assert np.array_equal(S.intersect_sorted_device(cand, run, dev),
+                          np.intersect1d(cand, run))
+
+
+@pytest.mark.cuda
+def test_build_run_dispatch_does_not_sync(dev):
+    from tigerbeetle_tpu_torch.ops import qindex as Q
+
+    rng = np.random.default_rng(8)
+    recs = _query_recs(rng, 8190)
+    rows = np.arange(8190, dtype=np.uint32)
+    Q.build_run(recs, rows, recs["timestamp"], dev).materialize()  # warm up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runs = [Q.build_run(recs, rows, recs["timestamp"], dev) for _ in range(2)]
+        kd, pd, n = Q.fold_runs_device(runs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    keys, vals = Q.materialize_fold(kd, pd, n)
+    host = [Q.build_run(recs, rows, recs["timestamp"], "cpu") for _ in range(2)]
+    wk, wv = Q.materialize_fold(*Q.fold_runs_device(host))
+    assert keys.tobytes() == wk.tobytes() and np.array_equal(vals, wv)
+
+
+@pytest.mark.cuda
+def test_state_machine_query_index_route_on_cuda(dev):
+    """A small machine on the card (the device route) against one on the
+    CPU (the host route): query tree tables and query results equal."""
+    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch.constants import Config
+    from tigerbeetle_tpu_torch.models.state_machine import StateMachine
+
+    cfg = Config(name="unit", accounts_max=1 << 10, transfers_max=1 << 14,
+                 lsm_block_size=1 << 12, grid_block_count=1 << 12,
+                 grid_cache_blocks=64, index_memtable_rows=2048)
+    gpu, cpu = StateMachine(cfg), StateMachine(cfg, device="cpu")
+    assert gpu._qindex_device and not cpu._qindex_device
+    acc = np.zeros(16, dtype=types.ACCOUNT_DTYPE)
+    acc["id_lo"] = np.arange(1, 17)
+    acc["ledger"], acc["code"] = 1, 1
+    for sm in (gpu, cpu):
+        sm.create_accounts(acc.copy())
+    rng = np.random.default_rng(9)
+    before = dict(C.LAUNCHES)
+    for i in range(9):
+        ev = np.zeros(300, dtype=types.TRANSFER_DTYPE)
+        ev["id_lo"] = np.arange(1000 + 300 * i, 1300 + 300 * i)
+        ev["debit_account_id_lo"] = rng.integers(1, 9, 300)
+        ev["credit_account_id_lo"] = rng.integers(9, 17, 300)
+        ev["amount_lo"], ev["ledger"] = 1, 1
+        ev["code"] = rng.integers(1, 5, 300)
+        ev["user_data_64"] = rng.choice(np.array([3, 1 << 63], np.uint64), 300)
+        assert gpu.create_transfers(ev.copy()).tobytes() == cpu.create_transfers(ev.copy()).tobytes()
+    f = np.zeros(1, dtype=types.QUERY_FILTER_V2_DTYPE)[0]
+    f["code"], f["ledger"], f["debit_account_id_lo"], f["limit"] = 2, 1, 3, 8190
+    assert gpu.query_transfers(f).tobytes() == cpu.query_transfers(f).tobytes()
+    for k in ("query_index_keys", "query_index_keys_sorted", "merge_kernel_tiled"):
+        assert C.LAUNCHES[k] > before[k], k
+    tables = []
+    for sm in (gpu, cpu):
+        t = sm.query_rows
+        tables.append(b"".join(
+            b"".join(x.tobytes() for x in t._read_data_block(int(fe["block"]), int(fe["count"])))
+            for lvl in t.levels for tb in lvl for fe in t._table_fences(tb)))
+    assert tables[0] and tables[0] == tables[1]

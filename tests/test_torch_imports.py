@@ -26,12 +26,31 @@ def test_port_imports_without_jax_or_reference():
         "sys.path.insert(0, 'tests')\n"
         "import chip_smoke, exact_batches\n"
         "import tigerbeetle_tpu_torch.lsm.scan, tigerbeetle_tpu_torch.lsm.groove\n"
+        "import tigerbeetle_tpu_torch.ops.qindex, tigerbeetle_tpu_torch.ops.merge\n"
+        "import tigerbeetle_tpu_torch.ops.scanops, tigerbeetle_tpu_torch.lsm.tree\n"
         "bad = [m for m in sys.modules if m == 'tigerbeetle_tpu'"
         " or m.startswith('tigerbeetle_tpu.')]\n"
         "print('reference modules:', bad)\n"
         "assert not bad\n"
     )
     assert out.returncode == 0, out.stderr + out.stdout
+
+
+def test_no_port_module_imports_the_reference_package():
+    """No source of the port (nor chip_smoke.py) names the reference
+    package in an import statement."""
+    import re
+
+    pat = re.compile(r"^\s*(from|import)\s+tigerbeetle_tpu(\.|\s|$)", re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, names in os.walk(os.path.join(REPO, "tigerbeetle_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    bad = []
+    for f in files:
+        with open(f) as fh:
+            if pat.search(fh.read()):
+                bad.append(os.path.relpath(f, REPO))
+    assert len(files) > 20 and not bad, bad
 
 
 def test_state_machine_without_device_raises_without_cuda():

@@ -4,8 +4,9 @@ devicestats.py: the two calls the state machine makes).
 `note_call` records the argument shapes of each kernel-entry call while
 the tracer is enabled; `retire_bucket` drops the rows of a scratch-ring
 bucket the workload stopped using, so the registry stays bounded. The
-reference's compiler cost model has no counterpart here: a hand-written
-kernel's bytes and operations are stated beside it (ops/commit.py).
+reference's compiler cost model has no counterpart here. `cost` gives
+the least work of a store-stage or query-path entry from its arguments
+(the commit kernels' costs are stated beside them in chip_smoke.py).
 """
 
 from __future__ import annotations
@@ -59,6 +60,48 @@ def retire_bucket(bucket: int) -> None:
                 del rows[k]
             if not rows:
                 del _shapes[entry]
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _log2(n: int) -> int:
+    return max(int(n), 1).bit_length()
+
+
+# entry -> (its call's arguments -> (bytes, integer operations)): the
+# bytes the function must move (each input read once, each output written
+# once) and a count of its integer operations, from the shapes alone.
+COSTS = {
+    # cols, ts, rows, pad in; keys and payload (5 n, 3) u32 out; ~40
+    # operations a record.
+    "query_index_keys": lambda cols, ts, rows, pad: (
+        _nbytes(cols, ts, rows, pad) + 2 * 5 * rows.numel() * 12,
+        40 * rows.numel(),
+    ),
+    # the same bytes; a stable sort of 5 n rows, ~20 operations a row for
+    # each of up to 15 radix passes.
+    "query_index_keys_sorted": lambda cols, ts, rows, pad: (
+        _nbytes(cols, ts, rows, pad) + 2 * 5 * rows.numel() * 12,
+        40 * rows.numel() + 15 * 20 * 5 * rows.numel(),
+    ),
+    # both runs in, their merge out; a binary search in a tile per row.
+    "merge_kernel_tiled": lambda ka, pa, kb, pb, tile=256: (
+        2 * _nbytes(ka, pa, kb, pb),
+        (ka.shape[0] + kb.shape[0]) * 8 * _log2(tile),
+    ),
+    # both arrays in, one byte a candidate out; a binary search each.
+    "scan_intersect_mask": lambda cand, run: (
+        _nbytes(cand, run) + cand.numel(),
+        cand.numel() * 4 * _log2(run.numel()),
+    ),
+}
+
+
+def cost(entry: str, args: tuple):
+    """(bytes, integer operations) of one call of `entry` on `args`."""
+    return COSTS[entry](*args)
 
 
 def observed_shapes() -> Dict[str, list]:

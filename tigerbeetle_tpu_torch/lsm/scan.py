@@ -115,21 +115,27 @@ def prefix(tag: int, value_lo: int, value_hi: int = 0) -> int:
     return (tag << 56) | f
 
 
-def intersect_rows(parts: List[np.ndarray]) -> np.ndarray:
+def intersect_rows(parts: List[np.ndarray], device=None) -> np.ndarray:
     """AND-merge of sorted row arrays (scan_merge.zig:252 intersection),
     smallest-first so the working set only shrinks. Pairwise merges run
-    the C gallop (store.intersect_sorted_u32) on the host; the device
-    membership kernel is not ported yet."""
+    the C gallop (store.intersect_sorted_u32) when `device` is None, and
+    the membership kernel on `device` (ops/scanops) otherwise: the same
+    rows either way."""
     from tigerbeetle_tpu_torch.lsm.store import intersect_sorted_u32
 
     if not parts:
         return np.zeros(0, dtype=np.uint32)
     parts = sorted(parts, key=len)
     out = np.asarray(parts[0], dtype=np.uint32)
+    if device is not None:
+        from tigerbeetle_tpu_torch.ops.scanops import intersect_sorted_device
     for p in parts[1:]:
         if len(out) == 0:
             break
-        out = intersect_sorted_u32(out, p)
+        if device is not None:
+            out = intersect_sorted_device(out, p, device)
+        else:
+            out = intersect_sorted_u32(out, p)
     return out.astype(np.uint32, copy=False)
 
 
@@ -205,7 +211,8 @@ class ScanBuilder:
     def __init__(self, query_tree, account_tree=None,
                  ts_min: int = 0, ts_max: int = U64_MAX,
                  row_cost: Optional[float] = None,
-                 log_stats: Optional[Tuple[int, int, float]] = None) -> None:
+                 log_stats: Optional[Tuple[int, int, float]] = None,
+                 device=None) -> None:
         self.query_tree = query_tree
         self.account_tree = account_tree
         self.ts_min = ts_min
@@ -217,6 +224,10 @@ class ScanBuilder:
         # model in _probe_pays.
         self.row_cost = row_cost
         self.log_stats = log_stats
+        # The device of the AND-merge's membership kernel (intersect_rows),
+        # or None for the host gallop: the state machine's, where its
+        # device query-index route is on.
+        self.device = device
         self._preds: List[Pred] = []
         self._plan: Optional[List[Pred]] = None
 
@@ -321,7 +332,9 @@ class ScanBuilder:
         if not plan:
             return np.zeros(0, dtype=np.uint32)
         if strategy == "materialize":
-            return intersect_rows([self._materialize(p) for p in plan])
+            return intersect_rows(
+                [self._materialize(p) for p in plan], self.device
+            )
         cand = np.ascontiguousarray(self._materialize(plan[0]),
                                     dtype=np.uint32)
         for p in plan[1:]:

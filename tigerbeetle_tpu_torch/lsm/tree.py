@@ -9,7 +9,10 @@ The device-first re-design of the reference's tree/table/compaction stack
     block — so point lookups read exactly one data block.
   - The *memtable* is unsorted appended batches (vectorized inserts only,
     matching the prefetch-batch design, groove.zig:644-909); it flushes as a
-    sorted level-0 table.
+    sorted level-0 table. The query index's batches may be lazy device
+    runs (ops/qindex.QueryKeyRun): a flush of sorted runs no read has
+    materialized folds them on the device (ops/merge.merge_kernel_tiled);
+    any other flush or read materializes them first.
   - Compaction (the reference's leveled k-way merge, driven by the
     replica's per-op beat) is not part of this port yet: flushed tables
     stay in level 0, and reads walk them newest first.
@@ -157,7 +160,8 @@ class DurableIndex:
         # Memtable batches: appended in the store context, read drain-free
         # from the commit thread under the flag-before-batch publish order
         # (_sort_mem_lazily) — never concurrently mutated from both.
-        self._mem: List[Tuple[np.ndarray, np.ndarray]] = []  # tidy: owner=commit|store
+        # A batch is a (keys, vals) tuple or a lazy device run.
+        self._mem: list = []  # tidy: owner=commit|store
         # tidy: owner=commit|store — per-batch lo-major-sorted flag, published BEFORE its batch
         self._mem_sorted: List[bool] = []
         self._mem_count = 0  # tidy: owner=commit|store
@@ -229,6 +233,59 @@ class DurableIndex:
         if self._mem_count >= self.memtable_max:
             self.flush_memtable()
 
+    def insert_run_lazy(self, run) -> None:
+        """Append a dispatched device run (ops/qindex.QueryKeyRun): a handle
+        whose keys stay on the device until `materialize()`, the
+        split-phase write path of the device query index. The run counts
+        toward the flush threshold at once (flush cadence, hence grid
+        allocation order, is the host path's); its bytes are demanded only
+        at a flush, a read or the idle prefetch. Only for trees read
+        behind a store barrier (query_rows)."""
+        if run.n == 0:
+            return
+        self._mem_sorted.append(run.sorted)
+        self._mem.append(run)
+        self._mem_count += run.n
+        self.count += run.n
+        if self._mem_count >= self.memtable_max:
+            self.flush_memtable()
+
+    def _resolve_mem(self) -> None:
+        """Materialize any lazy device runs in place (tuples stay)."""
+        mem = self._mem
+        for i in range(len(mem)):
+            if not isinstance(mem[i], tuple):
+                mem[i] = mem[i].materialize()
+
+    @staticmethod
+    def _fold_runs(mem) -> bool:
+        """Whether a flush folds `mem` on the device: every batch a lazy
+        run, none materialized yet."""
+        return bool(mem) and all(
+            not isinstance(m, tuple) and not m.materialized for m in mem
+        )
+
+    def prefetch_lazy_one(self) -> bool:
+        """Materialize ONE pending device run (oldest first), the store
+        stage's idle poll: the device-to-host copy moves into idle gaps so
+        the flush never waits on it. Content and flush timing are
+        unchanged (materialize is idempotent); True while more remain.
+
+        It pulls only where the flush's device fold will not run: while
+        the fold is intact an early copy would waste the transfer and turn
+        the fold into the host merge. Once a read barrier materialized any
+        run (lookup_range -> _resolve_mem) the flush takes the host merge
+        anyway, and pulling the rest forward is pure gain; barrier timing
+        follows the op stream, so the routing stays deterministic."""
+        pending = [
+            m for m in self._mem
+            if not isinstance(m, tuple) and not m.materialized
+        ]
+        if not pending or self._fold_runs(self._mem):
+            return False
+        pending[0].materialize()
+        return len(pending) > 1
+
     def _sort_mem_lazily(self) -> None:
         """Point-lookup prerequisite: every memtable batch lo-major sorted
         (unsorted ones arrive via insert_unsorted). Operates on local
@@ -239,6 +296,7 @@ class DurableIndex:
         mutation loop, and the drain-free concurrent reader cannot race
         the store thread's appends (unsorted-batch trees are only ever
         read behind a full store barrier)."""
+        self._resolve_mem()  # no-op unless lazy device runs are present
         flags = self._mem_sorted
         mem = self._mem
         if len(flags) >= len(mem) and all(flags):
@@ -278,23 +336,50 @@ class DurableIndex:
         Route by what the batches already are: when every batch is a
         sorted run, a stable k-way MERGE (oldest first — identical bytes
         to the radix sort of the concatenation, enforced by property
-        tests) replaces the full re-sort. Unsorted batches
-        (insert_unsorted trees) keep the fused C radix path."""
+        tests) replaces the full re-sort; sorted device runs that no read
+        has materialized fold through the tiled merge kernel on the device
+        and come back only here, at the table-build boundary. Unsorted
+        batches (insert_unsorted trees) keep the fused C radix path."""
         mem = self._mem
         flags = self._mem_sorted
         all_sorted = len(flags) >= len(mem) and all(flags)
         if all_sorted and len(mem) == 1:
+            self._resolve_mem()
             return mem[0]
         if all_sorted and len(mem) > 1:
+            if self._fold_runs(mem):
+                return self._fold_on_device(mem)
+            self._resolve_mem()
             if self.merge_hint == "dups" or len(mem) <= 8:
                 with self._flush_span("merge"):
                     return merge_host_kway(
                         [k for k, _ in mem], [v for _, v in mem]
                     )
+        self._resolve_mem()
         with self._flush_span("sort"):
             keys = np.concatenate([k for k, _ in self._mem])
             vals = np.concatenate([v for _, v in self._mem])
             return sort_kv(keys, vals)  # fused C sort+gather
+
+    def _fold_on_device(self, runs) -> Tuple[np.ndarray, np.ndarray]:
+        """The device fold of sorted lazy runs: pairwise tiled merges on
+        the device, then the one sync (the sanctioned table-build
+        boundary) that brings back the real rows."""
+        from tigerbeetle_tpu_torch.ops import qindex
+
+        with self._flush_span("merge"):
+            t_disp = tracer.device_dispatch("merge_kernel_tiled")
+            kd, pd, n_real = qindex.fold_runs_device(runs)
+            keys, vals = qindex.materialize_fold(kd, pd, n_real)
+            tracer.device_finish(
+                "merge_kernel_tiled", t_disp,
+                d2h_bytes=keys.nbytes + vals.nbytes,
+            )
+            # The fold consumed the runs on the device: close each run's
+            # key-build window at this one sync.
+            for r in runs:
+                r.finish_dispatch()
+        return keys, vals
 
     def _publish_level_gauges(self) -> None:
         if self.name is not None and tracer.enabled():
@@ -537,6 +622,7 @@ class DurableIndex:
     def lookup_range(self, key: np.void) -> np.ndarray:
         """All values stored under `key` (non-unique index), ascending."""
         assert not self.unique
+        self._resolve_mem()
         k_lo = key["lo"]
         k_hi = key["hi"]
         parts: List[np.ndarray] = []
@@ -763,6 +849,7 @@ class DurableIndex:
         runs per commit and merges only keep lo order) — _mark_seg
         gallops ascending segments and searchsorted-marks the rest."""
         assert not self.unique
+        self._resolve_mem()
         k_lo, k_hi = key["lo"], key["hi"]
         lo1 = np.asarray([k_lo], dtype=np.uint64)
         hi1 = np.asarray([k_hi], dtype=np.uint64)

@@ -20,6 +20,16 @@ re-expresses upstream's StateMachine (src/state_machine.zig:34):
     write balances back to the device. `stats` counts the batches of each
     route.
 
+  - The store stage's secondary query index (`_store_query_index`) takes
+    the device route on CUDA: each batch's composite keys are built and
+    sorted on the device (ops/qindex.build_run) and handed to the query
+    tree as a lazy run, and memtable flushes fold those runs on the
+    device (lsm/tree.py, ops/merge.merge_kernel_tiled); the query path's
+    AND-merges use the device intersect (ops/scanops). On the CPU the
+    route is off unless `device_query_index=True`, as the reference's
+    policy keeps it off on XLA's CPU backend; both routes store the same
+    table bytes.
+
 The device is CUDA unless the caller passes `device="cpu"`, where every
 kernel entry runs its plain PyTorch version. Results are byte-identical to
 the reference package and to models/oracle.py (tests/test_torch_*.py).
@@ -152,6 +162,7 @@ class StateMachine:
 
     def __init__(
         self, config: Config = PRODUCTION, device=None, grid=None,
+        device_query_index: bool = False,
     ) -> None:
         from tigerbeetle_tpu_torch.io.grid import MemGrid
 
@@ -228,6 +239,11 @@ class StateMachine:
             memtable_max=config.index_memtable_rows,
             name="query_rows", merge_hint="dups",
         )
+        # The device query-index route (ops/qindex.py): key build and sort
+        # on the device, lazy runs in the tree, the flush's fold and the
+        # query intersect on the device. Always on CUDA; on the CPU only
+        # when asked, so that the plain versions drive the same code.
+        self._qindex_device = self.device.type == "cuda" or bool(device_query_index)
         self.transfer_log = DurableLog(self.grid, types.TRANSFER_DTYPE)
         # Transfer-id membership pre-filter (no false negatives): keeps the
         # per-batch duplicate-id check O(batch) instead of O(tables).
@@ -367,8 +383,18 @@ class StateMachine:
                 np.asarray(ts, dtype=np.uint64)
                 if ts is not None else recs["timestamp"]
             )
-            # One preallocated key block filled slice-wise (the device
-            # key-build kernel is not ported yet).
+            if self._qindex_device:
+                # Stage and dispatch the key build and sort and hand the
+                # tree a lazy run: no device-to-host sync here. The bytes
+                # come back at a flush (the device fold), a read barrier
+                # or the idle prefetch.
+                from tigerbeetle_tpu_torch.ops import qindex
+
+                with tracer.span("sm.store.query.keys"):
+                    run = qindex.build_run(recs, rows, tstamp, self.device)
+                self.query_rows.insert_run_lazy(run)
+                return
+            # Host route: one preallocated key block filled slice-wise.
             with tracer.span("sm.store.query.keys"):
                 tags = (
                     (scan.TAG_UD128, scan.fold56(
@@ -1639,6 +1665,23 @@ class StateMachine:
         with tracer.span("sm.query"):
             return self._query_transfers_inner(f, scan)
 
+    def scan_builder(self, ts_min: int, ts_max: int):
+        """A ScanBuilder over this machine's query and account indexes in
+        the timestamp window [ts_min, ts_max]; its AND-merges run on the
+        device where the device query-index route is on. Callers flush the
+        deferred store first (query_transfers does)."""
+        from tigerbeetle_tpu_torch.lsm import scan
+
+        return scan.ScanBuilder(
+            self.query_rows, self.account_rows, ts_min, ts_max,
+            log_stats=(
+                self.transfer_log.count,
+                len(self.transfer_log.blocks),
+                self.transfer_log.resident_fraction(),
+            ),
+            device=self.device if self._qindex_device else None,
+        )
+
     def _query_transfers_inner(self, f: np.void, scan) -> np.ndarray:
         self.flush_deferred()
         names = f.dtype.names
@@ -1662,14 +1705,7 @@ class StateMachine:
         ts_min = ts_min_raw if ts_min_raw else 1
         ts_max = ts_max_raw if ts_max_raw else U64_MAX - 1
 
-        builder = scan.ScanBuilder(
-            self.query_rows, self.account_rows, ts_min, ts_max,
-            log_stats=(
-                self.transfer_log.count,
-                len(self.transfer_log.blocks),
-                self.transfer_log.resident_fraction(),
-            ),
-        )
+        builder = self.scan_builder(ts_min, ts_max)
         if ud128_lo or ud128_hi:
             builder.where_field(scan.TAG_UD128, ud128_lo, ud128_hi)
         if ud64:

@@ -72,17 +72,10 @@ LADDER_CODES = {
 }
 assert all(int(getattr(TR, k)) == v for k, v in LADDER_CODES.items())
 
-# Kernel launches per entry (plain-version calls do not count).
-LAUNCHES: Dict[str, int] = {
-    "create_transfers_fast": 0, "register_accounts": 0,
-    "read_balances": 0, "write_balances": 0,
-    "create_transfers_exact": 0, "exact_sort_plan": 0,
-}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+# Kernel launches per entry, every kernel of the port (ops/kernels.py).
+LAUNCHES = kernels.LAUNCHES
+reset_launches = kernels.reset_launches
+_launch = kernels.launch
 
 
 class LedgerState(NamedTuple):
@@ -164,15 +157,7 @@ def state_to_numpy(state: LedgerState) -> Dict[str, np.ndarray]:
 # --- argument checks shared by the kernel wrappers ------------------------
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
+_check = kernels.check
 
 
 def _check_state(state: LedgerState) -> int:
@@ -183,17 +168,6 @@ def _check_state(state: LedgerState) -> int:
     _check(state.ledger, "ledger", torch.uint32, (a,), dev)
     _check(state.flags, "flags", torch.uint32, (a,), dev)
     return a
-
-
-def _launch(name: str, device, *args) -> None:
-    """Launch kernel `name` on `device`'s current stream (appended to
-    `args`); raise on the cudaError_t its C entry returns."""
-    fn = kernels.entry(name)
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
-    LAUNCHES[name] += 1
 
 
 # --- create_transfers_fast ------------------------------------------------

@@ -12,6 +12,11 @@ Libraries are built at first use, or all at once by `build_all()` (one
 `nvcc` per source, started together). A library's file name carries a
 hash of its source and of common.cuh, so an edited source is rebuilt and
 a stale library is never loaded. A failed build raises.
+
+Wrappers check their arguments with `check`, launch with `launch` (on
+the device's current stream; a nonzero cudaError_t raises) and so count
+every launch in `LAUNCHES`, which chip_smoke.py resets before a main-path
+run and reads after it.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ import shutil
 import subprocess
 import threading
 from typing import Dict, List
+
+import torch
 
 from tigerbeetle_tpu_torch.native import BUILD_DIR
 
@@ -43,7 +50,19 @@ SIGNATURES = {
     "write_balances": ("tb_write_balances", [_P] * 9 + [_I, _I, _P]),
     "create_transfers_exact": ("tb_create_transfers_exact", [_P, _P, _P]),
     "exact_sort_plan": ("tb_exact_sort_plan", [_P, _P, _P]),
+    "query_index_keys": ("tb_query_index_keys", [_P] * 6 + [_I, _P]),
+    "query_index_keys_sorted": ("tb_query_index_keys_sorted", [_P] * 5 + [_I, _P]),
+    "merge_kernel_tiled": ("tb_merge_kernel_tiled", [_P] * 6 + [_I, _I, _I, _P]),
+    "scan_intersect_mask": ("tb_scan_intersect_mask", [_P] * 3 + [_I, _I, _P]),
 }
+
+# Kernel launches per entry (plain-version calls do not count).
+LAUNCHES: Dict[str, int] = dict.fromkeys(SIGNATURES, 0)
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -132,6 +151,31 @@ def helper(name: str, symbol: str, argtypes, restype):
         fn.restype = restype
         _loaded[symbol] = fn
     return fn
+
+
+def launch(name: str, device, *args) -> None:
+    """Launch kernel `name` on `device`'s current stream (appended to
+    `args`); raise on the cudaError_t its C entry returns, and count the
+    launch."""
+    fn = entry(name)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+    LAUNCHES[name] += 1
+
+
+def check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    """Raise unless `t` is a contiguous, 16-byte aligned `dtype` tensor of
+    `shape` on `device` (a wrapper's argument check before a launch)."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
 
 
 def pointer_array(ptrs) -> ctypes.Array:

@@ -4,9 +4,9 @@ package's tracer.py: the calls the state machine and the LSM make).
   - `span(event)` times a scoped host region: per-event count, total and
     max nanoseconds.
   - `count` / `gauge`: counters and last-write-wins gauges.
-  - `device_mem_set` / `device_mem_retire_prefix`: the owner-tagged device
-    memory ledger (`device.mem.<owner>.bytes` gauges plus a high-water
-    total).
+  - `device_mem_set` / `device_mem_adjust` / `device_mem_retire_prefix`:
+    the owner-tagged device memory ledger (`device.mem.<owner>.bytes`
+    gauges plus a high-water total).
   - `device_step(entry)`: a span over a blocking kernel call.
   - `device_dispatch(entry)` / `device_finish(entry, token)`: the
     split-phase window. On a CUDA stream the token carries a CUDA event
@@ -38,6 +38,9 @@ _device_mem_hw = [0]
 DEVICE_ENTRIES = frozenset({
     "create_transfers_fast", "create_transfers_exact", "register_accounts",
     "read_balances", "write_balances",
+    # the store stage's query index and the query intersect
+    "query_index_keys", "query_index_keys_sorted", "merge_kernel_tiled",
+    "scan_intersect_mask",
 })
 
 
@@ -137,6 +140,18 @@ def device_mem_set(owner: str, nbytes: int) -> None:
     with _lock:
         _device_mem[owner] = int(nbytes)
         _gauges[f"device.mem.{owner}.bytes"] = float(nbytes)
+        _device_mem_hw[0] = max(_device_mem_hw[0], sum(_device_mem.values()))
+
+
+def device_mem_adjust(owner: str, delta: int) -> None:
+    """Adjust an owner's live device bytes by a delta (clamped at 0: a
+    release racing a reset must not publish negative residency)."""
+    if not _enabled:
+        return
+    with _lock:
+        v = max(0, _device_mem.get(owner, 0) + int(delta))
+        _device_mem[owner] = v
+        _gauges[f"device.mem.{owner}.bytes"] = float(v)
         _device_mem_hw[0] = max(_device_mem_hw[0], sum(_device_mem.values()))
 
 

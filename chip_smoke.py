@@ -6,7 +6,7 @@
 Phases, in order; any failure exits non-zero and no phase's failure is
 caught:
 
-  1. Build: compile the ten CUDA kernels (tigerbeetle_tpu_torch/csrc,
+  1. Build: compile the twelve CUDA kernels (tigerbeetle_tpu_torch/csrc,
      one nvcc per source, all started together) and print the seconds.
   2. Kernels vs plain, at the main path's shapes (A = 2^20 accounts,
      n = 8192 events, k = 16384 / 8192 slot rows): each kernel must be
@@ -32,6 +32,12 @@ caught:
      81,920 + 40,960 and 122,880 + 40,960 rows) and on top-bit keys with
      heavy duplicates across both runs, the intersect at 2^17 candidates
      in a 2^20-row run; the store's dispatch runs under sync-debug mode
+     "error". The compaction kernels run after phase 8, whose chunk shapes
+     they take (devicestats): merge_kernel at the flush shapes (122,880 +
+     40,960 and 40,960 + 40,960 rows) on top-bit keys with duplicates
+     across the runs and a lo of all ones, payloads of 3 words and of 1;
+     compact_fold_kernel at every (k, b) stack phase 8 folded, and at
+     k = 1 and k = 2; a bare compact_fold_dispatch under sync-debug mode
      "error".
   3. Main path, BASELINE config 1: StateMachine(PRODUCTION) on CUDA,
      10,000 accounts, 64 batches of 8190 uniform simple transfers (over
@@ -70,10 +76,29 @@ caught:
      window, limit 8190) through query_transfers, each equal to the CPU
      run's, with their p50/p99 on the card, and ScanBuilder.execute
      ("materialize") for 16 of them on the CUDA machine, equal to the host
-     gallop's rows.
+     gallop's rows. Then both machines run a major compaction (a storm),
+     drained by one query-mix batch and one beat at a time; every one of
+     the 108 queries is asked again and must equal its answer before the
+     storm and the CPU run's, and the five trees must be equal.
+  8. Compaction under load, BASELINE config 5 (bench.py:474-566's mix):
+     256 accounts, 8190-event batches of simple transfers (amount 1,
+     ledger 1, code 1; ids from 2^63), one create_transfers and one
+     compact_beat per op on the CUDA machine (the device fold) and on its
+     CPU twin (the host's k-way merge): 400 batches preloaded (3,276,000
+     transfers, bench.py's default; BASELINE says 100M, cut for the run's
+     time limit), 16 steady ops, then request_major_compaction() and one
+     op at a time until the storm is drained. Every op's results and
+     compact_backlog equal the twin's; both drain the storm in the same
+     op; the five trees' manifests, fences and every table block are
+     equal, and so are lookup_transfers on a sample and
+     get_account_transfers. It prints the storm's rows/s, serving
+     transfers/s steady and during the storm with the dip, the beat's
+     lsm.compact.merge ms, the fold's device window and its launches.
 
-Kernel launch counts are reset to 0 just before each main-path run and
-read just after; each kernel of that path must have launched in it. The
+Kernel launch counts are reset to 0 just before each main-path run (each
+of phases 3-8, and phase 7's storm) and read just after; each kernel of
+that path must have launched in it. merge_kernel is on no path (as in the
+reference, whose only callers are its tests): its launches stay 0. The
 last lines are the kernels' JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. Without CUDA (or without the repository
 beside it) the script exits non-zero and prints no result.
@@ -1141,11 +1166,14 @@ def run_query_config(torch, rng, n_batches=64):
             out.append(query_filter(types, int(draw(rng, 1)[0]), int(rng.integers(1, 17)), w0, w0 + span))
         return out
 
+    asked = []  # (filter, its answer) of every query, for the storm after
+
     def both(f, what):
         t = time.perf_counter()
         got = gpu.query_transfers(f)
         elapsed = time.perf_counter() - t
         expect_equal(got, cpu.query_transfers(f), what)
+        asked.append((f, got.tobytes()))
         return elapsed, len(got)
 
     next_id = 1 << 43
@@ -1225,7 +1253,377 @@ def run_query_config(torch, rng, n_batches=64):
         f"materialized_rows={inter} launches={launches} on {gpu_name_power()}")
     log(f"{name}: query latencies ms " + json.dumps([round(x, 3) for x in q_ms]))
     log_spans(name, snap)
+    return launches, (gpu, cpu, asked, next_id, pool, draw)
+
+
+def run_query_storm(torch, rng, gpu, cpu, asked, next_id, pool, draw):
+    """Phase 7's machines after its queries: a storm on both, drained by
+    one query-mix batch and one beat at a time, then every query asked in
+    phase 7 again: equal to its answer before the storm and to the CPU
+    run's; the five trees equal the CPU run's."""
+    from tigerbeetle_tpu_torch import tracer
+    from tigerbeetle_tpu_torch.ops import commit as C
+
+    name = "query storm"
+    C.reset_launches()
+    tracer.reset()
+    for sm in (gpu, cpu):
+        sm.compact_beat()  # the last batch's store, then its beat
+    rows = gpu.request_major_compaction()
+    if rows == 0 or rows != cpu.request_major_compaction():
+        raise SystemExit(f"{name}: the storm queued {rows} rows, not the CPU run's")
+    ops, t_gpu = 0, 0.0
+    while gpu.compaction_storm_active():
+        ev = query_mix(rng, TX_BATCH, pool, next_id, draw)
+        next_id += TX_BATCH
+        tracer.enable()
+        t = time.perf_counter()
+        got = gpu.create_transfers(ev)
+        gpu.compact_beat()
+        torch.cuda.synchronize()
+        t_gpu += time.perf_counter() - t
+        tracer.disable()
+        expect_equal(got, cpu.create_transfers(ev), f"{name} op {ops}")
+        cpu.compact_beat()
+        ops += 1
+        if ops > 500:
+            raise SystemExit(f"{name}: the storm did not drain")
+    if cpu.compaction_storm_active():
+        raise SystemExit(f"{name}: the CPU run's storm is still active after {ops} ops")
+    torch.cuda.synchronize()
+    launches = dict(C.LAUNCHES)
+    if launches["compact_fold_kernel"] == 0:
+        raise SystemExit(f"{name}: compact_fold_kernel did not launch: {launches}")
+    for i, (f, before) in enumerate(asked):
+        got = gpu.query_transfers(f)
+        if got.tobytes() != before:
+            raise SystemExit(f"{name}: query {i} changed through the storm")
+        expect_equal(got, cpu.query_transfers(f), f"{name} query {i}")
+    compare_trees(name, gpu, cpu)
+    log(f"{name}: rows_queued={rows} ops={ops} rows_per_s={rows / t_gpu:.1f} "
+        f"queries={len(asked)} equal before and after the storm and to the CPU run's; "
+        f"launches={launches} on {gpu_name_power()}")
     return launches
+
+
+# --- phase 2: the compaction kernels --------------------------------------
+
+
+def top_runs(rng, rows, span):
+    """Sorted lo words >= 2^63 with duplicates within and across runs (a
+    span of `span` values), one run per entry of `rows`; the first run
+    ends in a lo of all ones."""
+    out = []
+    for i, n in enumerate(rows):
+        lo = np.sort(rng.integers(0, span, n, dtype=np.uint64)) | np.uint64(1 << 63)
+        if i == 0 and n:
+            lo[-1] = np.uint64((1 << 64) - 1)
+        out.append(lo)
+    return out
+
+
+def run_format(torch, dev, lo, b=None, width=3, rng=None):
+    """(keys (b, 3), payload (b, width)) uint32 tensors on `dev` of sorted
+    lo words, padded to b rows with pad rows ([0, 0, 1], payload 0)."""
+    n = len(lo)
+    b = n if b is None else b
+    k = np.zeros((b, 3), np.uint32)
+    k[:n, 0] = lo & np.uint64(0xFFFFFFFF)
+    k[:n, 1] = lo >> np.uint64(32)
+    k[n:, 2] = 1
+    p = np.zeros((b, width), np.uint32)
+    p[:n] = rng.integers(0, 1 << 32, (n, width), dtype=np.uint64).astype(np.uint32)
+    return torch.from_numpy(k).to(dev), torch.from_numpy(p).to(dev)
+
+
+def packed_lo(torch, keys):
+    """An int64 whose signed order is the keys' order, for the library
+    sorts: lo XOR 2^63 on real rows, the largest int64 on pad rows (a real
+    lo of all ones ties with the pads: a timing yardstick only)."""
+    w = keys.view(torch.int32).long() & 0xFFFFFFFF
+    lo = (w[:, 1] << 32) | w[:, 0]
+    lo = lo ^ (-(1 << 63))
+    return torch.where(w[:, 2] != 0, torch.full_like(lo, (1 << 63) - 1), lo)
+
+
+def sort_gather_of(torch, keys, pay):
+    key64 = packed_lo(torch, keys)
+    k32, p32 = keys.view(torch.int32), pay.view(torch.int32)
+
+    def library():
+        idx = torch.sort(key64, stable=True).indices
+        return k32.index_select(0, idx), p32.index_select(0, idx)
+
+    return library
+
+
+def phase_merge_kernel(torch, dev, rng):
+    """merge_kernel at the query tree's flush shapes (122,880 + 40,960 and
+    40,960 + 40,960 rows) on top-bit keys with duplicates across the runs
+    and a lo of all ones; payloads of 3 words and of 1."""
+    from tigerbeetle_tpu_torch import devicestats
+    from tigerbeetle_tpu_torch.ops import merge as M
+
+    err, shapes = 0, {}
+    for n, m, width in ((122_880, 40_960, 3), (40_960, 40_960, 3), (40_960, 40_960, 1)):
+        la, lb = top_runs(rng, (n, m), 1 << 16)
+        ka, pa = run_format(torch, dev, la, rng=rng, width=width)
+        kb, pb = run_format(torch, dev, lb, rng=rng, width=width)
+        if width == 1:
+            pa, pb = pa.reshape(-1), pb.reshape(-1)
+        args = (ka, pa, kb, pb)
+        err = max(err, max_abs_err(torch, f"merge_kernel {n}+{m} payload width {width}",
+                                   M.merge_kernel(*args), M.merge_kernel_plain(*args)))
+        if width == 3:
+            shapes[f"{n}+{m}"] = cuda_ms(torch, lambda: M.merge_kernel(*args), 10)
+        if (n, m, width) == (122_880, 40_960, 3):
+            main = args
+    ka, pa, kb, pb = main
+    cat_k = torch.cat([ka.view(torch.int32), kb.view(torch.int32)]).view(torch.uint32)
+    cat_p = torch.cat([pa.view(torch.int32), pb.view(torch.int32)]).view(torch.uint32)
+    nbytes, ops = devicestats.cost("merge_kernel", main)
+    record(torch, "merge_kernel", "merge_kernel.cu", "tigerbeetle_tpu/ops/merge.py:73",
+           lambda: M.merge_kernel(*main), lambda: M.merge_kernel_plain(*main),
+           sort_gather_of(torch, cat_k, cat_p), nbytes, ops, err,
+           shape="122880+40960", ms_by_shape=shapes,
+           library_is="torch.sort(stable=True) of the concatenation's packed lo words + 2 index_select")
+
+
+def fold_stack(torch, dev, rng, k, b):
+    """A (k, b, 3) stack as the compaction's chunks make it: k sorted runs
+    of uneven real lengths (the longest fills its bucket), padded."""
+    lens = [b if i == 0 else int(rng.integers(b // 2 + 1, b + 1)) for i in range(k)]
+    runs = [run_format(torch, dev, lo, b, rng=rng) for lo in top_runs(rng, lens, 1 << 20)]
+    return torch.stack([r[0] for r in runs]), torch.stack([r[1] for r in runs])
+
+
+def fold_shapes(observed):
+    """(k, b) of each compact_fold_kernel call shape devicestats saw."""
+    out = []
+    for key in observed.get("compact_fold_kernel", []):
+        k, b, _ = (int(x) for x in key.split(":")[0].split("x"))
+        out.append((k, b))
+    return sorted(set(out))
+
+
+def phase_fold_kernel(torch, dev, rng, seen):
+    """compact_fold_kernel against its plain version at every chunk shape
+    phase 8 produced, and at k = 1 and k = 2; the record's time is the
+    largest shape's (a storm chunk), with every shape's time beside it.
+    A bare dispatch runs under sync-debug mode "error"."""
+    from tigerbeetle_tpu_torch import devicestats
+    from tigerbeetle_tpu_torch.lsm.store import KEY_DTYPE
+    from tigerbeetle_tpu_torch.ops import merge as M
+
+    if not seen or max(k for k, _ in seen) < 16:
+        raise SystemExit(f"phase 8 made no level-0 job's fold (k >= 16): {seen}")
+    b0 = seen[0][1]
+    shapes = sorted(set(seen) | {(1, b0), (2, b0)})
+    err, by_shape, main = 0, {}, None
+    for k, b in shapes:
+        ks, ps = fold_stack(torch, dev, rng, k, b)
+        err = max(err, max_abs_err(torch, f"compact_fold_kernel k={k} b={b}",
+                                   M.compact_fold_kernel(ks, ps), M.compact_fold_kernel_plain(ks, ps)))
+        by_shape[f"{k}x{b}"] = cuda_ms(torch, lambda: M.compact_fold_kernel(ks, ps), 10)
+        if (k, b) in seen and (main is None or k * b > main[0].numel() // 3):
+            main = (ks, ps)
+    ks, ps = main
+    k, b = ks.shape[0], ks.shape[1]
+    nbytes, ops = devicestats.cost("compact_fold_kernel", main)
+    record(torch, "compact_fold_kernel", "compact_fold_kernel.cu", "tigerbeetle_tpu/ops/merge.py:283",
+           lambda: M.compact_fold_kernel(*main), lambda: M.compact_fold_kernel_plain(*main),
+           sort_gather_of(torch, ks.reshape(-1, 3), ps.reshape(-1, 3)), nbytes, ops, err,
+           shape=f"{k}x{b}", ms_by_shape=by_shape,
+           library_is="torch.sort(stable=True) of the stack's packed lo words + 2 index_select")
+    # The split-phase dispatch hides no device sync.
+    parts_k, parts_v = [], []
+    for lo in top_runs(rng, [b - 3 * i for i in range(k)], 1 << 20):
+        keys = np.zeros(len(lo), KEY_DTYPE)
+        keys["lo"] = lo
+        keys["hi"] = rng.integers(0, 1 << 63, len(lo), dtype=np.uint64)
+        parts_k.append(keys)
+        parts_v.append(rng.integers(0, 1 << 32, len(lo), dtype=np.uint64).astype(np.uint32))
+    M.compact_fold_materialize(M.compact_fold_dispatch(parts_k, parts_v, dev))  # warm the pinned pool
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = M.compact_fold_dispatch(parts_k, parts_v, dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = M.compact_fold_materialize(handle)
+    want = M.compact_fold_materialize(M.compact_fold_dispatch(parts_k, parts_v, "cpu"))
+    if got[0].tobytes() != want[0].tobytes() or not np.array_equal(got[1], want[1]):
+        raise SystemExit("compact_fold_dispatch on the card differs from the CPU's")
+    log(f"compact_fold_dispatch (k={k}, b={b}) ran under sync-debug mode 'error'")
+
+
+# --- phase 8: compaction under load (BASELINE config 5) -------------------
+
+STORM_BATCHES = 400  # bench.py's STORM_TRANSFERS default, 3,276,000 transfers
+STEADY_BATCHES = 16
+N_ACC_STORM = 256  # bench.py:503
+TREES = ("transfer_index", "account_rows", "query_rows")
+
+
+def trees_of(sm):
+    """The five LSM trees of a machine, by name."""
+    return {**{t: getattr(sm, t) for t in TREES},
+            "posted": sm.posted.index, "history": sm.history.rows}
+
+
+def compare_trees(name, gpu, cpu) -> str:
+    """Both machines' trees: equal checkpoint() manifests, equal
+    checkpoint_fences(), and equal bytes in every block of every table
+    (index and data blocks, as stored in the grid)."""
+    out = []
+    for label, g in trees_of(gpu).items():
+        c = trees_of(cpu)[label]
+        mg, mc = g.checkpoint(), c.checkpoint()
+        (fg, ng), (fc, nc) = g.checkpoint_fences(), c.checkpoint_fences()
+        if mg.tobytes() != mc.tobytes() or fg.tobytes() != fc.tobytes() or ng.tobytes() != nc.tobytes():
+            raise SystemExit(f"{name}: tree {label}: manifest or fences differ from the CPU run's")
+        blocks = [int(x) for x in mg["index_block"]] + [int(x) for x in fg["block"]]
+        nbytes = 0
+        for blk in blocks:
+            pg = gpu.grid.storage.pages.get(gpu.grid._addr(blk))
+            pc = cpu.grid.storage.pages.get(cpu.grid._addr(blk))
+            if pg is None or pg != pc:
+                raise SystemExit(f"{name}: tree {label}: block {blk} differs from the CPU run's")
+            nbytes += len(pg)
+        levels = [len(lvl) for lvl in g.levels]
+        out.append(f"{label} levels {levels} rows {int(mg['count'].sum())} blocks {len(blocks)} bytes {nbytes}")
+    log(f"{name}: five trees equal to the CPU run's: " + "; ".join(out))
+    return "; ".join(out)
+
+
+def storm_batch(types, rng, first_id):
+    """bench.py:505-520's serving batch: 8190 simple transfers, debit
+    uniform over the 256 accounts, credit the next account, amount 1,
+    ledger 1, code 1."""
+    t = np.zeros(TX_BATCH, dtype=types.TRANSFER_DTYPE)
+    t["id_lo"] = np.arange(first_id, first_id + TX_BATCH, dtype=np.uint64)
+    debit = rng.integers(1, N_ACC_STORM + 1, TX_BATCH, dtype=np.uint64)
+    t["debit_account_id_lo"] = debit
+    t["credit_account_id_lo"] = debit % np.uint64(N_ACC_STORM) + np.uint64(1)
+    t["amount_lo"] = 1
+    t["ledger"] = 1
+    t["code"] = 1
+    return t
+
+
+def run_compaction_config(torch, rng, n_batches=STORM_BATCHES):
+    """BASELINE config 5 as bench.py's compaction_under_load runs it: one
+    create_transfers + compact_beat per op on the CUDA machine and on its
+    CPU twin (host merge route) over the same op stream: a preload, a
+    steady window, then a storm drained op by op."""
+    from tigerbeetle_tpu_torch import devicestats, tracer, types
+    from tigerbeetle_tpu_torch.constants import PRODUCTION
+    from tigerbeetle_tpu_torch.models.state_machine import StateMachine
+    from tigerbeetle_tpu_torch.ops import commit as C
+
+    name = "compaction"
+    C.reset_launches()
+    tracer.reset()
+    devicestats.reset()
+    gpu = StateMachine(PRODUCTION)
+    cpu = StateMachine(PRODUCTION, device="cpu")
+    if not all(t.device is not None for t in trees_of(gpu).values()) or any(
+            t.device is not None for t in trees_of(cpu).values()):
+        raise SystemExit(f"{name}: the CUDA machine's trees must fold on the card, the twin's on the host")
+    acc = np.zeros(N_ACC_STORM, dtype=types.ACCOUNT_DTYPE)
+    acc["id_lo"] = np.arange(1, N_ACC_STORM + 1, dtype=np.uint64)
+    acc["ledger"], acc["code"] = 1, 1
+    expect_equal(gpu.create_accounts(acc), cpu.create_accounts(acc), f"{name} create_accounts")
+    for sm in (gpu, cpu):
+        sm.compact_beat()
+    # Transfer ids from 2^63: the transfer-id tree's keys carry the top bit.
+    next_id = 1 << 63
+    # ops, and the beats' host seconds on each machine (the same work but
+    # for the merge route: the device fold, the host's k-way merge)
+    ops = {"n": 0, "beat_gpu": 0.0, "beat_cpu": 0.0}
+
+    def op():
+        nonlocal next_id
+        ev = storm_batch(types, rng, next_id)
+        next_id += TX_BATCH
+        tracer.enable()  # the CUDA machine's ops only
+        t0 = time.perf_counter()
+        got = gpu.create_transfers(ev)
+        gpu.flush_deferred()  # the op's store, outside the beat's time
+        t_beat = time.perf_counter()
+        gpu.compact_beat()
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        tracer.disable()
+        ops["beat_gpu"] += t_end - t_beat
+        expect_equal(got, cpu.create_transfers(ev), f"{name} op {ops['n']}")
+        cpu.flush_deferred()
+        t = time.perf_counter()
+        cpu.compact_beat()
+        ops["beat_cpu"] += time.perf_counter() - t
+        if gpu._compact_backlog() != cpu._compact_backlog():
+            raise SystemExit(f"{name} op {ops['n']}: compact_backlog {gpu._compact_backlog()} "
+                             f"vs the CPU run's {cpu._compact_backlog()}")
+        ops["n"] += 1
+        return t_end - t0
+
+    t0 = time.perf_counter()
+    preload_s = sum(op() for _ in range(n_batches))
+    log(f"{name}: preloaded {n_batches * TX_BATCH} transfers in {n_batches} ops "
+        f"(CUDA machine {preload_s:.3f} s, both machines {time.perf_counter() - t0:.3f} s); "
+        f"backlog {gpu._compact_backlog()}")
+    steady_s = sum(op() for _ in range(STEADY_BATCHES))
+    pre = tracer.snapshot()
+    tracer.reset()
+    ops["beat_gpu"] = ops["beat_cpu"] = 0.0
+    rows_queued = gpu.request_major_compaction()
+    if rows_queued != cpu.request_major_compaction() or rows_queued == 0:
+        raise SystemExit(f"{name}: the storm queued {rows_queued} rows on the card, not the CPU run's")
+    storm_s, storm_ops = 0.0, 0
+    while True:
+        active = gpu.compaction_storm_active()
+        if active != cpu.compaction_storm_active():
+            raise SystemExit(f"{name}: after {storm_ops} storm ops one machine's storm is still active")
+        if not active:
+            break
+        storm_s += op()
+        storm_ops += 1
+        if storm_ops > 2000:
+            raise SystemExit(f"{name}: the storm did not drain")
+    snap = tracer.snapshot()
+    torch.cuda.synchronize()
+    launches = dict(C.LAUNCHES)
+    tables = compare_trees(name, gpu, cpu)
+    # Reads on a sample: transfers by id, and account pages.
+    ids = np.arange(1 << 63, next_id, 397, dtype=np.uint64)[:TX_BATCH]
+    zero = np.zeros(len(ids), np.uint64)
+    expect_equal(gpu.lookup_transfers(ids, zero), cpu.lookup_transfers(ids, zero), f"{name} lookup_transfers")
+    for a in (1, 2, 128, 255, 256):
+        expect_equal(gpu.get_account_transfers(a), cpu.get_account_transfers(a),
+                     f"{name} get_account_transfers {a}")
+    for k in ("create_transfers_fast", "query_index_keys_sorted", "merge_kernel_tiled", "compact_fold_kernel"):
+        if launches[k] == 0:
+            raise SystemExit(f"{name}: {k} did not launch: {launches}")
+    steady = STEADY_BATCHES * TX_BATCH / steady_s
+    storm = storm_ops * TX_BATCH / storm_s
+    merge_ms = snap.get("lsm.compact.merge", {"total_ms": 0.0})["total_ms"]
+    win = snap.get("device.step.compact_fold_kernel", {"total_ms": 0.0, "count": 0})
+    beats = snap.get("sm.beat", {"count": 0, "total_ms": 0.0})
+    log(f"{name}: rows_queued={rows_queued} storm_ops={storm_ops} storm_s={storm_s:.3f} "
+        f"major_compaction_rows_per_s={rows_queued / storm_s:.1f} "
+        f"serving_tx_per_s_steady={steady:.1f} serving_tx_per_s_storm={storm:.1f} "
+        f"e2e_dip_pct={max(0.0, (steady - storm) / steady * 100):.2f} "
+        f"storm_beat_ms={beats['total_ms'] / max(beats['count'], 1):.3f} "
+        f"storm_beat_host_ms_device_fold={ops['beat_gpu'] / storm_ops * 1e3:.3f} "
+        f"storm_beat_host_ms_twin_host_merge={ops['beat_cpu'] / storm_ops * 1e3:.3f} "
+        f"lsm_compact_merge_ms_per_beat={merge_ms / max(storm_ops, 1):.3f} "
+        f"compact_fold_window_ms={win['total_ms'] / max(win['count'], 1):.4f} over {win['count']} folds "
+        f"fold_launches={launches['compact_fold_kernel']} launches={launches} on {gpu_name_power()}")
+    log(f"{name}: fold shapes " + json.dumps(devicestats.observed_shapes().get("compact_fold_kernel", [])))
+    log_spans(f"{name} preload", pre)
+    log_spans(f"{name} storm", snap)
+    return launches, fold_shapes(devicestats.observed_shapes())
+
 
 
 def gpu_name_power() -> str:
@@ -1310,9 +1708,19 @@ def main() -> int:
                           funding=[t4.funding(types, limit_ids, free_ids)])
 
     log("phase 7: query traffic (10,000 accounts, Zipf(1.1), 16 codes, 64 batches)")
-    l7 = run_query_config(torch, rng)
+    l7, machines = run_query_config(torch, rng)
+    l7s = run_query_storm(torch, rng, *machines)
+    del machines
 
-    phases = {"config1": l1, "config2": l2, "config3": l3, "config4": l4, "query": l7}
+    log(f"phase 8: BASELINE config 5, compaction under load ({STORM_BATCHES} batches "
+        f"of 8190 preloaded, then a storm)")
+    l8, seen = run_compaction_config(torch, rng)
+    log("phase 2 (continued): the compaction kernels at phase 8's shapes")
+    phase_merge_kernel(torch, dev, rng)
+    phase_fold_kernel(torch, dev, rng, seen)
+
+    phases = {"config1": l1, "config2": l2, "config3": l3, "config4": l4, "query": l7,
+              "query_storm": l7s, "compaction": l8}
     for name, row in RESULTS.items():
         row["launches"] = sum(l[name] for l in phases.values())
         for label, l in phases.items():

@@ -379,3 +379,113 @@ def test_state_machine_query_index_route_on_cuda(dev):
             b"".join(x.tobytes() for x in t._read_data_block(int(fe["block"]), int(fe["count"])))
             for lvl in t.levels for tb in lvl for fe in t._table_fences(tb)))
     assert tables[0] and tables[0] == tables[1]
+
+
+def _key_run(rng, n, dev):
+    """A sorted (n, 3) run: top-bit lo words (lo1 >= 2^31), heavy
+    duplicates, one lo of all ones, padding rows last."""
+    k = np.zeros((n, 3), np.uint32)
+    k[:, 1] = rng.integers(0, 3, n).astype(np.uint32) | np.uint32(0xFFFFFFFD)
+    k[:, 0] = rng.integers(0, 4, n)
+    if n > 8:
+        k[-8, :2] = 0xFFFFFFFF
+        k[-7:] = [0, 0, 1]
+    k = k[np.lexsort((k[:, 0], k[:, 1], k[:, 2]))]
+    return torch.from_numpy(k).to(dev)
+
+
+def _pay(rng, shape, dev):
+    return torch.from_numpy(
+        rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,width", [(1000, 3000, 3), (777, 5, None), (0, 300, 3), (300, 0, None)])
+def test_merge_kernel_kernel(dev, n, m, width):
+    from tigerbeetle_tpu_torch.ops import merge as M
+
+    rng = np.random.default_rng(n + m)
+    ka, kb = _key_run(rng, n, dev), _key_run(rng, m, dev)
+    shape = (lambda r: (r,)) if width is None else (lambda r: (r, width))
+    pa, pb = _pay(rng, shape(n), dev), _pay(rng, shape(m), dev)
+    before = C.LAUNCHES["merge_kernel"]
+    got = M.merge_kernel(ka, pa, kb, pb)
+    want = M.merge_kernel_plain(ka, pa, kb, pb)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["merge_kernel"] == before + 1
+    assert _equal(got[0], want[0]) and _equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,b", [(1, 256), (2, 256), (4, 512), (16, 1024)])
+def test_compact_fold_kernel_kernel(dev, k, b):
+    from tigerbeetle_tpu_torch.ops import merge as M
+
+    rng = np.random.default_rng(k * b)
+    keys = torch.stack([_key_run(rng, b, dev) for _ in range(k)])
+    pays = _pay(rng, (k, b, 3), dev)
+    before = C.LAUNCHES["compact_fold_kernel"]
+    got = M.compact_fold_kernel(keys, pays)
+    want = M.compact_fold_kernel_plain(keys, pays)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["compact_fold_kernel"] == before + (k > 1)
+    assert tuple(got[0].shape) == ((k * b, 3) if k > 1 else (b, 3))
+    assert _equal(got[0], want[0]) and _equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_compact_fold_dispatch_does_not_sync(dev):
+    from tigerbeetle_tpu_torch.lsm.store import KEY_DTYPE
+    from tigerbeetle_tpu_torch.ops import merge as M
+
+    rng = np.random.default_rng(12)
+    parts_k, parts_v = [], []
+    for n in (900, 40, 1500, 700, 1024):
+        keys = np.zeros(n, KEY_DTYPE)
+        keys["lo"] = np.sort(rng.integers(0, 64, n, dtype=np.uint64)) | np.uint64(1 << 63)
+        keys["hi"] = rng.integers(0, 1 << 63, n, dtype=np.uint64)
+        parts_k.append(keys)
+        parts_v.append(rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32))
+    M.compact_fold_materialize(M.compact_fold_dispatch(parts_k, parts_v, dev))  # warm up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handles = [M.compact_fold_dispatch(parts_k, parts_v, dev) for _ in range(2)]
+        M.compact_fold_discard(handles[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    keys, vals = M.compact_fold_materialize(handles[1])
+    want = M.compact_fold_materialize(M.compact_fold_dispatch(parts_k, parts_v, "cpu"))
+    assert keys.tobytes() == want[0].tobytes() and np.array_equal(vals, want[1])
+
+
+@pytest.mark.cuda
+def test_tree_on_cuda_compacts_like_the_host_route(dev):
+    """A tree compacting on the card (the device fold) and one on the host
+    (the C k-way merge): level jobs and a paced storm leave the same
+    manifest, fences and raw grid bytes."""
+    from tigerbeetle_tpu_torch.io.grid import MemGrid
+    from tigerbeetle_tpu_torch.lsm.store import pack_keys
+    from tigerbeetle_tpu_torch.lsm.tree import DurableIndex
+
+    out = []
+    before = C.LAUNCHES["compact_fold_kernel"]
+    for device in (dev, None):
+        rng = np.random.default_rng(7)
+        grid = MemGrid(block_count=8192, block_size=4096)
+        tree = DurableIndex(grid, unique=True, memtable_max=512, growth=4, device=device)
+        n = 12_000
+        lo = rng.permutation(np.arange(1, n + 1, dtype=np.uint64)) | np.uint64(1 << 63)
+        hi = rng.integers(0, 1 << 32, n).astype(np.uint64)
+        for i in range(0, n, 777):
+            tree.insert_batch(pack_keys(lo[i:i + 777], hi[i:i + 777]),
+                              np.arange(i, min(i + 777, n), dtype=np.uint32))
+            tree.compact_step(2048)
+        assert tree.request_major() > 0
+        while tree.storm_active():
+            tree.compact_step(2048)
+        fences, counts = tree.checkpoint_fences()
+        out.append((tree.checkpoint().tobytes(), fences.tobytes(), counts.tobytes(),
+                    grid.storage.read(0, grid.block_count * grid.block_size)))
+    assert C.LAUNCHES["compact_fold_kernel"] > before
+    assert out[0] == out[1]

@@ -28,6 +28,20 @@ def test_port_imports_without_jax_or_reference():
         "import tigerbeetle_tpu_torch.lsm.scan, tigerbeetle_tpu_torch.lsm.groove\n"
         "import tigerbeetle_tpu_torch.ops.qindex, tigerbeetle_tpu_torch.ops.merge\n"
         "import tigerbeetle_tpu_torch.ops.scanops, tigerbeetle_tpu_torch.lsm.tree\n"
+        # A storm through the tree's device fold (the plain versions on the
+        # CPU) loads the compaction path's modules too.
+        "import numpy as np, torch\n"
+        "from tigerbeetle_tpu_torch.io.grid import MemGrid\n"
+        "from tigerbeetle_tpu_torch.lsm.store import pack_keys\n"
+        "t = tigerbeetle_tpu_torch.lsm.tree.DurableIndex(\n"
+        "    MemGrid(512, 4096), memtable_max=64, device=torch.device('cpu'))\n"
+        "for i in range(4):\n"
+        "    lo = np.arange(i * 64 + 1, i * 64 + 65, dtype=np.uint64)\n"
+        "    t.insert_batch(pack_keys(lo, lo), np.arange(64, dtype=np.uint32))\n"
+        "assert t.request_major() == 256\n"
+        "while t.compact_step(100):\n"
+        "    pass\n"
+        "assert [len(lvl) for lvl in t.levels] == [0, 1]\n"
         "bad = [m for m in sys.modules if m == 'tigerbeetle_tpu'"
         " or m.startswith('tigerbeetle_tpu.')]\n"
         "print('reference modules:', bad)\n"

@@ -80,6 +80,10 @@ class Config:
     grid_cache_blocks: int = 1 << 12  # × 256 KiB = 1 GiB
     # Transfer-id / account-index memtable rows before a level-0 flush.
     index_memtable_rows: int = 1 << 17
+    # Compaction beat pacing: merged entries per compact_step call (small
+    # values make jobs span many beats and checkpoints). The literal must
+    # equal lsm.tree.DEFAULT_COMPACT_QUOTA, which asserts it.
+    compact_quota_entries: int = 1 << 15
     # Admission control (docs/FRONT_DOOR.md): a REQUEST arriving on the
     # primary when request_queue already holds this many waiting requests
     # is shed with a retryable BUSY reply instead of queued — offered

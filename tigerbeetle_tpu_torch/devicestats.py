@@ -5,8 +5,9 @@ devicestats.py: the two calls the state machine makes).
 the tracer is enabled; `retire_bucket` drops the rows of a scratch-ring
 bucket the workload stopped using, so the registry stays bounded. The
 reference's compiler cost model has no counterpart here. `cost` gives
-the least work of a store-stage or query-path entry from its arguments
-(the commit kernels' costs are stated beside them in chip_smoke.py).
+the least work of a store-stage, query-path or compaction entry from its
+arguments (the commit kernels' costs are stated beside them in
+chip_smoke.py).
 """
 
 from __future__ import annotations
@@ -52,6 +53,13 @@ def note_call(entry: str, args: tuple, bucket: Optional[int] = None) -> None:
             rows[key] = bucket
 
 
+def reset() -> None:
+    """Forget every recorded shape (a run that reads the shapes of one
+    window calls it first)."""
+    with _lock:
+        _shapes.clear()
+
+
 def retire_bucket(bucket: int) -> None:
     """Drop every shape row tagged with a retired scratch-ring bucket."""
     with _lock:
@@ -90,6 +98,18 @@ COSTS = {
     "merge_kernel_tiled": lambda ka, pa, kb, pb, tile=256: (
         2 * _nbytes(ka, pa, kb, pb),
         (ka.shape[0] + kb.shape[0]) * 8 * _log2(tile),
+    ),
+    # both runs in, their merge out; a binary search over the other run
+    # per row.
+    "merge_kernel": lambda ka, pa, kb, pb: (
+        2 * _nbytes(ka, pa, kb, pb),
+        (ka.shape[0] + kb.shape[0]) * 8 * _log2(max(ka.shape[0], kb.shape[0])),
+    ),
+    # the stack in, its merge out; per level of the log2(k) fold a binary
+    # search in a 256-row tile per row.
+    "compact_fold_kernel": lambda keys, pays: (
+        2 * _nbytes(keys, pays),
+        keys.shape[0] * keys.shape[1] * (_log2(keys.shape[0]) - 1) * 8 * _log2(256),
     ),
     # both arrays in, one byte a candidate out; a binary search each.
     "scan_intersect_mask": lambda cand, run: (

@@ -56,9 +56,10 @@ class PostedGroove:
     grew with every two-phase transfer ever committed.
     """
 
-    def __init__(self, grid, *, memtable_max: int = 1 << 14) -> None:
+    def __init__(self, grid, *, memtable_max: int = 1 << 14,
+                 device=None) -> None:
         self.index = DurableIndex(
-            grid, unique=True, memtable_max=memtable_max
+            grid, unique=True, memtable_max=memtable_max, device=device
         )
 
     @property
@@ -102,6 +103,21 @@ class PostedGroove:
                 self._keys(ts), np.asarray(vals, dtype=np.uint32)
             )
 
+    def compact_step(self, quota_entries: int) -> None:
+        self.index.compact_step(quota_entries)
+
+    def compact_backlog(self) -> int:
+        return self.index.compact_backlog()
+
+    def request_major(self) -> int:
+        return self.index.request_major()
+
+    def storm_active(self) -> bool:
+        return self.index.storm_active()
+
+    def compact_prefetch_one(self) -> bool:
+        return self.index.compact_prefetch_one()
+
 
 class _PostedView:
     """Per-batch dict-facade over a PostedGroove for the serial oracle:
@@ -140,10 +156,11 @@ class HistoryGroove:
     join over a Python list.
     """
 
-    def __init__(self, grid, *, memtable_max: int = 1 << 14) -> None:
+    def __init__(self, grid, *, memtable_max: int = 1 << 14,
+                 device=None) -> None:
         self.log = DurableLog(grid, HISTORY_DTYPE)
         self.rows = DurableIndex(
-            grid, unique=False, memtable_max=memtable_max
+            grid, unique=False, memtable_max=memtable_max, device=device
         )
 
     @property
@@ -182,3 +199,21 @@ class HistoryGroove:
         )[0]
         rows = self.rows.lookup_range(key)
         return self.log.gather(rows)
+
+    def compact_step(self, quota_entries: int) -> None:
+        self.rows.compact_step(quota_entries)
+
+    def compact_backlog(self) -> int:
+        return self.rows.compact_backlog()
+
+    def request_major(self) -> int:
+        return self.rows.request_major()
+
+    def storm_active(self) -> bool:
+        return self.rows.storm_active()
+
+    def compact_prefetch_one(self) -> bool:
+        return self.rows.compact_prefetch_one()
+
+    def flush_pending(self, max_blocks: int) -> None:
+        self.log.flush_pending(max_blocks)

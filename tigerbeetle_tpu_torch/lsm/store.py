@@ -76,8 +76,25 @@ def sort_kv(keys: np.ndarray, vals: np.ndarray):
     return keys[order], np.asarray(vals, dtype=np.uint32)[order]
 
 
-def _merge_c(lib, group):
-    """One C merge call over ≤64 runs (sort_kv if the C merge fails)."""
+def _bloom_fill(keys, seg_ends, seg_blooms) -> None:
+    """Populate per-segment filters from finished output slices: the
+    second-pass form of merge_host_kway_bloom (same hash, same rows, so
+    the same bits, only set after the copy). Also fills the filters of
+    output that no host merge produced (device-fold chunks, a single
+    stream's passthrough)."""
+    start = 0
+    for end, bloom in zip(seg_ends, seg_blooms):
+        end = min(int(end), len(keys))
+        if bloom is not None and end > start:
+            seg = keys[start:end]
+            bloom.add(seg["lo"], seg["hi"])
+        start = max(start, end)
+
+
+def _merge_c(lib, group, seg_ends=None, seg_blooms=None):
+    """One C merge call over ≤64 runs. With a segment plan, Bloom bits
+    are set inside the merge's output pass (hostops_merge_kv_bloom); a C
+    failure degrades to sort_kv, then the filters are filled after."""
     import ctypes
 
     k = len(group)
@@ -91,15 +108,42 @@ def _merge_c(lib, group):
     out_v = np.empty(total, dtype=np.uint32)
     u64p = ctypes.POINTER(ctypes.c_uint64)
     u32p = ctypes.POINTER(ctypes.c_uint32)
-    rc = lib.hostops_merge_kv(
-        k, kp, vp, ns,
-        out_k.ctypes.data_as(u64p), out_v.ctypes.data_as(u32p),
-    )
-    if rc != 0:
-        out_k, out_v = sort_kv(
-            np.concatenate([pk for pk, _ in group]),
-            np.concatenate([pv for _, pv in group]),
+    if seg_ends is not None:
+        nseg = len(seg_ends)
+        ends = (ctypes.c_int64 * nseg)(*[int(e) for e in seg_ends])
+        words = (ctypes.c_void_p * nseg)(
+            *[None if b is None else b.words.ctypes.data for b in seg_blooms]
         )
+        masks = np.ascontiguousarray(
+            [0 if b is None else int(b._mask) for b in seg_blooms],
+            dtype=np.uint64,
+        )
+        rc = lib.hostops_merge_kv_bloom(
+            k, kp, vp, ns,
+            out_k.ctypes.data_as(u64p), out_v.ctypes.data_as(u32p),
+            nseg, ends, words, masks.ctypes.data_as(u64p),
+        )
+        if rc == 0:
+            start = 0
+            for end, bloom in zip(seg_ends, seg_blooms):
+                end = min(int(end), total)
+                if bloom is not None:
+                    bloom.count += max(0, end - start)
+                start = max(start, end)
+            return out_k, out_v
+    else:
+        rc = lib.hostops_merge_kv(
+            k, kp, vp, ns,
+            out_k.ctypes.data_as(u64p), out_v.ctypes.data_as(u32p),
+        )
+        if rc == 0:
+            return out_k, out_v
+    out_k, out_v = sort_kv(
+        np.concatenate([pk for pk, _ in group]),
+        np.concatenate([pv for _, pv in group]),
+    )
+    if seg_ends is not None:
+        _bloom_fill(out_k, seg_ends, seg_blooms)
     return out_k, out_v
 
 
@@ -135,6 +179,32 @@ def merge_host_kway(parts_k, parts_v):
             for g in range(0, len(parts), 64)
         ]
     return _merge_c(lib, parts)
+
+
+def merge_host_kway_bloom(parts_k, parts_v, seg_ends, seg_blooms):
+    """merge_host_kway with the Bloom fill fused into the output copy.
+
+    `seg_ends` are cumulative output-row boundaries (the compaction
+    writer's table spans over this merge's output); `seg_blooms[i]`
+    covers rows [seg_ends[i-1], seg_ends[i]), or None to leave that span
+    unfiltered. The bits are those of Bloom.add over the finished output
+    slices: fusion moves when they are set, never which. Without the C
+    shim the filters are filled in a second pass."""
+    parts = [(k, v) for k, v in zip(parts_k, parts_v) if len(k)]
+    lib = _hostops()
+    if len(parts) <= 1 or lib is None:
+        out_k, out_v = merge_host_kway(parts_k, parts_v)
+        _bloom_fill(out_k, seg_ends, seg_blooms)
+        return out_k, out_v
+    # Inputs above 64 runs pre-fold without filters; only the last pass
+    # sees the final output offsets, so only it places segmented bits.
+    while len(parts) > 64:
+        parts = [
+            _merge_c(lib, parts[g : g + 64]) if len(parts[g : g + 64]) > 1
+            else parts[g]
+            for g in range(0, len(parts), 64)
+        ]
+    return _merge_c(lib, parts, seg_ends, seg_blooms)
 
 
 def intersect_sorted_u32(a: np.ndarray, b: np.ndarray) -> np.ndarray:

@@ -13,9 +13,21 @@ The device-first re-design of the reference's tree/table/compaction stack
     runs (ops/qindex.QueryKeyRun): a flush of sorted runs no read has
     materialized folds them on the device (ops/merge.merge_kernel_tiled);
     any other flush or read materializes them first.
-  - Compaction (the reference's leveled k-way merge, driven by the
-    replica's per-op beat) is not part of this port yet: flushed tables
-    stay in level 0, and reads walk them newest first.
+  - *Compaction* merges a level into the next when it holds more than
+    `growth` tables, one beat-paced k-way job at a time (compact_step,
+    driven once per op by the state machine's beat), streamed block by
+    block: the reference's k-way merge pacing (k_way_merge.zig:8), with
+    memory O(block), not O(level). A forced major compaction (a storm,
+    request_major) folds every level into one bottom run through the same
+    beats. Each chunk of a job merges on the host (the C k-way merge,
+    store.merge_host_kway_bloom) or, for a tree given a device, through
+    ops/merge.compact_fold_kernel, split-phase; both write the same bytes.
+
+Free-space discipline: replaced tables are released to the grid free set,
+which stages frees until the next checkpoint commits where the grid
+defers releases, so crash recovery can always rewind to the last durable
+manifest. A job's output goes to a private block reservation, so its
+progress spans checkpoints (job_state / restore_job).
 """
 
 from __future__ import annotations
@@ -27,12 +39,14 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from tigerbeetle_tpu_torch import tracer
-from tigerbeetle_tpu_torch.io.grid import Grid
+from tigerbeetle_tpu_torch.io.grid import Grid, GridReadFault
 from tigerbeetle_tpu_torch.lsm.store import (
     KEY_DTYPE,
     NOT_FOUND,
     Bloom,
+    _bloom_fill,
     merge_host_kway,
+    merge_host_kway_bloom,
     search_run,
     sort_kv,
     sort_lo_major,
@@ -78,8 +92,33 @@ INDEX_ENTRY_DTYPE = np.dtype(
     ]
 )
 
+# One table's row in a persisted manifest.
+MANIFEST_DTYPE = np.dtype(
+    [
+        ("level", "<u4"),
+        ("index_block", "<u4"),
+        ("count", "<u8"),
+        ("min_hi", "<u8"), ("min_lo", "<u8"),
+        ("max_hi", "<u8"), ("max_lo", "<u8"),
+    ]
+)
+
 BLOCK_TYPE_DATA = 1
 BLOCK_TYPE_INDEX = 2
+
+# The default beat quota (entries merged per compact_step call).
+# constants.py cannot import this module, so Config.compact_quota_entries
+# repeats the literal, asserted equal here.
+DEFAULT_COMPACT_QUOTA = 1 << 15
+
+# job_state() level sentinel for a storm job, whose inputs span every
+# level (oldest first) instead of prefixing one.
+_STORM_LEVEL = 0xFFFFFFFF
+
+from tigerbeetle_tpu_torch.constants import Config as _Config  # noqa: E402
+
+assert _Config.compact_quota_entries == DEFAULT_COMPACT_QUOTA
+del _Config
 
 @dataclass(eq=False)  # identity equality: tables live in LRU lists
 class TableInfo:
@@ -108,6 +147,10 @@ class TableInfo:
     # reference's set-associative value cache serves the same role,
     # set_associative_cache.zig:15).
     _decoded: Optional[Tuple[np.ndarray, np.ndarray]] = None
+    # Set by _release_table (compaction retire): a reader racing the
+    # retire may still probe the table, but must not install its mirror
+    # into the LRU budget, since the table is unreachable from the levels.
+    _released: bool = False
 
 
 def _key_bloom(keys: np.ndarray) -> Bloom:
@@ -119,6 +162,108 @@ def _key_bloom(keys: np.ndarray) -> Bloom:
     b = Bloom(2 * len(keys))
     b.add(keys["lo"], keys["hi"])
     return b
+
+
+class _TableReader:
+    """Sequential block cursor over a table (compaction input stream)."""
+
+    def __init__(self, tree: "DurableIndex", table: TableInfo) -> None:
+        self.tree = tree
+        self.fences = tree._table_fences(table)
+        self.pos = 0
+        self.prefetch_pos = 0
+
+    def exhausted(self) -> bool:
+        return self.pos >= len(self.fences)
+
+    def next_block(self) -> Tuple[np.ndarray, np.ndarray]:
+        f = self.fences[self.pos]
+        self.pos += 1
+        return self.tree._read_data_block(int(f["block"]), int(f["count"]))
+
+    def prefetch_block(self) -> bool:
+        """Warm the next unread block into the grid cache (bounded two
+        blocks ahead of the merge cursor). Cache-temperature only."""
+        p = max(self.prefetch_pos, self.pos)
+        if p >= len(self.fences) or p - self.pos >= 2:
+            return False
+        self.tree.grid.read_block(int(self.fences[p]["block"]))
+        self.prefetch_pos = p + 1
+        return True
+
+
+class _MergeStream:
+    """Buffered stream over a sequence of tables (oldest-precedence side).
+
+    `depth` is the refill read-ahead in blocks: a k-way merge's chunk size
+    is governed by the SMALLEST buffered tail across streams, so buffering
+    one block caps every chunk near one block's rows no matter how many
+    streams feed it — per-chunk costs (bound searchsorted × k, the C call,
+    the writer append) then dominate a wide merge. Deeper buffers trade
+    bounded memory (k × depth × epb rows, budgeted by the job) for chunks
+    that amortize those costs; the merge output is identical either way."""
+
+    def __init__(
+        self, tree: "DurableIndex", tables: List[TableInfo], depth: int = 1
+    ) -> None:
+        self.readers = [_TableReader(tree, t) for t in tables]
+        self.depth = depth
+        self.keys = np.zeros(0, dtype=KEY_DTYPE)
+        self.vals = np.zeros(0, dtype=np.uint32)
+
+    def refill(self) -> None:
+        if len(self.keys) or not self.readers:
+            return
+        parts_k, parts_v = [], []
+        blocks = 0
+        while blocks < self.depth and self.readers:
+            if self.readers[0].exhausted():
+                self.readers.pop(0)
+                continue
+            k, v = self.readers[0].next_block()
+            parts_k.append(k)
+            parts_v.append(v)
+            blocks += 1
+        if len(parts_k) == 1:
+            self.keys, self.vals = parts_k[0], parts_v[0]
+        elif parts_k:
+            # Within one stream blocks are already key-ordered end to end.
+            self.keys = np.concatenate(parts_k)
+            self.vals = np.concatenate(parts_v)
+
+    def exhausted(self) -> bool:
+        self.refill()
+        return len(self.keys) == 0
+
+    def take(self, upto_key: Optional[np.void]) -> Tuple[np.ndarray, np.ndarray]:
+        """Pop the buffered prefix with keys <= upto_key (or all if None)."""
+        if upto_key is None:
+            k, v = self.keys, self.vals
+            self.keys = np.zeros(0, dtype=KEY_DTYPE)
+            self.vals = np.zeros(0, dtype=np.uint32)
+            return k, v
+        # np.uint64 needle, NOT a python int: numpy promotes uint64 vs
+        # int to float64, whose 53-bit mantissa collapses composite keys
+        # (tag byte => every key >= 2^56) that differ only in low bits —
+        # the cut then overshoots the bound and the merge emits an
+        # out-of-order chunk (disordered table tails at bench scale).
+        cut = int(np.searchsorted(
+            self.keys["lo"], np.uint64(upto_key), side="right"
+        ))
+        k, v = self.keys[:cut], self.vals[:cut]
+        self.keys, self.vals = self.keys[cut:], self.vals[cut:]
+        return k, v
+
+    def last_buffered_lo(self) -> int:
+        return int(self.keys[-1]["lo"])
+
+    def bound_lo(self, target_rows: int) -> int:
+        """A safe chunk bound ~target_rows into the buffer. Any buffered
+        key qualifies: the unbuffered remainder sorts past the tail, so
+        every row <= it is already here."""
+        i = min(max(target_rows, 1), len(self.keys)) - 1
+        return int(self.keys[i]["lo"])
+
 
 
 class DurableIndex:
@@ -140,8 +285,14 @@ class DurableIndex:
         growth: int = 8,
         name: Optional[str] = None,
         merge_hint: Optional[str] = None,
+        device=None,
     ) -> None:
         self.grid = grid
+        # The device of the compaction fold (ops/merge.compact_fold_kernel
+        # and merge_device): a torch.device runs every multi-run chunk
+        # there (its plain version on the CPU), None merges on the host.
+        # Both routes write the same bytes.
+        self.device = device
         self.unique = unique
         # Metric identity: named trees publish tables-per-level gauges
         # (`lsm.<name>.tables_l<N>`); anonymous trees skip the gauges but
@@ -170,6 +321,15 @@ class DurableIndex:
         # miss entries; structural changes stay in the store context.
         self.levels: List[List[TableInfo]] = [[]]  # tidy: owner=commit|store
         self.count = 0  # tidy: owner=commit|store
+        # Compaction state: touched only between beats or behind a
+        # full store barrier (checkpoint/restore).
+        self._job: Optional["_CompactionJob"] = None  # tidy: owner=commit|store
+        # (level, captured input tables, reservation, owed, is_storm) of a
+        # fault-aborted job, recreated verbatim on retry.
+        self._aborted_resv: Optional[tuple] = None  # tidy: owner=commit|store
+        # A queued but not started major compaction (request_major): the
+        # next free compact_step beat plans it as one all-level job.
+        self._storm_requested = False  # tidy: owner=commit|store
         # Whole-table decoded-mirror LRU (see _decode_table). The lock
         # covers ONLY the LRU bookkeeping (list + row counter).
         self._decoded_lru: List[TableInfo] = []  # tidy: guarded-by=_lru_lock
@@ -444,6 +604,325 @@ class DurableIndex:
         vals = np.frombuffer(payload[voff : voff + n * 4], dtype=np.uint32)
         return keys, vals
 
+    def _release_table(self, table: TableInfo) -> None:
+        tracer.count("lsm.table_retires")
+        with self._lru_lock:
+            table._released = True
+            if table._decoded is not None:
+                table._decoded = None
+                self._decoded_rows -= table.count
+                try:
+                    self._decoded_lru.remove(table)
+                except ValueError:
+                    pass
+        for f in self._table_fences(table):
+            self.grid.release(int(f["block"]))
+        self.grid.release(table.index_block)
+
+    # --- compaction -----------------------------------------------------
+    #
+    # Incremental k-way leveled compaction (upstream's bar/beat pacing,
+    # compaction.zig:1-31 + k_way_merge.zig:8, re-shaped for
+    # batch-vectorized hosts): when a level exceeds the growth factor, a
+    # _CompactionJob captures its tables and merges all of them in one
+    # k-way streaming pass (every row moves once) in bounded per-beat
+    # steps (compact_step), so a major merge never stalls the commit
+    # path. Reads keep using the captured input tables until the job
+    # installs its output atomically.
+
+    def compact_step(self, quota_entries: int) -> bool:
+        """One beat of compaction work (≤ ~quota_entries merged entries).
+        Returns True while more compaction work remains queued."""
+        if self._job is None:
+            if self._aborted_resv is not None:
+                # Retry after a repaired fault: recreate the SAME job —
+                # captured inputs, reservation, and completed progress —
+                # so the restarted merge rewrites the same blocks and
+                # installs at the op peers do. It must run before any
+                # OTHER level's job is considered, or its reservation
+                # would leak and the eventual re-reserve would pick
+                # different indices.
+                level, tables, resv, p0, storm = self._aborted_resv
+                self._aborted_resv = None
+                self._job = _CompactionJob(
+                    self, level, tables, reservation=resv, is_storm=storm
+                )
+                self._job.pending_ff = p0
+            elif self._storm_requested:
+                self._plan_storm_job()
+            else:
+                for level, tables in enumerate(self.levels):
+                    if len(tables) > self.growth:
+                        self._job = _CompactionJob(self, level, list(tables))
+                        break
+        if self._job is None:
+            return False
+        tracer.count("lsm.compaction_beats")
+        try:
+            # A restored job's deferred fast-forward folds into this
+            # step's quota (see restore_job) — same stopping point as a
+            # replica that ran the forward and the beat separately. The
+            # owed forward is only consumed on SUCCESS: a fault mid-step
+            # discards the step's merges, so the retry still owes it.
+            quota = quota_entries + self._job.pending_ff
+            if self._job.pending_ff:
+                with tracer.span("lsm.compact.forward"):
+                    exhausted = self._job.step(quota)
+            else:
+                exhausted = self._job.step(quota)
+            self._job.pending_ff = 0
+            if self.name is not None and self._job.is_storm:
+                tracer.gauge(
+                    f"lsm.{self.name}.storm_remaining",
+                    max(0, self._job.total_rows - self._job.progress),
+                )
+            if exhausted:
+                if self.name is not None and self._job.is_storm:
+                    tracer.gauge(f"lsm.{self.name}.storm_remaining", 0)
+                self._install_job()
+        except GridReadFault:
+            # A corrupt input block: the step is NOT resumable (streams
+            # were partially consumed), but abort-and-retry is exactly
+            # deterministic — inputs, reservation, AND the owed position
+            # (completed progress + any unconsumed fast-forward) are
+            # kept, so the retried job forwards to the position peers
+            # hold and stays install-op aligned.
+            owed = self._job.progress_at_step_start + self._job.pending_ff
+            self._job.discard_pending()
+            self._job.writer.abort()
+            self._aborted_resv = (
+                self._job.level, self._job.tables, self._job.reservation,
+                owed, self._job.is_storm,
+            )
+            self._job = None
+            raise
+        return (
+            self._job is not None
+            or self._storm_requested
+            or any(len(t) > self.growth for t in self.levels)
+        )
+
+    def request_major(self) -> int:
+        """Queue a forced all-level major compaction (the reference's
+        compaction-storm shape) to run INCREMENTALLY through compact_step
+        beats, so the tree keeps serving lookups and inserts while the
+        whole keyspace merges down to one bottom run. Returns the rows
+        queued (0 if the tree is too small to bother, or a storm is
+        already queued/running).
+
+        Maintenance/single-node API: the request itself is not a
+        committed op, so a cluster must send it identically to every
+        replica — but the storm JOB, once planned, checkpoints and
+        restores like any other compaction job."""
+        if self.storm_active():
+            return 0
+        self.flush_memtable()
+        if sum(len(lvl) for lvl in self.levels) < 2:
+            return 0
+        self._storm_requested = True
+        return sum(t.count for lvl in self.levels for t in lvl)
+
+    def storm_active(self) -> bool:
+        """True while a storm is queued, running, or awaiting fault retry."""
+        return (
+            self._storm_requested
+            or (self._job is not None and self._job.is_storm)
+            or (self._aborted_resv is not None and self._aborted_resv[4])
+        )
+
+    def _plan_storm_job(self) -> None:
+        """Start the queued storm as ONE beat-paced job over every table,
+        oldest-first across levels (deeper level = older data; append
+        order is age order within a level). The k-way merge folds ≤64
+        streams per pass in the C core and buffers one block per stream,
+        so even a whole-tree merge is O(tables) memory. Output becomes
+        the new bottom level at install. Runs only when no other job is
+        in flight — a regular job finishes first and its output joins
+        the storm's inputs."""
+        self._storm_requested = False
+        self.flush_memtable()
+        tables = [t for level in reversed(self.levels) for t in level]
+        if len(tables) < 2:
+            return
+        self._job = _CompactionJob(self, 0, tables, is_storm=True)
+
+    def compact_backlog(self) -> int:
+        """Entries of compaction work outstanding. This is the pacing
+        input for the adaptive beat quota, so it must be a pure function
+        of committed state: levels content and job progress are
+        beat-paced, and a fault-aborted job counts its owed position
+        (total − owed equals a non-faulting peer's total − progress), so
+        replicas and WAL replay compute identical backlogs."""
+        backlog = 0
+        j = self._job
+        if j is not None:
+            backlog += max(0, j.total_rows - j.progress - j.pending_ff)
+        elif self._aborted_resv is not None:
+            _lvl, tables, _resv, owed, _storm = self._aborted_resv
+            backlog += max(0, sum(t.count for t in tables) - owed)
+        elif self._storm_requested:
+            backlog += sum(t.count for lvl in self.levels for t in lvl)
+        for level, tables in enumerate(self.levels):
+            if len(tables) <= self.growth:
+                continue
+            # Tables captured by the running job still sit in their level;
+            # skip them rather than double-count (a storm captured all).
+            if j is not None and (j.is_storm or level == j.level):
+                continue
+            backlog += sum(t.count for t in tables)
+        return backlog
+
+    def compact_prefetch_one(self) -> bool:
+        """Warm ONE upcoming compaction-input block into the grid cache
+        (idle-slot read-ahead). Content-neutral: only cache temperature
+        changes, never merge order or output bytes, so it is safe to
+        drive from timing-dependent idle detection. Faults are swallowed
+        here — the real read takes the normal repair path. Storm jobs
+        only: routine level merges touch a handful of blocks per beat and
+        their inputs are usually still cache-hot from ingest, so the
+        read-ahead would mostly queue cold reads behind the WAL's writes
+        (which the commit path is latency-bound on); a storm's all-level
+        fold is the case where warm inputs pay for that contention."""
+        j = self._job
+        if j is None or not j.is_storm:
+            return False
+        try:
+            return j.prefetch_one()
+        except GridReadFault:
+            return False
+
+    def _install_job(self) -> None:
+        job = self._job
+        self._job = None
+        out = job.writer.finish()
+        for b in job.writer.unused_reservation():
+            self.grid.free_set.release(b)  # forfeit (usually empty)
+        # Publish-then-retire: the merged output becomes visible BEFORE
+        # the input tables leave their level, so a concurrent drain-free
+        # reader walking newest-first always finds every entry in at
+        # least one of the two (merges preserve content; transient double
+        # visibility resolves to the same values).
+        captured = set(id(t) for t in job.tables)  # tidy: allow=id-key — identity membership within one process, never ordered or serialized
+        if job.is_storm:
+            # Storm install: the merged run becomes the new BOTTOM level,
+            # every captured input (which spanned all levels) retires, and
+            # emptied interior levels compress away — level indices are
+            # not persisted identities, and no other job is in flight.
+            self.levels.append(out)
+            self.levels = [
+                [t for t in lvl if id(t) not in captured]  # tidy: allow=id-key — identity membership within one process, never ordered or serialized
+                for lvl in self.levels
+            ]
+            self.levels = [self.levels[0]] + [
+                lvl for lvl in self.levels[1:] if lvl
+            ]
+            tracer.count("lsm.compaction_storms")
+        else:
+            if job.level + 1 >= len(self.levels):
+                self.levels.append([])
+            self.levels[job.level + 1].extend(out)
+            self.levels[job.level] = [
+                t for t in self.levels[job.level] if id(t) not in captured  # tidy: allow=id-key — identity membership within one process, never ordered or serialized
+            ]
+        for t in job.tables:
+            self._release_table(t)
+        tracer.count("lsm.compaction_installs")
+        self._publish_level_gauges()
+
+    def drain_compaction(self) -> None:
+        """Run every queued compaction to completion (checkpoint barrier:
+        a manifest must never reference a half-written merge)."""
+        while self.compact_step(1 << 62):
+            pass
+
+    def _merge_chunk(self, ka, va, kb, vb) -> Tuple[np.ndarray, np.ndarray]:
+        if self.device is not None:
+            from tigerbeetle_tpu_torch.ops import merge as merge_ops
+
+            return merge_ops.merge_device(ka, va, kb, vb, device=self.device)
+        return merge_host_kway([ka, kb], [va, vb])
+
+    def _merge_tables(
+        self, tables_a: List[TableInfo], tables_b: List[TableInfo]
+    ) -> List[TableInfo]:
+        """Streaming stable merge of two key-ordered table sequences,
+        O(block) memory; emits one or more non-overlapping tables."""
+        a = _MergeStream(self, tables_a)
+        b = _MergeStream(self, tables_b)
+        out = _TableWriter(self)
+        while True:
+            a_empty, b_empty = a.exhausted(), b.exhausted()
+            if a_empty and b_empty:
+                break
+            if b_empty:
+                out.append(*a.take(None))
+                continue
+            if a_empty:
+                out.append(*b.take(None))
+                continue
+            # Emit everything up to the smaller of the two buffered tail
+            # lo-keys — all later input sorts at or past it; a lo-tie run
+            # split across windows is fine (point lookups verify hi, and
+            # the non-unique read path sorts values per key).
+            bound = min(a.last_buffered_lo(), b.last_buffered_lo())
+            ka, va = a.take(bound)
+            kb, vb = b.take(bound)
+            if len(ka) and len(kb):
+                mk, mv = self._merge_chunk(ka, va, kb, vb)
+                out.append(mk, mv)
+            elif len(ka):
+                out.append(ka, va)
+            elif len(kb):
+                out.append(kb, vb)
+        return out.finish()
+
+    def compact_all(self) -> None:
+        """Forced major compaction: merge every level into one bottom run
+        (the reference's compaction-storm shape, BASELINE config 5).
+        Hierarchical k-way: groups of ≤64 streams per pass — the C
+        merge core's heap selection is O(log k) per row, so the wide
+        group costs the same per row as a narrow one but a whole
+        benchmark-scale tree collapses in ONE pass (every row moves
+        once) where the old 16-wide grouping needed two."""
+        # Finish only the IN-FLIGHT job (a manifest must never reference
+        # a half-written merge) — but do NOT drain_compaction(): that
+        # would plan fresh level merges whose whole output the all-level
+        # fold below immediately re-merges, doubling every row's moves.
+        # The big fold absorbs any queued level work in the same pass.
+        while self._job is not None or self._aborted_resv is not None:
+            self.compact_step(1 << 62)
+        self.flush_memtable()
+        # Oldest-first: deeper levels hold older data; within a level,
+        # append order is age order. Group merges keep age order because
+        # groups are formed and concatenated in order and the chunk
+        # combine is stable.
+        tables: List[TableInfo] = [
+            t for level in reversed(self.levels) for t in level
+        ]
+        while len(tables) > 1:
+            one_group = len(tables) <= 64
+            next_round: List[TableInfo] = []
+            for g in range(0, len(tables), 64):
+                group = tables[g : g + 64]
+                if len(group) == 1:
+                    next_round.extend(group)
+                    continue
+                job = _CompactionJob(self, 0, group)
+                job.step(1 << 62)
+                next_round.extend(job.writer.finish())
+                for b in job.writer.unused_reservation():
+                    self.grid.free_set.release(b)
+                for t in group:
+                    self._release_table(t)
+            tables = next_round
+            if one_group:
+                break  # a single merge's outputs are already disjoint
+        self.levels = [[], tables]
+        # The fold above IS a completed major: a still-queued storm
+        # request would only re-merge the single bottom run.
+        self._storm_requested = False
+
+
     # --- read path ------------------------------------------------------
 
     def _tables_newest_first(self) -> List[TableInfo]:
@@ -486,6 +965,12 @@ class DurableIndex:
         # without touching it at all.
         bloom = _key_bloom(decoded[0]) if table.bloom is None else None
         with self._lru_lock:
+            if table._released:
+                # Retired while we were building (compaction racing a
+                # reader): serve this probe from the local mirror but
+                # never install it, so a dead table takes no decode
+                # budget and evicts no live mirror.
+                return decoded
             if table._decoded is None:
                 while (
                     self._decoded_rows + table.count > self.DECODE_BUDGET_ROWS
@@ -897,3 +1382,508 @@ class DurableIndex:
             tracer.count("lsm.scan.runs_probed", probed)
             tracer.count("lsm.scan.runs_pruned", pruned)
         return marked
+
+    # --- checkpoint -----------------------------------------------------
+
+    def checkpoint(self) -> np.ndarray:
+        """Flush the memtable and return the manifest (MANIFEST_DTYPE rows).
+
+        An in-flight compaction job is NOT drained (a checkpoint landing
+        on a deep backlog would otherwise stall the commit stream for the
+        whole merge). The manifest references the
+        job's INPUT tables (still live, still serving reads); the job's
+        descriptor — inputs prefix + private block reservation — is
+        persisted alongside (job_state), so a restarted replica re-runs
+        the job into the same blocks while a running one just continues:
+        both install identical outputs at identical indices."""
+        self.flush_memtable()
+        rows = []
+        for level, tables in enumerate(self.levels):
+            for t in tables:
+                rows.append(
+                    (level, t.index_block, t.count,
+                     t.key_min[0], t.key_min[1], t.key_max[0], t.key_max[1])
+                )
+        return np.array(rows, dtype=MANIFEST_DTYPE)
+
+    def checkpoint_fences(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(concatenated fence rows, per-table fence counts) in manifest
+        row order. Persisted alongside the manifest so a restored tree
+        knows every data-block address WITHOUT grid reads — checkpoint
+        encoding (snapshot.referenced_blocks) then never touches storage,
+        and a restored-from-blob tree is fence-complete immediately."""
+        fences = []
+        counts = []
+        for tables in self.levels:
+            for t in tables:
+                f = self._table_fences(t)
+                fences.append(f)
+                counts.append(len(f))
+        if not fences:
+            return (
+                np.zeros(0, dtype=INDEX_ENTRY_DTYPE),
+                np.zeros(0, dtype=np.uint32),
+            )
+        return np.concatenate(fences), np.array(counts, dtype=np.uint32)
+
+    def attach_fences(self, fences: np.ndarray, counts: np.ndarray) -> None:
+        """Re-attach checkpointed fence arrays after restore() (same
+        manifest row order as checkpoint_fences)."""
+        off = 0
+        i = 0
+        for tables in self.levels:
+            for t in tables:
+                c = int(counts[i])
+                t._fences = fences[off : off + c]
+                off += c
+                i += 1
+
+    def job_state(self) -> Optional[Tuple[int, int, int, List[int]]]:
+        """(level, n_inputs, progress, reservation) of the in-flight
+        compaction job, for checkpoint persistence. Every replica at the
+        same checkpoint has the same descriptor — jobs start, step, and
+        install at deterministic beats, so progress (cumulative merged
+        entries) is identical too; the storage checker byte-compares it."""
+        j = self._job
+        if j is None:
+            return None
+        n = len(j.tables)
+        if j.is_storm:
+            # A storm job's inputs span EVERY level, oldest-first — and
+            # stay a prefix of that order across checkpoints, because
+            # flushes only APPEND to level 0 (newest position) while the
+            # storm runs and no other job restructures levels. The
+            # sentinel level tells restore_job to rebuild the same list.
+            flat = [t for level in reversed(self.levels) for t in level]
+            assert flat[:n] == j.tables, (
+                "storm inputs must be the oldest-first prefix across levels"
+            )
+            return (_STORM_LEVEL, n, j.progress, list(j.reservation))
+        assert self.levels[j.level][:n] == j.tables, (
+            "job inputs must be a prefix of their level"
+        )
+        return (j.level, n, j.progress, list(j.reservation))
+
+    def restore_job(
+        self, level: int, n_inputs: int, progress: int,
+        reservation: List[int],
+    ) -> None:
+        """Recreate a checkpointed job descriptor. The re-merge is
+        FAST-FORWARDED to the checkpointed progress LAZILY, on the first
+        compact_step (pending_ff): install() may run on block-sync paths
+        where the input blocks are not locally present yet, and commits
+        (hence beats) are gated until they are. Folding the forward into
+        the first beat's quota lands on the identical chunk-stream
+        crossing a running replica reached (first crossing >= p, then
+        >= p+q, equals first crossing >= p+q when p is itself a
+        crossing), so the restarted job installs at the same future op
+        as a replica that never restarted — and a fault during the
+        forward takes compact_step's abort path like any other."""
+        storm = level == _STORM_LEVEL
+        if storm:
+            flat = [t for lvl in reversed(self.levels) for t in lvl]
+            tables = flat[:n_inputs]
+        else:
+            tables = self.levels[level][:n_inputs]
+        assert len(tables) == n_inputs
+        self._job = _CompactionJob(
+            self, 0 if storm else level, tables,
+            reservation=list(reservation), is_storm=storm,
+        )
+        self._job.pending_ff = progress
+
+    def storm_state(self) -> int:
+        """1 if a storm is queued but not yet planned as a job (the
+        request_major → first-beat window), for checkpoint persistence.
+        A PLANNED storm persists via job_state's sentinel instead."""
+        return 1 if self._storm_requested else 0
+
+    def restore_storm(self, requested: int) -> None:
+        """Re-queue a checkpointed not-yet-planned storm request. Call
+        BEFORE restore_job (a restored job descriptor supersedes it)."""
+        self._storm_requested = bool(requested)
+
+    def restore(self, manifest: np.ndarray) -> None:  # tidy: allow=unlocked-access — open/state-sync path: stages are reset/quiesced, no concurrent reader exists
+        self._mem = []
+        self._mem_sorted = []
+        self._mem_count = 0
+        self.levels = [[]]
+        self.count = 0
+        self._job = None
+        self._aborted_resv = None
+        self._storm_requested = False
+        self._decoded_lru = []
+        self._decoded_rows = 0
+        for rec in manifest:
+            level = int(rec["level"])
+            while level >= len(self.levels):
+                self.levels.append([])
+            t = TableInfo(
+                index_block=int(rec["index_block"]),
+                count=int(rec["count"]),
+                key_min=(int(rec["min_hi"]), int(rec["min_lo"])),
+                key_max=(int(rec["max_hi"]), int(rec["max_lo"])),
+            )
+            self.levels[level].append(t)
+            self.count += t.count
+
+
+class _CompactionJob:
+    """Resumable k-way merge of a captured table list into one key-ordered
+    output run (k_way_merge.zig:8's role). Work is metered in entries per
+    `step` call; between steps the tree keeps serving reads from the input
+    tables. The chunk combine is stable with streams ordered oldest-first,
+    preserving the age precedence the lookup path relies on."""
+
+    def __init__(
+        self, tree: DurableIndex, level: int, tables: List[TableInfo],
+        reservation: Optional[List[int]] = None, is_storm: bool = False,
+    ) -> None:
+        self.tree = tree
+        self.level = level
+        self.tables = tables
+        self.is_storm = is_storm
+        # Read-ahead depth budget: ~2M buffered rows across all streams
+        # (≈40 MB at benchmark block sizes, transient, small next to the
+        # decoded-mirror budget) — wide merges get multi-block chunks
+        # without unbounded memory. Deterministic: a pure function of the
+        # captured table count and the grid geometry.
+        depth = max(1, min(8, (1 << 21) // max(1, len(tables) * tree.entries_per_block)))
+        self.streams = [_MergeStream(tree, [t], depth=depth) for t in tables]
+        self.total_rows = sum(t.count for t in tables)
+        if reservation is None:
+            # Reserve the EXACT output block count up front (merges
+            # preserve entry counts): the job owns these blocks privately,
+            # so its progress can span checkpoints — and a replica that
+            # restarts the job from its checkpointed descriptor writes
+            # the same content at the same indices (reference
+            # free_set.zig:28-45 reservations).
+            epb = tree.entries_per_block
+            n_data = -(-self.total_rows // epb)
+            n_index = -(-n_data // tree.fences_per_index)
+            reservation = tree.grid.free_set.reserve(n_data + n_index)
+        self.reservation = reservation
+        # Fused Bloom plan: output table boundaries are known UP FRONT
+        # (merges preserve counts; every data block except the run's last
+        # is epb-full, so tables split at exact multiples of span), so
+        # per-table filters sized exactly as the lazy builds would size
+        # them (2*count) can be populated inside the merge's output pass
+        # — the filters are bit-identical to a post-hoc build, and the
+        # first-probe full-table scan (_stream_bloom) never runs for
+        # compacted tables.
+        self._span = tree.fences_per_index * tree.entries_per_block
+        n_tables = -(-self.total_rows // self._span) if self.total_rows else 0
+        self._blooms = [
+            Bloom(2 * min(self._span, self.total_rows - t * self._span))
+            for t in range(n_tables)
+        ]
+        self._out_pos = 0
+        # Split-phase double buffer: a dispatched-but-unmaterialized
+        # device merge chunk (flushed in dispatch order; never outlives
+        # one step call).
+        self._pending = None
+        self.writer = _TableWriter(tree, reservation, blooms=self._blooms)
+        # Cumulative entries merged — persisted with the checkpoint
+        # descriptor so a restarted replica fast-forwards to the SAME
+        # position and installs at the same op as peers that kept
+        # running (chunk boundaries are deterministic, so progress is
+        # always a reproducible crossing point of the chunk stream).
+        self.progress = 0
+        # Deferred fast-forward amount for a descriptor-restored job
+        # (consumed by compact_step's first beat; see restore_job).
+        self.pending_ff = 0
+        # Progress as of the last completed step — the retry position
+        # after a fault-aborted step (its partial merges are discarded).
+        self.progress_at_step_start = 0
+
+    def step(self, quota_entries: int) -> bool:
+        """Merge ≥1 chunk, up to ~quota_entries; True when exhausted."""
+        self.progress_at_step_start = self.progress
+        merged = 0
+        use_device = self.tree.device is not None
+        while merged < quota_entries:
+            live = [s for s in self.streams if not s.exhausted()]
+            if not live:
+                self._flush_pending()
+                return True
+            if len(live) == 1:
+                k, v = live[0].take(None)
+                self._append(k, v)
+                merged += len(k)
+                self.progress += len(k)
+                continue
+            # Everything at or below the smallest buffered tail key can be
+            # ordered now — later input in any stream sorts past it. Cut
+            # near the remaining quota so beats stay bounded even with
+            # deep read-ahead buffers; drain-style quotas (compact_all,
+            # storm drain) degenerate to the full-buffer bound.
+            per = max(1, (quota_entries - merged) // len(live))
+            bound = min(s.bound_lo(per) for s in live)
+            parts_k, parts_v = [], []
+            for s in live:  # oldest-first order
+                k, v = s.take(bound)
+                if len(k):
+                    parts_k.append(k)
+                    parts_v.append(v)
+            n_chunk = sum(len(k) for k in parts_k)
+            if use_device and len(parts_k) > 1:
+                # Split-phase: dispatch THIS chunk's device fold before
+                # materializing the PREVIOUS one, so the device merge
+                # overlaps the previous chunk's host-side bloom feed and
+                # table build (the streaming engine's double buffer).
+                # Chunks append strictly in dispatch order, so output
+                # bytes are identical to the synchronous path.
+                from tigerbeetle_tpu_torch.ops import merge as merge_ops
+
+                with tracer.span("lsm.compact.merge"):
+                    handle = merge_ops.compact_fold_dispatch(
+                        parts_k, parts_v, self.tree.device
+                    )
+                self._flush_pending()
+                self._pending = handle
+            else:
+                with tracer.span("lsm.compact.merge"):
+                    ck, cv, prefilled = self._combine(parts_k, parts_v)
+                self._append(ck, cv, prefilled=prefilled)
+            merged += n_chunk
+            self.progress += n_chunk
+        self._flush_pending()
+        return False
+
+    def _combine(
+        self, parts_k: List[np.ndarray], parts_v: List[np.ndarray]
+    ) -> Tuple[np.ndarray, np.ndarray, bool]:
+        """Host k-way combine → (keys, vals, bloom_prefilled)."""
+        if len(parts_k) == 1:
+            return parts_k[0], parts_v[0], False
+        # Host path: each part is sorted and parts arrive oldest-first,
+        # so the stable galloping k-way merge (C shim) produces the
+        # radix sort's exact bytes at merge cost instead of sort cost —
+        # and the fused variant sets the output tables' Bloom bits on the
+        # rows while they are cache-hot from the copy, erasing the
+        # separate build pass.
+        if self._blooms:
+            ends, blooms = self._segments(sum(len(k) for k in parts_k))
+            mk, mv = merge_host_kway_bloom(parts_k, parts_v, ends, blooms)
+            return mk, mv, True
+        mk, mv = merge_host_kway(parts_k, parts_v)
+        return mk, mv, False
+
+    def _segments(
+        self, n: int
+    ) -> Tuple[List[int], List[Optional[Bloom]]]:
+        """Output-table boundary splits of the next n output rows,
+        relative to the chunk start (the fused merge's segment plan)."""
+        pos = self._out_pos
+        ends: List[int] = []
+        blooms: List[Optional[Bloom]] = []
+        while n > 0:
+            t = pos // self._span
+            take = min(self._span - pos % self._span, n)
+            ends.append(pos + take - self._out_pos)
+            blooms.append(self._blooms[t] if t < len(self._blooms) else None)
+            pos += take
+            n -= take
+        return ends, blooms
+
+    def _append(
+        self, keys: np.ndarray, vals: np.ndarray, prefilled: bool = False
+    ) -> None:
+        """Feed output rows to the writer, populating table Blooms for
+        any path that did not fuse them (single-stream passthrough,
+        device-fold chunks). Flushes a pending device chunk first so
+        output rows land in merge order."""
+        self._flush_pending()
+        if len(keys) == 0:
+            return
+        if not prefilled and self._blooms:
+            with tracer.span("lsm.compact.bloom"):
+                ends, blooms = self._segments(len(keys))
+                _bloom_fill(keys, ends, blooms)
+        self._out_pos += len(keys)
+        with tracer.span("lsm.compact.build"):
+            self.writer.append(keys, vals)
+
+    def _flush_pending(self) -> None:
+        """Materialize + append the previously dispatched device chunk
+        (the back half of the split-phase double buffer)."""
+        if self._pending is None:
+            return
+        from tigerbeetle_tpu_torch.ops import merge as merge_ops
+
+        handle, self._pending = self._pending, None
+        with tracer.span("lsm.compact.merge"):
+            k, v = merge_ops.compact_fold_materialize(handle)
+        self._append(k, v)
+
+    def discard_pending(self) -> None:
+        """Drop a dispatched-but-unappended device chunk (fault abort
+        path): closes its tracer dispatch token and releases its
+        memory-ledger bytes; the retried job simply re-merges the
+        chunk."""
+        if self._pending is None:
+            return
+        from tigerbeetle_tpu_torch.ops import merge as merge_ops
+
+        handle, self._pending = self._pending, None
+        merge_ops.compact_fold_discard(handle)
+
+    def prefetch_one(self) -> bool:
+        """Warm one upcoming input block (idle read-ahead); see
+        DurableIndex.compact_prefetch_one."""
+        for stream in self.streams:
+            for reader in stream.readers:
+                if reader.prefetch_block():
+                    return True
+        return False
+
+
+class _TableWriter:
+    """Accumulates merged output, flushing full data blocks incrementally;
+    rolls over into a new table when the index block's fence capacity is
+    reached (output tables are key-ordered and non-overlapping).
+
+    With a `reservation` (a compaction job's private block list from
+    FreeSet.reserve), blocks are consumed from it IN ORDER instead of
+    acquired from the shared free set — the mapping from output content
+    to block index is then a pure function of the merge inputs, so a job
+    restarted from scratch (crash recovery) writes byte-identical blocks
+    at identical indices no matter what else allocated in between."""
+
+    def __init__(
+        self, tree: DurableIndex, reservation: Optional[List[int]] = None,
+        blooms: Optional[List[Bloom]] = None,
+    ) -> None:
+        self.tree = tree
+        self.reservation = reservation
+        self._resv_next = 0
+        self.parts_k: List[np.ndarray] = []
+        self.parts_v: List[np.ndarray] = []
+        self.buffered = 0
+        self.fences: List[tuple] = []
+        self.total = 0
+        self.done: List[TableInfo] = []
+        # Per-output-table Bloom filters populated by the owning
+        # compaction job's merge passes (ordinal == position in `done`);
+        # attached at table close so the lazy builds never run.
+        self._blooms = blooms
+
+    def _write(self, payload: bytes, block_type: int) -> int:
+        if self.reservation is None:
+            return self.tree.grid.write_block(payload, block_type)
+        block = self.reservation[self._resv_next]
+        self._resv_next += 1
+        self.tree.grid.write_block_at(block, payload, block_type)
+        return block
+
+    def abort(self) -> None:
+        """Drop every block this writer has produced (aborted compaction
+        job): none is referenced by any manifest yet. Reserved blocks
+        stay reserved (the retried job reuses them in the same order);
+        free-set-acquired blocks are un-acquired immediately so the
+        retried job re-acquires the same indices."""
+        if self.reservation is None:
+            for _fh, _fl, _lh, _ll, block, _c in self.fences:
+                self.tree.grid.abort_block(block)
+            for t in self.done:
+                for f in self.tree._table_fences(t):
+                    self.tree.grid.abort_block(int(f["block"]))
+                self.tree.grid.abort_block(t.index_block)
+        else:
+            for t in self.done:
+                self.tree.grid._cache.pop(t.index_block, None)
+            self._resv_next = 0
+        self.fences = []
+        self.done = []
+        self.parts_k, self.parts_v, self.buffered = [], [], 0
+
+    def append(self, keys: np.ndarray, vals: np.ndarray) -> None:
+        if len(keys) == 0:
+            return
+        epb = self.tree.entries_per_block
+        if self.buffered:
+            if self.buffered + len(keys) < epb:
+                self.parts_k.append(keys)
+                self.parts_v.append(vals)
+                self.buffered += len(keys)
+                return
+            # Only the leftover-completion pays a concatenate; full
+            # blocks below are sliced straight out of the chunk.
+            need = epb - self.buffered
+            self._flush_block(
+                np.concatenate(self.parts_k + [keys[:need]]),
+                np.concatenate(self.parts_v + [vals[:need]]),
+            )
+            keys, vals = keys[need:], vals[need:]
+            self.parts_k, self.parts_v, self.buffered = [], [], 0
+        n_full = len(keys) // epb
+        for i in range(n_full):
+            self._flush_block(
+                keys[i * epb:(i + 1) * epb], vals[i * epb:(i + 1) * epb]
+            )
+        rem = len(keys) - n_full * epb
+        if rem:
+            self.parts_k = [keys[n_full * epb:]]
+            self.parts_v = [vals[n_full * epb:]]
+            self.buffered = rem
+
+    def _flush_block(self, keys: np.ndarray, vals: np.ndarray) -> None:
+        payload = (
+            np.uint32(len(keys)).tobytes() + b"\x00" * 12
+            + keys.tobytes() + np.ascontiguousarray(vals).tobytes()
+        )
+        block = self._write(payload, BLOCK_TYPE_DATA)
+        self.fences.append(
+            (int(keys[0]["hi"]), int(keys[0]["lo"]),
+             int(keys[-1]["hi"]), int(keys[-1]["lo"]),
+             block, len(keys))
+        )
+        self.total += len(keys)
+        if len(self.fences) >= self.tree.fences_per_index:
+            self._close_table()
+
+    def _close_table(self) -> None:
+        assert self.fences
+        fences = np.zeros(len(self.fences), dtype=INDEX_ENTRY_DTYPE)
+        for i, (fh, fl, lh, ll, b, c) in enumerate(self.fences):
+            fences[i] = (fh, fl, lh, ll, b, c)
+        index_payload = (
+            np.uint32(len(fences)).tobytes()
+            + np.uint32(0).tobytes()
+            + np.uint64(self.total).tobytes()
+            + fences.tobytes()
+        )
+        index_block = self._write(index_payload, BLOCK_TYPE_INDEX)
+        bloom = None
+        if self._blooms is not None and len(self.done) < len(self._blooms):
+            bloom = self._blooms[len(self.done)]
+            tracer.count("lsm.compact.bloom_tables_fused")
+        self.done.append(
+            TableInfo(
+                index_block=index_block,
+                count=self.total,
+                key_min=(int(fences[0]["first_hi"]), int(fences[0]["first_lo"])),
+                key_max=(int(fences[-1]["last_hi"]), int(fences[-1]["last_lo"])),
+                bloom=bloom,
+                _fences=fences,
+            )
+        )
+        self.fences = []
+        self.total = 0
+
+    def finish(self) -> List[TableInfo]:
+        if self.buffered:
+            k = np.concatenate(self.parts_k)
+            v = np.concatenate(self.parts_v)
+            if len(k):
+                self._flush_block(k, v)
+        if self.fences:
+            self._close_table()
+        assert self.done, "empty merge output"
+        return self.done
+
+    def unused_reservation(self) -> List[int]:
+        """Reserved blocks the finished output did not consume (forfeit)."""
+        if self.reservation is None:
+            return []
+        return self.reservation[self._resv_next :]

@@ -30,6 +30,17 @@ re-expresses upstream's StateMachine (src/state_machine.zig:34):
     policy keeps it off on XLA's CPU backend; both routes store the same
     table bytes.
 
+  - Storage work that the commit path defers runs in `compact_beat`, once
+    per committed op: the object logs' pending blocks reach the grid, and
+    each of the five LSM trees takes one bounded compaction step, paced by
+    a quota read from committed state alone (`_compact_quota`).
+    `request_major_compaction` queues a major compaction (a storm) on
+    every tree, which later beats drain while the machine keeps serving.
+    The trees fold multi-run chunks on the device on the route the query
+    index takes (ops/merge.compact_fold_kernel; on the CPU only with
+    `device_query_index=True`), else with the host's C k-way merge; both
+    write the same bytes.
+
 The device is CUDA unless the caller passes `device="cpu"`, where every
 kernel entry runs its plain PyTorch version. Results are byte-identical to
 the reference package and to models/oracle.py (tests/test_torch_*.py).
@@ -72,6 +83,9 @@ U64_MAX = types.U64_MAX
 # staging buffers, so a slot is only rewritten after its previous
 # occupant's kernel has been finished (finish syncs before returning).
 DISPATCH_WINDOW_MAX = PIPELINE_PREPARE_QUEUE_MAX
+
+# Object-log blocks each log writes to the grid per beat.
+BEAT_LOG_BLOCKS = 8
 
 
 class _LazyDict(dict):
@@ -217,15 +231,22 @@ class StateMachine:
         # live on the grid (reference groove.zig: id tree + indexes + object
         # tree).
         self.account_index = make_u128_index(config.accounts_max)
+        # The device query-index route (ops/qindex.py): key build and sort
+        # on the device, lazy runs in the tree, the flush's fold and the
+        # query intersect on the device, and every tree's compaction fold
+        # (ops/merge.compact_fold_kernel). Always on CUDA; on the CPU only
+        # when asked, so that the plain versions drive the same code.
+        self._qindex_device = self.device.type == "cuda" or bool(device_query_index)
+        tree_device = self.device if self._qindex_device else None
         self.transfer_index = DurableIndex(
             self.grid, unique=True,
             memtable_max=config.index_memtable_rows,
-            name="transfer_id",
+            name="transfer_id", device=tree_device,
         )
         self.account_rows = DurableIndex(
             self.grid, unique=False,
             memtable_max=config.index_memtable_rows,
-            name="account_rows",
+            name="account_rows", device=tree_device,
         )
         # Combined secondary query index: (tag<<56 | fold56(field value),
         # timestamp) -> row, for the 8 indexed transfer fields beyond
@@ -237,13 +258,8 @@ class StateMachine:
         self.query_rows = DurableIndex(
             self.grid, unique=False,
             memtable_max=config.index_memtable_rows,
-            name="query_rows", merge_hint="dups",
+            name="query_rows", merge_hint="dups", device=tree_device,
         )
-        # The device query-index route (ops/qindex.py): key build and sort
-        # on the device, lazy runs in the tree, the flush's fold and the
-        # query intersect on the device. Always on CUDA; on the CPU only
-        # when asked, so that the plain versions drive the same code.
-        self._qindex_device = self.device.type == "cuda" or bool(device_query_index)
         self.transfer_log = DurableLog(self.grid, types.TRANSFER_DTYPE)
         # Transfer-id membership pre-filter (no false negatives): keeps the
         # per-batch duplicate-id check O(batch) instead of O(tables).
@@ -255,9 +271,11 @@ class StateMachine:
 
         self.posted = PostedGroove(
             self.grid, memtable_max=config.index_memtable_rows // 8 or 512,
+            device=tree_device,
         )
         self.history = HistoryGroove(
             self.grid, memtable_max=config.index_memtable_rows // 8 or 512,
+            device=tree_device,
         )
 
         self.prepare_timestamp = 0
@@ -269,6 +287,13 @@ class StateMachine:
         # before anything that reads the store (every public operation
         # guards), so stores land in strict op order.
         self._deferred_store = None  # tidy: owner=commit
+        # Resume point within compact_beat's stage list after a
+        # GridReadFault was repaired (see compact_beat).
+        self._beat_stage = 0  # tidy: owner=commit|store
+        # Event count of the last committed batch: the adaptive beat
+        # quota's load signal (a pure function of the committed op
+        # stream, so replicas and WAL replay pace identically).
+        self._beat_events = 0  # tidy: owner=commit|store
 
         # Split-phase device dispatch (the overlapped commit pipeline,
         # vsr/pipeline.py): FIFO of outstanding handles whose kernels are
@@ -304,6 +329,12 @@ class StateMachine:
             "fast_batches": 0, "exact_batches": 0, "serial_batches": 0,
             "bail_batches": 0,
         }
+
+    def store_barrier(self) -> None:  # tidy: thread=commit
+        """Read-your-writes guard before a store read. With no async store
+        stage (the replica's, not part of this package) that is the last
+        committed batch's deferred store."""
+        self.flush_deferred()
 
     def flush_deferred(self) -> None:  # tidy: thread=commit
         """Apply the last committed batch's deferred store (read-your-writes
@@ -490,6 +521,108 @@ class StateMachine:
         return self.prepare_timestamp
 
     # ------------------------------------------------------------------
+    # compaction beat (upstream forest.compact, forest.zig:319): bounded
+    # background storage work between commits, so the commit and its
+    # reply do no grid IO.
+
+    def compact_beat(self) -> None:  # tidy: thread=commit
+        """One beat of deferred storage work, driven once per committed op:
+        the op's deferred store, then up to BEAT_LOG_BLOCKS of each object
+        log's pending blocks and one bounded compaction step on each
+        durable index. Replaying the same ops replays the same beats, so
+        grid allocation order (and with it the checkpoint's bytes) is the
+        same on every replica."""
+        self.flush_deferred()  # the op's store precedes its beat, always
+        # Resumable by stage: a GridReadFault in a stage (a corrupt
+        # compaction input) aborts that stage, and the retry after repair
+        # resumes there; re-running completed stages would give their
+        # trees extra beats for this op and change the allocation order.
+        quota = self._compact_quota()
+        tracer.gauge("sm.compact.quota", quota)
+        stages = (
+            lambda: self.transfer_log.flush_pending(BEAT_LOG_BLOCKS),
+            lambda: self.history.flush_pending(BEAT_LOG_BLOCKS),
+            lambda: self.transfer_index.compact_step(quota),
+            lambda: self.account_rows.compact_step(quota),
+            lambda: self.query_rows.compact_step(quota),
+            lambda: self.posted.compact_step(quota),
+            lambda: self.history.compact_step(quota),
+        )
+        with tracer.span("sm.beat"):
+            while self._beat_stage < len(stages):
+                stages[self._beat_stage]()
+                self._beat_stage += 1
+            self._beat_stage = 0
+
+    def _compact_quota(self) -> int:
+        """Adaptive beat quota from committed state only: the last batch's
+        fill fraction and the trees' compaction backlog, both pure
+        functions of the committed op stream, so every replica (and WAL
+        replay) computes the same quota for an op. It must not read a
+        wall-clock queue depth, which differs between machines."""
+        base = self.config.compact_quota_entries
+        backlog = self._compact_backlog()
+        if backlog == 0:
+            return base
+        if backlog >= base << 3:
+            # Far behind (a storm, or a stalled stretch): catch up hard;
+            # commits pay more per op for a while, which costs less than
+            # the read amplification of an over-deep tree.
+            return base << 2
+        fill = self._beat_events / self.config.batch_max
+        if fill >= 0.5:
+            # Saturated ingest: halve the allowance to keep the beat off
+            # the commit path (the backlog bound above limits how long).
+            return base >> 1
+        if fill <= 0.125:
+            return base << 2  # mostly idle: drain the backlog
+        return base
+
+    def _compact_backlog(self) -> int:
+        return (
+            self.transfer_index.compact_backlog()
+            + self.account_rows.compact_backlog()
+            + self.query_rows.compact_backlog()
+            + self.posted.compact_backlog()
+            + self.history.compact_backlog()
+        )
+
+    def request_major_compaction(self) -> int:
+        """Queue a major compaction (storm) on every content tree; returns
+        the rows queued. The storms then run through the normal per-op
+        beats while the machine keeps serving. A maintenance call, not a
+        committed op: a cluster must send it alike to every replica
+        (DurableIndex.request_major)."""
+        self.store_barrier()
+        return (
+            self.transfer_index.request_major()
+            + self.account_rows.request_major()
+            + self.query_rows.request_major()
+            + self.posted.request_major()
+            + self.history.request_major()
+        )
+
+    def compaction_storm_active(self) -> bool:
+        return (
+            self.transfer_index.storm_active()
+            or self.account_rows.storm_active()
+            or self.query_rows.storm_active()
+            or self.posted.storm_active()
+            or self.history.storm_active()
+        )
+
+    def compact_prefetch_one(self) -> bool:
+        """Warm one upcoming compaction-input block (idle read-ahead;
+        content-neutral, see DurableIndex.compact_prefetch_one)."""
+        for tree in (
+            self.transfer_index, self.account_rows, self.query_rows,
+            self.posted, self.history,
+        ):
+            if tree.compact_prefetch_one():
+                return True
+        return False
+
+    # ------------------------------------------------------------------
     # balances access (the balance-table kernels)
 
     @staticmethod
@@ -565,6 +698,7 @@ class StateMachine:
         self.flush_deferred()
         events = np.atleast_1d(events)
         n = len(events)
+        self._beat_events = n
         if timestamp is None:
             timestamp = self.prepare("create_accounts", n)
         if n == 0:
@@ -734,6 +868,7 @@ class StateMachine:
         self.flush_deferred()
         events = np.atleast_1d(events)
         n = len(events)
+        self._beat_events = n
         if timestamp is None:
             timestamp = self.prepare("create_transfers", n)
         if n == 0:
@@ -891,6 +1026,7 @@ class StateMachine:
         )
         self._ct_pending.pop(0)
         events, timestamp, n = handle["events"], handle["timestamp"], handle["n"]
+        self._beat_events = n
         if handle["gen"] != self._state_gen:
             # An earlier batch in the chain bailed and rolled the state
             # token back: this kernel consumed a revoked token — discard

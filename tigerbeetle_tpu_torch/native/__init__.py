@@ -151,6 +151,14 @@ def hostops() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_int64), u64p, u32p,
     ]
     lib.hostops_merge_kv.restype = ctypes.c_int
+    lib.hostops_merge_kv_bloom.argtypes = [
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_int64), u64p, u32p,
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_void_p), u64p,
+    ]
+    lib.hostops_merge_kv_bloom.restype = ctypes.c_int
     lib.hostops_intersect_u32.argtypes = [
         ctypes.c_int64, u32p, ctypes.c_int64, u32p, u32p,
     ]

@@ -10,8 +10,9 @@ one host array of pointers and one array of int64 sizes.
 
 Libraries are built at first use, or all at once by `build_all()` (one
 `nvcc` per source, started together). A library's file name carries a
-hash of its source and of common.cuh, so an edited source is rebuilt and
-a stale library is never loaded. A failed build raises.
+hash of its source and of the shared headers (csrc/*.cuh), so an edited
+source is rebuilt and a stale library is never loaded. A failed build
+raises.
 
 Wrappers check their arguments with `check`, launch with `launch` (on
 the device's current stream; a nonzero cudaError_t raises) and so count
@@ -54,6 +55,8 @@ SIGNATURES = {
     "query_index_keys_sorted": ("tb_query_index_keys_sorted", [_P] * 5 + [_I, _P]),
     "merge_kernel_tiled": ("tb_merge_kernel_tiled", [_P] * 6 + [_I, _I, _I, _P]),
     "scan_intersect_mask": ("tb_scan_intersect_mask", [_P] * 3 + [_I, _I, _P]),
+    "merge_kernel": ("tb_merge_kernel", [_P] * 6 + [_I, _I, _I, _P]),
+    "compact_fold_kernel": ("tb_compact_fold", [_P] * 6 + [_I, _I, _P]),
 }
 
 # Kernel launches per entry (plain-version calls do not count).
@@ -83,7 +86,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> str:
     h = hashlib.sha256()
-    for f in (f"{name}.cu", "common.cuh"):
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [f"{name}.cu"] + headers:
         with open(os.path.join(CSRC, f), "rb") as fh:
             h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())

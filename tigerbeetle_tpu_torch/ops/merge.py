@@ -9,13 +9,23 @@ Keys compare as unsigned words with the most significant word last.
 Order is lo-major: ties in lo keep A's rows first, so a caller that passes
 the older run as A keeps insertion order among duplicates.
 
-`merge_kernel_tiled` launches its hand-written CUDA kernel
-(csrc/merge_kernel_tiled.cu) for CUDA tensors and runs its plain PyTorch
-version (`merge_kernel_tiled_plain`) for CPU tensors; a CUDA tensor never
-takes the plain version. The memtable flush of the query index folds its
-sorted runs through it (ops/qindex.fold_runs_device). The reference's
-global-binary-search `merge_kernel` and the compaction fold
-(`compact_fold_kernel`) come with the compaction slice.
+Three kernels, each with its hand-written CUDA kernel for CUDA tensors
+and its plain PyTorch version (`*_plain`) for CPU tensors; a CUDA tensor
+never takes the plain version:
+
+  - `merge_kernel_tiled` (csrc/merge_kernel_tiled.cu): the merge-path
+    tiled merge; the memtable flush of the query index folds its sorted
+    runs through it (ops/qindex.fold_runs_device).
+  - `merge_kernel` (csrc/merge_kernel.cu): the reference's global
+    binary-search merge, any run lengths and payload widths; on no path
+    of the tree (the reference's only callers are its tests).
+  - `compact_fold_kernel` (csrc/compact_fold_kernel.cu): one compaction chunk's
+    k-way fold, log2(k) levels of pairwise merges in one call. The
+    compaction job (lsm/tree.py) drives it split-phase:
+    `compact_fold_dispatch` stages the chunk in one pinned block, copies
+    it to the device and launches without a sync;
+    `compact_fold_materialize` (the one sync) brings back the real rows;
+    `compact_fold_discard` drops a handle on the fault path.
 
 Host helpers: `bucket_pow2` (the one bucket formula of every run's
 padding), `to_device_run` / `from_device_run` (and `to_host_kv`, its
@@ -29,7 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tigerbeetle_tpu_torch import devicestats
+from tigerbeetle_tpu_torch import devicestats, tracer
 from tigerbeetle_tpu_torch.lsm.store import KEY_DTYPE, merge_host_kway  # noqa: F401
 from tigerbeetle_tpu_torch.ops import kernels
 
@@ -68,6 +78,20 @@ def take_rows(t: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32)[order].view(torch.uint32)
 
 
+def _concat_u32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.cat([a.view(torch.int32), b.view(torch.int32)]).view(torch.uint32)
+
+
+def merge_kernel_plain(keys_a, vals_a, keys_b, vals_b):
+    """Plain PyTorch version of merge_kernel: the stable sort of the
+    concatenation A then B. For sorted runs that is their stable merge,
+    which is all merge_kernel computes: parity holds on sorted inputs
+    only."""
+    keys = _concat_u32(keys_a, keys_b)
+    order = stable_order(keys)
+    return take_rows(keys, order), take_rows(_concat_u32(vals_a, vals_b), order)
+
+
 def _check_tiled(n: int, m: int, tile: int) -> None:
     if not 1 <= tile <= 1024:
         raise ValueError(f"merge_kernel_tiled: tile {tile} outside [1, 1024]")
@@ -78,10 +102,7 @@ def merge_kernel_tiled_plain(keys_a, vals_a, keys_b, vals_b, tile: int = MERGE_T
     """Plain PyTorch version of merge_kernel_tiled: the stable sort of the
     concatenation A then B, which for sorted runs is their stable merge."""
     _check_tiled(keys_a.shape[0], keys_b.shape[0], tile)
-    keys = torch.cat([keys_a.view(torch.int32), keys_b.view(torch.int32)]).view(torch.uint32)
-    vals = torch.cat([vals_a.view(torch.int32), vals_b.view(torch.int32)]).view(torch.uint32)
-    order = stable_order(keys)
-    return take_rows(keys, order), take_rows(vals, order)
+    return merge_kernel_plain(keys_a, vals_a, keys_b, vals_b)
 
 
 def merge_kernel_tiled(keys_a, vals_a, keys_b, vals_b, tile: int = MERGE_TILE):
@@ -107,6 +128,194 @@ def merge_kernel_tiled(keys_a, vals_a, keys_b, vals_b, tile: int = MERGE_TILE):
             vals_b.data_ptr(), ok.data_ptr(), op.data_ptr(), n, m, tile,
         )
     return ok, op
+
+
+def merge_kernel(keys_a, vals_a, keys_b, vals_b):
+    """Stable merge of two sorted runs by binary-search rank and scatter:
+    keys (n, 3) and (m, 3) uint32 [lo0, lo1, pad], payloads (n,) and (m,)
+    or (n, K) and (m, K) uint32. Row i of A lands at
+    i + |{j : B[j] < A[i]}|, row j of B at j + |{i : A[i] <= B[j]}|, so
+    A's rows come first at equal keys. Any run lengths, either run may be
+    empty. The positions form a permutation only for sorted runs, and
+    the kernel equals its plain version only there. Returns (keys
+    (n + m, 3), payload (n + m, ...))."""
+    if keys_a.device.type == "cpu":
+        return merge_kernel_plain(keys_a, vals_a, keys_b, vals_b)
+    n, m = keys_a.shape[0], keys_b.shape[0]
+    dev = keys_a.device
+    tail = tuple(vals_a.shape[1:])
+    if len(tail) > 1:
+        raise ValueError(f"merge_kernel: payload rows of shape {tail}")
+    width = tail[0] if tail else 1
+    for name, t, shape in (("keys_a", keys_a, (n, 3)), ("vals_a", vals_a, (n, *tail)),
+                           ("keys_b", keys_b, (m, 3)), ("vals_b", vals_b, (m, *tail))):
+        kernels.check(t, name, torch.uint32, shape, dev)
+    ok = torch.empty((n + m, 3), dtype=torch.uint32, device=dev)
+    op = torch.empty((n + m, *tail), dtype=torch.uint32, device=dev)
+    if n + m and width:
+        kernels.launch(
+            "merge_kernel", dev, keys_a.data_ptr(), vals_a.data_ptr(),
+            keys_b.data_ptr(), vals_b.data_ptr(), ok.data_ptr(),
+            op.data_ptr(), n, m, width,
+        )
+    return ok, op
+
+
+def _check_fold(keys_stack, pays_stack):
+    k, b = keys_stack.shape[0], keys_stack.shape[1]
+    if k < 1 or k & (k - 1) or b < MERGE_TILE or b & (b - 1):
+        raise ValueError(
+            f"compact_fold_kernel: stack ({k}, {b}): k and b must be powers "
+            f"of two and b >= {MERGE_TILE}"
+        )
+    return k, b
+
+
+def compact_fold_kernel_plain(keys_stack, pays_stack):
+    """Plain PyTorch version of compact_fold_kernel: the stable sort of
+    the concatenation of the k runs in stack order (for sorted runs, the
+    pairwise fold's result); a single run comes back as it is."""
+    k, b = _check_fold(keys_stack, pays_stack)
+    if k == 1:
+        return keys_stack[0], pays_stack[0]
+    keys = keys_stack.reshape(k * b, 3)
+    order = stable_order(keys)
+    return take_rows(keys, order), take_rows(pays_stack.reshape(k * b, 3), order)
+
+
+def compact_fold_kernel(keys_stack, pays_stack):
+    """One compaction chunk's k-way fold: keys (k, b, 3) and payloads
+    (k, b, 3) uint32, k sorted runs stacked oldest first, k and b powers
+    of two, b >= MERGE_TILE (_stack_pow2 pads) -> one merged run (k b, 3)
+    and its payload. Older runs' rows come first at equal keys. For k = 1
+    the run comes back as it is, with no launch."""
+    if keys_stack.device.type == "cpu":
+        return compact_fold_kernel_plain(keys_stack, pays_stack)
+    k, b = _check_fold(keys_stack, pays_stack)
+    dev = keys_stack.device
+    kernels.check(keys_stack, "keys_stack", torch.uint32, (k, b, 3), dev)
+    kernels.check(pays_stack, "pays_stack", torch.uint32, (k, b, 3), dev)
+    if k == 1:
+        return keys_stack[0], pays_stack[0]
+    ok = torch.empty((k * b, 3), dtype=torch.uint32, device=dev)
+    op = torch.empty_like(ok)
+    # The other half of the level ping-pong (a 2-run fold is one level).
+    sk = torch.empty_like(ok) if k > 2 else ok
+    sp = torch.empty_like(ok) if k > 2 else op
+    kernels.launch(
+        "compact_fold_kernel", dev, keys_stack.data_ptr(),
+        pays_stack.data_ptr(), ok.data_ptr(), op.data_ptr(), sk.data_ptr(),
+        sp.data_ptr(), k, b,
+    )
+    return ok, op
+
+
+def _stack_block(parts_k, parts_v, pin_memory: bool = False):
+    """Host KEY_DTYPE runs -> the fold's stacked layout as one host block
+    (2, k_pad, b, 3) uint32 (keys, then payload; pinned when asked, for
+    one asynchronous copy) and the total of real rows. Every run is
+    padded to one common bucket b = bucket_pow2(longest run) with pad
+    rows (pad word 1, sorting last), the run list to a power-of-two count
+    with all-pad runs."""
+    k = len(parts_k)
+    k_pad = 1 << max(0, (k - 1).bit_length())
+    b = bucket_pow2(max(len(p) for p in parts_k))
+    block = torch.zeros((2, k_pad, b, 3), dtype=torch.uint32, pin_memory=pin_memory)
+    ks, ps = block.numpy()
+    ks[:, :, 2] = 1
+    total = 0
+    for i, (pk, pv) in enumerate(zip(parts_k, parts_v)):
+        n = len(pk)
+        total += n
+        # KEY_DTYPE rows as uint32 words: [hi0, hi1, lo0, lo1].
+        words = np.ascontiguousarray(pk).view(np.uint32).reshape(n, 4)
+        ks[i, :n, :2] = words[:, 2:]
+        ks[i, :n, 2] = 0
+        ps[i, :n, :2] = words[:, :2]
+        ps[i, :n, 2] = pv
+    return block, total
+
+
+def _stack_pow2(parts_k, parts_v):
+    """The reference's _stack_pow2: (keys (k_pad, b, 3), payload
+    (k_pad, b, 3), total real rows) as CPU tensors (_stack_block)."""
+    block, total = _stack_block(parts_k, parts_v)
+    return block[0], block[1], total
+
+
+class FoldHandle:
+    """A dispatched compaction fold, not yet synchronised: the device
+    output, the real-row count, the dispatch window, and the pinned
+    staging block with the event recorded behind the fold. The staging
+    block stays referenced until the handle's materialize or discard, so
+    its memory is never reused under the copy from it."""
+
+    __slots__ = ("keys", "pays", "total", "t_disp", "staged", "ready", "nbytes")
+
+    def __init__(self, keys, pays, total, t_disp, staged, ready) -> None:
+        self.keys, self.pays, self.total = keys, pays, total
+        self.t_disp, self.staged, self.ready = t_disp, staged, ready
+        self.nbytes = 2 * keys.numel() * keys.element_size()
+
+
+def compact_fold_dispatch(parts_k, parts_v, device) -> FoldHandle:
+    """Stage and dispatch one compaction chunk's k-way fold on `device`,
+    with no device-to-host sync: the front half of the split-phase
+    compaction (compact_fold_materialize resolves the handle, typically
+    one chunk later, so the fold overlaps the previous chunk's host
+    work). On CUDA: one pinned staging block, one asynchronous copy, the
+    fold, an event."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    staged, total = _stack_block(parts_k, parts_v, pin_memory=cuda)
+    t_disp = tracer.device_dispatch(
+        "compact_fold_kernel",
+        h2d_bytes=staged.numel() * staged.element_size() if cuda else 0,
+    )
+    block = staged.to(device, non_blocking=True) if cuda else staged
+    devicestats.note_call("compact_fold_kernel", (block[0], block[1]))
+    keys_dev, pays_dev = compact_fold_kernel(block[0], block[1])
+    ready = None
+    if cuda:
+        ready = torch.cuda.Event()
+        ready.record()
+    handle = FoldHandle(
+        keys_dev, pays_dev, total, t_disp, staged if cuda else None, ready
+    )
+    # Memory ledger: the fold's output lives until materialize or discard.
+    tracer.device_mem_adjust("compact_fold", handle.nbytes)
+    return handle
+
+
+def compact_fold_materialize(handle: FoldHandle):
+    """The fold's one sanctioned sync (the chunk-append boundary):
+    (KEY_DTYPE keys, uint32 vals) of its real rows, laid out on the
+    device as to_host_kv does."""
+    if handle.ready is not None:
+        handle.ready.synchronize()
+    keys, vals = to_host_kv(handle.keys.reshape(-1, 3), handle.pays.reshape(-1, 3), handle.total)
+    tracer.device_finish(
+        "compact_fold_kernel", handle.t_disp, d2h_bytes=keys.nbytes + vals.nbytes
+    )
+    _release(handle)
+    return keys, vals
+
+
+def compact_fold_discard(handle: FoldHandle) -> None:
+    """Drop a dispatched fold without its copy back (the fault path,
+    lsm/tree.py discard_pending): closes the dispatch window unmeasured
+    and returns the ledger bytes; never synchronises. The staging block
+    is released too: PyTorch's pinned allocator keeps it from reuse
+    until the copy out of it has completed."""
+    _release(handle)
+
+
+def _release(handle: FoldHandle) -> None:
+    handle.t_disp = 0
+    handle.keys = handle.pays = handle.staged = handle.ready = None
+    if handle.nbytes:
+        tracer.device_mem_adjust("compact_fold", -handle.nbytes)
+        handle.nbytes = 0
 
 
 def _pad_pow2(keys: np.ndarray, vals: np.ndarray):

@@ -41,6 +41,8 @@ DEVICE_ENTRIES = frozenset({
     # the store stage's query index and the query intersect
     "query_index_keys", "query_index_keys_sorted", "merge_kernel_tiled",
     "scan_intersect_mask",
+    # compaction: the chunk fold and the rank merge
+    "compact_fold_kernel", "merge_kernel",
 })
 
 

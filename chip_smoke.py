@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA H100 and hold it to its references.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--mesh-cards N]
 
 Phases, in order; any failure exits non-zero and no phase's failure is
 caught:
 
-  1. Build: compile the twelve CUDA kernels (tigerbeetle_tpu_torch/csrc,
+  1. Build: compile the fifteen CUDA kernels (tigerbeetle_tpu_torch/csrc,
      one nvcc per source, all started together) and print the seconds.
   2. Kernels vs plain, at the main path's shapes (A = 2^20 accounts,
      n = 8192 events, k = 16384 / 8192 slot rows): each kernel must be
@@ -32,8 +32,18 @@ caught:
      81,920 + 40,960 and 122,880 + 40,960 rows) and on top-bit keys with
      heavy duplicates across both runs, the intersect at 2^17 candidates
      in a 2^20-row run; the store's dispatch runs under sync-debug mode
-     "error". The compaction kernels run after phase 8, whose chunk shapes
-     they take (devicestats): merge_kernel at the flush shapes (122,880 +
+     "error". The mesh's kernels at phase 9's layout (2^18 rows a shard):
+     sharded_validate on both dp slices of the ladder batch (each bails)
+     and of the post batch; sharded_apply with the post batch's routing
+     on each of the four shards, and over a pending + posted overflow on
+     a row of shard 3 that no event touches (must bail); sharded_read at
+     2n = 16384 slots with -1 and the last row, its four shards combined
+     equal to read_balances; the exact kernel's external-base mode on a
+     config-3 and a config-4 batch; one sharded fast and one sharded
+     exact commit on a virtual mesh under sync-debug mode "error", equal
+     to the single-device kernels. The compaction kernels run after
+     phase 8, whose chunk shapes they take (devicestats): merge_kernel
+     at the flush shapes (122,880 +
      40,960 and 40,960 + 40,960 rows) on top-bit keys with duplicates
      across the runs and a lo of all ones, payloads of 3 words and of 1;
      compact_fold_kernel at every (k, b) stack phase 8 folded, and at
@@ -94,10 +104,26 @@ caught:
      get_account_transfers. It prints the storm's rows/s, serving
      transfers/s steady and during the storm with the dip, the beat's
      lsm.compact.merge ms, the fold's device window and its launches.
+  9. The mesh: StateMachine(PRODUCTION, mesh=make_mesh([cuda:0] * 8)),
+     dp 2 x shard 4 on the one card (2^18 rows a shard), then the
+     single-device CUDA StateMachine on the same stream: BASELINE config
+     2's traffic (1,000,000 accounts, 16 Zipf(1.1) batches of 8190, cut
+     from phase 4's 32 for the run's time, and a batch that bails into
+     the serial route and its sharded writeback) and config 3's mix
+     (10,000 accounts, 16 batches, a clock jump of 2 s). Every result, the
+     sampled accounts' lookup bytes and the dense balance tables read back
+     from the shards must equal the single-device machine's, and the dp
+     replicas must be byte-equal. It prints both machines' transfers/s and
+     p50/p99. The mesh is virtual: it proves the sharded arithmetic, the
+     slot routing and the bail contract on the card, not NVLink.
+
+With --mesh-cards N, phase 1 and then phase 9 alone run, on a mesh of
+the first N cards (make_mesh(N): N = 4 gives dp 2 x shard 2) against the
+single-device machine on the first: the peer copies between cards.
 
 Kernel launch counts are reset to 0 just before each main-path run (each
-of phases 3-8, and phase 7's storm) and read just after; each kernel of
-that path must have launched in it. merge_kernel is on no path (as in the
+of phases 3-8, phase 7's storm and phase 9's two mesh runs) and read just
+after; each kernel of that path must have launched in it. merge_kernel is on no path (as in the
 reference, whose only callers are its tests): its launches stay 0. The
 last lines are the kernels' JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. Without CUDA (or without the repository
@@ -123,6 +149,7 @@ N = 8192  # 8190-event batches padded to the 8192 bucket
 TX_BATCH = 8190
 
 RESULTS = {}  # kernel name -> its JSON row
+CARD = ["not read yet"]  # the card's name and power limit (nvidia-smi), for every timed line
 
 
 def log(*a):
@@ -372,7 +399,7 @@ def record(torch, name, source, replaces, kernel, plain, library, nbytes, ops, e
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms, "bound_bytes": nbytes, **extra,
     }
-    log(f"{name}: kernel {ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+    log(f"{name} ({CARD[0]}): kernel {ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
         f"({nbytes} bytes), plain {plain_ms:.4f} ms, library "
         f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}")
 
@@ -518,6 +545,166 @@ def phase_exact(torch, C, dev):
            lambda: E.sort_plan(b, p, chain, A_MAX), plain,
            None, plan_bytes, 14 * 2 * n * 40, err, torch_sort_records_ms=sort_ms)
     del c3, c4, state
+
+
+# --- phase 2: the mesh's kernels ------------------------------------------
+
+MESH_DEVICES = 8  # phase 9's mesh: dp 2 x shard 4, the card named 8 times
+SHARD = 4
+ROWS = A_MAX // SHARD  # 2^18 rows a shard
+
+
+def shard_of(C, state, s):
+    """Shard s of a single-device state, as mesh device (i, s) holds it."""
+    return C.LedgerState(*(getattr(state, f)[s * ROWS:(s + 1) * ROWS].clone()
+                           for f in C.BALANCE_FIELDS), state.ledger, state.flags)
+
+
+def phase_sharded(torch, C, rng, dev):
+    """The mesh's three kernels and the exact kernel's external-base mode
+    against their plain versions at A = 2^20, n = 8192, 2^18 rows a shard
+    (phase 9's layout), and one sharded fast and one sharded exact commit
+    on a virtual mesh under sync-debug mode "error", equal to the
+    single-device kernels on the same inputs."""
+    from tigerbeetle_tpu_torch import devicestats
+    from tigerbeetle_tpu_torch.ops import commit_exact as E
+    from tigerbeetle_tpu_torch.parallel import sharding as S
+    from tigerbeetle_tpu_torch.parallel.sharded_ops import ShardedOps
+
+    st_np = kernel_state(rng, C)
+    state = C.state_from_reference(st_np, dev)
+    shards = [shard_of(C, state, s) for s in range(SHARD)]
+    to_dev = lambda d: {k: torch.from_numpy(v).to(dev) for k, v in d.items()}
+
+    # sharded_validate on both dp slices of the ladder batch (every rung; a linked flag
+    # bails its slice) and of the post batch.
+    m = N // 2
+    err = 0
+    for kind, ladder in (("ladder", True), ("post", False)):
+        b_np, host_np = kernel_batch(rng, C, ladder)
+        b = C.TransferBatch(**to_dev(b_np))
+        host = torch.from_numpy(host_np).to(dev)
+        routes, bails = [], []
+        for lo in (0, m):
+            got = S.sharded_validate(shards[0], b, host, lo, m)
+            want = S.sharded_validate_plain(shards[0], b, host, lo, m)
+            err = max(err, max_abs_err(torch, f"sharded_validate {kind} [{lo}, {lo + m})", got, want))
+            routes.append(want[1])
+            bails.append(bool(want[2]))
+        if bails != ([True, True] if ladder else [False, False]):
+            raise SystemExit(f"sharded_validate {kind} batch: bail {bails}")
+    route = torch.cat(routes)
+    nbytes, ops = devicestats.cost("sharded_validate", (shards[0], b, host, m, m))
+    record(torch, "sharded_validate", "sharded_validate.cu", "tigerbeetle_tpu/parallel/sharding.py:113",
+           lambda: S.sharded_validate(shards[0], b, host, m, m),
+           lambda: S.sharded_validate_plain(shards[0], b, host, m, m),
+           None, nbytes, ops, err)
+
+    # sharded_apply: the post batch's gathered routing on every shard (clean), then an
+    # overflow on a row of shard 3 that no event touches (must bail).
+    err = 0
+    args = (b.dr_slot, b.cr_slot, b.amount, None, route)
+    for s in range(SHARD):
+        got = S.sharded_apply(shards[s], *args, s * ROWS)
+        want = S.sharded_apply_plain(shards[s], *args, s * ROWS)
+        err = max(err, max_abs_err(torch, f"sharded_apply post, shard {s}", got, want))
+        if bool(want[1]):
+            raise SystemExit(f"sharded_apply post, shard {s}: bailed")
+    used = set(b_np["dr_slot"].tolist()) | set(b_np["cr_slot"].tolist())
+    row = next(r for r in range(A_MAX - 1, 3 * ROWS, -1) if r not in used) - 3 * ROWS
+    over = C.LedgerState(*(t.clone() for t in shards[3]))
+    set_row(torch, over.debits_pending, row, [0, 0, 0, 1 << 31])
+    set_row(torch, over.debits_posted, row, [0, 0, 0, 1 << 31])
+    got = S.sharded_apply(over, *args, 3 * ROWS)
+    want = S.sharded_apply_plain(over, *args, 3 * ROWS)
+    err = max(err, max_abs_err(torch, "sharded_apply untouched overflow, shard 3", got, want))
+    if not bool(want[1]):
+        raise SystemExit("sharded_apply: the untouched overflow on shard 3 did not bail")
+    del over, got, want
+    nbytes, ops = devicestats.cost("sharded_apply", (shards[0], *args, 0))
+    record(torch, "sharded_apply", "sharded_apply.cu", "tigerbeetle_tpu/parallel/sharding.py:113",
+           lambda: S.sharded_apply(shards[0], *args, 0),
+           lambda: S.sharded_apply_plain(shards[0], *args, 0),
+           None, nbytes, ops, err, n_routed=int((route != 0).sum()))
+
+    # sharded_read: 2n = 16384 slots with -1, the last row and slots past it; the OR
+    # of the four shards equals the single-device gather.
+    k = 2 * N
+    slots_np = rng.integers(0, A_MAX, k).astype(np.int32)
+    slots_np[:4] = [-1, A_MAX - 1, A_MAX, 0]
+    slots = torch.from_numpy(slots_np).to(dev)
+    err, blocks = 0, []
+    for s in range(SHARD):
+        got = S.sharded_read(shards[s], slots, s * ROWS, A_MAX)
+        want = S.sharded_read_plain(shards[s], slots, s * ROWS, A_MAX)
+        err = max(err, max_abs_err(torch, f"sharded_read shard {s}", got, want))
+        blocks.append(got)
+    max_abs_err(torch, "sharded_read combined vs read_balances", tuple(S.combine_shards(blocks, dev)),
+                C.read_balances(state, slots))
+    clipped = np.clip(slots_np.astype(np.int64), 0, A_MAX - 1)
+    owned = int((clipped < ROWS).sum())
+    tables = [getattr(shards[0], f).view(torch.int32) for f in C.BALANCE_FIELDS]
+
+    def masked_select():
+        local = slots.long().clamp(0, A_MAX - 1)
+        mine = (local < ROWS)[:, None]
+        ix = local.clamp(0, ROWS - 1)
+        return [torch.where(mine, torch.index_select(t, 0, ix), 0) for t in tables]
+
+    nbytes, ops = devicestats.cost("sharded_read", (shards[0], slots, 0, A_MAX, owned))
+    record(torch, "sharded_read", "sharded_read.cu", "tigerbeetle_tpu/parallel/sharding.py:215",
+           lambda: S.sharded_read(shards[0], slots, 0, A_MAX),
+           lambda: S.sharded_read_plain(shards[0], slots, 0, A_MAX),
+           masked_select, nbytes, ops, err, owned_rows=owned)
+    del blocks, shards
+
+    # The exact kernel's external-base mode on the config-3 and config-4
+    # batches (base: sharded_read over the four shards of their states, combined).
+    ext = {}
+    for label, seed in (("config3", 41), ("config4", 42)):
+        st, eb, ehost, p, chain, plan = exact_staged(torch, C, E, dev, label, seed, baseline=True)
+        parts = [shard_of(C, st, s) for s in range(SHARD)]
+        is_pv = (eb.flags.view(torch.int32) & (C.F_POST | C.F_VOID)) != 0
+        rec = torch.cat([torch.where(is_pv, p.dr_slot, eb.dr_slot),
+                         torch.where(is_pv, p.cr_slot, eb.cr_slot)])
+        base = S.combine_shards([S.sharded_read(parts[s], rec, s * ROWS, A_MAX) for s in range(SHARD)], dev)
+        run = lambda: E.create_transfers_exact_external(st, base, eb, ehost, p, chain, plan)
+        want = E.create_transfers_exact_external_plain(st, base, eb, ehost, p, chain, plan)
+        max_abs_err(torch, f"create_transfers_exact external-base mode {label}", run(), want)
+        if bool(want[7]):
+            raise SystemExit(f"external-base mode {label}: bailed")
+        ext[f"ms_external_{label}"] = cuda_ms(torch, run, 10)
+        log(f"create_transfers_exact external-base mode {label} ({CARD[0]}): "
+            f"{ext[f'ms_external_{label}']:.4f} ms")
+        if label == "config3":
+            c3 = (st, eb, ehost, p, chain)
+        del parts, base
+    RESULTS["create_transfers_exact"].update(ext)
+
+    # One sharded fast and one sharded exact commit on the virtual mesh,
+    # under sync-debug mode "error", against the single-device kernels.
+    mesh = S.make_mesh([dev] * MESH_DEVICES)
+    sops = ShardedOps(mesh, A_MAX)
+    fast_state = S.sharded_state_from_reference(st_np, mesh)
+    exact_state = S.sharded_state_from_reference(C.state_to_numpy(c3[0]), mesh)
+    zero_host = torch.zeros(N, dtype=torch.int32, device=dev).view(torch.uint32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        f_out = sops.create_transfers_fast(fast_state, b, zero_host)
+        e_out = sops.create_transfers_exact(exact_state, *c3[1:])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    f_want = C.create_transfers_fast(state, b, zero_host)
+    e_want = E.create_transfers_exact(*c3)
+    max_abs_err(torch, "mesh fast commit vs the single-device kernel", f_out[1:], f_want[1:])
+    max_abs_err(torch, "mesh exact commit vs the single-device kernel", e_out[1:], e_want[1:])
+    for label, (mesh_state, single) in (("fast", (f_out[0], f_want[0])), ("exact", (e_out[0], e_want[0]))):
+        dense, want_np = S.sharded_state_to_numpy(mesh_state, mesh), C.state_to_numpy(single)
+        if any(not np.array_equal(dense[f], want_np[f]) for f in want_np):
+            raise SystemExit(f"mesh {label} commit: the dense tables differ from the single-device kernel's")
+    log("sharded fast and exact commits (dp 2 x shard 4 on one card): dispatched under "
+        "sync-debug mode 'error', equal to the single-device kernels")
 
 
 # --- phase 2: the store stage's and the query path's kernels -------------
@@ -1626,6 +1813,136 @@ def run_compaction_config(torch, rng, n_batches=STORM_BATCHES):
 
 
 
+# --- phase 9: the commit path on a mesh (one card named eight times) ------
+
+MESH_KERNELS = ("sharded_validate", "sharded_apply", "sharded_read", "register_accounts",
+                "write_balances", "create_transfers_exact", "exact_sort_plan")
+
+
+def run_mesh_config(torch, name, mesh, n_accounts, acc_flags, n_batches, next_batch, check_ids,
+                    bail_ids=None, jump_at=None):
+    """One configuration's stream through StateMachine(PRODUCTION,
+    mesh=mesh) and then through the single-device
+    CUDA StateMachine: every result, the sampled accounts' lookup bytes
+    and the dense balance tables (read back from dp row 0's shards) must
+    be equal, and the dp replicas byte-equal. `next_batch(results of the
+    previous batch or None)` makes the traffic (from the mesh machine's
+    results; the single machine replays the same batches). bail_ids: a
+    last batch of amounts near 2^128 between those two accounts, which
+    bails into the serial route and its sharded writeback. jump_at: the
+    clock moves 2 s before that batch. Returns the mesh run's launches."""
+    from tigerbeetle_tpu_torch import tracer, types
+    from tigerbeetle_tpu_torch.constants import PRODUCTION
+    from tigerbeetle_tpu_torch.models.state_machine import StateMachine
+    from tigerbeetle_tpu_torch.ops import commit as C
+    from tigerbeetle_tpu_torch.parallel import sharding as S
+
+    stream, out = [], {}
+    for label in ("mesh", "single"):
+        sm = StateMachine(PRODUCTION, mesh=mesh) if label == "mesh" else StateMachine(PRODUCTION)
+        C.reset_launches()
+        tracer.reset()
+        results, lat = [], []
+        for ev in account_batches(types, n_accounts):
+            lo = ev["id_lo"].astype(np.int64) - 1
+            ev["flags"] = acc_flags[lo]
+            results.append(sm.create_accounts(ev))
+        got = None
+        for i in range(n_batches + (bail_ids is not None)):
+            if label == "mesh":
+                if i < n_batches:
+                    ev = next_batch(got)
+                else:
+                    k = 64
+                    ev = transfer_batch(types, (1 << 62) + i, np.full(k, bail_ids[0]), np.full(k, bail_ids[1]),
+                                        np.arange(1, k + 1, dtype=np.uint64), np.full(k, (1 << 64) - 2, np.uint64))
+                stream.append(ev)
+            ev = stream[i]
+            if i == jump_at:
+                sm.prepare("create_transfers", 2_000_000_000)
+            tracer.enable()
+            t = time.perf_counter()
+            got = sm.create_transfers(ev)
+            lat.append(time.perf_counter() - t)
+            tracer.disable()
+            results.append(got)
+        torch.cuda.synchronize()
+        launches = dict(C.LAUNCHES)
+        ids = np.asarray(check_ids, dtype=np.uint64)
+        looked = [sm.lookup_accounts(ids[lo:lo + TX_BATCH], np.zeros(len(ids[lo:lo + TX_BATCH]), np.uint64))
+                  for lo in range(0, len(ids), TX_BATCH)]
+        if label == "mesh":
+            dense = S.sharded_state_to_numpy(sm.state, mesh)
+            for k, sh in enumerate(sm.state.shards):  # the dp replicas
+                for x, y in zip(sh, sm.state.shards[k % mesh.shard]):
+                    if not torch.equal(x.view(torch.int32), y.view(torch.int32).to(x.device)):
+                        raise SystemExit(f"{name}: mesh device {k}'s replica differs from dp row 0's")
+        else:
+            dense = C.state_to_numpy(sm.state)
+        lat_ms = np.array(lat[1:n_batches]) * 1e3  # the traffic batches, the first excluded
+        out[label] = dict(results=results, looked=looked, dense=dense, stats=dict(sm.stats),
+                          launches=launches, lat_ms=lat_ms, snap=tracer.snapshot())
+        del sm
+    m, s = out["mesh"], out["single"]
+    for i, (g, w) in enumerate(zip(m["results"], s["results"], strict=True)):
+        expect_equal(g, w, f"{name} mesh op {i}")
+    for g, w in zip(m["looked"], s["looked"], strict=True):
+        expect_equal(g, w, f"{name} mesh lookup")
+    for f in s["dense"]:
+        if not np.array_equal(m["dense"][f], s["dense"][f]):
+            raise SystemExit(f"{name}: the mesh's dense {f} differs from the single-device machine's")
+    if m["stats"] != s["stats"]:
+        raise SystemExit(f"{name}: routes differ: mesh {m['stats']}, single {s['stats']}")
+    for label, r in out.items():
+        lat_ms = r["lat_ms"]
+        log(f"{name} {label} ({CARD[0]}): transfers_per_s={TX_BATCH * len(lat_ms) / (lat_ms.sum() / 1e3):.0f} "
+            f"batch_p50_ms={np.percentile(lat_ms, 50):.3f} batch_p99_ms={np.percentile(lat_ms, 99):.3f} "
+            f"stats={r['stats']}")
+    windows = {k: {"count": v["count"], "mean_ms": round(v["total_ms"] / max(v["count"], 1), 4)}
+               for k, v in m["snap"].items()
+               if k.startswith(("device.step.sharded", "device.sharded")) and not k.endswith("dispatches")}
+    log(f"{name} mesh: device windows {json.dumps(windows)}; launches {json.dumps(m['launches'])}")
+    log(f"{name}: every result, {len(check_ids)} accounts' lookups, the dense tables and the "
+        f"dp replicas equal the single-device machine's")
+    return m["launches"]
+
+
+def phase_mesh(torch, rng, zipf, mesh, n2=1_000_000, n3=10_000, n_batches=16):
+    """Phase 9: BASELINE config 2's traffic (n2 accounts, cut to
+    n_batches batches) and config 3's mix (n3 accounts, n_batches
+    batches) on `mesh` against the single-device machine. Returns the
+    two runs' launches, summed."""
+    from tigerbeetle_tpu_torch import types
+
+    state = {"next": 1 << 43}
+
+    def zipf_batch(_results):
+        dr, cr = zipf(rng, TX_BATCH)
+        ev = transfer_batch(types, state["next"], dr + 1, cr + 1, rng.integers(1, 1 << 20, TX_BATCH))
+        state["next"] += TX_BATCH
+        return ev
+
+    la = run_mesh_config(torch, "mesh config2", mesh, n2, np.zeros(n2, np.uint16), n_batches, zipf_batch,
+                         np.r_[np.arange(1, 1001), n2 - 1, n2], bail_ids=(n2 - 1, n2))
+    traffic = Config3(rng, n3, 1 << 44)
+    made = []
+
+    def config3_batch(results):
+        if results is not None:
+            traffic.feedback(made[-1], results)
+        made.append(traffic.batch(types, own_post=len(made) == 3))
+        return made[-1]
+
+    lb = run_mesh_config(torch, "mesh config3", mesh, n3, np.zeros(n3, np.uint16), n_batches, config3_batch,
+                         np.arange(1, n3 + 1), jump_at=n_batches // 2)
+    launches = {k: la[k] + lb[k] for k in la}
+    if (min(launches[k] for k in MESH_KERNELS) == 0
+            or launches["create_transfers_fast"] or launches["read_balances"]):
+        raise SystemExit(f"phase 9: a mesh kernel did not launch, or a single-device "
+                         f"kernel the mesh replaces did: {launches}")
+    return launches
+
+
 def gpu_name_power() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -1637,6 +1954,9 @@ def gpu_name_power() -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=20261017)
+    ap.add_argument("--mesh-cards", type=int, default=0, metavar="N",
+                    help="run phase 9 alone, on a mesh of the first N cards (make_mesh(N)) "
+                         "against the single-device machine on the first")
     args = ap.parse_args()
 
     import torch
@@ -1651,6 +1971,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    CARD[0] = gpu_name_power()
 
     t0 = time.perf_counter()
     kernels.build_all()
@@ -1667,10 +1988,27 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    from tigerbeetle_tpu_torch.parallel import sharding
+
+    if args.mesh_cards:
+        mesh = sharding.make_mesh(args.mesh_cards)
+        log(f"phase 9 alone: {mesh}")
+        phase_mesh(torch, np.random.default_rng(args.seed + 19), zipf_of(1_000_000), mesh)
+        print(gpu_name_power())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return 0
+
     rng = np.random.default_rng(args.seed)
     log("phase 2: kernels vs plain versions at A=2^20, n=8192")
     phase_kernels(torch, C, rng, dev)
     phase_exact(torch, C, dev)
+    log("phase 2: the mesh's kernels at A=2^20, n=8192, 2^18 rows a shard")
+    t0 = time.perf_counter()
+    phase_sharded(torch, C, np.random.default_rng(args.seed + 9), dev)
+    log(f"phase 2: the mesh's kernels took {time.perf_counter() - t0:.1f} s")
     phase_qindex(torch, dev, rng)
 
     log("phase 3: BASELINE config 1 (10,000 accounts, uniform)")
@@ -1681,14 +2019,7 @@ def main() -> int:
 
     log("phase 4: BASELINE config 2 (1,000,000 accounts, Zipf(1.1))")
     n2 = 1_000_000
-    t2 = n2 - 2
-    cdf = np.cumsum(np.arange(1, t2 + 1, dtype=np.float64) ** -1.1)  # rank 1 hottest
-    cdf /= cdf[-1]
-
-    def zipf(r, n):
-        draw = lambda: np.minimum(np.searchsorted(cdf, r.random(n)), t2 - 1)
-        return distinct_pair(draw(), draw(), t2)
-
+    zipf = zipf_of(n2)
     l2 = run_config(torch, "config2", n2, 32, zipf, rng, np.arange(1, 1001), 0)
 
     log("phase 5: BASELINE config 3 (10,000 accounts: chains, pending, post/void)")
@@ -1719,8 +2050,15 @@ def main() -> int:
     phase_merge_kernel(torch, dev, rng)
     phase_fold_kernel(torch, dev, rng, seen)
 
+    log("phase 9: the mesh, dp 2 x shard 4 on one card: BASELINE config 2's and config 3's "
+        "traffic against the single-device machine")
+    t0 = time.perf_counter()
+    l9 = phase_mesh(torch, np.random.default_rng(args.seed + 19), zipf,
+                    sharding.make_mesh([dev] * MESH_DEVICES))
+    log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+
     phases = {"config1": l1, "config2": l2, "config3": l3, "config4": l4, "query": l7,
-              "query_storm": l7s, "compaction": l8}
+              "query_storm": l7s, "compaction": l8, "mesh": l9}
     for name, row in RESULTS.items():
         row["launches"] = sum(l[name] for l in phases.values())
         for label, l in phases.items():
@@ -1732,6 +2070,20 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+def zipf_of(n_accounts):
+    """A picker of Zipf(1.1)-skewed debit/credit pairs over all accounts
+    but the last two (which take the bail batch), rank 1 hottest."""
+    t = n_accounts - 2
+    cdf = np.cumsum(np.arange(1, t + 1, dtype=np.float64) ** -1.1)
+    cdf /= cdf[-1]
+
+    def zipf(r, n):
+        draw = lambda: np.minimum(np.searchsorted(cdf, r.random(n)), t - 1)
+        return distinct_pair(draw(), draw(), t)
+
+    return zipf
 
 
 def distinct_pair(dr, cr, n):

@@ -489,3 +489,235 @@ def test_tree_on_cuda_compacts_like_the_host_route(dev):
                     grid.storage.read(0, grid.block_count * grid.block_size)))
     assert C.LAUNCHES["compact_fold_kernel"] > before
     assert out[0] == out[1]
+
+
+# --- the commit path over balance tables sharded on a device mesh --------
+
+
+def _shard(state, s, n_shard):
+    """Shard s of a single-device state, as mesh device (i, s) holds it."""
+    rows = A // n_shard
+    return C.LedgerState(*(getattr(state, f)[s * rows:(s + 1) * rows].clone()
+                           for f in C.BALANCE_FIELDS), state.ledger, state.flags)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo,m", [(0, N), (N // 2, N // 2), (3, 5)])
+def test_sharded_validate_kernel(dev, lo, m):
+    """sharded_validate on a slice of a batch with every kind of event: codes, routing
+    bytes and the unsupported-flag bail equal the plain version's."""
+    from tigerbeetle_tpu_torch.parallel import sharding as S
+
+    rng = np.random.default_rng(11)
+    state = _state(rng, dev)
+    b = {
+        "id": rng.integers(0, 4, (N, 4)).astype(np.uint32),
+        "dr_slot": rng.integers(-1, A + 2, N).astype(np.int32),
+        "cr_slot": rng.integers(0, 64, N).astype(np.int32),
+        "amount": rng.integers(0, 3, (N, 4)).astype(np.uint32),
+        "pending_id": (rng.random((N, 4)) < 0.01).astype(np.uint32),
+        "timeout": (rng.random(N) < 0.05).astype(np.uint32),
+        "ledger": rng.integers(0, 3, N).astype(np.uint32),
+        "code": rng.integers(0, 3, N).astype(np.uint32),
+        "flags": rng.choice([0, 0, 0, 2, 1, 64], N).astype(np.uint32),
+        "timestamp": np.ones((N, 2), np.uint32),
+    }
+    batch = C.TransferBatch(**{k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+    host = torch.from_numpy(rng.choice([0, 0, 0, 8, 12], N).astype(np.uint32)).to(dev)
+    before = C.LAUNCHES["sharded_validate"]
+    got = S.sharded_validate(state, batch, host, lo, m)
+    want = S.sharded_validate_plain(state, batch, host, lo, m)
+    assert C.LAUNCHES["sharded_validate"] == before + 1
+    assert _equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool(got[2]) == bool(want[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fast", "exact", "old_overflow", "touched_overflow", "underflow"])
+def test_sharded_apply_kernel(dev, case):
+    """sharded_apply on each of four shards: adds, pending removals, the whole-shard
+    check after an old row's overflow and the touched-row check."""
+    from tigerbeetle_tpu_torch.parallel import sharding as S
+
+    rng = np.random.default_rng(12)
+    state = _state(rng, dev)
+    dr = rng.integers(-1, A, N).astype(np.int32)
+    cr = rng.integers(0, A, N).astype(np.int32)
+    amount = rng.integers(0, 1 << 32, (N, 4), dtype=np.uint64).astype(np.uint32)
+    amount[:, 2:] = 0
+    p_amount = amount.copy() if case == "underflow" else amount >> np.uint32(4)
+    mask = rng.choice([0, 1, 2] if case == "fast" else [0, 1, 2, 4], N).astype(np.uint8)
+    if case == "old_overflow":
+        _edge_row(state, A - 1, overflowed=True)
+        assert not (dr == A - 1).any() and not (cr == A - 1).any()
+    if case == "touched_overflow":
+        _edge_row(state, 7, overflowed=False)
+        dr[0], mask[0] = 7, 2
+    if case == "underflow":
+        state.debits_pending.zero_()
+    t = lambda x: torch.from_numpy(x).to(dev)
+    args = (t(dr), t(cr), t(amount), None if case == "fast" else t(p_amount), t(mask))
+    bails = []
+    for s in range(4):
+        sh = _shard(state, s, 4)
+        got = S.sharded_apply(sh, *args, s * (A // 4))
+        want = S.sharded_apply_plain(sh, *args, s * (A // 4))
+        for f in C.BALANCE_FIELDS:
+            assert _equal(getattr(got[0], f), getattr(want[0], f)), (s, f)
+        assert bool(got[1]) == bool(want[1]), s
+        bails.append(bool(got[1]))
+    if case in ("old_overflow", "underflow"):
+        assert bails[3] if case == "old_overflow" else any(bails)
+    if case == "touched_overflow":
+        assert bails[0]
+
+
+@pytest.mark.cuda
+def test_sharded_read_kernel(dev):
+    """sharded_read: slots clip to [0, A-1] first (-1 reads row 0 on shard 0), then
+    each shard returns the rows it owns and zeros elsewhere; the OR of the
+    four equals the single-device gather."""
+    from tigerbeetle_tpu_torch.parallel import sharding as S
+
+    rng = np.random.default_rng(13)
+    state = _state(rng, dev)
+    slots = rng.integers(-3, A + 3, 2 * N).astype(np.int32)
+    slots[:4] = [-1, A - 1, A, 0]
+    slots = torch.from_numpy(slots).to(dev)
+    blocks = []
+    for s in range(4):
+        sh = _shard(state, s, 4)
+        got = S.sharded_read(sh, slots, s * (A // 4), A)
+        want = S.sharded_read_plain(sh, slots, s * (A // 4), A)
+        assert all(_equal(g, w) for g, w in zip(got, want))
+        blocks.append(got)
+    whole = S.combine_shards(blocks, dev)
+    assert all(_equal(g, w) for g, w in zip(whole, C.read_balances(state, slots)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,kw", [
+    ("config3", {}), ("config4", {}), ("ladder", {}), ("underflow", {"has_chains": False}),
+    ("relay", {"max_sweeps": 11, "has_pv": False, "has_chains": False}),
+])
+def test_create_transfers_exact_external_kernel(dev, kind, kw):
+    """The exact kernel's external-base mode against its plain version:
+    the sweep's outputs and the posting (eff slots, masks) byte-equal."""
+    from tigerbeetle_tpu_torch.ops import commit_exact as E
+    from tigerbeetle_tpu_torch.parallel import sharding as S
+
+    state, b, host, p, chain, plan = _exact_inputs(kind, dev)
+    is_pv = (b.flags.view(torch.int32) & (C.F_POST | C.F_VOID)) != 0
+    rec = torch.cat([torch.where(is_pv, p.dr_slot, b.dr_slot), torch.where(is_pv, p.cr_slot, b.cr_slot)])
+    base = E.Observed(*S.sharded_read(state, rec, 0, A))
+    before = C.LAUNCHES["create_transfers_exact"]
+    got = E.create_transfers_exact_external(state, base, b, host, p, chain, None, **kw)
+    want = E.create_transfers_exact_external_plain(state, base, b, host, p, chain, plan, **kw)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["create_transfers_exact"] == before + 1
+    flat = lambda out: [*out[:2], *out[2], *out[3], *out[4:7]]
+    for g, w in zip(flat(got), flat(want)):
+        assert torch.equal(g.view(torch.int32) if g.dtype == torch.uint32 else g,
+                           w.view(torch.int32) if w.dtype == torch.uint32 else w)
+    assert bool(got[7]) == bool(want[7])
+
+
+@pytest.mark.cuda
+def test_sharded_commits_on_a_virtual_mesh(dev):
+    """One card named eight times (dp 2 x shard 4): the sharded fast and
+    exact commits launch the three mesh kernels and the external mode, hide no device sync,
+    and equal the same commits on a mesh of CPUs."""
+    from exact_batches import batch, state
+
+    from tigerbeetle_tpu_torch.ops import commit_exact as E
+    from tigerbeetle_tpu_torch.parallel import sharding as S
+
+    rng = np.random.default_rng(14)
+    dense = state(rng, A)
+    b, p, chain, host = batch(rng, "config3", N, A)
+    fast_b = {k: v.copy() for k, v in b.items()}
+    fast_b["flags"] &= np.uint32(C.F_PENDING)
+    fast_b["pending_id"][:] = 0
+    fast_b["timeout"][:] = 0
+    runs = {}
+    for name, devices in (("card", [dev] * 8), ("cpu", [torch.device("cpu")] * 8)):
+        mesh = S.make_mesh(devices)
+        d = mesh.first
+        t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(d)
+        st = S.sharded_state_from_reference(dense, mesh)
+        fb = C.TransferBatch(**{k: t(v) for k, v in fast_b.items()})
+        eb = C.TransferBatch(**{k: t(v) for k, v in b.items()})
+        pi = E.PendingInfo(**{k: t(v) for k, v in p.items()})
+        zero, host_t, chain_t = t(np.zeros(N, np.uint32)), t(host), t(chain)
+        fast, exact = S.make_sharded_commit(mesh, A), S.make_sharded_commit_exact(mesh, A)
+        C.reset_launches()
+        torch.cuda.synchronize()
+        if name == "card":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            f_out = fast(st, fb, zero)
+            e_out = exact(f_out[0], eb, host_t, pi, chain_t)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        runs[name] = (f_out, e_out, dict(C.LAUNCHES), mesh)
+    f_card, e_card, launches, mesh = runs["card"]
+    f_cpu, e_cpu, _, cpu_mesh = runs["cpu"]
+    assert launches["sharded_validate"] == 2 and launches["sharded_apply"] == 16
+    assert launches["sharded_read"] == 4 and launches["create_transfers_exact"] == 1
+    assert launches["exact_sort_plan"] == 1
+    assert _equal(f_card[1].cpu(), f_cpu[1])
+    assert not bool(f_card[2]) and not bool(f_cpu[2])
+    for g, w in zip((*e_card[1:3], *e_card[3], *e_card[4]), (*e_cpu[1:3], *e_cpu[3], *e_cpu[4])):
+        assert _equal(g.cpu(), w)
+    assert bool(e_card[5]) == bool(e_cpu[5])
+    got = S.sharded_state_to_numpy(e_card[0], mesh)
+    want = S.sharded_state_to_numpy(e_cpu[0], cpu_mesh)
+    for f in want:
+        np.testing.assert_array_equal(got[f], want[f])
+    for k, sh in enumerate(e_card[0].shards):  # the dp replicas
+        for x, y in zip(sh, e_card[0].shards[k % mesh.shard]):
+            assert _equal(x, y)
+
+
+@pytest.mark.cuda
+def test_state_machine_on_a_virtual_mesh_matches_the_cpu_run(dev):
+    """StateMachine(mesh=8 x the card) against StateMachine(device="cpu"):
+    fast, exact and serial batches (with the sharded writeback), lookups."""
+    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch.constants import Config
+    from tigerbeetle_tpu_torch.models.state_machine import StateMachine
+    from tigerbeetle_tpu_torch.parallel import sharding as S
+
+    cfg = Config(name="mesh", accounts_max=A, transfers_max=1 << 16, batch_max=8190)
+    gpu = StateMachine(cfg, mesh=S.make_mesh([dev] * 8))
+    cpu = StateMachine(cfg, device="cpu")
+    rng = np.random.default_rng(15)
+    accounts = np.zeros(64, dtype=types.ACCOUNT_DTYPE)
+    accounts["id_lo"] = np.arange(1, 65)
+    accounts["ledger"], accounts["code"] = 1, 10
+    accounts["flags"][::8] = 2  # debits must not exceed credits: the exact route
+    for sm in (gpu, cpu):
+        assert sm.create_accounts(accounts).tobytes() == b""
+    next_id = (1 << 63) + 1
+    for k in range(6):
+        n = 300
+        ev = np.zeros(n, dtype=types.TRANSFER_DTYPE)
+        ev["id_lo"] = np.arange(next_id, next_id + n, dtype=np.uint64)
+        # even batches avoid the limit accounts: the fast route
+        pool = np.arange(1, 65)[np.arange(64) % 8 != 0] if k % 2 == 0 else np.arange(1, 65)
+        ev["debit_account_id_lo"] = rng.choice(pool, n)
+        ev["credit_account_id_lo"] = rng.choice(pool, n)
+        ev["amount_lo"] = rng.integers(1, 100, n)
+        ev["ledger"], ev["code"] = 1, 7
+        if k == 4:  # amounts near 2^128 between two accounts without limits:
+            # the fast kernel bails into the serial route and its writeback
+            ev["debit_account_id_lo"], ev["credit_account_id_lo"] = 2, 3
+            ev["amount_hi"] = (1 << 64) - 2
+        next_id += n
+        got, want = gpu.create_transfers(ev), cpu.create_transfers(ev)
+        assert got.tobytes() == want.tobytes(), k
+    assert gpu.stats == cpu.stats and gpu.stats["bail_batches"] == 1
+    assert gpu.stats["fast_batches"] >= 2 and gpu.stats["exact_batches"] >= 2
+    ids = np.arange(1, 65, dtype=np.uint64)
+    zero = np.zeros(64, np.uint64)
+    assert gpu.lookup_accounts(ids, zero).tobytes() == cpu.lookup_accounts(ids, zero).tobytes()

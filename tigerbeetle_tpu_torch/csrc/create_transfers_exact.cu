@@ -53,6 +53,16 @@
 // bail = not stable | any add overflow, sub underflow or pending + posted
 // overflow | the last sweep's speculative underflow. The sweep count is
 // added to a device counter that the host reads only when it asks.
+//
+// External-base mode (the balance tables sharded over a device mesh; the
+// reference's balance_read / balance_apply hooks, parallel/sharding.py
+// :215-268): the caller gives the pre-batch balances of the 2n posting
+// records (4 x (2n, 4), gathered from the shards by sharded_read.cu) in
+// place of the tables, phase 0 copies no table, and phases 3-5 post
+// nothing: each event writes its effective debit and credit slots and its
+// posting masks (add to pending, add to posted, remove from pending, the
+// reference's _apply masks, :866-874) for sharded_apply.cu to post on
+// every shard. bail = not stable | the last sweep's speculative underflow.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -116,6 +126,11 @@ constexpr uint32_t OVERFLOWS_CREDITS = 52;
 constexpr uint32_t OVERFLOWS_TIMEOUT = 53;
 constexpr uint32_t EXCEEDS_CREDITS = 54;
 constexpr uint32_t EXCEEDS_DEBITS = 55;
+
+// Posting masks of the external-base mode (sharded_apply.cu reads them).
+constexpr uint8_t M_ADD_PEND = 1;
+constexpr uint8_t M_ADD_POST = 2;
+constexpr uint8_t M_SUB_PEND = 4;
 
 constexpr int FULFILL_POSTED = 0;
 constexpr int FULFILL_VOIDED = 1;
@@ -202,6 +217,11 @@ struct Args {
   uint4 *cr_dp, *cr_dpo, *cr_cp, *cr_cpo;
   bool* bail;
   unsigned long long* sweep_stats;  // [sum, count, max] of sweeps
+  // external-base mode: the records' base balances in, the posting out
+  const uint4 *base_dp, *base_dpo, *base_cp, *base_cpo;
+  int32_t *out_eff_dr, *out_eff_cr;
+  uint8_t* out_mask;
+  bool external;
   // scratch
   uint32_t *bits, *reg_code, *pv_code;
   uint4 *amount0, *resolved;
@@ -356,6 +376,10 @@ __device__ __forceinline__ Obs load_obs(const Args& g, int r) {
 }
 
 __device__ __forceinline__ Obs base_obs(const Args& g, int r) {
+  if (g.external) {
+    return Obs{to_u128(g.base_dp[r]), to_u128(g.base_dpo[r]),
+               to_u128(g.base_cp[r]), to_u128(g.base_cpo[r])};
+  }
   long long s = clip(rec_slot(g, r), g.a);
   return Obs{to_u128(g.dp[s]), to_u128(g.dpo[s]), to_u128(g.cp[s]),
              to_u128(g.cpo[s])};
@@ -519,7 +543,7 @@ __global__ void __launch_bounds__(kBlock)
 
   // Phase 0: copy the tables, the static ladders.
   bool over = false;
-  for (long long r = tid; r < g.a; r += nthreads) {
+  for (long long r = tid; !g.external && r < g.a; r += nthreads) {
     uint4 dp = g.dp[r], dpo = g.dpo[r], cp = g.cp[r], cpo = g.cpo[r];
     g.ndp[r] = dp;
     g.ndpo[r] = dpo;
@@ -690,8 +714,16 @@ __global__ void __launch_bounds__(kBlock)
     g.cr_dpo[e] = from_u128(cr.dpo);
     g.cr_cp[e] = from_u128(cr.cp + a_pend);
     g.cr_cpo[e] = from_u128(cr.cpo + a_post);
-    // _apply's adds (reference :882-885)
-    if (ok && !(pv && !(bits & B_POST))) {
+    if (g.external) {
+      // _apply's masks (reference :866-874) for the shards to post
+      bool post = pv && (bits & B_POST);
+      g.out_eff_dr[e] = g.eff_dr[e];
+      g.out_eff_cr[e] = g.eff_cr[e];
+      g.out_mask[e] = (ok && pend && !pv ? M_ADD_PEND : 0) |
+                      (ok && ((!pend && !pv) || post) ? M_ADD_POST : 0) |
+                      (ok && pv ? M_SUB_PEND : 0);
+    } else if (ok && !(pv && !(bits & B_POST))) {
+      // _apply's adds (reference :882-885)
       bool to_pend = pend && !pv;
       post_row(g, to_pend ? g.ndp : g.ndpo, g.eff_dr[e], amount, false, over);
       post_row(g, to_pend ? g.ncp : g.ncpo, g.eff_cr[e], amount, false, over);
@@ -699,7 +731,7 @@ __global__ void __launch_bounds__(kBlock)
   }
   grid.sync();
   // Phase 4: the pending removals of post/void (reference :886-887).
-  for (long long q = tid; q < n; q += nthreads) {
+  for (long long q = tid; !g.external && q < n; q += nthreads) {
     int e = (int)q;
     if ((g.bits[e] & B_PV) && ld(g.codes + e) == 0) {
       uint4 pa = g.p_amount[e];
@@ -710,7 +742,9 @@ __global__ void __launch_bounds__(kBlock)
   grid.sync();
   // Phase 5: pending + posted of the touched rows, or of all rows
   // (reference :888-889).
-  if (ld(g.ctrl + C_OLD_OVER)) {
+  if (g.external) {
+    // the shards check their own rows (sharded_apply.cu)
+  } else if (ld(g.ctrl + C_OLD_OVER)) {
     for (long long r = tid; r < g.a; r += nthreads) {
       over |= row_overflows(g.ndp, g.ndpo, g.ncp, g.ncpo, r);
     }
@@ -744,8 +778,12 @@ extern "C" long long tb_create_transfers_exact_scratch(long long n,
 // ptrs: the six state tables, the four new tables, the ten TransferBatch
 // fields, host_code, the eight PendingInfo fields, chain_id, the eight
 // SortPlan fields, codes, amounts, dr_after (4), cr_after (4), bail,
-// sweep_stats, scratch (51 pointers, ops/commit_exact.py names them).
-// dims: a, n, max_sweeps, has_pv, has_chains, scratch bytes.
+// sweep_stats, scratch, then the external-base mode's four (2n, 4) base
+// blocks and its eff_dr, eff_cr (n,) int32 and mask (n,) uint8 outputs (58
+// pointers, ops/commit_exact.py names them; in external mode the four
+// balance tables and the four new tables are null, otherwise the last
+// seven). dims: a, n, max_sweeps, has_pv, has_chains, scratch bytes,
+// external.
 extern "C" int tb_create_transfers_exact(void* const* ptrs,
                                          const long long* dims, void* stream) {
   long long a = dims[0], n = dims[1], max_sweeps = dims[2];
@@ -782,6 +820,12 @@ extern "C" int tb_create_transfers_exact(void* const* ptrs,
   g.cr_dp = (uint4*)P(); g.cr_dpo = (uint4*)P(); g.cr_cp = (uint4*)P(); g.cr_cpo = (uint4*)P();
   g.bail = (bool*)P();
   g.sweep_stats = (unsigned long long*)P();
+  P();  // scratch, ptrs[50]
+  g.base_dp = (const uint4*)P(); g.base_dpo = (const uint4*)P();
+  g.base_cp = (const uint4*)P(); g.base_cpo = (const uint4*)P();
+  g.out_eff_dr = (int32_t*)P(); g.out_eff_cr = (int32_t*)P();
+  g.out_mask = (uint8_t*)P();
+  g.external = dims[6] != 0;
   g.bits = (uint32_t*)(scratch + lay.bits);
   g.reg_code = (uint32_t*)(scratch + lay.reg_code);
   g.pv_code = (uint32_t*)(scratch + lay.pv_code);

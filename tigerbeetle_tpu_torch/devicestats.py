@@ -5,9 +5,9 @@ devicestats.py: the two calls the state machine makes).
 the tracer is enabled; `retire_bucket` drops the rows of a scratch-ring
 bucket the workload stopped using, so the registry stays bounded. The
 reference's compiler cost model has no counterpart here. `cost` gives
-the least work of a store-stage, query-path or compaction entry from its
-arguments (the commit kernels' costs are stated beside them in
-chip_smoke.py).
+the least work of a store-stage, query-path, compaction or mesh-commit
+entry from its arguments (the single-device commit kernels' costs are
+stated beside them in chip_smoke.py).
 """
 
 from __future__ import annotations
@@ -115,6 +115,26 @@ COSTS = {
     "scan_intersect_mask": lambda cand, run: (
         _nbytes(cand, run) + cand.numel(),
         cand.numel() * 4 * _log2(run.numel()),
+    ),
+    # parallel/sharding.py, the commit over a device mesh. The slice's m
+    # events (ten fields and the host code) and two ledger words an event
+    # in, a code and a routing byte an event out; ~60 operations an event.
+    "sharded_validate": lambda state, b, host_code, lo, m: (
+        sum(_nbytes(x) // x.shape[0] for x in (*b, host_code)) * m + 8 * m + 5 * m + 1,
+        60 * m,
+    ),
+    # the shard's four tables in and out, the events' slots, amounts,
+    # masks (and removal amounts) in; ~24 operations a row, ~80 an event.
+    "sharded_apply": lambda state, dr, cr, amount, p_amount, mask, base: (
+        2 * _nbytes(*state[:4]) + _nbytes(dr, cr, amount, mask)
+        + (0 if p_amount is None else _nbytes(p_amount)) + 1,
+        24 * state[0].shape[0] + 80 * dr.shape[0],
+    ),
+    # the slots in, four (k, 4) blocks out, and the rows the shard owns
+    # read once (`owned` of them where the caller counted them, else k).
+    "sharded_read": lambda state, slots, base, a, owned=None: (
+        _nbytes(slots) + 64 * slots.shape[0] + 64 * (slots.shape[0] if owned is None else owned),
+        8 * slots.shape[0],
     ),
 }
 

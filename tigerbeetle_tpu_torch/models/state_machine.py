@@ -42,7 +42,10 @@ re-expresses upstream's StateMachine (src/state_machine.zig:34):
     write the same bytes.
 
 The device is CUDA unless the caller passes `device="cpu"`, where every
-kernel entry runs its plain PyTorch version. Results are byte-identical to
+kernel entry runs its plain PyTorch version. With `mesh=` (a Mesh of
+parallel/sharding.py) the balance tables live sharded by slot over the
+mesh's devices and the commits run their sharded versions
+(parallel/sharded_ops.py); every batch then runs at its op's turn. Results are byte-identical to
 the reference package and to models/oracle.py (tests/test_torch_*.py).
 """
 
@@ -176,10 +179,19 @@ class StateMachine:
 
     def __init__(
         self, config: Config = PRODUCTION, device=None, grid=None,
-        device_query_index: bool = False,
+        device_query_index: bool = False, mesh=None,
     ) -> None:
         from tigerbeetle_tpu_torch.io.grid import MemGrid
 
+        if mesh is not None:
+            # Multi-device: the same dispatcher over balance tables sharded
+            # by slot on the mesh (parallel/sharded_ops.py). Batch staging,
+            # the trees and the query index live on its first device.
+            if device is not None and torch.device(device) != mesh.first:
+                raise ValueError(
+                    f"StateMachine: device {device} is not the mesh's first, {mesh.first}"
+                )
+            device = mesh.first
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -203,11 +215,21 @@ class StateMachine:
             config.grid_cache_blocks,
         )
         a = config.accounts_max
-        self._ops = commit_ops
-        self.state = commit_ops.init_state(a, self.device)
-        # Device memory ledger: the resident balance tables.
+        self.mesh = mesh
+        if mesh is None:
+            self._ops = commit_ops
+            self.state = commit_ops.init_state(a, self.device)
+            tensors = list(self.state)
+        else:
+            from tigerbeetle_tpu_torch.parallel.sharded_ops import ShardedOps
+
+            self._ops = ShardedOps(mesh, a)
+            self.state = self._ops.init_state(a)
+            tensors = self.state.tensors()
+        # Device memory ledger: the resident balance tables (every shard
+        # and replica on a mesh).
         self._balances_nbytes = sum(  # tidy: owner=commit
-            x.numel() * x.element_size() for x in self.state
+            x.numel() * x.element_size() for x in tensors
         )
         tracer.device_mem_set("balances", self._balances_nbytes)
 
@@ -643,6 +665,11 @@ class StateMachine:
             out.append(p)
         return out
 
+    def _entry(self, name: str) -> str:
+        """The device window and call-shape name of kernel entry `name`:
+        `sharded.<name>` on a mesh."""
+        return name if self.mesh is None else f"sharded.{name}"
+
     def _to_device(self, *arrs) -> list:
         return [torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrs]
 
@@ -651,8 +678,8 @@ class StateMachine:
         # Pad slot 0 (clipped gather rows are sliced away below).
         slots_p, = self._pad_slots([np.asarray(slots, dtype=np.int32)], k, [0])
         slots_t, = self._to_device(slots_p)
-        devicestats.note_call("read_balances", (self.state, slots_t))
-        with tracer.device_step("read_balances"):
+        devicestats.note_call(self._entry("read_balances"), (self.state, slots_t))
+        with tracer.device_step(self._entry("read_balances")):
             full = [t.cpu().numpy() for t in self._ops.read_balances(self.state, slots_t)]
         tracer.device_bytes(
             h2d=slots_p.nbytes, d2h=sum(a.nbytes for a in full)
@@ -668,8 +695,8 @@ class StateMachine:
             k, [oob, 0, 0, 0, 0],
         )
         args = self._to_device(*padded)
-        devicestats.note_call("write_balances", (self.state, *args))
-        with tracer.device_step("write_balances"):
+        devicestats.note_call(self._entry("write_balances"), (self.state, *args))
+        with tracer.device_step(self._entry("write_balances")):
             self.state = self._ops.write_balances(self.state, *args)
         tracer.device_bytes(h2d=sum(a.nbytes for a in padded))
 
@@ -686,8 +713,8 @@ class StateMachine:
             k, [-1, 0, 0, False],
         )
         args = self._to_device(*padded)
-        devicestats.note_call("register_accounts", (self.state, *args))
-        with tracer.device_step("register_accounts"):
+        devicestats.note_call(self._entry("register_accounts"), (self.state, *args))
+        with tracer.device_step(self._entry("register_accounts")):
             self.state = self._ops.register_accounts(self.state, *args)
         tracer.device_bytes(h2d=sum(a.nbytes for a in padded))
 
@@ -886,11 +913,11 @@ class StateMachine:
         n = len(events)
         b, host_code_p = self._device_batch(events, ts, dr_slots, cr_slots, host_code)
         devicestats.note_call(
-            "create_transfers_fast", (self.state, b, host_code_p),
+            self._entry("create_transfers_fast"), (self.state, b, host_code_p),
             bucket=len(host_code_p),
         )
         t_disp = tracer.device_dispatch(
-            "create_transfers_fast", h2d_bytes=_staged_nbytes(b, host_code_p)
+            self._entry("create_transfers_fast"), h2d_bytes=_staged_nbytes(b, host_code_p)
         )
         with tracer.span("sm.create_transfers.fast"):
             new_state, codes_dev, bail = self._ops.create_transfers_fast(
@@ -899,13 +926,13 @@ class StateMachine:
         if bool(bail):  # waits for the kernel: the step's sync point
             # The bail sync ends the device step: close the window here
             # or the dispatch/step counters diverge on bail-heavy loads.
-            tracer.device_finish("create_transfers_fast", t_disp)
+            tracer.device_finish(self._entry("create_transfers_fast"), t_disp)
             self.stats["bail_batches"] += 1
             return self._create_transfers_serial(events, timestamp)
         self.state = new_state
         self.stats["fast_batches"] += 1
         codes_h = codes_dev.cpu().numpy()
-        tracer.device_finish("create_transfers_fast", t_disp, d2h_bytes=codes_h.nbytes)
+        tracer.device_finish(self._entry("create_transfers_fast"), t_disp, d2h_bytes=codes_h.nbytes)
         codes = codes_h[:n]
 
         ok = codes == 0
@@ -942,7 +969,10 @@ class StateMachine:
         outstanding handle) — the caller then runs the
         ordinary create_transfers at its op's turn. Nothing here waits for
         the device: the staging copy is asynchronous from pinned memory and
-        the kernel is queued behind it on the current stream."""
+        the kernel is queued behind it on the current stream. On a mesh
+        every batch runs at its op's turn (None), as in the reference."""
+        if self.mesh is not None:
+            return None
         if len(self._ct_pending) >= DISPATCH_WINDOW_MAX:
             # Window full: refuse — the caller settles the oldest batch
             # first (a pipeline stall, never corruption). Also keeps the
@@ -1090,8 +1120,9 @@ class StateMachine:
         buys real overlap (the card executes batch N+1 while the host
         drains batch N's store/reply); 1 on the CPU, where the "device"
         work shares the host cores and dispatch-ahead only reorders
-        work."""
-        if self.device.type == "cuda":
+        work, and on a mesh, whose batches never take the split-phase
+        path."""
+        if self.device.type == "cuda" and self.mesh is None:
             return min(self.config.pipeline_max, 4)
         return 1
 
@@ -1371,12 +1402,12 @@ class StateMachine:
         pinfo, chain_t = self._device_exact(pinfo_np, chain_id, n_pad)
         has_pv, has_chains = bool(np.any(is_pv)), bool(np.any(linked))
         devicestats.note_call(
-            "create_transfers_exact",
+            self._entry("create_transfers_exact"),
             (self.state, b, host_code_p, pinfo, chain_t, has_pv, has_chains),
             bucket=n_pad,
         )
         t_disp = tracer.device_dispatch(
-            "create_transfers_exact",
+            self._entry("create_transfers_exact"),
             h2d_bytes=_staged_nbytes(b, host_code_p) + _staged_nbytes(pinfo, chain_t),
         )
         new_state, codes_dev, amounts_dev, dr_after, cr_after, bail = (
@@ -1386,7 +1417,7 @@ class StateMachine:
             )
         )
         if bool(bail):  # waits for the kernel: the step's sync point
-            tracer.device_finish("create_transfers_exact", t_disp)
+            tracer.device_finish(self._entry("create_transfers_exact"), t_disp)
             self.stats["bail_batches"] += 1
             return self._create_transfers_serial(events, timestamp)
         self.state = new_state
@@ -1394,7 +1425,8 @@ class StateMachine:
         codes_h = codes_dev.cpu().numpy()
         amounts_h = amounts_dev.cpu().numpy()
         tracer.device_finish(
-            "create_transfers_exact", t_disp, d2h_bytes=codes_h.nbytes + amounts_h.nbytes
+            self._entry("create_transfers_exact"), t_disp,
+            d2h_bytes=codes_h.nbytes + amounts_h.nbytes,
         )
         codes = codes_h[:n]
         ok = codes == 0

@@ -314,11 +314,15 @@ def register_accounts(state: LedgerState, slots, ledger, flags, mask) -> LedgerS
     zero balances, state_machine.zig:1210-1217). Rows with mask False or a
     slot outside [-A, A) are dropped; a negative slot counts from the end,
     as in the reference. slots (k,) int32, ledger/flags (k,) uint32, mask
-    (k,) bool; the slots of masked-in rows are distinct. Returns `state`."""
+    (k,) bool; the slots of masked-in rows are distinct. Reads no balance
+    table (a mesh device's shard holds fewer rows than its ledger).
+    Returns `state`."""
     if state.ledger.device.type == "cpu":
         return register_accounts_plain(state, slots, ledger, flags, mask)
-    a = _check_state(state)
     dev = state.ledger.device
+    a = state.ledger.shape[0]
+    _check(state.ledger, "state.ledger", torch.uint32, (a,), dev)
+    _check(state.flags, "state.flags", torch.uint32, (a,), dev)
     k = slots.shape[0]
     _check(slots, "slots", torch.int32, (k,), dev)
     _check(ledger, "ledger", torch.uint32, (k,), dev)
@@ -367,7 +371,7 @@ def read_balances(state: LedgerState, slots):
 
 
 def write_balances_plain(state: LedgerState, slots, dp, dpo, cp, cpo) -> LedgerState:
-    keep, s = _scatter_rows(slots, state.ledger.shape[0])
+    keep, s = _scatter_rows(slots, state.debits_pending.shape[0])
     s = s[keep]
     for f, rows in zip(BALANCE_FIELDS, (dp, dpo, cp, cpo)):
         getattr(state, f).view(torch.int32)[s] = rows.view(torch.int32)[keep]
@@ -379,11 +383,15 @@ def write_balances(state: LedgerState, slots, dp, dpo, cp, cpo) -> LedgerState:
     the state's tables, in place (the serial route's writeback); rows
     whose slot lies outside [-A, A) are dropped, and a negative slot
     counts from the end, as in the reference. The slots of the rows that
-    land are distinct. Returns `state`."""
+    land are distinct. A is the balance tables' length (a mesh device's
+    shard holds fewer rows than its ledger); the ledger and flags are not
+    read. Returns `state`."""
     if state.ledger.device.type == "cpu":
         return write_balances_plain(state, slots, dp, dpo, cp, cpo)
-    a = _check_state(state)
     dev = state.ledger.device
+    a = state.debits_pending.shape[0]
+    for f in BALANCE_FIELDS:
+        _check(getattr(state, f), f, torch.uint32, (a, 4), dev)
     k = slots.shape[0]
     _check(slots, "slots", torch.int32, (k,), dev)
     rows = (dp, dpo, cp, cpo)

@@ -376,13 +376,24 @@ def _scatter_slots(slots: torch.Tensor, a: int) -> torch.Tensor:
 def create_transfers_exact_plain(
     state: LedgerState, b: TransferBatch, host_code, pending: PendingInfo,
     chain_id, plan: Optional[SortPlan] = None, max_sweeps: int = MAX_SWEEPS,
-    has_pv: bool = True, has_chains: bool = True,
+    has_pv: bool = True, has_chains: bool = True, *,
+    balance_read=None, balance_apply=None,
 ):
     """Plain PyTorch version of the fixed-point commit (the reference's
     create_transfers_exact_impl, step for step). Returns (new_state,
     codes (n,) uint32, amounts (n, 4) uint32 post-clamp/resolved,
     dr_after, cr_after (Observed: post-event balances for history rows),
-    bail () bool)."""
+    bail () bool).
+
+    balance_read / balance_apply replace the two touch-points of the
+    state's balance tables, as the reference's hooks do for tables
+    sharded over a device mesh (parallel/sharding.py):
+      balance_read(state, rec_slot (2n,) int32) -> 4 x (2n, 4) uint32,
+        the records' pre-batch balances;
+      balance_apply(state, eff_dr, eff_cr (n,) int32, amounts, p_amount
+        (n, 4) uint32, add_pend, add_post, sub_pend (n,) bool)
+        -> (new_state, overflow () bool).
+    The sweep reads only the state's ledger and flags besides."""
     n = b.flags.shape[0]
     dev = b.flags.device
     a_count = state.ledger.shape[0]
@@ -423,10 +434,14 @@ def create_transfers_exact_plain(
     perm, inv_perm, head_pos, sub_head_pos, f_perm, f_inv_perm, f_head_pos, f_sub_head_pos = (
         x.long() for x in plan
     )
-    base_ix = rec_slot.clamp(0, a_max)
-    base = Observed(*(
-        getattr(state, f).view(torch.int32)[base_ix].view(torch.uint32) for f in BALANCE_FIELDS
-    ))
+    if balance_read is None:
+        base_ix = rec_slot.clamp(0, a_max)
+        base = Observed(*(
+            getattr(state, f).view(torch.int32)[base_ix].view(torch.uint32)
+            for f in BALANCE_FIELDS
+        ))
+    else:
+        base = Observed(*balance_read(state, rec_slot.to(torch.int32)))
 
     sorted_rec = torch.where(perm < n, perm, perm - n)
     sorted_is_dr = (perm < n)[:, None]
@@ -579,25 +594,31 @@ def create_transfers_exact_plain(
     amounts = _masked(ok, amount)
 
     # _apply: adds, then pending removals, then pending + posted of the
-    # whole table (reference :882-893).
-    dr_s = _scatter_slots(eff_dr, a_count)
-    cr_s = _scatter_slots(eff_cr, a_count)
+    # whole table (reference :866-893).
     add_pend = ok & pend & ~is_pv
     add_post = ok & ((~pend & ~is_pv) | (is_pv & is_post))
     sub_pend = ok & is_pv
-    new_dp, o1 = u128.scatter_add(state.debits_pending, dr_s, amounts, add_pend)
-    new_cp, o2 = u128.scatter_add(state.credits_pending, cr_s, amounts, add_pend)
-    new_dpo, o3 = u128.scatter_add(state.debits_posted, dr_s, amounts, add_post)
-    new_cpo, o4 = u128.scatter_add(state.credits_posted, cr_s, amounts, add_post)
-    new_dp, u1 = u128.scatter_sub(new_dp, dr_s, pending.amount, sub_pend)
-    new_cp, u2 = u128.scatter_sub(new_cp, cr_s, pending.amount, sub_pend)
-    o5 = u128.add(new_dp, new_dpo)[1]
-    o6 = u128.add(new_cp, new_cpo)[1]
-    overflow = (o1 | o2 | o3 | o4 | o5 | o6 | u1 | u2).any()
-    new_state = state._replace(
-        debits_pending=new_dp, debits_posted=new_dpo,
-        credits_pending=new_cp, credits_posted=new_cpo,
-    )
+    if balance_apply is not None:
+        new_state, overflow = balance_apply(
+            state, eff_dr.to(torch.int32), eff_cr.to(torch.int32), amounts,
+            pending.amount, add_pend, add_post, sub_pend,
+        )
+    else:
+        dr_s = _scatter_slots(eff_dr, a_count)
+        cr_s = _scatter_slots(eff_cr, a_count)
+        new_dp, o1 = u128.scatter_add(state.debits_pending, dr_s, amounts, add_pend)
+        new_cp, o2 = u128.scatter_add(state.credits_pending, cr_s, amounts, add_pend)
+        new_dpo, o3 = u128.scatter_add(state.debits_posted, dr_s, amounts, add_post)
+        new_cpo, o4 = u128.scatter_add(state.credits_posted, cr_s, amounts, add_post)
+        new_dp, u1 = u128.scatter_sub(new_dp, dr_s, pending.amount, sub_pend)
+        new_cp, u2 = u128.scatter_sub(new_cp, cr_s, pending.amount, sub_pend)
+        o5 = u128.add(new_dp, new_dpo)[1]
+        o6 = u128.add(new_cp, new_cpo)[1]
+        overflow = (o1 | o2 | o3 | o4 | o5 | o6 | u1 | u2).any()
+        new_state = state._replace(
+            debits_pending=new_dp, debits_posted=new_dpo,
+            credits_pending=new_cp, credits_posted=new_cpo,
+        )
 
     # Post-event balances for history rows (state_machine.zig:1342-1364;
     # post/void writes no history row).
@@ -641,8 +662,13 @@ def reset_sweep_stats(device) -> None:
     sweep_stats(device).zero_()
 
 
-def _check_exact_args(state, b, host_code, pending, chain_id, plan):
-    a = _check_state(state)
+def _check_exact_args(state, b, host_code, pending, chain_id, plan, tables=True):
+    if tables:
+        a = _check_state(state)
+    else:  # the external-base mode reads the ledger and flags alone
+        a = state.ledger.shape[0]
+        _check(state.ledger, "ledger", torch.uint32, (a,), state.ledger.device)
+        _check(state.flags, "flags", torch.uint32, (a,), state.ledger.device)
     dev = state.ledger.device
     n = b.flags.shape[0]
     if not 1 <= n <= N_MAX:
@@ -698,6 +724,53 @@ def sort_plan(b: TransferBatch, pending: PendingInfo, chain_id, a_count: int) ->
     return plan
 
 
+def _launch_exact(state, b, host_code, pending, chain_id, plan,
+                  max_sweeps, has_pv, has_chains, base=None):
+    """Launch csrc/create_transfers_exact.cu: with `base` None on the
+    state's tables (returning four new ones), else in its external-base
+    mode (returning eff_dr, eff_cr and the posting mask). Returns
+    (codes, amounts, dr_after, cr_after, bail, the mode's outputs)."""
+    a, dev, n = _check_exact_args(state, b, host_code, pending, chain_id, plan, base is None)
+    if base is not None:
+        for f, t in zip(Observed._fields, base):
+            _check(t, f"base.{f}", torch.uint32, (2 * n, 4), dev)
+    if plan is None:
+        plan = sort_plan(b, pending, chain_id, a)
+    u4 = lambda rows: torch.empty((rows, 4), dtype=torch.uint32, device=dev)
+    codes = torch.empty((n,), dtype=torch.uint32, device=dev)
+    amounts = u4(n)
+    dr_after = Observed(*(u4(n) for _ in range(4)))
+    cr_after = Observed(*(u4(n) for _ in range(4)))
+    bail = torch.empty((), dtype=torch.bool, device=dev)
+    nbytes = kernels.helper(
+        "create_transfers_exact", "tb_create_transfers_exact_scratch",
+        [kernels._I, kernels._I], kernels._I,
+    )(n, max_sweeps)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    if base is None:
+        old = [getattr(state, f) for f in BALANCE_FIELDS]
+        out = [u4(a) for _ in range(4)]
+        mode = [None] * 7
+    else:
+        old = [None] * 4
+        out = [torch.empty((n,), dtype=torch.int32, device=dev) for _ in range(2)]
+        out.append(torch.empty((n,), dtype=torch.uint8, device=dev))
+        mode = [*base, *out]
+    ptrs = [
+        *old, state.ledger, state.flags, *(out if base is None else [None] * 4),
+        *b, host_code, *pending, chain_id, *plan,
+        codes, amounts, *dr_after, *cr_after, bail, sweep_stats(dev), scratch, *mode,
+    ]
+    _launch(
+        "create_transfers_exact", dev,
+        kernels.pointer_array([0 if t is None else t.data_ptr() for t in ptrs]),
+        kernels.size_array([
+            a, n, max_sweeps, int(has_pv), int(has_chains), nbytes, int(base is not None),
+        ]),
+    )
+    return codes, amounts, dr_after, cr_after, bail, out
+
+
 def create_transfers_exact(
     state: LedgerState, b: TransferBatch, host_code, pending: PendingInfo,
     chain_id, plan: Optional[SortPlan] = None, max_sweeps: int = MAX_SWEEPS,
@@ -722,30 +795,73 @@ def create_transfers_exact(
         return create_transfers_exact_plain(
             state, b, host_code, pending, chain_id, plan, max_sweeps, has_pv, has_chains
         )
-    a, dev, n = _check_exact_args(state, b, host_code, pending, chain_id, plan)
-    if plan is None:
-        plan = sort_plan(b, pending, chain_id, a)
-    u4 = lambda rows: torch.empty((rows, 4), dtype=torch.uint32, device=dev)
-    new = [u4(a) for _ in range(4)]
-    codes = torch.empty((n,), dtype=torch.uint32, device=dev)
-    amounts = u4(n)
-    dr_after = Observed(*(u4(n) for _ in range(4)))
-    cr_after = Observed(*(u4(n) for _ in range(4)))
-    bail = torch.empty((), dtype=torch.bool, device=dev)
-    nbytes = kernels.helper(
-        "create_transfers_exact", "tb_create_transfers_exact_scratch",
-        [kernels._I, kernels._I], kernels._I,
-    )(n, max_sweeps)
-    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
-    ptrs = [
-        *(getattr(state, f) for f in LedgerState._fields), *new,
-        *b, host_code, *pending, chain_id, *plan,
-        codes, amounts, *dr_after, *cr_after, bail, sweep_stats(dev), scratch,
-    ]
-    _launch(
-        "create_transfers_exact", dev,
-        kernels.pointer_array([t.data_ptr() for t in ptrs]),
-        kernels.size_array([a, n, max_sweeps, int(has_pv), int(has_chains), nbytes]),
+    codes, amounts, dr_after, cr_after, bail, new = _launch_exact(
+        state, b, host_code, pending, chain_id, plan, max_sweeps, has_pv, has_chains,
     )
     new_state = state._replace(**dict(zip(BALANCE_FIELDS, new)))
     return new_state, codes, amounts, dr_after, cr_after, bail
+
+
+# --- the external-base mode (balance tables sharded over a device mesh) ---
+
+# Posting masks of the external-base mode, as csrc/create_transfers_exact.cu
+# writes them and csrc/sharded_apply.cu reads them.
+M_ADD_PEND = 1
+M_ADD_POST = 2
+M_SUB_PEND = 4
+
+
+def posting_mask(add_pend, add_post, sub_pend) -> torch.Tensor:
+    """(n,) uint8 of the three (n,) bool posting masks of _apply."""
+    u8 = lambda m, bit: m.to(torch.uint8) * bit
+    return u8(add_pend, M_ADD_PEND) | u8(add_post, M_ADD_POST) | u8(sub_pend, M_SUB_PEND)
+
+
+def create_transfers_exact_external_plain(
+    state: LedgerState, base: Observed, b: TransferBatch, host_code,
+    pending: PendingInfo, chain_id, plan: Optional[SortPlan] = None,
+    max_sweeps: int = MAX_SWEEPS, has_pv: bool = True, has_chains: bool = True,
+):
+    """Plain PyTorch version of the external-base mode: the fixed-point
+    sweep against the given pre-batch balances of the 2n posting records,
+    posting nothing (create_transfers_exact_plain with the reference's two
+    hooks). Returns (codes, amounts, dr_after, cr_after, eff_dr, eff_cr
+    (n,) int32, mask (n,) uint8 (posting_mask), bail () bool)."""
+    posting = {}
+
+    def apply(st, eff_dr, eff_cr, amounts, p_amount, add_pend, add_post, sub_pend):
+        posting.update(eff_dr=eff_dr, eff_cr=eff_cr,
+                       mask=posting_mask(add_pend, add_post, sub_pend))
+        return st, torch.zeros((), dtype=torch.bool, device=eff_dr.device)
+
+    _, codes, amounts, dr_after, cr_after, bail = create_transfers_exact_plain(
+        state, b, host_code, pending, chain_id, plan, max_sweeps, has_pv, has_chains,
+        balance_read=lambda st, rec_slot: tuple(base), balance_apply=apply,
+    )
+    return (codes, amounts, dr_after, cr_after,
+            posting["eff_dr"], posting["eff_cr"], posting["mask"], bail)
+
+
+def create_transfers_exact_external(
+    state: LedgerState, base: Observed, b: TransferBatch, host_code,
+    pending: PendingInfo, chain_id, plan: Optional[SortPlan] = None,
+    max_sweeps: int = MAX_SWEEPS, has_pv: bool = True, has_chains: bool = True,
+):
+    """The exact commit's sweep over balance tables it does not hold (the
+    reference's balance_read / balance_apply hooks, parallel/sharding.py):
+    `base` (Observed of four (2n, 4) uint32) gives the pre-batch balances
+    of the batch's 2n posting records, in record order (debit sides, then
+    credit sides). Only `state.ledger` and `state.flags` (A,) are read.
+    Nothing is posted; the caller posts eff_dr / eff_cr with the amounts
+    under `mask` on the tables' shards (parallel/sharding.py
+    sharded_apply). Returns (codes, amounts, dr_after, cr_after, eff_dr,
+    eff_cr, mask, bail); bail is True when the batch did not settle within
+    max_sweeps. Nothing here waits for the device."""
+    if state.ledger.device.type == "cpu":
+        return create_transfers_exact_external_plain(
+            state, base, b, host_code, pending, chain_id, plan, max_sweeps, has_pv, has_chains
+        )
+    codes, amounts, dr_after, cr_after, bail, (eff_dr, eff_cr, mask) = _launch_exact(
+        state, b, host_code, pending, chain_id, plan, max_sweeps, has_pv, has_chains, base=base,
+    )
+    return codes, amounts, dr_after, cr_after, eff_dr, eff_cr, mask, bail

@@ -1,0 +1,678 @@
+"""The commit path over balance tables sharded by slot on a device mesh.
+
+The port of the reference package's parallel/sharding.py. Layout, as the
+reference's (`state_specs`, :73-81):
+
+  - `shard` axis: each of the four balance tables is split over slots;
+    mesh device (i, s) holds rows [s * A/shard, (s + 1) * A/shard) of
+    every table. Double-entry posting decomposes by slot ownership: the
+    debit side of an event touches only the debit account's owner, the
+    credit side only the credit account's.
+  - `dp` axis: the tables are replicated over dp; the fast route's batch
+    is split over dp for validation, and the routing of every event
+    (slots, amount, posting masks) is gathered so that every device
+    posts the sides it owns. The dp copies of a shard stay byte-equal.
+  - The accounts' ledger and flags, which validation reads, are
+    replicated on every device.
+  - Bail words are OR-ed over the whole mesh in the reference's axis
+    order ("dp", "shard"), so the host sees one () bool, the single-device
+    contract.
+
+The reference is single-controller: one process's state machine drives
+every device, and its collectives (all_gather over dp, psum over
+("dp", "shard")) live inside one shard_map. The port keeps that shape:
+`Mesh` is an explicit grid of torch.devices, each device holds its own
+tensors, and the two collectives are explicit copies between devices (a
+no-op on one device) and an ordered combine on the destination. The same
+device may stand at several places of a mesh (a virtual mesh, as the
+reference tests itself on one host's CPU).
+
+Entries: `make_sharded_commit` (reference :113), `make_sharded_commit_exact`
+(:179) and `register_accounts_sharded` (:295), plus the gather and the
+writeback of the state machine's lookups and serial route
+(`read_balances_sharded`, `write_balances_sharded`). On a mesh of CUDA
+devices the commits launch three hand-written kernels
+(csrc/sharded_validate.cu, sharded_apply.cu, sharded_read.cu) and the
+exact kernel's external-base mode; on a mesh of CPUs they run their plain
+versions (`*_plain`), the reference's shard_map step written out device
+by device. Each kernel wrapper has its own plain version beside it.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from tigerbeetle_tpu_torch.ops import commit, kernels, u128
+from tigerbeetle_tpu_torch.ops import commit_exact as E
+from tigerbeetle_tpu_torch.ops.commit import (
+    BALANCE_FIELDS,
+    F_PENDING,
+    F_POST,
+    F_VOID,
+    LedgerState,
+    TransferBatch,
+)
+from tigerbeetle_tpu_torch.ops.commit_exact import (
+    M_ADD_PEND,
+    M_ADD_POST,
+    M_SUB_PEND,
+    Observed,
+    posting_mask,
+)
+
+AXES = ("dp", "shard")
+_check = kernels.check
+
+
+# --- the mesh and the state layout ---------------------------------------
+
+
+class Mesh:
+    """A (dp, shard) grid of torch.devices. `devices[i][s]` is mesh
+    device (i, s); every device is of one type."""
+
+    axis_names = AXES
+
+    def __init__(self, grid) -> None:
+        self.devices = tuple(tuple(torch.device(d) for d in row) for row in grid)
+        dp, shard = len(self.devices), len(self.devices[0])
+        if dp < 1 or shard < 1 or any(len(row) != shard for row in self.devices):
+            raise ValueError("Mesh: a non-empty rectangular grid of devices")
+        if len({d.type for d in self.flat}) != 1:
+            raise ValueError("Mesh: every device of a mesh is of one type")
+        self.shape = {"dp": dp, "shard": shard}
+
+    @property
+    def dp(self) -> int:
+        return self.shape["dp"]
+
+    @property
+    def shard(self) -> int:
+        return self.shape["shard"]
+
+    @property
+    def flat(self) -> tuple:
+        """The devices in mesh order (row-major over ("dp", "shard"))."""
+        return tuple(d for row in self.devices for d in row)
+
+    @property
+    def first(self) -> torch.device:
+        return self.devices[0][0]
+
+    @property
+    def on_cpu(self) -> bool:
+        return self.first.type == "cpu"
+
+    def distinct(self) -> List[torch.device]:
+        """Each device of the mesh once, in mesh order."""
+        return list(dict.fromkeys(self.flat))
+
+    def __repr__(self) -> str:
+        return f"Mesh(dp={self.dp}, shard={self.shard}, devices={self.flat})"
+
+
+def make_mesh(devices=None, dp: Optional[int] = None) -> Mesh:
+    """A ('dp', 'shard') mesh. `devices`: None for every CUDA device, an
+    int n for the first n (raises if fewer exist), or an explicit list of
+    devices, in mesh order — the only way to a virtual mesh that names
+    one device several times, or to a mesh of CPUs. dp defaults to the
+    reference's rule: the largest power of two with dp·2 · dp·2 ≤ n that
+    divides n (8 devices: 2 × 4)."""
+    if devices is None or isinstance(devices, int):
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        n = have if devices is None else devices
+        if n < 1 or n > have:
+            raise RuntimeError(
+                f"make_mesh: {n} CUDA devices asked for, {have} present; a "
+                "virtual mesh or a mesh of CPUs takes an explicit device list"
+            )
+        devices = [torch.device("cuda", i) for i in range(n)]
+    devices = [_indexed(torch.device(d)) for d in devices]
+    n = len(devices)
+    if dp is None:
+        dp = 1
+        while dp * 2 * dp * 2 <= n and n % (dp * 2) == 0:
+            dp *= 2
+    shard = n // dp
+    if dp * shard != n:
+        raise ValueError(f"make_mesh: dp={dp} does not divide {n} devices")
+    return Mesh([devices[i * shard:(i + 1) * shard] for i in range(dp)])
+
+
+def _indexed(d: torch.device) -> torch.device:
+    """A CUDA device with its index (cuda means the current device)."""
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+class ShardedState(NamedTuple):
+    """The ledger state on a mesh: `shards[i * shard + s]` is mesh device
+    (i, s)'s LedgerState, holding shard s of the four balance tables
+    ((A/shard, 4) uint32 each) and the replicated ledger and flags ((A,)
+    uint32)."""
+
+    shards: tuple
+
+    @property
+    def ledger(self) -> torch.Tensor:
+        """Mesh device (0, 0)'s replicated ledger: (A,)."""
+        return self.shards[0].ledger
+
+    def tensors(self) -> list:
+        return [t for sh in self.shards for t in sh]
+
+
+def _rows(mesh: Mesh, accounts_max: int) -> int:
+    assert accounts_max % mesh.shard == 0, "accounts_max must divide the shard axis"
+    return accounts_max // mesh.shard
+
+
+def init_sharded_state(accounts_max: int, mesh: Mesh) -> ShardedState:
+    """Zero balances, ledger and flags, placed with the layout above."""
+    rows = _rows(mesh, accounts_max)
+    z = lambda d, *shape: torch.zeros(shape, dtype=torch.int32, device=d).view(torch.uint32)
+    return ShardedState(tuple(
+        LedgerState(*(z(d, rows, 4) for _ in range(4)), z(d, accounts_max), z(d, accounts_max))
+        for d in mesh.flat
+    ))
+
+
+def sharded_state_from_reference(arrays: Dict[str, np.ndarray], mesh: Mesh) -> ShardedState:
+    """A ShardedState from dense state as numpy arrays (field name → the
+    reference's (A, 4) / (A,) uint32 array), split by the layout above.
+    Every device gets copies."""
+    a = np.asarray(arrays["ledger"]).shape[0]
+    rows = _rows(mesh, a)
+    t = lambda x, d: torch.from_numpy(np.array(x, dtype=np.uint32)).to(d)
+    shards = []
+    for k, d in enumerate(mesh.flat):
+        lo = (k % mesh.shard) * rows
+        shards.append(LedgerState(
+            *(t(arrays[f][lo:lo + rows], d) for f in BALANCE_FIELDS),
+            t(arrays["ledger"], d), t(arrays["flags"], d),
+        ))
+    return ShardedState(tuple(shards))
+
+
+def sharded_state_to_numpy(state: ShardedState, mesh: Mesh) -> Dict[str, np.ndarray]:
+    """Dense state (field name → host numpy uint32 array, the reference's
+    layout), read from dp row 0."""
+    row0 = state.shards[:mesh.shard]
+    out = {f: np.concatenate([getattr(sh, f).cpu().numpy() for sh in row0])
+           for f in BALANCE_FIELDS}
+    out["ledger"] = row0[0].ledger.cpu().numpy()
+    out["flags"] = row0[0].flags.cpu().numpy()
+    return out
+
+
+# --- the collectives -----------------------------------------------------
+
+
+def _peer(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """`t` on `dev`: itself where it already lies there, else an
+    asynchronous copy that `dev`'s current stream orders behind the
+    producer (an event recorded on the source device's current stream,
+    waited for on `dev`'s)."""
+    if t.device == dev:
+        return t
+    if t.device.type == "cuda" and dev.type == "cuda":
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(t.device))
+        torch.cuda.current_stream(dev).wait_event(ready)
+    if t.dtype == torch.uint32:
+        return t.view(torch.int32).to(dev, non_blocking=True).view(torch.uint32)
+    return t.to(dev, non_blocking=True)
+
+
+def _cat(parts: list) -> torch.Tensor:
+    if parts[0].dtype == torch.uint32:
+        return torch.cat([p.view(torch.int32) for p in parts]).view(torch.uint32)
+    return torch.cat(parts)
+
+
+def all_gather_dp(parts: list, devices) -> Dict[torch.device, torch.Tensor]:
+    """The reference's all_gather over dp (tiled): the dp slices `parts`
+    concatenated in dp order, placed once on each distinct device of
+    `devices` (device → tensor). Never waits for the device."""
+    out: Dict[torch.device, torch.Tensor] = {}
+    for d in devices:
+        if d not in out:
+            out[d] = _cat([_peer(p, d) for p in parts])
+    return out
+
+
+def psum_any(flags: list, dev: torch.device) -> torch.Tensor:
+    """The reference's psum of bail words over ("dp", "shard") > 0: the ()
+    bool OR of `flags` (one per device, in mesh order), left on `dev`.
+    Never waits for the device: the host reads it only where it already
+    synchronises."""
+    out = _peer(flags[0], dev)
+    for f in flags[1:]:
+        out = out | _peer(f, dev)
+    return out
+
+
+def combine_shards(blocks: list, dev: torch.device) -> Observed:
+    """One gather's rows from the shards of a dp row (`blocks[s]`: shard
+    s's four (k, 4) blocks, zero where it owns no row), combined on `dev`
+    in shard order. Each row has one owner, so the OR of the disjoint
+    words equals the reference's psum over the shard axis."""
+    out = []
+    for f in range(4):
+        acc = _peer(blocks[0][f], dev).view(torch.int32)
+        for blk in blocks[1:]:
+            acc = acc | _peer(blk[f], dev).view(torch.int32)
+        out.append(acc.view(torch.uint32))
+    return Observed(*out)
+
+
+# --- the kernels and their plain versions --------------------------------
+
+
+def _check_batch(b: TransferBatch, host_code, dev) -> int:
+    n = b.flags.shape[0]
+    for f, dtype, shape in (
+        ("id", torch.uint32, (n, 4)), ("dr_slot", torch.int32, (n,)),
+        ("cr_slot", torch.int32, (n,)), ("amount", torch.uint32, (n, 4)),
+        ("pending_id", torch.uint32, (n, 4)), ("timeout", torch.uint32, (n,)),
+        ("ledger", torch.uint32, (n,)), ("code", torch.uint32, (n,)),
+        ("flags", torch.uint32, (n,)), ("timestamp", torch.uint32, (n, 2)),
+    ):
+        _check(getattr(b, f), f, dtype, shape, dev)
+    _check(host_code, "host_code", torch.uint32, (n,), dev)
+    return n
+
+
+def sharded_validate_plain(state: LedgerState, b: TransferBatch, host_code, lo: int, m: int):
+    """Plain PyTorch version of csrc/sharded_validate.cu: the fast ladder
+    (commit.validate_simple, merge_codes) for events [lo, lo + m) of `b`
+    against `state.ledger`. Returns (codes (m,) uint32, route (m,) uint8:
+    M_ADD_PEND for ok & pending, M_ADD_POST for ok & not pending, bail ()
+    bool: an unsupported flag in the slice)."""
+    sl = TransferBatch(*(x[lo:lo + m] for x in b))
+    code, unsupported = commit.validate_simple(state, sl)
+    code = commit.merge_codes(code, u128.widen(host_code[lo:lo + m]))
+    ok = (code == 0) & ~unsupported
+    pend = (u128.widen(sl.flags) & F_PENDING) != 0
+    route = posting_mask(ok & pend, ok & ~pend, torch.zeros_like(ok))
+    return u128.narrow(code), route, unsupported.any()
+
+
+def sharded_validate(state: LedgerState, b: TransferBatch, host_code, lo: int, m: int):
+    """The fast ladder for one dp slice, events [lo, lo + m) of `b`, on
+    the device of `state` (whose ledger (A,) it reads): csrc/
+    sharded_validate.cu for CUDA tensors, the plain version for CPU
+    tensors. Returns (codes, route, bail) as the plain version."""
+    if state.ledger.device.type == "cpu":
+        return sharded_validate_plain(state, b, host_code, lo, m)
+    dev = state.ledger.device
+    a = state.ledger.shape[0]
+    _check(state.ledger, "ledger", torch.uint32, (a,), dev)
+    n = _check_batch(b, host_code, dev)
+    if not (0 <= lo and 0 <= m and lo + m <= n):
+        raise ValueError(f"sharded_validate: slice [{lo}, {lo + m}) outside {n} events")
+    codes = torch.empty((m,), dtype=torch.uint32, device=dev)
+    route = torch.empty((m,), dtype=torch.uint8, device=dev)
+    bail = torch.empty((), dtype=torch.bool, device=dev)
+    kernels.launch(
+        "sharded_validate", dev,
+        *(t.data_ptr() for t in (*b, host_code, state.ledger, codes, route, bail)),
+        lo, m, a,
+    )
+    return codes, route, bail
+
+
+def _local(slots: torch.Tensor, base: int, rows: int):
+    """(local row, owned) of global `slots` for the shard at `base`; a
+    negative slot is never owned."""
+    local = slots.long() - base
+    mine = (slots >= 0) & (local >= 0) & (local < rows)
+    return torch.where(mine, local, -1), mine
+
+
+def sharded_apply_plain(state: LedgerState, dr, cr, amount, p_amount, mask, base: int):
+    """Plain PyTorch version of csrc/sharded_apply.cu (the reference's
+    balance_apply, :233-268): post `amount` under `mask` (posting_mask
+    bits) on the sides of each event whose global slot (dr, cr (n,)
+    int32) lies in [base, base + rows), and remove `p_amount` from
+    pending under M_SUB_PEND (p_amount None: no removals). Returns (the
+    shard's LedgerState with new tables, bail () bool)."""
+    rows = state.debits_pending.shape[0]
+    m = mask.long()
+    add_pend, add_post = (m & M_ADD_PEND) != 0, (m & M_ADD_POST) != 0
+    dl, dmine = _local(dr, base, rows)
+    cl, cmine = _local(cr, base, rows)
+    new_dp, o1 = u128.scatter_add(state.debits_pending, dl, amount, add_pend & dmine)
+    new_cp, o2 = u128.scatter_add(state.credits_pending, cl, amount, add_pend & cmine)
+    new_dpo, o3 = u128.scatter_add(state.debits_posted, dl, amount, add_post & dmine)
+    new_cpo, o4 = u128.scatter_add(state.credits_posted, cl, amount, add_post & cmine)
+    over = o1 | o2 | o3 | o4
+    if p_amount is not None:
+        sub_pend = (m & M_SUB_PEND) != 0
+        new_dp, u1 = u128.scatter_sub(new_dp, dl, p_amount, sub_pend & dmine)
+        new_cp, u2 = u128.scatter_sub(new_cp, cl, p_amount, sub_pend & cmine)
+        over = over | u1 | u2
+    o5 = u128.add(new_dp, new_dpo)[1]
+    o6 = u128.add(new_cp, new_cpo)[1]
+    new = state._replace(
+        debits_pending=new_dp, debits_posted=new_dpo,
+        credits_pending=new_cp, credits_posted=new_cpo,
+    )
+    return new, (over | o5 | o6).any()
+
+
+def sharded_apply(state: LedgerState, dr, cr, amount, p_amount, mask, base: int):
+    """Exact posting of a whole batch into one shard (the shard's four
+    tables in `state`, rows [base, base + rows) of the global slots):
+    csrc/sharded_apply.cu for CUDA tensors, the plain version for CPU
+    tensors. Out of place: returns (the shard's LedgerState with new
+    tables, bail () bool); `state` is left as it was."""
+    if state.ledger.device.type == "cpu":
+        return sharded_apply_plain(state, dr, cr, amount, p_amount, mask, base)
+    dev = state.ledger.device
+    rows = state.debits_pending.shape[0]
+    for f in BALANCE_FIELDS:
+        _check(getattr(state, f), f, torch.uint32, (rows, 4), dev)
+    n = dr.shape[0]
+    _check(dr, "dr", torch.int32, (n,), dev)
+    _check(cr, "cr", torch.int32, (n,), dev)
+    _check(amount, "amount", torch.uint32, (n, 4), dev)
+    if p_amount is not None:
+        _check(p_amount, "p_amount", torch.uint32, (n, 4), dev)
+    _check(mask, "mask", torch.uint8, (n,), dev)
+    new = [torch.empty((rows, 4), dtype=torch.uint32, device=dev) for _ in range(4)]
+    ctrl = torch.empty((4,), dtype=torch.int32, device=dev)
+    bail = torch.empty((), dtype=torch.bool, device=dev)
+    kernels.launch(
+        "sharded_apply", dev,
+        *(getattr(state, f).data_ptr() for f in BALANCE_FIELDS),
+        *(t.data_ptr() for t in (*new, dr, cr, amount)),
+        0 if p_amount is None else p_amount.data_ptr(),
+        *(t.data_ptr() for t in (mask, ctrl, bail)),
+        base, rows, n,
+    )
+    return state._replace(**dict(zip(BALANCE_FIELDS, new))), bail
+
+
+def sharded_read_plain(state: LedgerState, slots, base: int, a: int):
+    """Plain PyTorch version of csrc/sharded_read.cu: the four (k, 4)
+    rows at `slots` (k,) int32 clipped to [0, a-1] where the shard at
+    `base` owns them, zeros elsewhere (reference :215-231)."""
+    rows = state.debits_pending.shape[0]
+    local = slots.long().clamp(0, a - 1) - base
+    mine = ((local >= 0) & (local < rows))[:, None]
+    ix = local.clamp(0, rows - 1)
+    return tuple(
+        torch.where(mine, getattr(state, f).view(torch.int32)[ix], 0).view(torch.uint32)
+        for f in BALANCE_FIELDS
+    )
+
+
+def sharded_read(state: LedgerState, slots, base: int, a: int):
+    """One shard's part of a gather of the balance tables at global
+    `slots`: csrc/sharded_read.cu for CUDA tensors, the plain version for
+    CPU tensors. Returns four (k, 4) uint32 blocks."""
+    if state.ledger.device.type == "cpu":
+        return sharded_read_plain(state, slots, base, a)
+    dev = state.ledger.device
+    rows = state.debits_pending.shape[0]
+    for f in BALANCE_FIELDS:
+        _check(getattr(state, f), f, torch.uint32, (rows, 4), dev)
+    k = slots.shape[0]
+    _check(slots, "slots", torch.int32, (k,), dev)
+    out = [torch.empty((k, 4), dtype=torch.uint32, device=dev) for _ in range(4)]
+    kernels.launch(
+        "sharded_read", dev,
+        *(getattr(state, f).data_ptr() for f in BALANCE_FIELDS),
+        slots.data_ptr(), *(t.data_ptr() for t in out), base, rows, a, k,
+    )
+    return tuple(out)
+
+
+# --- the fast commit (reference make_sharded_commit, :113) ---------------
+
+
+def sharded_commit(mesh: Mesh, accounts_max: int, state: ShardedState, b: TransferBatch, host_code):
+    """The fast commit on the mesh's kernels: sharded_validate on
+    each dp slice, all_gather over dp of the slots, amounts and routing,
+    sharded_apply on every device, psum_any of the bail words.
+    n must be a multiple of dp (ShardedOps pads). Returns (new_state,
+    codes (n,) uint32 and bail () bool on the mesh's first device)."""
+    rows = _rows(mesh, accounts_max)
+    n = b.flags.shape[0]
+    assert n % mesh.dp == 0, "the batch must split evenly over dp"
+    m = n // mesh.dp
+    codes, routes, slices, bails = [], [], [], []
+    for i in range(mesh.dp):
+        dev = mesh.devices[i][0]
+        if b.flags.device == dev:
+            bi, hi, lo = b, host_code, i * m
+        else:  # the slice alone crosses to the dp row's device
+            cut = lambda x: _peer(x[i * m:(i + 1) * m].contiguous(), dev)
+            bi, hi, lo = TransferBatch(*(cut(x) for x in b)), cut(host_code), 0
+        c, r, bail = sharded_validate(state.shards[i * mesh.shard], bi, hi, lo, m)
+        codes.append(c)
+        routes.append(r)
+        bails.append(bail)
+        slices.append([x[lo:lo + m] for x in (bi.dr_slot, bi.cr_slot, bi.amount)])
+    flat = mesh.flat
+    g_dr, g_cr, g_amount = (all_gather_dp([s[j] for s in slices], flat) for j in range(3))
+    g_route = all_gather_dp(routes, flat)
+    shards = []
+    for k, d in enumerate(flat):
+        sh, bail = sharded_apply(
+            state.shards[k], g_dr[d], g_cr[d], g_amount[d], None, g_route[d],
+            (k % mesh.shard) * rows,
+        )
+        shards.append(sh)
+        bails.append(bail)
+    first = mesh.first
+    return ShardedState(tuple(shards)), all_gather_dp(codes, [first])[first], psum_any(bails, first)
+
+
+def sharded_commit_plain(
+    mesh: Mesh, accounts_max: int, state: ShardedState, b: TransferBatch, host_code,
+):
+    """Plain PyTorch version of the fast commit on a mesh of CPUs: the
+    reference's shard_map step (:122-163) written out device by device."""
+    rows = _rows(mesh, accounts_max)
+    n = b.flags.shape[0]
+    assert n % mesh.dp == 0, "the batch must split evenly over dp"
+    m = n // mesh.dp
+    codes, unsupported, g_post, g_pend = [], [], [], []
+    for i in range(mesh.dp):
+        sl = TransferBatch(*(x[i * m:(i + 1) * m] for x in b))
+        code, unsup = commit.validate_simple(state.shards[i * mesh.shard], sl)
+        code = commit.merge_codes(code, u128.widen(host_code[i * m:(i + 1) * m]))
+        ok = (code == 0) & ~unsup
+        pend = (u128.widen(sl.flags) & F_PENDING) != 0
+        codes.append(code)
+        unsupported.append(unsup.any())
+        g_post.append(ok & ~pend)
+        g_pend.append(ok & pend)
+    g_post, g_pend = torch.cat(g_post), torch.cat(g_pend)
+    shards, bails = [], []
+    for k, sh in enumerate(state.shards):
+        base = (k % mesh.shard) * rows
+        dl, dmine = _local(b.dr_slot, base, rows)
+        cl, cmine = _local(b.cr_slot, base, rows)
+        new_dp, o1 = u128.scatter_add(sh.debits_pending, dl, b.amount, g_pend & dmine)
+        new_cp, o2 = u128.scatter_add(sh.credits_pending, cl, b.amount, g_pend & cmine)
+        new_dpo, o3 = u128.scatter_add(sh.debits_posted, dl, b.amount, g_post & dmine)
+        new_cpo, o4 = u128.scatter_add(sh.credits_posted, cl, b.amount, g_post & cmine)
+        o5 = u128.add(new_dp, new_dpo)[1]
+        o6 = u128.add(new_cp, new_cpo)[1]
+        shards.append(sh._replace(
+            debits_pending=new_dp, debits_posted=new_dpo,
+            credits_pending=new_cp, credits_posted=new_cpo,
+        ))
+        bails.append((o1 | o2 | o3 | o4 | o5 | o6).any() | unsupported[k // mesh.shard])
+    return (ShardedState(tuple(shards)), u128.narrow(torch.cat(codes)),
+            torch.stack(bails).any())
+
+
+def make_sharded_commit(mesh: Mesh, accounts_max: int):
+    """(state, batch, host_code) -> (state', codes, bail): the contract of
+    ops/commit.create_transfers_fast over a ShardedState, on the mesh's
+    kernels (CUDA) or their plain versions (CPUs)."""
+    _rows(mesh, accounts_max)
+    step = sharded_commit_plain if mesh.on_cpu else sharded_commit
+    return functools.partial(step, mesh, accounts_max)
+
+
+# --- the exact commit (reference make_sharded_commit_exact, :179) --------
+
+
+def sharded_commit_exact(
+    mesh: Mesh, accounts_max: int, state: ShardedState, b: TransferBatch, host_code,
+    pending: E.PendingInfo, chain_id, plan: Optional[E.SortPlan] = None,
+    max_sweeps: int = E.MAX_SWEEPS, has_pv: bool = True, has_chains: bool = True,
+):
+    """The exact commit on the mesh's kernels. The sweep is batch-global,
+    so it runs replicated: once on each distinct device of the mesh (once
+    on a virtual mesh), against the records' pre-batch balances that
+    sharded_read gathers from the shards of the device's dp row and
+    combine_shards joins; the exact kernel's external-base mode sweeps
+    and returns the posting, which sharded_apply applies on every
+    device. bail: psum_any of every sweep's and every shard's word.
+    Returns (new_state, codes, amounts, dr_after, cr_after, bail) as
+    ops/commit_exact.create_transfers_exact, on the mesh's first device."""
+    rows = _rows(mesh, accounts_max)
+    is_pv = (b.flags.view(torch.int32) & (F_POST | F_VOID)) != 0
+    rec_slot = torch.cat([
+        torch.where(is_pv, pending.dr_slot, b.dr_slot),
+        torch.where(is_pv, pending.cr_slot, b.cr_slot),
+    ])
+    flat = mesh.flat
+    reads, sweeps, p_amount = {}, {}, {}
+    for d in mesh.distinct():
+        k = flat.index(d)
+        i = k // mesh.shard
+        if i not in reads:  # the dp row's shards, each on its own device
+            reads[i] = [
+                sharded_read(state.shards[i * mesh.shard + s],
+                             _peer(rec_slot, mesh.devices[i][s]), s * rows, accounts_max)
+                for s in range(mesh.shard)
+            ]
+        base = combine_shards(reads[i], d)
+        on = lambda x: _peer(x, d)
+        pend_d = E.PendingInfo(*(on(x) for x in pending))
+        sweeps[d] = E.create_transfers_exact_external(
+            state.shards[k], base, TransferBatch(*(on(x) for x in b)), on(host_code),
+            pend_d, on(chain_id), None if plan is None else E.SortPlan(*(on(x) for x in plan)),
+            max_sweeps, has_pv, has_chains,
+        )
+        p_amount[d] = pend_d.amount
+    bails = [sweeps[d][7] for d in sweeps]
+    shards = []
+    for k, d in enumerate(flat):
+        _, amounts, _, _, eff_dr, eff_cr, mask, _ = sweeps[d]
+        sh, bail = sharded_apply(
+            state.shards[k], eff_dr, eff_cr, amounts, p_amount[d], mask, (k % mesh.shard) * rows,
+        )
+        shards.append(sh)
+        bails.append(bail)
+    first = mesh.first
+    codes, amounts, dr_after, cr_after = sweeps[first][:4]
+    return (ShardedState(tuple(shards)), codes, amounts, dr_after, cr_after,
+            psum_any(bails, first))
+
+
+def sharded_commit_exact_plain(
+    mesh: Mesh, accounts_max: int, state: ShardedState, b: TransferBatch, host_code,
+    pending: E.PendingInfo, chain_id, plan: Optional[E.SortPlan] = None,
+    max_sweeps: int = E.MAX_SWEEPS, has_pv: bool = True, has_chains: bool = True,
+):
+    """Plain PyTorch version of the exact commit on a mesh of CPUs: the
+    reference's step (:198-283) with its two hooks written out device by
+    device (the sweep, replicated in the reference, runs once)."""
+    rows = _rows(mesh, accounts_max)
+
+    def balance_read(st, rec_slot):
+        glob = rec_slot.long().clamp(0, accounts_max - 1)
+        total = None
+        for s in range(mesh.shard):  # psum over "shard" (dp row 0)
+            sh = state.shards[s]
+            local = glob - s * rows
+            mine = ((local >= 0) & (local < rows))[:, None]
+            ix = local.clamp(0, rows - 1)
+            part = [torch.where(mine, u128.widen(getattr(sh, f))[ix], 0) for f in BALANCE_FIELDS]
+            total = part if total is None else [t + p for t, p in zip(total, part)]
+        return [u128.narrow(t) for t in total]
+
+    def balance_apply(st, eff_dr, eff_cr, amounts, p_amount, add_pend, add_post, sub_pend):
+        mask = posting_mask(add_pend, add_post, sub_pend)
+        shards, over = [], []
+        for k, sh in enumerate(state.shards):
+            new, o = sharded_apply_plain(
+                sh, eff_dr, eff_cr, amounts, p_amount, mask, (k % mesh.shard) * rows)
+            shards.append(new)
+            over.append(o)
+        return ShardedState(tuple(shards)), torch.stack(over).any()
+
+    return E.create_transfers_exact_plain(
+        state.shards[0], b, host_code, pending, chain_id, plan, max_sweeps, has_pv, has_chains,
+        balance_read=balance_read, balance_apply=balance_apply,
+    )
+
+
+def make_sharded_commit_exact(mesh: Mesh, accounts_max: int):
+    """(state, batch, host_code, pending, chain_id, plan=None, ...) ->
+    (state', codes, amounts, dr_after, cr_after, bail): the contract of
+    ops/commit_exact.create_transfers_exact over a ShardedState, on the
+    mesh's kernels (CUDA) or the plain version (CPUs)."""
+    _rows(mesh, accounts_max)
+    step = sharded_commit_exact_plain if mesh.on_cpu else sharded_commit_exact
+    return functools.partial(step, mesh, accounts_max)
+
+
+# --- registration, lookups and the serial writeback ----------------------
+
+
+def register_accounts_sharded(
+    mesh: Mesh, state: ShardedState, slots, ledger, flags, mask,
+) -> ShardedState:
+    """Install new accounts' replicated ledger and flags (reference :295):
+    ops/commit.register_accounts (kernel 2, or its plain version on a
+    CPU) once per mesh device, in place. Balances stay zero."""
+    for sh, d in zip(state.shards, mesh.flat):
+        commit.register_accounts(sh, *(_peer(x, d) for x in (slots, ledger, flags, mask)))
+    return state
+
+
+def read_balances_sharded(mesh: Mesh, accounts_max: int, state: ShardedState, slots):
+    """ops/commit.read_balances over a ShardedState: sharded_read on each device of
+    dp row 0, combined on the mesh's first device. slots (k,) int32 are
+    clipped to [0, A-1]."""
+    rows = _rows(mesh, accounts_max)
+    blocks = [
+        sharded_read(state.shards[s], _peer(slots, mesh.devices[0][s]), s * rows, accounts_max)
+        for s in range(mesh.shard)
+    ]
+    return tuple(combine_shards(blocks, mesh.first))
+
+
+def write_balances_sharded(
+    mesh: Mesh, accounts_max: int, state: ShardedState, slots, dp, dpo, cp, cpo,
+):
+    """ops/commit.write_balances over a ShardedState, in place: a slot in
+    [-A, 0) counts from the end of the global table (normalized before it
+    is localized), a slot outside [-A, A) is dropped; each device writes
+    the rows its shard owns through ops/commit.write_balances (kernel 4,
+    or its plain version on a CPU), every other row at local slot `rows`,
+    past its shard's end, where the kernel drops it."""
+    rows = _rows(mesh, accounts_max)
+    s = slots.long()
+    s = torch.where(s < 0, s + accounts_max, s)
+    keep = (s >= 0) & (s < accounts_max)
+    for k, (sh, d) in enumerate(zip(state.shards, mesh.flat)):
+        local = s - (k % mesh.shard) * rows
+        own = keep & (local >= 0) & (local < rows)
+        local = torch.where(own, local, rows).to(torch.int32)
+        commit.write_balances(sh, *(_peer(x, d) for x in (local, dp, dpo, cp, cpo)))
+    return state

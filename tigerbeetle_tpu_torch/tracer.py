@@ -43,6 +43,9 @@ DEVICE_ENTRIES = frozenset({
     "scan_intersect_mask",
     # compaction: the chunk fold and the rank merge
     "compact_fold_kernel", "merge_kernel",
+    # the commit path over balance tables sharded on a device mesh
+    "sharded.create_transfers_fast", "sharded.create_transfers_exact",
+    "sharded.register_accounts", "sharded.read_balances", "sharded.write_balances",
 })
 
 

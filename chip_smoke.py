@@ -20,14 +20,20 @@ caught:
      it must bail, at 12 not), pending removals that underflow (bail),
      posts whose pending + posted overflows only after posting (bail) and
      an overflow a void cures (no bail), and every (has_pv, has_chains)
-     setting; the device sort plan must equal build_sort_plan's, and the
-     exact wrapper runs once under sync-debug mode "error". Per kernel:
+     setting; the device sort plan must equal build_sort_plan's and its
+     plain version, also on the sort's edge inputs (tests/exact_batches.py
+     PLAN_EDGES: n = 1 and 8192, one slot, slot -1, slots up to A - 1,
+     chains that are not runs, both sides on one slot, one fulfillment
+     group, negative groups), timed beside torch.sort of the record keys
+     and of the event keys, and the exact wrapper runs once under
+     sync-debug mode "error". Per kernel:
      median time by CUDA events, the bound (bytes the function must move
      over 3.35 TB/s; integer operations over 67 TOP/s never dominate), the
      plain version's time and, where one exists, the PyTorch call
      computing the same function. The store stage's and the query path's
      kernels at their main-path shapes: both key builds at n = 8190 (fold56
-     edge values, random columns, and the query mix of phase 7), the tiled
+     edge values, random columns, pad words 0, 1, 2 and 2^32 - 1, and the
+     query mix of phase 7), the tiled
      merge at each flush shape of the query tree (40,960 + 40,960,
      81,920 + 40,960 and 122,880 + 40,960 rows) and on top-bit keys with
      heavy duplicates across both runs, the intersect at 2^17 candidates
@@ -46,9 +52,11 @@ caught:
      at the flush shapes (122,880 +
      40,960 and 40,960 + 40,960 rows) on top-bit keys with duplicates
      across the runs and a lo of all ones, payloads of 3 words and of 1;
-     compact_fold_kernel at every (k, b) stack phase 8 folded, and at
-     k = 1 and k = 2; a bare compact_fold_dispatch under sync-debug mode
-     "error".
+     compact_fold_kernel at every (k, b) stack phase 8 folded, at k = 1
+     and k = 2, and on the k-way merge's edge stacks (tests/fold_stacks.py:
+     k = 2, 4, 16, 32 at b = 256, uneven lengths, equal keys across every
+     run, top-bit keys, all-pad runs); a bare compact_fold_dispatch under
+     sync-debug mode "error".
   3. Main path, BASELINE config 1: StateMachine(PRODUCTION) on CUDA,
      10,000 accounts, 64 batches of 8190 uniform simple transfers (over
      all accounts but the last two, which take the bail batch), a
@@ -533,18 +541,54 @@ def phase_exact(torch, C, dev):
     plain = lambda: E.sort_plan_plain(b, p, chain, A_MAX)
     dplan = E.sort_plan(b, p, chain, A_MAX)
     err = max_abs_err(torch, "exact_sort_plan config3", dplan, plain())
+    err = max(err, phase_sort_plan_edges(torch, C, E, dev))
     is_pv = (b.flags.view(torch.int32) & (C.F_POST | C.F_VOID)) != 0
     rec_slot = torch.cat([torch.where(is_pv, p.dr_slot, b.dr_slot),
                           torch.where(is_pv, p.cr_slot, b.cr_slot)]).long()
     key = ((torch.where(rec_slot >= 0, rec_slot, A_MAX) << 32)
            | (torch.cat([chain, chain]).long() << 16) | torch.cat([torch.arange(n, device=dev)] * 2))
+    f_key = torch.where(is_pv, p.group, n).long()
     sort_ms = cuda_ms(torch, lambda: torch.sort(key, stable=True), 10)
+    f_sort_ms = cuda_ms(torch, lambda: torch.sort(f_key, stable=True), 10)
+    both_ms = cuda_ms(torch, lambda: (torch.sort(key, stable=True), torch.sort(f_key, stable=True)), 10)
     plan_bytes = 7 * 4 * n + 4 * (2 * n * 4 + n * 4)
+    # ~40 operations an element for each 8-bit digit pass over the bits
+    # this batch's keys span (the slot of a record, with its chain where
+    # chain_id decreases somewhere; the group of an event), and ~20 for
+    # its heads
+    span_bits = lambda x: int(x.max() - x.min()).bit_length()
+    rec_hi = key >> 32
+    if not bool((chain[1:] >= chain[:-1]).all()):
+        rec_hi = (rec_hi << (n - 1).bit_length()) | ((key >> 16) & 0xFFFF)
+    rec_passes = -(-span_bits(rec_hi) // 8)
+    ev_passes = -(-span_bits(f_key) // 8)
+    plan_ops = (rec_passes * 2 * n + ev_passes * n) * 40 + 3 * n * 20
     record(torch, "exact_sort_plan", "exact_sort_plan.cu",
            "tigerbeetle_tpu/ops/commit_exact.py:474",
            lambda: E.sort_plan(b, p, chain, A_MAX), plain,
-           None, plan_bytes, 14 * 2 * n * 40, err, torch_sort_records_ms=sort_ms)
+           None, plan_bytes, plan_ops, err, torch_sort_records_ms=sort_ms,
+           radix_passes_records=rec_passes, radix_passes_events=ev_passes,
+           torch_sort_events_ms=f_sort_ms, torch_sort_both_ms=both_ms,
+           library_is="none: the two torch.sort calls of the record and the event keys "
+                      "(no inverse permutations, no heads) are timed beside it")
     del c3, c4, state
+
+
+def phase_sort_plan_edges(torch, C, E, dev):
+    """The device sort plan against its plain version on the sort's edge
+    inputs (tests/exact_batches.py PLAN_EDGES) at A = 2^20."""
+    import exact_batches as X
+
+    err = 0
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    for case, n in X.PLAN_EDGES:
+        bn, pn, chain = X.plan_edge(np.random.default_rng(sum(map(ord, case)) + n), case, n, A_MAX)
+        b = C.TransferBatch(**{k: t(v) for k, v in bn.items()})
+        p = E.PendingInfo(**{k: t(v) for k, v in pn.items()})
+        err = max(err, max_abs_err(torch, f"exact_sort_plan {case} n={n}",
+                                   E.sort_plan(b, p, t(chain), A_MAX),
+                                   E.sort_plan_plain(b, p, t(chain), A_MAX)))
+    return err
 
 
 # --- phase 2: the mesh's kernels ------------------------------------------
@@ -777,8 +821,13 @@ def phase_qindex(torch, dev, rng):
     # Both key builds: fold56 edges and random columns, then the query mix.
     edge = staged_of(edge_columns(rng, n))
     mix = staged_of(query_mix(rng, n, pool, 1))
+    # Pad words 0, 1, 2 and 2^32 - 1 (the sort orders by the whole word).
+    pad_words = list(edge)
+    pad = rng.choice(np.array([0, 1, 2, 0xFFFFFFFF], np.uint32), pad_words[3].shape[0])
+    pad[:4] = [0, 1, 2, 0xFFFFFFFF]
+    pad_words[3] = torch.from_numpy(pad).to(dev)
     err = {"query_index_keys": 0, "query_index_keys_sorted": 0}
-    for label, st in (("fold56 edges", edge), ("query mix", mix)):
+    for label, st in (("fold56 edges", edge), ("query mix", mix), ("pad words", pad_words)):
         for name in err:
             got = getattr(Q, name)(*st)
             want = getattr(Q, f"{name}_plain")(*st)
@@ -1614,6 +1663,15 @@ def phase_fold_kernel(torch, dev, rng, seen):
         by_shape[f"{k}x{b}"] = cuda_ms(torch, lambda: M.compact_fold_kernel(ks, ps), 10)
         if (k, b) in seen and (main is None or k * b > main[0].numel() // 3):
             main = (ks, ps)
+    # The k-way merge's edge stacks (tests/fold_stacks.py) at b = 256.
+    import fold_stacks
+
+    for k in (2, 4, 16, 32):
+        for case in fold_stacks.CASES:
+            ks, ps = (torch.from_numpy(x).to(dev) for x in fold_stacks.stack(rng, k, 256, case))
+            err = max(err, max_abs_err(torch, f"compact_fold_kernel {case} k={k} b=256",
+                                       M.compact_fold_kernel(ks, ps),
+                                       M.compact_fold_kernel_plain(ks, ps)))
     ks, ps = main
     k, b = ks.shape[0], ks.shape[1]
     nbytes, ops = devicestats.cost("compact_fold_kernel", main)

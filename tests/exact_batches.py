@@ -10,7 +10,8 @@ expiries and not-found pendings), "config4" (balancing debits and credits,
 zero-amount sentinels, limit accounts from `state`), "ladder" (every
 static and dynamic rung of both ladders) and "underflow" (pending removals
 above the pending balance). `relay` builds a batch that settles one link
-per sweep.
+per sweep. `plan_edge(rng, case, n, a)` gives the sort plan's inputs for
+the cases a device sort is likely to get wrong (PLAN_EDGES).
 """
 
 import numpy as np
@@ -274,3 +275,55 @@ def strip(b, p, chain, host, pv: bool, chains: bool):
         b["flags"] &= ~U32(F_LINKED)
         chain[:] = np.arange(len(chain), dtype=np.int32)
         host[host == LINKED_EVENT_CHAIN_OPEN] = 0
+
+
+# (case, n): the sort plan's edge inputs, at n = 1, a mid size and the
+# n = 8192 bucket (2n = 16384 records, the device sort's most).
+PLAN_EDGES = (
+    ("one_event", 1), ("one_slot", 8192), ("not_found", 300), ("top_slots", 8192),
+    ("loose_chains", 300), ("loose_chains", 8192), ("same_slot_pair", 300),
+    ("one_group", 8192), ("signed_groups", 300),
+)
+
+
+def plan_edge(rng, case, n, a):
+    """(b, pending, chain_id) of a sort-plan edge case, on an A = a table:
+    "one_event" (random, for n = 1), "one_slot" (every record and every
+    pending on one slot), "not_found" (slot -1 on about half the records,
+    which sorts as A), "top_slots" (slots A - 3 .. A - 1), "loose_chains"
+    (chain_id drawn from [0, n), not contiguous), "same_slot_pair" (the
+    debit and credit of an event on one slot), "one_group" (every event a
+    post or void of one pending) and "signed_groups" (negative groups)."""
+    b, p = empty(n)
+    b["id"] = ids(rng, n)
+    dr, cr = rng.integers(0, a, n), rng.integers(0, a, n)
+    chain = np.arange(n, dtype=np.int32)
+    pv = rng.random(n) < 0.3
+    k = int(pv.sum())
+    b["flags"][pv] = np.where(rng.random(k) < 0.5, F_POST, F_VOID).astype(U32)
+    p["dr_slot"][pv] = rng.integers(0, a, k)
+    p["cr_slot"][pv] = rng.integers(0, a, k)
+    p["group"][pv] = rng.integers(0, n, k)
+    if case == "one_slot":
+        dr[:], cr[:] = 7, 7
+        p["dr_slot"][:], p["cr_slot"][:] = 7, 7
+    elif case == "not_found":
+        dr[rng.random(n) < 0.5] = -1
+        cr[rng.random(n) < 0.5] = -1
+        p["dr_slot"][pv & (rng.random(n) < 0.5)] = -1
+    elif case == "top_slots":
+        dr, cr = a - 1 - rng.integers(0, 3, n), a - 1 - rng.integers(0, 3, n)
+        p["dr_slot"][pv] = a - 1
+    elif case == "loose_chains":
+        chain = rng.integers(0, n, n).astype(np.int32)
+    elif case == "same_slot_pair":
+        cr = dr.copy()
+        p["cr_slot"][:] = p["dr_slot"]
+    elif case == "one_group":
+        b["flags"][:] = np.where(rng.random(n) < 0.5, F_POST, F_VOID).astype(U32)
+        p["dr_slot"][:], p["cr_slot"][:] = rng.integers(0, a, 2)
+        p["group"][:] = rng.integers(0, n)
+    elif case == "signed_groups":
+        p["group"][pv] = rng.integers(-3, 3, k)
+    b["dr_slot"], b["cr_slot"] = dr.astype(np.int32), cr.astype(np.int32)
+    return b, p, chain

@@ -22,7 +22,8 @@ from tigerbeetle_tpu_torch.ops import commit_exact as port
 from tigerbeetle_tpu_torch.results import CreateTransferResult as TR
 
 from exact_batches import (
-    F_POST, F_VOID, U32, empty, ids, limbs, pending_plus_posted, relay, strip,
+    BALANCE_FIELDS, F_POST, F_VOID, PLAN_EDGES, U32, empty, ids, limbs, pending_plus_posted,
+    plan_edge, relay, strip,
 )
 from exact_batches import batch as _gen_batch
 from exact_batches import state as _gen_state
@@ -139,6 +140,49 @@ def test_sort_plan_matches_reference():
         plain = port.sort_plan(tb, pi, chain_t, A)
         for f, g, w in zip(port.SortPlan._fields, plain, want):
             assert np.array_equal(g.numpy(), w), f
+
+
+class _Plan(Exception):
+    """Carries the SortPlan the reference built, out of its function."""
+
+
+def _reference_plan(b, p, chain, a, monkeypatch):
+    """The reference's own plan=None sort (commit_exact.py:474-519):
+    create_transfers_exact_impl run eagerly until it builds its SortPlan.
+    Nothing before the sort reads the balance tables, so they are stubs."""
+    def capture(*fields):
+        raise _Plan([np.asarray(x) for x in fields])
+
+    monkeypatch.setattr(ref, "SortPlan", capture)
+    n = len(chain)
+    state = ref_commit.LedgerState(
+        **{f: jnp.zeros((1, 4), jnp.uint32) for f in BALANCE_FIELDS},
+        ledger=jnp.ones(a, jnp.uint32), flags=jnp.zeros(a, jnp.uint32),
+    )
+    tb = ref_commit.TransferBatch(**{k: jnp.asarray(v) for k, v in b.items()})
+    pi = ref.PendingInfo(**{k: jnp.asarray(v) for k, v in p.items()})
+    with pytest.raises(_Plan) as got:
+        ref.create_transfers_exact_impl(state, tb, jnp.zeros(n, jnp.uint32), pi,
+                                        jnp.asarray(chain))
+    return got.value.args[0]
+
+
+@pytest.mark.parametrize("case,n", PLAN_EDGES)
+def test_sort_plan_edges_match_reference(case, n, monkeypatch):
+    """The plain version of the device sort plan against the reference's
+    in-function sort on the inputs a device sort is likeliest to get
+    wrong, at A = 2^20 (slots up to A - 1; -1 sorts as A)."""
+    a = 1 << 20
+    b, p, chain = plan_edge(np.random.default_rng(sum(map(ord, case)) + n), case, n, a)
+    want = _reference_plan(b, p, chain, a, monkeypatch)
+    tb = port_commit.TransferBatch(**{k: torch.from_numpy(v) for k, v in b.items()})
+    pi, chain_t, _ = port_commit.exact_inputs_from_reference(
+        ref.PendingInfo(**p), chain, None, "cpu")
+    got = port.sort_plan(tb, pi, chain_t, a)
+    for f, g, w in zip(port.SortPlan._fields, got, want):
+        assert g.dtype == torch.int32 and g.numpy().tobytes() == w.astype(np.int32).tobytes(), f
+    if case == "one_slot":
+        assert (got.head_pos == 0).all()
 
 
 @pytest.mark.parametrize("max_sweeps", ["short", "exact"])

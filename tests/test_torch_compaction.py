@@ -36,6 +36,8 @@ from tigerbeetle_tpu_torch.lsm.tree import DurableIndex
 from tigerbeetle_tpu_torch.models.state_machine import StateMachine as PortSM
 from tigerbeetle_tpu_torch.ops import merge
 
+import fold_stacks
+
 CPU = torch.device("cpu")
 TOP = np.uint64(1 << 63)  # transfer-id lo words reach the top bit
 PORT_ROUTES = ["host", "device"]
@@ -148,6 +150,20 @@ def test_compact_fold_matches_reference(k, b):
     hk, hv = merge.compact_fold_materialize(merge.compact_fold_dispatch(parts_k, parts_v, CPU))
     wk, wv = ref_merge.compact_fold_materialize(ref_merge.compact_fold_dispatch(parts_k, parts_v))
     assert hk.tobytes() == wk.tobytes() and hv.tobytes() == wv.tobytes()
+
+
+@pytest.mark.parametrize("case", fold_stacks.CASES)
+@pytest.mark.parametrize("k", [2, 4, 16, 32])
+def test_compact_fold_edges_match_reference(k, case):
+    """The plain fold against the reference's jitted fold at b = 256 on
+    the stacks a k-way merge is likeliest to get wrong: equal keys across
+    every run, top-bit keys, all-pad runs, uneven real lengths."""
+    rng = np.random.default_rng(100 * k + fold_stacks.CASES.index(case))
+    keys, pays = fold_stacks.stack(rng, k, 256, case)
+    rk, rp = ref_merge.compact_fold_kernel(keys, pays)
+    pk, pp = merge.compact_fold_kernel(*_t(keys, pays))
+    _same(pk, rk)
+    _same(pp, rp)
 
 
 def test_compact_fold_discard_returns_the_ledger():

@@ -15,6 +15,9 @@ import torch
 
 from tigerbeetle_tpu_torch.ops import commit as C
 
+import fold_stacks
+from exact_batches import PLAN_EDGES
+
 A = 1 << 14
 N = 1024
 
@@ -212,6 +215,29 @@ def test_exact_sort_plan_kernel(dev, kind):
         assert torch.equal(g, w), f
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,n", PLAN_EDGES)
+def test_exact_sort_plan_edges_kernel(dev, case, n):
+    """The device sort plan against its plain version on the sort's edge
+    inputs (tests/exact_batches.py plan_edge) at A = 2^20: one launch."""
+    from exact_batches import plan_edge
+
+    from tigerbeetle_tpu_torch.ops import commit_exact as E
+
+    a = 1 << 20
+    bn, pn, chain = plan_edge(np.random.default_rng(sum(map(ord, case)) + n), case, n, a)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    b = C.TransferBatch(**{k: t(v) for k, v in bn.items()})
+    p = E.PendingInfo(**{k: t(v) for k, v in pn.items()})
+    before = C.LAUNCHES["exact_sort_plan"]
+    got = E.sort_plan(b, p, t(chain), a)
+    want = E.sort_plan_plain(b, p, t(chain), a)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["exact_sort_plan"] == before + 1
+    for f, g, w in zip(E.SortPlan._fields, got, want):
+        assert torch.equal(g, w), f
+
+
 # --- the store stage's query index and the query intersect ---------------
 
 
@@ -254,6 +280,29 @@ def test_query_index_keys_kernels(dev, n):
         assert C.LAUNCHES["query_index_keys"] == before["query_index_keys"] + 1
         assert C.LAUNCHES[name] == before[name] + 1
         assert _equal(got[0], want[0]) and _equal(got[1], want[1]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [7, 300, 8190])
+def test_query_index_keys_sorted_any_pad_word(dev, n):
+    """Pad words 0, 1, 2 and 2^32 - 1: the sorted build orders them by the
+    whole word, as its plain version (and the reference) do."""
+    from tigerbeetle_tpu_torch.ops import qindex as Q
+
+    rng = np.random.default_rng(n + 7)
+    recs = _query_recs(rng, n)
+    rows = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    staged = list(Q.stage_query_batch(recs, rows, recs["timestamp"]))
+    pad = rng.choice(np.array([0, 1, 2, 0xFFFFFFFF], np.uint32), staged[3].shape[0])
+    pad[:4] = [0, 1, 2, 0xFFFFFFFF]
+    staged[3] = pad
+    staged = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in staged]
+    before = C.LAUNCHES["query_index_keys_sorted"]
+    got = Q.query_index_keys_sorted(*staged)
+    want = Q.query_index_keys_sorted_plain(*staged)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["query_index_keys_sorted"] == before + 1
+    assert _equal(got[0], want[0]) and _equal(got[1], want[1])
 
 
 @pytest.mark.cuda
@@ -430,6 +479,26 @@ def test_compact_fold_kernel_kernel(dev, k, b):
     torch.cuda.synchronize()
     assert C.LAUNCHES["compact_fold_kernel"] == before + (k > 1)
     assert tuple(got[0].shape) == ((k * b, 3) if k > 1 else (b, 3))
+    assert _equal(got[0], want[0]) and _equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", fold_stacks.CASES)
+@pytest.mark.parametrize("k,b", [(2, 256), (4, 256), (16, 256), (32, 256), (2, 16384),
+                                 (16, 2048), (32, 1024), (4, 65536)])
+def test_compact_fold_edges_kernel(dev, k, b, case):
+    """The fold against its plain version on the k-way merge's edge stacks
+    (tests/fold_stacks.py), at b = 256 and at shapes of many output tiles:
+    one launch."""
+    from tigerbeetle_tpu_torch.ops import merge as M
+
+    rng = np.random.default_rng(100 * k + b + fold_stacks.CASES.index(case))
+    keys, pays = (torch.from_numpy(x).to(dev) for x in fold_stacks.stack(rng, k, b, case))
+    before = C.LAUNCHES["compact_fold_kernel"]
+    got = M.compact_fold_kernel(keys, pays)
+    want = M.compact_fold_kernel_plain(keys, pays)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["compact_fold_kernel"] == before + 1
     assert _equal(got[0], want[0]) and _equal(got[1], want[1])
 
 
@@ -721,3 +790,25 @@ def test_state_machine_on_a_virtual_mesh_matches_the_cpu_run(dev):
     ids = np.arange(1, 65, dtype=np.uint64)
     zero = np.zeros(64, np.uint64)
     assert gpu.lookup_accounts(ids, zero).tobytes() == cpu.lookup_accounts(ids, zero).tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint32])
+def test_peer_copy_waits_for_its_source(dev, dtype):
+    """parallel/sharding.py _peer between two cards: the source's stream
+    sleeps (~0.1 s) before it writes the tensor that _peer then copies, so
+    a copy that did not wait for the source's stream would read the old
+    value every time."""
+    from tigerbeetle_tpu_torch.parallel import sharding as S
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    src, dst = torch.device("cuda", 0), torch.device("cuda", 1)
+    x = torch.zeros(1 << 20, dtype=torch.int32, device=src)
+    torch.cuda.synchronize(src)
+    with torch.cuda.device(src):
+        torch.cuda._sleep(200_000_000)  # clock cycles, on the source's stream
+        x.fill_(7)
+    y = S._peer(x.view(dtype), dst)
+    assert y.device == dst and y.dtype == dtype
+    assert torch.equal(y.view(torch.int32).cpu(), torch.full((1 << 20,), 7, dtype=torch.int32))

@@ -183,6 +183,32 @@ def test_fold_runs_device_matches_reference(monkeypatch):
         assert not r.materialized
 
 
+PAD_WORDS = np.array([0, 1, 2, 0xFFFFFFFF], np.uint32)
+
+
+def pad_edge_batch(rng, n):
+    """A staged batch (numpy) whose pad words are drawn from 0, 1, 2 and
+    2^32 - 1 (each at least once), not the staged 0/1 flag."""
+    recs = rand_recs(rng, n)
+    rows = rng.integers(0, 1 << 32, n).astype(np.uint32)
+    staged = list(qindex.stage_query_batch(recs, rows, recs["timestamp"]))
+    pad = rng.choice(PAD_WORDS, staged[3].shape[0])
+    pad[:4] = PAD_WORDS
+    staged[3] = pad
+    return staged
+
+
+@pytest.mark.parametrize("n", [7, 300])
+def test_sorted_build_orders_every_pad_word_as_the_reference(n):
+    """The sort is by the whole pad word, as the reference's 3-key sort on
+    (pad, lo1, lo0): pad words 2 and 2^32 - 1 too."""
+    staged = pad_edge_batch(np.random.default_rng(40 + n), n)
+    pk, pp = qindex.query_index_keys_sorted(*_t(staged))
+    rk, rp = ref_qindex.query_index_keys_sorted(*staged)
+    _same(pk, rk)
+    _same(pp, rp)
+
+
 def test_sorted_build_refuses_more_rows_than_the_cuda_sort_takes():
     """A tag block above SORTED_ROWS_MAX raises before any launch (meta
     tensors stand in for the card's); the plain version has no limit."""

@@ -1,5 +1,5 @@
-// The merge path of two sorted device runs, shared by the tiled merge
-// (merge_kernel_tiled.cu) and the compaction fold (compact_fold_kernel.cu).
+// The merge path of two sorted device runs, for the tiled merge
+// (merge_kernel_tiled.cu).
 //
 // Run format (ops/merge.py): keys (rows, 3) uint32 [lo0, lo1, pad],
 // compared as unsigned words with the last word most significant, so pad

@@ -16,25 +16,27 @@
 // row's lo1 carries its block's tag (5, 6, 7, 9, 10: ascending) in its top
 // byte, since the fold leaves lo1 below 2^24. So among real rows (pad 0)
 // block b sorts wholly before block b + 1, and likewise among pad rows
-// (pad 1); the global stable sort is therefore
+// (pad 1), and so among the rows of any one pad word; the global stable
+// sort is therefore
 //   1. a stable sort of each tag block by (lo1, lo0), then
-//   2. a stable partition of each block by pad, and
-//   3. the real rows of blocks 0..4, then the pad rows of blocks 0..4.
+//   2. a stable sort of each block by its whole pad word, and
+//   3. for each pad word in order, its rows of blocks 0..4.
 // One thread block of 1024 threads sorts one tag block (n <= 8192 rows) in
 // shared memory: the 64-bit keys in their original order, and the row
 // order, double-buffered. The sort is a stable LSD radix sort with 4-bit
 // digits over the bits the block's keys actually span (a min/max
-// reduction; a constant column takes no pass), then one more pass on the
-// pad flag. A pass: each thread counts the digits of its contiguous chunk,
-// one block scan over the (digit, thread) counts gives each row its place,
-// and each thread writes its chunk in order, so equal digits keep their
-// order. The pad flag is the same for a record in every block, so every
-// block has the same count r of real rows: block b writes its real rows
-// from b r and its pad rows from 5 r + b (n - r).
+// reduction; a constant column takes no pass), then the passes over the
+// bits the pad words span (one for the staged 0/1 flag). A pass: each
+// thread counts the digits of its contiguous chunk, one block scan over
+// the (digit, thread) counts gives each row its place, and each thread
+// writes its chunk in order, so equal digits keep their order. A pad word
+// is the same for a record in every block, so every block has the same
+// count c of rows of pad word v and the same count l of rows below it:
+// block b writes its rows of pad word v from 5 l + b c.
 //
-// The contract is the build's: pad is 0 or 1, and lo1's top byte is the
-// block's tag. The wrapper refuses n > 8192 (the largest bucket of a batch
-// of at most 8190 events).
+// The contract is the build's: lo1's top byte is the block's tag. The
+// wrapper refuses n > 8192 (the largest bucket of a batch of at most 8190
+// events).
 #include "common.cuh"
 
 namespace {
@@ -46,7 +48,7 @@ constexpr int kBlocks = 5;
 
 __shared__ int s_warp[32];
 __shared__ unsigned long long s_range[2];
-__shared__ int s_real;
+__shared__ unsigned s_pad_range[2];
 
 // Block-wide exclusive sum; every thread passes one value.
 __device__ int block_excl_sum(int v) {
@@ -79,18 +81,18 @@ struct Smem {
   int* hist;  // [kBins][kThreads]
 };
 
-// The digit of row x in one pass: bits [shift, shift + 4) of its key above
-// the block's minimum, or (shift < 0) its pad flag.
+// The digit of row x in one pass: bits [shift, shift + 4) of its key, or
+// (on_pad) of its pad word, above the block's minimum `base`.
 __device__ __forceinline__ unsigned digit_of(const Smem& sm,
-                                             const uint32_t* pad,
+                                             const uint32_t* pad, bool on_pad,
                                              unsigned long long base, int x,
                                              int shift) {
-  if (shift < 0) return pad[x] != 0;
-  return (unsigned)((sm.key[x] - base) >> shift) & (kBins - 1);
+  unsigned long long v = on_pad ? pad[x] : sm.key[x];
+  return (unsigned)((v - base) >> shift) & (kBins - 1);
 }
 
 // One stable pass over sm.cur[0..n) by the digit at `shift`.
-__device__ void radix_pass(Smem& sm, const uint32_t* pad,
+__device__ void radix_pass(Smem& sm, const uint32_t* pad, bool on_pad,
                            unsigned long long base, int n, int shift) {
   int t = threadIdx.x;
   int chunk = (n + kThreads - 1) / kThreads;
@@ -99,7 +101,7 @@ __device__ void radix_pass(Smem& sm, const uint32_t* pad,
 #pragma unroll
   for (int b = 0; b < kBins; ++b) cnt[b] = 0;
   for (int i = lo; i < hi; ++i) {
-    unsigned d = digit_of(sm, pad, base, sm.cur[i], shift);
+    unsigned d = digit_of(sm, pad, on_pad, base, sm.cur[i], shift);
 #pragma unroll
     for (int b = 0; b < kBins; ++b) cnt[b] += (d == (unsigned)b);
   }
@@ -124,7 +126,7 @@ __device__ void radix_pass(Smem& sm, const uint32_t* pad,
   for (int b = 0; b < kBins; ++b) pos[b] = sm.hist[b * kThreads + t];
   for (int i = lo; i < hi; ++i) {
     int x = sm.cur[i];
-    unsigned d = digit_of(sm, pad, base, x, shift);
+    unsigned d = digit_of(sm, pad, on_pad, base, x, shift);
     int p = 0;
 #pragma unroll
     for (int b = 0; b < kBins; ++b) {
@@ -155,35 +157,57 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (t == 0) {
     s_range[0] = ~0ull;
     s_range[1] = 0;
-    s_real = 0;
+    s_pad_range[0] = ~0u;
+    s_pad_range[1] = 0;
   }
   __syncthreads();
   unsigned long long kmin = ~0ull, kmax = 0;
-  int real = 0;
+  unsigned pmin = ~0u, pmax = 0;
   for (int i = t; i < n; i += kThreads) {
     unsigned long long k = ((unsigned long long)kb[3 * i + 1] << 32) | kb[3 * i];
     key[i] = k;
     sm.cur[i] = i;
     kmin = min(kmin, k);
     kmax = max(kmax, k);
-    real += pad[i] == 0;
+    pmin = min(pmin, pad[i]);
+    pmax = max(pmax, pad[i]);
   }
   atomicMin(&s_range[0], kmin);
   atomicMax(&s_range[1], kmax);
-  atomicAdd(&s_real, real);
+  atomicMin(&s_pad_range[0], pmin);
+  atomicMax(&s_pad_range[1], pmax);
   __syncthreads();
   unsigned long long base = s_range[0];
   unsigned long long span = s_range[1] - base;
-  int r = s_real;
   int bits = span ? 64 - __clzll((long long)span) : 0;
   for (int shift = 0; shift < bits; shift += 4) {
-    radix_pass(sm, pad, base, n, shift);
+    radix_pass(sm, pad, false, base, n, shift);
   }
-  radix_pass(sm, pad, base, n, -1);  // stable partition: real rows first
+  unsigned pbase = s_pad_range[0];
+  unsigned pspan = s_pad_range[1] - pbase;
+  int pbits = pspan ? 32 - __clz(pspan) : 0;
+  for (int shift = 0; shift < pbits; shift += 4) {
+    radix_pass(sm, pad, true, pbase, n, shift);
+  }
+  // The pad words in sorted order (in the histogram's space): in every
+  // block, `below` rows have a smaller pad word than v, a row's, and
+  // end - below rows have v.
+  uint32_t* sorted_pad = reinterpret_cast<uint32_t*>(sm.hist);
+  for (int p = t; p < n; p += kThreads) sorted_pad[p] = pad[sm.cur[p]];
+  __syncthreads();
   for (int p = t; p < n; p += kThreads) {
     int x = sm.cur[p];
-    long long dst = p < r ? blk * r + p
-                          : (long long)kBlocks * r + blk * (n - r) + (p - r);
+    uint32_t v = sorted_pad[p];
+    int below = p, end = p + 1;
+    for (int lo = 0; lo < below;) {  // first place of v
+      int mid = (lo + below) >> 1;
+      if (sorted_pad[mid] < v) lo = mid + 1; else below = mid;
+    }
+    for (int hi = n; end < hi;) {  // one past its last
+      int mid = (end + hi) >> 1;
+      if (sorted_pad[mid] <= v) end = mid + 1; else hi = mid;
+    }
+    long long dst = (long long)kBlocks * below + blk * (end - below) + (p - below);
 #pragma unroll
     for (int w = 0; w < 3; ++w) {
       out_keys[dst * 3 + w] = kb[3 * x + w];

@@ -105,11 +105,15 @@ COSTS = {
         2 * _nbytes(ka, pa, kb, pb),
         (ka.shape[0] + kb.shape[0]) * 8 * _log2(max(ka.shape[0], kb.shape[0])),
     ),
-    # the stack in, its merge out; per level of the log2(k) fold a binary
-    # search in a 256-row tile per row.
+    # the stack in, its merge out; a merge step a row at each of the
+    # log2(k) levels of the in-tile tree, and a binary search over a run
+    # for each of the k - 1 other runs of each sample (one row in
+    # min(b, 8192 / k)).
     "compact_fold_kernel": lambda keys, pays: (
         2 * _nbytes(keys, pays),
-        keys.shape[0] * keys.shape[1] * (_log2(keys.shape[0]) - 1) * 8 * _log2(256),
+        keys.shape[0] * keys.shape[1] * (_log2(keys.shape[0]) - 1) * 8
+        + keys.shape[0] * keys.shape[1] // min(keys.shape[1], max(1, 8192 // keys.shape[0]))
+        * (keys.shape[0] - 1) * 8 * _log2(keys.shape[1]),
     ),
     # both arrays in, one byte a candidate out; a binary search each.
     "scan_intersect_mask": lambda cand, run: (

@@ -56,7 +56,7 @@ SIGNATURES = {
     "merge_kernel_tiled": ("tb_merge_kernel_tiled", [_P] * 6 + [_I, _I, _I, _P]),
     "scan_intersect_mask": ("tb_scan_intersect_mask", [_P] * 3 + [_I, _I, _P]),
     "merge_kernel": ("tb_merge_kernel", [_P] * 6 + [_I, _I, _I, _P]),
-    "compact_fold_kernel": ("tb_compact_fold", [_P] * 6 + [_I, _I, _P]),
+    "compact_fold_kernel": ("tb_compact_fold", [_P] * 5 + [_I, _I, _P]),
     # the commit path over balance tables sharded on a device mesh
     "sharded_validate": ("tb_sharded_validate", [_P] * 15 + [_I] * 3 + [_P]),
     "sharded_apply": ("tb_sharded_apply", [_P] * 15 + [_I] * 3 + [_P]),

@@ -20,7 +20,8 @@ never takes the plain version:
     binary-search merge, any run lengths and payload widths; on no path
     of the tree (the reference's only callers are its tests).
   - `compact_fold_kernel` (csrc/compact_fold_kernel.cu): one compaction chunk's
-    k-way fold, log2(k) levels of pairwise merges in one call. The
+    k-way fold, one k-way merge-path pass that reads and writes each row
+    once. The
     compaction job (lsm/tree.py) drives it split-phase:
     `compact_fold_dispatch` stages the chunk in one pinned block, copies
     it to the device and launches without a sync;
@@ -188,7 +189,8 @@ def compact_fold_kernel(keys_stack, pays_stack):
     (k, b, 3) uint32, k sorted runs stacked oldest first, k and b powers
     of two, b >= MERGE_TILE (_stack_pow2 pads) -> one merged run (k b, 3)
     and its payload. Older runs' rows come first at equal keys. For k = 1
-    the run comes back as it is, with no launch."""
+    the run comes back as it is, with no launch; on CUDA a stack of more
+    than 512 runs raises."""
     if keys_stack.device.type == "cpu":
         return compact_fold_kernel_plain(keys_stack, pays_stack)
     k, b = _check_fold(keys_stack, pays_stack)
@@ -197,15 +199,18 @@ def compact_fold_kernel(keys_stack, pays_stack):
     kernels.check(pays_stack, "pays_stack", torch.uint32, (k, b, 3), dev)
     if k == 1:
         return keys_stack[0], pays_stack[0]
+    nbytes = kernels.helper(
+        "compact_fold_kernel", "tb_compact_fold_scratch", [kernels._I, kernels._I], kernels._I,
+    )(k, b)
+    if nbytes < 0:
+        raise ValueError(f"compact_fold_kernel: the CUDA fold takes no ({k}, {b}) stack")
     ok = torch.empty((k * b, 3), dtype=torch.uint32, device=dev)
     op = torch.empty_like(ok)
-    # The other half of the level ping-pong (a 2-run fold is one level).
-    sk = torch.empty_like(ok) if k > 2 else ok
-    sp = torch.empty_like(ok) if k > 2 else op
+    # The samples' co-ranks and the tiles' splits (about 1 MB at 16 x 2^17).
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     kernels.launch(
         "compact_fold_kernel", dev, keys_stack.data_ptr(),
-        pays_stack.data_ptr(), ok.data_ptr(), op.data_ptr(), sk.data_ptr(),
-        sp.data_ptr(), k, b,
+        pays_stack.data_ptr(), ok.data_ptr(), op.data_ptr(), scratch.data_ptr(), k, b,
     )
     return ok, op
 

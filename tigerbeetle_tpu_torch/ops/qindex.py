@@ -174,9 +174,10 @@ def query_index_keys(cols, ts, rows, pad):
 def query_index_keys_sorted(cols, ts, rows, pad):
     """The key build, then a stable sort of its 5 n rows by (pad, lo1,
     lo0) carrying the payload: pads sort last, equal keys keep block and
-    record order. pad is 0 or 1 (stage_query_batch's flag). On CUDA n is
-    at most SORTED_ROWS_MAX (a batch of at most 8190 events): a larger
-    block raises."""
+    record order. Any pad word orders as in the reference
+    (stage_query_batch stages 0 and 1). On CUDA n is at most
+    SORTED_ROWS_MAX (a batch of at most 8190 events): a larger block
+    raises."""
     n = rows.shape[0]
     if rows.device.type == "cpu":
         return query_index_keys_sorted_plain(cols, ts, rows, pad)

@@ -19,8 +19,11 @@ caught:
      rung of both ladders, a relay that needs 12 sweeps (at max_sweeps 11
      it must bail, at 12 not), pending removals that underflow (bail),
      posts whose pending + posted overflows only after posting (bail) and
-     an overflow a void cures (no bail), and every (has_pv, has_chains)
-     setting; the device sort plan must equal build_sort_plan's and its
+     an overflow a void cures (no bail), every (has_pv, has_chains)
+     setting, and the sweep's edge batches (tests/exact_batches.py
+     SWEEP_EDGES: one account under every record, heads on tile
+     boundaries, one chain over the batch, n = 1, unstable at max_sweeps,
+     an old overflowed row beside the overlapped copy); the device sort plan must equal build_sort_plan's and its
      plain version, also on the sort's edge inputs (tests/exact_batches.py
      PLAN_EDGES: n = 1 and 8192, one slot, slot -1, slots up to A - 1,
      chains that are not runs, both sides on one slot, one fulfillment
@@ -33,7 +36,10 @@ caught:
      computing the same function. The store stage's and the query path's
      kernels at their main-path shapes: both key builds at n = 8190 (fold56
      edge values, random columns, pad words 0, 1, 2 and 2^32 - 1, and the
-     query mix of phase 7), the tiled
+     query mix of phase 7, each timed beside the library sort), the sorted
+     build on the radix sort's edge blocks (tests/exact_batches.py
+     SORT_EDGES: equal keys, spans of 8 and 56 bits, a 64-bit composite,
+     wide pad words, duplicates; n = 1, 300, 8190, 8192), the tiled
      merge at each flush shape of the query tree (40,960 + 40,960,
      81,920 + 40,960 and 122,880 + 40,960 rows) and on top-bit keys with
      heavy duplicates across both runs, the intersect at 2^17 candidates
@@ -489,6 +495,8 @@ def phase_exact(torch, C, dev):
             log(f"exact_sort_plan {label}: equal to build_sort_plan")
         del state, got, want
 
+    err = max(err, phase_sweep_edges(torch, C, E, dev))
+
     # The wrapper hides no device sync (with and without a plan).
     c3 = exact_staged(torch, C, E, dev, "config3", 41, baseline=True)
     c4 = exact_staged(torch, C, E, dev, "config4", 42, baseline=True)
@@ -526,8 +534,10 @@ def phase_exact(torch, C, dev):
             "plain_ms": cuda_ms(torch, lambda: E.create_transfers_exact_plain(*st), 2),
         }
         log(f"create_transfers_exact {label}: {timed[label]}")
-    # integer operations: the table copy and check, then per sweep ~10
-    # per lane of 52 over 2n records plus ~200 per event of ladder
+    # integer operations of the function, whatever the design: the table
+    # copy and check, then per sweep the reference's segmented sums (~10
+    # per lane of its 52 u64 lanes over 2n records) plus ~200 per event of
+    # ladder
     ops = 8 * A_MAX + timed["config3"]["sweeps"] * (2 * n * 52 * 10 + n * 200)
     record(torch, "create_transfers_exact", "create_transfers_exact.cu",
            "tigerbeetle_tpu/ops/commit_exact.py:902",
@@ -572,6 +582,34 @@ def phase_exact(torch, C, dev):
            library_is="none: the two torch.sort calls of the record and the event keys "
                       "(no inverse permutations, no heads) are timed beside it")
     del c3, c4, state
+
+
+def phase_sweep_edges(torch, C, E, dev):
+    """The sweep kernel against its plain version on the sweep's edge
+    batches (tests/exact_batches.py SWEEP_EDGES: one account under every
+    record, heads on tile boundaries, one chain over the batch, n = 1,
+    unstable at max_sweeps, an old overflowed row beside the overlapped
+    copy) at A = 2^20."""
+    import exact_batches as X
+
+    err = 0
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    for case, n in X.SWEEP_EDGES:
+        st, bn, pn, chain, host, kw, must_bail = X.sweep_edge(
+            np.random.default_rng(sum(map(ord, case)) + n), case, n, A_MAX)
+        plan = E.build_sort_plan(bn["flags"], bn["dr_slot"], bn["cr_slot"], pn["dr_slot"],
+                                 pn["cr_slot"], chain, pn["group"], A_MAX)
+        args = (C.state_from_reference(st, dev), C.TransferBatch(**{k: t(v) for k, v in bn.items()}),
+                t(host), E.PendingInfo(**{k: t(v) for k, v in pn.items()}), t(chain),
+                E.SortPlan(*(t(x) for x in plan)))
+        got, sweeps = sweeps_of(torch, E, dev, lambda: E.create_transfers_exact(*args, **kw))
+        want = E.create_transfers_exact_plain(*args, **kw)
+        err = max(err, max_abs_err(torch, f"create_transfers_exact {case} n={n}", got, want))
+        log(f"create_transfers_exact {case} n={n}: bail={bool(want[5])} sweeps={sweeps}")
+        if must_bail is not None and bool(want[5]) != must_bail:
+            raise SystemExit(f"exact edge {case}: bail {bool(want[5])}, expected {must_bail}")
+        del args, got, want
+    return err
 
 
 def phase_sort_plan_edges(torch, C, E, dev):
@@ -714,12 +752,13 @@ def phase_sharded(torch, C, rng, dev):
         base = S.combine_shards([S.sharded_read(parts[s], rec, s * ROWS, A_MAX) for s in range(SHARD)], dev)
         run = lambda: E.create_transfers_exact_external(st, base, eb, ehost, p, chain, plan)
         want = E.create_transfers_exact_external_plain(st, base, eb, ehost, p, chain, plan)
-        max_abs_err(torch, f"create_transfers_exact external-base mode {label}", run(), want)
+        got, ext[f"sweeps_external_{label}"] = sweeps_of(torch, E, dev, run)
+        max_abs_err(torch, f"create_transfers_exact external-base mode {label}", got, want)
         if bool(want[7]):
             raise SystemExit(f"external-base mode {label}: bailed")
         ext[f"ms_external_{label}"] = cuda_ms(torch, run, 10)
         log(f"create_transfers_exact external-base mode {label} ({CARD[0]}): "
-            f"{ext[f'ms_external_{label}']:.4f} ms")
+            f"{ext[f'ms_external_{label}']:.4f} ms, {ext[f'sweeps_external_{label}']} sweeps")
         if label == "config3":
             c3 = (st, eb, ehost, p, chain)
         del parts, base
@@ -832,24 +871,40 @@ def phase_qindex(torch, dev, rng):
             got = getattr(Q, name)(*st)
             want = getattr(Q, f"{name}_plain")(*st)
             err[name] = max(err[name], max_abs_err(torch, f"{name} {label} n={n}", got, want))
+    # The radix sort's edge blocks (tests/exact_batches.py SORT_EDGES).
+    import exact_batches as X
+
+    for case, rows_n in X.SORT_EDGES:
+        st = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for a in X.sort_block(np.random.default_rng(sum(map(ord, case)) + rows_n), case, rows_n)]
+        err["query_index_keys_sorted"] = max(err["query_index_keys_sorted"], max_abs_err(
+            torch, f"query_index_keys_sorted {case} n={rows_n}", Q.query_index_keys_sorted(*st),
+            Q.query_index_keys_sorted_plain(*st)))
     nbytes, ops = devicestats.cost("query_index_keys", edge)
     record(torch, "query_index_keys", "query_index_keys.cu", "tigerbeetle_tpu/ops/qindex.py:129",
            lambda: Q.query_index_keys(*edge), lambda: Q.query_index_keys_plain(*edge),
            None, nbytes, ops, err["query_index_keys"])
-    keys_p, pay_p = Q.query_index_keys_plain(*edge)
-    key64 = packed_key(torch, keys_p)
-    k32, p32 = keys_p.view(torch.int32), pay_p.view(torch.int32)
 
-    def sort_gather():
-        idx = torch.sort(key64, stable=True).indices
-        return k32.index_select(0, idx), p32.index_select(0, idx)
+    def library_of(staged):
+        """The library yardstick on a built block: torch.sort(stable=True)
+        of its packed keys + 2 index_select."""
+        keys_p, pay_p = Q.query_index_keys_plain(*staged)
+        key64 = packed_key(torch, keys_p)
+        k32, p32 = keys_p.view(torch.int32), pay_p.view(torch.int32)
+
+        def sort_gather():
+            idx = torch.sort(key64, stable=True).indices
+            return k32.index_select(0, idx), p32.index_select(0, idx)
+
+        return sort_gather
 
     nbytes, ops = devicestats.cost("query_index_keys_sorted", edge)
     record(torch, "query_index_keys_sorted", "query_index_keys_sorted.cu",
            "tigerbeetle_tpu/ops/qindex.py:136",
            lambda: Q.query_index_keys_sorted(*edge), lambda: Q.query_index_keys_sorted_plain(*edge),
-           sort_gather, nbytes, ops, err["query_index_keys_sorted"],
+           library_of(edge), nbytes, ops, err["query_index_keys_sorted"],
            ms_query_mix=cuda_ms(torch, lambda: Q.query_index_keys_sorted(*mix), 10),
+           library_ms_query_mix=cuda_ms(torch, library_of(mix), 10),
            library_is="torch.sort(stable=True) of the built block's packed keys + 2 index_select")
 
     # The tiled merge at the query tree's flush shapes: four sorted runs of

@@ -11,12 +11,23 @@ zero-amount sentinels, limit accounts from `state`), "ladder" (every
 static and dynamic rung of both ladders) and "underflow" (pending removals
 above the pending balance). `relay` builds a batch that settles one link
 per sweep. `plan_edge(rng, case, n, a)` gives the sort plan's inputs for
-the cases a device sort is likely to get wrong (PLAN_EDGES).
+the cases a device sort is likely to get wrong (PLAN_EDGES), and
+`sweep_edge(rng, case, n, a)` the sweep kernel's (SWEEP_EDGES): one
+account under every record, segment heads on scan-tile boundaries, one
+chain over the whole batch, one event, a batch still unstable at
+max_sweeps, an old overflowed row no event touches.
+
+`sort_block(rng, case, n)` gives staged query-index columns (the key
+build's input, ops/qindex.py) for the cases the sorted build's radix sort
+is likely to get wrong (SORT_EDGES): a tag block of equal keys, key spans
+of exactly 8 and 56 bits, a composite of 64 bits, pad words spanning 256
+values or more, duplicate keys.
 """
 
 import numpy as np
 
 U32 = np.uint32
+U64 = np.uint64
 MAX32 = 0xFFFFFFFF
 TOP = 1 << 31  # the top bit of a u32 limb
 F_LINKED, F_PENDING, F_POST, F_VOID, F_BAL_DR, F_BAL_CR = 1, 2, 4, 8, 16, 32
@@ -327,3 +338,126 @@ def plan_edge(rng, case, n, a):
         p["group"][pv] = rng.integers(-3, 3, k)
     b["dr_slot"], b["cr_slot"] = dr.astype(np.int32), cr.astype(np.int32)
     return b, p, chain
+
+
+# (case, n): the sweep kernel's edge batches; one_account at n = 8192 puts
+# one segment across all 64 scan tiles of the 2n records.
+SWEEP_EDGES = (
+    ("one_account", 1024), ("one_account", 8192), ("one_account_balancing", 1024),
+    ("tile_heads", 1024), ("long_chain", 1024), ("long_chain_fails", 1024),
+    ("one_event", 1), ("unstable", 1024), ("old_overflow", 1024),
+)
+
+
+def sweep_edge(rng, case, n, a):
+    """(state, b, pending, chain_id, host_code, kwargs, must_bail) of a
+    sweep-kernel edge case on an A = a table (a >= 1024): "one_account"
+    (config 3's mix, every record on slot 0, so one segment spans every
+    scan tile), "one_account_balancing" (config 4's), "tile_heads" (config
+    3's mix over eight slots of n / 4 records each: segment heads on the
+    256-position tile boundaries), "long_chain" (one linked chain over the
+    whole batch, balancing debits in it; it passes) and
+    "long_chain_fails" (its middle event fails, so the rest report
+    LINKED_EVENT_FAILED), "one_event" (n = 1), "unstable" (a 12-link relay
+    at max_sweeps 3: it must bail) and "old_overflow" (config 4's mix and
+    a row no event touches whose pending + posted already overflows: the
+    whole-table check must bail). must_bail is None where either outcome
+    is right."""
+    st = state(rng, a)
+    kw, must_bail = {}, None
+    if case in ("one_account", "one_account_balancing"):
+        kind = "config3" if case == "one_account" else "config4"
+        b, p, chain, host = batch(rng, kind, n, a, span=1, hot_frac=0.0)
+        for side in ("dr_slot", "cr_slot"):
+            b[side][:] = 0
+            p[side][:] = 0
+    elif case == "tile_heads":
+        b, p, chain, host = batch(rng, "config3", n, a)
+        g = np.arange(n) * 4 // n
+        for side, off in (("dr_slot", 10), ("cr_slot", 11)):
+            b[side][:] = 2 * g + off
+            p[side][:] = 2 * g + off
+    elif case in ("long_chain", "long_chain_fails"):
+        b, p = empty(n)
+        b["id"] = ids(rng, n)
+        rows = np.r_[100:107, 200:205]
+        for f in BALANCE_FIELDS:
+            st[f][rows] = 0
+        st["credits_posted"][100:107, 0] = 1 << 20
+        st["flags"][rows] = 0
+        st["ledger"][rows] = 1
+        b["dr_slot"] = (100 + np.arange(n) % 7).astype(np.int32)
+        b["cr_slot"] = (200 + np.arange(n) % 5).astype(np.int32)
+        b["amount"][:, 0] = rng.integers(1, 100, n)
+        b["flags"][:n - 1] = F_LINKED
+        bal = rng.random(n) < 0.3
+        b["flags"][bal] |= F_BAL_DR
+        b["amount"][bal & (rng.random(n) < 0.5)] = 0  # the maxInt(u64) sentinel
+        if case == "long_chain_fails":
+            b["flags"][n // 2] &= ~U32(F_BAL_DR)
+            b["amount"][n // 2] = 0  # AMOUNT_MUST_NOT_BE_ZERO
+        chain = np.zeros(n, np.int32)
+        host = np.zeros(n, U32)
+    elif case == "one_event":
+        b, p = empty(n)
+        b["id"] = ids(rng, n)
+        b["dr_slot"][:], b["cr_slot"][:] = 3, 4
+        b["amount"][:, 0] = 5
+        chain, host = np.arange(n, dtype=np.int32), np.zeros(n, U32)
+    elif case == "unstable":
+        b, p, chain, host = relay(st, n, 12)
+        kw, must_bail = {"max_sweeps": 3}, True
+    elif case == "old_overflow":
+        b, p, chain, host = batch(rng, "config4", n, a)
+        st["debits_pending"][a // 2 + 5] = limbs(1 << 127)
+        st["debits_posted"][a // 2 + 5] = limbs(1 << 127)
+        must_bail = True
+    else:
+        raise ValueError(case)
+    return st, b, p, chain, host, kw, must_bail
+
+
+# (case, n): the sorted build's edge blocks, n rows a tag block.
+SORT_EDGES = (
+    ("equal", 1), ("equal", 8192), ("span8", 8190), ("span8", 8192), ("span56", 1),
+    ("span56", 8192), ("composite64", 8192), ("pad_wide", 300), ("pad_wide", 8192),
+    ("dups", 8190), ("dups", 8192),
+)
+
+
+def sort_block(rng, case, n):
+    """Staged query-index columns (cols (n, 9), ts (n, 2), rows (n,), pad
+    (n,) uint32, the layout of ops/qindex.py stage_query_batch) of a
+    sorted-build edge case: "equal" (every column constant: no tag block
+    spans a bit), "span8" (user_data_32 spans exactly 8 bits), "span56"
+    (user_data_64 spans exactly 56 bits, under 0/1 pad words: a 57-bit
+    composite), "composite64" (the same under pad words 0..255: 64 bits),
+    "pad_wide" (pad words spanning 1000 values: the key bits, then the
+    pad word's) and "dups" (each column from three values: equal keys
+    inside and across tag blocks)."""
+    cols = rng.integers(0, 1 << 32, (n, 9), dtype=np.uint64).astype(U32)
+    ts = rng.integers(0, 1 << 32, (n, 2), dtype=np.uint64).astype(U32)
+    rows = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(U32)
+    pad = (rng.random(n) < 0.1).astype(U32)
+    if case == "equal":
+        cols[:] = cols[0]
+        pad[:] = 0
+    elif case == "span8":
+        cols[:, 6] = rng.integers(0, 256, n)
+        cols[:2, 6] = [0, 255][:n]
+    elif case in ("span56", "composite64"):
+        v = rng.integers(0, 1 << 56, n, dtype=np.uint64)
+        v[:2] = np.array([0, (1 << 56) - 1], U64)[:n]
+        cols[:, 4] = (v & U64(MAX32)).astype(U32)
+        cols[:, 5] = (v >> U64(32)).astype(U32)
+        if case == "composite64":
+            pad = rng.integers(0, 256, n).astype(U32)
+            pad[:2] = [0, 255][:n]
+    elif case == "pad_wide":
+        pad = rng.integers(0, 1000, n).astype(U32)
+        pad[:2] = [0, 999][:n]
+    elif case == "dups":
+        cols = rng.choice(np.array([0, 7, MAX32], U32), (n, 9))
+    else:
+        raise ValueError(case)
+    return cols, ts, rows, pad

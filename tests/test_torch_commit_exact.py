@@ -22,8 +22,8 @@ from tigerbeetle_tpu_torch.ops import commit_exact as port
 from tigerbeetle_tpu_torch.results import CreateTransferResult as TR
 
 from exact_batches import (
-    BALANCE_FIELDS, F_POST, F_VOID, PLAN_EDGES, U32, empty, ids, limbs, pending_plus_posted,
-    plan_edge, relay, strip,
+    BALANCE_FIELDS, F_POST, F_VOID, PLAN_EDGES, SWEEP_EDGES, U32, empty, ids, limbs,
+    pending_plus_posted, plan_edge, relay, strip, sweep_edge,
 )
 from exact_batches import batch as _gen_batch
 from exact_batches import state as _gen_state
@@ -256,3 +256,17 @@ def test_post_against_not_found_accounts():
     host = np.where(np.arange(16) < 4, 0, int(TR.ID_MUST_NOT_BE_ZERO)).astype(U32)
     want = _check(st, b, p, np.arange(16, dtype=np.int32), host)
     assert (want[1][:4] == 0).all()
+
+
+@pytest.mark.parametrize("case", sorted({c for c, _ in SWEEP_EDGES}))
+def test_sweep_edges_match_reference(case):
+    """(h) the sweep kernel's edge batches (tests/exact_batches.py
+    sweep_edge, at n = 256 or 1 on A = 2^12; the card runs them larger):
+    one account under every record, segment heads on tile boundaries, one
+    chain over the batch, one event, unstable at max_sweeps, an old
+    overflowed row no event touches."""
+    n = min(dict(SWEEP_EDGES)[case], 256)
+    st, b, p, chain, host, kw, must_bail = sweep_edge(np.random.default_rng(10), case, n, A)
+    want = _check(st, b, p, chain, host, **kw)
+    if must_bail is not None:
+        assert want[5] == must_bail

@@ -16,7 +16,7 @@ import torch
 from tigerbeetle_tpu_torch.ops import commit as C
 
 import fold_stacks
-from exact_batches import PLAN_EDGES
+from exact_batches import PLAN_EDGES, SORT_EDGES, SWEEP_EDGES
 
 A = 1 << 14
 N = 1024
@@ -202,6 +202,49 @@ def test_create_transfers_exact_kernel(dev, kind, with_plan, kw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case,n", SWEEP_EDGES)
+def test_create_transfers_exact_sweep_edges_kernel(dev, case, n):
+    """The sweep kernel and its external-base mode against their plain
+    versions on the sweep's edge batches (tests/exact_batches.py
+    sweep_edge): one segment across every scan tile, heads on tile
+    boundaries, one chain over the batch, n = 1, unstable at max_sweeps,
+    an old overflowed row beside the overlapped copy. One launch each;
+    every output byte-equal."""
+    from exact_batches import sweep_edge
+
+    from tigerbeetle_tpu_torch.ops import commit_exact as E
+
+    rng = np.random.default_rng(sum(map(ord, case)) + n)
+    st, bn, pn, chain_n, host_n, kw, must_bail = sweep_edge(rng, case, n, A)
+    plan_n = E.build_sort_plan(bn["flags"], bn["dr_slot"], bn["cr_slot"], pn["dr_slot"],
+                               pn["cr_slot"], chain_n, pn["group"], A)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    state = C.state_from_reference(st, dev)
+    b = C.TransferBatch(**{k: t(v) for k, v in bn.items()})
+    p = E.PendingInfo(**{k: t(v) for k, v in pn.items()})
+    host, chain, plan = t(host_n), t(chain_n), E.SortPlan(*(t(x) for x in plan_n))
+    before = C.LAUNCHES["create_transfers_exact"]
+    got = E.create_transfers_exact(state, b, host, p, chain, plan, **kw)
+    want = E.create_transfers_exact_plain(state, b, host, p, chain, plan, **kw)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["create_transfers_exact"] == before + 1
+    _exact_equal(got, want)
+    if must_bail is not None:
+        assert bool(want[5]) == must_bail
+    is_pv = (b.flags.view(torch.int32) & (C.F_POST | C.F_VOID)) != 0
+    rec = torch.cat([torch.where(is_pv, p.dr_slot, b.dr_slot), torch.where(is_pv, p.cr_slot, b.cr_slot)])
+    base = E.Observed(*C.read_balances(state, rec))
+    got = E.create_transfers_exact_external(state, base, b, host, p, chain, plan, **kw)
+    want = E.create_transfers_exact_external_plain(state, base, b, host, p, chain, plan, **kw)
+    torch.cuda.synchronize()
+    flat = lambda out: [*out[:2], *out[2], *out[3], *out[4:7]]
+    for g, w in zip(flat(got), flat(want)):
+        assert torch.equal(g.view(torch.int32) if g.dtype == torch.uint32 else g,
+                           w.view(torch.int32) if w.dtype == torch.uint32 else w)
+    assert bool(got[7]) == bool(want[7])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["config3", "ladder"])
 def test_exact_sort_plan_kernel(dev, kind):
     """The device sort plan equals build_sort_plan's."""
@@ -302,6 +345,29 @@ def test_query_index_keys_sorted_any_pad_word(dev, n):
     want = Q.query_index_keys_sorted_plain(*staged)
     torch.cuda.synchronize()
     assert C.LAUNCHES["query_index_keys_sorted"] == before + 1
+    assert _equal(got[0], want[0]) and _equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,n", SORT_EDGES)
+def test_query_index_keys_sorted_edges_kernel(dev, case, n):
+    """The sorted build against its plain version on the radix sort's edge
+    blocks (tests/exact_batches.py sort_block): a tag block of equal keys
+    (no pass), spans of exactly 8 and 56 bits, a 64-bit composite, pad
+    words spanning 1000 values (the pad passes), duplicate keys inside and
+    across blocks, n = 1, 8190 and 8192. One launch of each kernel."""
+    from exact_batches import sort_block
+
+    from tigerbeetle_tpu_torch.ops import qindex as Q
+
+    staged = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for a in sort_block(np.random.default_rng(sum(map(ord, case)) + n), case, n)]
+    before = dict(C.LAUNCHES)
+    got = Q.query_index_keys_sorted(*staged)
+    want = Q.query_index_keys_sorted_plain(*staged)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["query_index_keys"] == before["query_index_keys"] + 1
+    assert C.LAUNCHES["query_index_keys_sorted"] == before["query_index_keys_sorted"] + 1
     assert _equal(got[0], want[0]) and _equal(got[1], want[1])
 
 

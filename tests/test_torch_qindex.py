@@ -33,6 +33,8 @@ from tigerbeetle_tpu_torch.lsm.tree import DurableIndex
 from tigerbeetle_tpu_torch.models.state_machine import StateMachine as PortSM
 from tigerbeetle_tpu_torch.ops import qindex
 
+from exact_batches import SORT_EDGES, sort_block
+
 CPU = torch.device("cpu")
 
 
@@ -203,6 +205,19 @@ def test_sorted_build_orders_every_pad_word_as_the_reference(n):
     """The sort is by the whole pad word, as the reference's 3-key sort on
     (pad, lo1, lo0): pad words 2 and 2^32 - 1 too."""
     staged = pad_edge_batch(np.random.default_rng(40 + n), n)
+    pk, pp = qindex.query_index_keys_sorted(*_t(staged))
+    rk, rp = ref_qindex.query_index_keys_sorted(*staged)
+    _same(pk, rk)
+    _same(pp, rp)
+
+
+@pytest.mark.parametrize("case,n", SORT_EDGES)
+def test_sorted_build_edges_match_reference(case, n):
+    """The sorted build's radix-sort edge blocks (tests/exact_batches.py
+    sort_block: equal keys, spans of 8 and 56 bits, a 64-bit composite,
+    pad words over 1000 values, duplicates; n = 1, 300, 8190, 8192)
+    through the port's plain version and the reference's jax sort."""
+    staged = sort_block(np.random.default_rng(sum(map(ord, case)) + n), case, n)
     pk, pp = qindex.query_index_keys_sorted(*_t(staged))
     rk, rp = ref_qindex.query_index_keys_sorted(*staged)
     _same(pk, rk)

@@ -12,44 +12,62 @@
 // place, as create_transfers_fast's is (a bail keeps the pre-batch state),
 // so the four (A, 4) balance tables are read once and written once:
 // 128 MiB at A = 2^20, against about 4 MB of batch, pending context, plan
-// and outputs. Each sweep then moves its scan lanes through device memory
-// (about 12.6 MB with chains and post/void at n = 8192, mostly L2-resident)
-// and waits on four grid-wide barriers, so a batch that needs many sweeps
-// is bound by the barriers' latency, not by a rate.
+// and outputs. The sweeps read only the old tables, so the copy runs
+// beside them; a batch that needs many sweeps is bound by the sweeps'
+// dependent steps, not by a rate.
 //
 // Design: one cooperative persistent kernel (cudaLaunchCooperativeKernel,
-// as many blocks as fit on the SMs, at most two per SM); grid.sync()
-// separates the phases and the loop never returns to the host.
-//   0. Copy the four tables into the new ones (16-byte loads and stores),
-//      noting whether any old row's pending + posted already overflows;
-//      evaluate the static ladders of both kinds of event once.
-//   1. Seed ("sweep 0"): the dynamic ladder against the pre-batch balances.
-//   2. Sweeps, at most max_sweeps, each:
-//      a. chain outcome: a failing event stamps its chain with the sweep
-//         number (has_chains only);
-//      b. one exclusive prefix sum per lane over the sorted postings: 256
-//         positions per block tile, warp-shuffle scans, tile totals to
-//         device memory. Lanes are u32 limbs summed in u64 (2^14 terms of
-//         < 2^32 cannot wrap), 24 for the cross-chain view (mask A), 24
-//         for the same-chain view (mask B, has_chains), and 4 for the
-//         fulfillment prefix over the group-sorted events (has_pv);
-//      c. every record's observed balances: segmented sum = global
-//         exclusive prefix - the prefix at its segment head (as the
-//         reference's `excl - excl[head_pos]`), added to the base row, the
-//         pending removals subtracted with saturation (a borrow counts as
-//         this sweep's underflow);
-//      d. the dynamic ladder per event; a change of ok or of the masked
-//         amount marks the sweep unstable. A stable sweep ends the loop;
-//         its codes and observations are the result, with no re-evaluation.
-//   3. Linked-chain rollback: each chain's first failing event keeps its
-//      code (atomicMin of the failing indices), LINKED_EVENT_CHAIN_OPEN is
-//      kept, the rest of a failed chain becomes LINKED_EVENT_FAILED; then
-//      the u128 posting adds (common.cuh atomic_add_u128).
-//   4. The pending removals of post/void, after every add landed
-//      (atomic_sub_u128: a wrap is the reference's scatter_sub underflow).
-//   5. Pending + posted of every touched row on the new tables, or of every
-//      row if an old row already overflowed (the reference's whole-table
-//      check; subtractions can cure a touched row's old overflow).
+// every block resident, at most two per SM) of two kinds of block.
+//   - Copy blocks (all but the sweep blocks; the launch fails where no
+//     SM slot is left for one) wait out phase 0 (whose
+//     random reads of the old tables a saturated memory would slow), copy
+//     the four tables into the new ones with streaming 16-byte loads and
+//     stores, note whether any old row's pending + posted already
+//     overflows, count themselves done and exit. Nothing waits for them
+//     until the posting.
+//   - Sweep blocks, one a scan tile of 256 positions (ceil(2n / 256) over
+//     the sorted posting records, ceil(n / 256) over the group-sorted
+//     events), meet at their own grid barrier (an arrival counter), which
+//     the copy blocks never join:
+//     0. the static ladders and the seed ("sweep 0": the dynamic ladder
+//        against the pre-batch balances), one event a thread; each tile
+//        thread loads its position's record (event, side, flags, heads;
+//        its base balances into shared memory) once for every sweep.
+//     Sweeps, at most max_sweeps, two barriers each:
+//     a. every tile's segmented exclusive sums in one pass. A record's
+//        lanes are six u128 fields (dp add, dp sub, dpo add, cp add, cp
+//        sub, cpo add) for the cross-chain view (mask A, slot segments)
+//        and six for the same-chain view (mask B, (slot, chain)
+//        sub-segments), summed mod 2^128 as the reference's u32-limb sums
+//        are; an event's are its post and void counts over its pending's
+//        group (has_pv). A warp-shuffle segmented scan (a lane that is
+//        zero across the warp takes no shuffle, one below 2^58 is summed
+//        in 64 bits), the warps' carries, then a decoupled look-back over
+//        the earlier tiles of the chain (each tile publishes its
+//        aggregate, then its inclusive carry, with release stores; the
+//        tile before is read first, and where it ends neither view, a
+//        warp reads 32 predecessors at once and stops at the first that
+//        holds a head or its carry), so no record reads its segment head. Each record's observed balances (pending removals
+//        subtracted with saturation; a borrow counts as this sweep's
+//        underflow), each event's in-batch fulfillments.
+//     b. the dynamic ladder per event; a change of ok or of the masked
+//        amount marks the sweep unstable. A failing event stamps its chain
+//        for the next sweep: an atomicMax of (sweep << 16 | ~index), so
+//        the same word gives the chain's first failing event of the last
+//        sweep to the rollback. A stable sweep ends the loop; its codes
+//        and observations are the result.
+//     After the loop (the copy counted done first):
+//     3. linked-chain rollback (LINKED_EVENT_CHAIN_OPEN is kept, the rest
+//        of a failed chain but its first failure becomes
+//        LINKED_EVENT_FAILED), the outputs, then the u128 posting adds
+//        (common.cuh atomic_add_u128);
+//     4. the pending removals of post/void, after every add landed
+//        (atomic_sub_u128: a wrap is the reference's scatter_sub
+//        underflow);
+//     5. pending + posted of every touched row on the new tables, or of
+//        every row if an old row already overflowed (the reference's
+//        whole-table check; subtractions can cure a touched row's old
+//        overflow). The last sweep block to finish writes bail.
 // bail = not stable | any add overflow, sub underflow or pending + posted
 // overflow | the last sweep's speculative underflow. The sweep count is
 // added to a device counter that the host reads only when it asks.
@@ -58,16 +76,12 @@
 // reference's balance_read / balance_apply hooks, parallel/sharding.py
 // :215-268): the caller gives the pre-batch balances of the 2n posting
 // records (4 x (2n, 4), gathered from the shards by sharded_read.cu) in
-// place of the tables, phase 0 copies no table, and phases 3-5 post
-// nothing: each event writes its effective debit and credit slots and its
-// posting masks (add to pending, add to posted, remove from pending, the
+// place of the tables, no copy block runs, and phases 3-5 post nothing:
+// each event writes its effective debit and credit slots and its posting
+// masks (add to pending, add to posted, remove from pending, the
 // reference's _apply masks, :866-874) for sharded_apply.cu to post on
 // every shard. bail = not stable | the last sweep's speculative underflow.
-#include <cooperative_groups.h>
-
 #include "common.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -79,7 +93,9 @@ using tb::Wide;
 using tb::wide_gt;
 
 constexpr int kBlock = 256;  // threads per block = positions per scan tile
-constexpr int kLanes = 52;
+constexpr int kWarps = kBlock / 32;
+constexpr int kRecLanes = 6;  // u128 fields of a record, per view
+constexpr int kEvLanes = 2;   // post and void counts of an event, per view
 
 // TransferFlags and AccountFlags bits (flags.py; upstream
 // tigerbeetle.zig:107-120, :88-96).
@@ -151,20 +167,29 @@ constexpr uint32_t B_FOUND = 1u << 9;
 // Control words.
 constexpr int C_OLD_OVER = 0;  // an old row's pending + posted overflows
 constexpr int C_OVER = 1;      // posting overflow or underflow
-constexpr int C_SWEEP = 2;     // then [unstable] and [under] per sweep
+constexpr int C_BARRIER = 2;   // the sweep blocks' arrivals
+constexpr int C_COPIED = 3;    // copy blocks done
+constexpr int C_FINISHED = 4;  // sweep blocks done
+constexpr int C_SWEEP = 5;     // then [unstable] and [under] per sweep
+
+// Tile status words: (sweep + 1) << 4 | S_INCL | S_HEAD_B | S_HEAD_A.
+constexpr unsigned S_HEAD_A = 1u;  // a slot-segment (or group) head in the tile
+constexpr unsigned S_HEAD_B = 2u;  // a sub-segment head in the tile
+constexpr unsigned S_INCL = 4u;    // the inclusive carry is published
 
 size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
 
-// Scratch layout: byte offsets of each region, for n events.
+int tiles_of(long long m) { return (int)((m + kBlock - 1) / kBlock); }
+
+// Scratch layout: byte offsets of each region, for n events. Everything
+// from `ctrl` to `end` is zeroed before the launch.
 struct Layout {
   size_t bits, reg_code, pv_code, amount0, resolved, eff_dr, eff_cr, ok, amt,
-      stamp, cfirst, epv, obs, loc, tot, ctrl, end;
-  size_t ctrl_bytes;
+      epv, obs, r_agg, r_incl, e_agg, e_incl, ctrl, cf, r_status, e_status, end;
 };
 
 Layout layout(long long n, long long max_sweeps) {
-  long long e2 = 2 * n;
-  long long tiles = (e2 + kBlock - 1) / kBlock;
+  long long rt = tiles_of(2 * n), et = tiles_of(n);
   Layout l{};
   size_t o = 0;
   auto take = [&](size_t& field, size_t bytes) {
@@ -180,14 +205,16 @@ Layout layout(long long n, long long max_sweeps) {
   take(l.eff_cr, 4 * n);
   take(l.ok, 4 * n);
   take(l.amt, 16 * n);
-  take(l.stamp, 4 * n);
-  take(l.cfirst, 4 * n);
   take(l.epv, 4 * n);
-  take(l.obs, 16 * 4 * e2);
-  take(l.loc, 8 * (size_t)kLanes * e2);
-  take(l.tot, 8 * (size_t)kLanes * tiles);
-  l.ctrl_bytes = 4 * (C_SWEEP + 2 * max_sweeps);
-  take(l.ctrl, l.ctrl_bytes);
+  take(l.obs, 16 * 4 * 2 * n);
+  take(l.r_agg, 16 * 2 * kRecLanes * rt);
+  take(l.r_incl, 16 * 2 * kRecLanes * rt);
+  take(l.e_agg, 16 * 2 * kEvLanes * et);
+  take(l.e_incl, 16 * 2 * kEvLanes * et);
+  take(l.ctrl, 4 * (C_SWEEP + 2 * max_sweeps));
+  take(l.cf, 4 * n);
+  take(l.r_status, 4 * rt);
+  take(l.e_status, 4 * et);
   l.end = o;
   return l;
 }
@@ -228,12 +255,13 @@ struct Args {
   int32_t *eff_dr, *eff_cr;
   uint32_t* ok;
   uint4* amt;
-  uint32_t *stamp, *cfirst, *epv;
+  uint32_t* epv;
   uint4* obs;  // [2n][4]: record order, fields dp, dpo, cp, cpo
-  unsigned long long *loc, *tot;
-  uint32_t* ctrl;
+  uint4 *r_agg, *r_incl, *e_agg, *e_incl;  // per tile: the A fields, then B
+  uint32_t *ctrl, *cf, *r_status, *e_status;
   long long a;
   int n, max_sweeps;
+  int r_tiles, e_tiles, copy_blocks;
   bool has_pv, has_chains;
 };
 
@@ -252,9 +280,6 @@ __device__ __forceinline__ bool is_max(uint4 v) {
 }
 __device__ __forceinline__ unsigned long long u64_of(uint2 v) {
   return ((unsigned long long)v.y << 32) | v.x;
-}
-__device__ __forceinline__ uint32_t limb(uint4 v, int k) {
-  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 __device__ __forceinline__ void rung(uint32_t& c, bool cond, uint32_t r) {
   if (c == 0 && cond) c = r;
@@ -435,86 +460,257 @@ __device__ void evaluate(const Args& g, int e, const Obs& dr, const Obs& cr,
   amt_out = amt;
 }
 
-__device__ __forceinline__ bool chain_ok(const Args& g, int e, uint32_t stamp,
-                                         bool ok) {
-  return g.has_chains ? ld(g.stamp + g.chain_id[e]) != stamp : ok;
+
+// --- the sweeps' segmented scans ------------------------------------------
+
+// K u128 lanes of the cross-chain view (a, mask A) and of the same-chain
+// view (b, mask B); sums wrap mod 2^128.
+template <int K>
+struct Lanes {
+  u128 a[K], b[K];
+};
+
+__device__ __forceinline__ u128 shfl_up_u128(u128 x, int o) {
+  unsigned long long lo = __shfl_up_sync(0xFFFFFFFFu, (unsigned long long)x, o);
+  unsigned long long hi = __shfl_up_sync(0xFFFFFFFFu, (unsigned long long)(x >> 64), o);
+  return ((u128)hi << 64) | lo;
 }
 
-// Lane l of sorted posting position p (l < 48) or of group-sorted event
-// position p (l >= 48), as the reference's `stacked` and fulfillment `v`.
-// lanes 0-23 mask A, 24-47 mask B; within each, 4 limbs of dp_add, dp_sub,
-// dpo_add, cp_add, cp_sub, cpo_add; 48-49 A post/void, 50-51 B post/void.
-__device__ __forceinline__ bool lane_active(const Args& g, int l) {
-  if (l >= 48) return g.has_pv && (l < 50 || g.has_chains);
-  if (l >= 24 && !g.has_chains) return false;
-  int kind = ((l % 24) / 4) % 3;
-  return kind != 1 || g.has_pv;
-}
-
-__device__ unsigned long long lane_value(const Args& g, int p, int l,
-                                         uint32_t stamp) {
-  int e2 = 2 * g.n;
-  if (l >= 48) {
-    if (p >= g.n) return 0;
-    int e = g.f_perm[p];
-    bool ok = ld(g.ok + e) != 0;
-    bool cok = chain_ok(g, e, stamp, ok);
-    bool on = (l < 50) ? (ok && cok) : (ok && !cok);
-    uint32_t bits = g.bits[e];
-    bool post = (bits & B_PV) && (bits & B_POST);
-    bool void_ = (bits & B_PV) && !(bits & B_POST);
-    return on && ((l & 1) ? void_ : post);
+__device__ __forceinline__ u128 warp_sum_u128(u128 x) {
+  for (int o = 16; o; o >>= 1) {
+    unsigned long long lo = __shfl_xor_sync(0xFFFFFFFFu, (unsigned long long)x, o);
+    unsigned long long hi = __shfl_xor_sync(0xFFFFFFFFu, (unsigned long long)(x >> 64), o);
+    x += ((u128)hi << 64) | lo;
   }
-  if (p >= e2) return 0;
-  int r = g.perm[p];
-  bool is_dr = r < g.n;
-  int e = is_dr ? r : r - g.n;
-  int field = (l % 24) / 4;
-  if ((field < 3) != is_dr) return 0;  // a record carries its side's lanes
-  bool ok = ld(g.ok + e) != 0;
-  bool cok = chain_ok(g, e, stamp, ok);
-  if (!((l < 24) ? (ok && cok) : (ok && !cok))) return 0;
-  uint32_t bits = g.bits[e];
-  bool pv = bits & B_PV, pend = bits & B_PEND;
-  int kind = field % 3, k = l & 3;
-  if (kind == 0) return (pend && !pv) ? limb(ld(g.amt + e), k) : 0;
-  if (kind == 1) return pv ? limb(g.p_amount[e], k) : 0;
-  bool post_grp = (!pend && !pv) || (pv && (bits & B_POST));
-  return post_grp ? limb(ld(g.amt + e), k) : 0;
+  return x;
 }
 
-__shared__ unsigned long long s_warp[kBlock / 32];
+__device__ __forceinline__ unsigned ld_acquire(const uint32_t* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(uint32_t* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
 
-// Block-wide inclusive sum of one u64 per thread.
-__device__ unsigned long long block_incl_sum(unsigned long long v) {
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned long long x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    unsigned long long y = __shfl_up_sync(0xFFFFFFFFu, x, o);
-    if (lane >= o) x += y;
+// One tile's scan state in shared memory (sized for the record lanes; an
+// event tile uses the first kEvLanes of each).
+struct ScanShared {
+  Lanes<kRecLanes> warp_agg[kWarps];  // each warp's segmented total
+  Lanes<kRecLanes> warp_pre[kWarps];  // the warps before it, combined
+  unsigned warp_heads[kWarps], warp_pre_heads[kWarps];
+  Lanes<kRecLanes> carry;  // the tile's carry from the tiles before it
+};
+
+// The head flags a segmented warp scan reads: hs[j] is whether a head
+// (S_HEAD_A, S_HEAD_B) lies in the lanes step j's value covers; returns
+// them after the last step.
+template <int Steps>
+__device__ __forceinline__ unsigned head_steps(unsigned heads, unsigned (&hs)[Steps]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < Steps; ++j) {
+    hs[j] = heads;
+    unsigned ph = __shfl_up_sync(0xFFFFFFFFu, heads, 1 << j);
+    if (lane >= (1 << j)) heads |= ph;
   }
-  if (lane == 31) s_warp[warp] = x;
-  __syncthreads();
-  unsigned long long before = 0;
-  for (int w = 0; w < warp; ++w) before += s_warp[w];
-  __syncthreads();
-  return before + x;
+  return heads;
 }
 
-// Segmented exclusive sum of lane l at position p with segment head h.
-__device__ __forceinline__ unsigned long long seg(const Args& g,
-                                                  const unsigned long long* off,
-                                                  int l, int p, int h) {
-  int e2 = 2 * g.n;
-  unsigned long long at_p = ld(g.loc + (size_t)l * e2 + p) + off[(p / kBlock) * kLanes + l];
-  unsigned long long at_h = ld(g.loc + (size_t)l * e2 + h) + off[(h / kBlock) * kLanes + l];
-  return at_p - at_h;
+// Segmented inclusive scan of one u128 lane over the first 2^Steps lanes
+// of the warp (the view's head bit `bit`). A lane that is zero across the
+// warp takes no shuffle, and one whose values are all below 2^58 is summed
+// in 64 bits (32 terms cannot carry out).
+template <int Steps>
+__device__ __forceinline__ u128 warp_seg_scan(u128 x, const unsigned (&hs)[Steps],
+                                              unsigned bit) {
+  const int lane = threadIdx.x & 31;
+  if (!__any_sync(0xFFFFFFFFu, x != 0)) return x;
+  if (__all_sync(0xFFFFFFFFu, (x >> 58) == 0)) {
+    unsigned long long y = (unsigned long long)x;
+#pragma unroll
+    for (int j = 0; j < Steps; ++j) {
+      unsigned long long t = __shfl_up_sync(0xFFFFFFFFu, y, 1 << j);
+      if (lane >= (1 << j) && !(hs[j] & bit)) y += t;
+    }
+    return y;
+  }
+#pragma unroll
+  for (int j = 0; j < Steps; ++j) {
+    u128 t = shfl_up_u128(x, 1 << j);
+    if (lane >= (1 << j) && !(hs[j] & bit)) x += t;
+  }
+  return x;
 }
 
-// The u128 (mod 2^128) of four u32-limb sums.
-__device__ __forceinline__ u128 limbs_sum(const unsigned long long s[4]) {
-  return (u128)s[0] + ((u128)s[1] << 32) + ((u128)s[2] << 64) +
-         ((u128)s[3] << 96);
+// Segmented inclusive scan of the block's positions in order: `heads`
+// (S_HEAD_A, S_HEAD_B) marks a segment (sub-segment) head at this position
+// and, on return, one at or before it in the tile; v becomes the sum from
+// the last head of each view.
+template <int K>
+__device__ void tile_scan(ScanShared& s, unsigned& heads, Lanes<K>& v) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned hs[5];
+  heads = head_steps<5>(heads, hs);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    v.a[k] = warp_seg_scan<5>(v.a[k], hs, S_HEAD_A);
+    v.b[k] = warp_seg_scan<5>(v.b[k], hs, S_HEAD_B);
+  }
+  if (lane == 31) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      s.warp_agg[warp].a[k] = v.a[k];
+      s.warp_agg[warp].b[k] = v.b[k];
+    }
+    s.warp_heads[warp] = heads;
+  }
+  __syncthreads();
+  if (warp == 0) {  // lane w < kWarps: the combine of warps 0 .. w - 1
+    const bool in = lane < kWarps;
+    unsigned ws[3];
+    unsigned hi = head_steps<3>(in ? s.warp_heads[lane] : 0, ws);
+    unsigned he = __shfl_up_sync(0xFFFFFFFFu, hi, 1);
+    if (in && lane > 0) s.warp_pre_heads[lane] = he;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      u128 xa = warp_seg_scan<3>(in ? s.warp_agg[lane].a[k] : 0, ws, S_HEAD_A);
+      u128 xb = warp_seg_scan<3>(in ? s.warp_agg[lane].b[k] : 0, ws, S_HEAD_B);
+      u128 ea = shfl_up_u128(xa, 1), eb = shfl_up_u128(xb, 1);
+      if (in && lane > 0) {
+        s.warp_pre[lane].a[k] = ea;
+        s.warp_pre[lane].b[k] = eb;
+      }
+    }
+  }
+  __syncthreads();
+  if (warp > 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (!(heads & S_HEAD_A)) v.a[k] += s.warp_pre[warp].a[k];
+      if (!(heads & S_HEAD_B)) v.b[k] += s.warp_pre[warp].b[k];
+    }
+    heads |= s.warp_pre_heads[warp];
+  }
+}
+
+// Tile t's value (the tile's sums from its last heads: its aggregate; or,
+// with S_INCL, its inclusive carry) for the tiles after it, then its
+// status word for this sweep.
+template <int K>
+__device__ void publish(uint32_t* status, uint4* buf, int t, const Lanes<K>& v,
+                        unsigned flags, unsigned ver) {
+  uint4* dst = buf + (size_t)t * 2 * K;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    dst[k] = from_u128(v.a[k]);
+    dst[K + k] = from_u128(v.b[k]);
+  }
+  st_release(status + t, (ver << 4) | flags);
+}
+
+// Decoupled look-back (warp 0 of tile t > 0): the carry into tile t of
+// each view, summed over the tiles before it back to the first that holds
+// a head of that view or has published its inclusive carry, 32 tiles at a
+// time. Every tile of the chain runs at once on its own block, so each
+// publishes its aggregate without waiting.
+template <int K>
+__device__ void look_back(ScanShared& s, const uint32_t* status, const uint4* agg,
+                          const uint4* incl, int t, unsigned ver) {
+  const int lane = threadIdx.x;
+  // The tile before first: on the state machine's batches it nearly always
+  // holds a head of both views, or has published its carry already.
+  unsigned st = 0;
+  if (lane == 0) {
+    do {
+      st = ld_acquire(status + t - 1);
+    } while ((st >> 4) != ver);
+  }
+  st = __shfl_sync(0xFFFFFFFFu, st, 0);
+  if ((st & S_INCL) || (st & (S_HEAD_A | S_HEAD_B)) == (S_HEAD_A | S_HEAD_B)) {
+    if (lane == 0) {
+      const uint4* src = ((st & S_INCL) ? incl : agg) + (size_t)(t - 1) * 2 * K;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        s.carry.a[k] = to_u128(__ldcg(src + k));
+        s.carry.b[k] = to_u128(__ldcg(src + K + k));
+      }
+    }
+    return;
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) s.carry.a[k] = s.carry.b[k] = 0;
+  }
+  bool done_a = false, done_b = false;
+  for (int k0 = t - 1; !(done_a && done_b); k0 -= 32) {
+    const int kk = k0 - lane;
+    st = 0;
+    if (kk >= 0) {
+      do {
+        st = ld_acquire(status + kk);
+      } while ((st >> 4) != ver);
+    }
+    const bool stop_a = kk < 0 || (st & (S_INCL | S_HEAD_A));
+    const bool stop_b = kk < 0 || (st & (S_INCL | S_HEAD_B));
+    const unsigned ma = __ballot_sync(0xFFFFFFFFu, stop_a);
+    const unsigned mb = __ballot_sync(0xFFFFFFFFu, stop_b);
+    const int ia = ma ? __ffs(ma) - 1 : 31, ib = mb ? __ffs(mb) - 1 : 31;
+    const bool use_a = !done_a && lane <= ia && kk >= 0;
+    const bool use_b = !done_b && lane <= ib && kk >= 0;
+    const uint4* src = ((st & S_INCL) ? incl : agg) + (size_t)(kk < 0 ? 0 : kk) * 2 * K;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      u128 xa = warp_sum_u128(use_a ? to_u128(__ldcg(src + k)) : 0);
+      u128 xb = warp_sum_u128(use_b ? to_u128(__ldcg(src + K + k)) : 0);
+      if (lane == 0) {
+        s.carry.a[k] += xa;
+        s.carry.b[k] += xb;
+      }
+    }
+    done_a |= ma != 0;
+    done_b |= mb != 0;
+  }
+}
+
+// The scan of tile t of one chain (status, aggregates, inclusive carries):
+// on return v is each position's inclusive segmented sum over the chain.
+template <int K>
+__device__ void scan_tile(ScanShared& s, uint32_t* status, uint4* agg, uint4* incl, int t,
+                          unsigned ver, unsigned heads, Lanes<K>& v) {
+  tile_scan<K>(s, heads, v);
+  const bool last = threadIdx.x == kBlock - 1;
+  if (t > 0) {
+    if (last) publish<K>(status, agg, t, v, heads, ver);
+    if (threadIdx.x < 32) look_back<K>(s, status, agg, incl, t, ver);
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (!(heads & S_HEAD_A)) v.a[k] += s.carry.a[k];
+      if (!(heads & S_HEAD_B)) v.b[k] += s.carry.b[k];
+    }
+  }
+  if (last) publish<K>(status, incl, t, v, heads | S_INCL, ver);
+}
+
+// Field f of a posting record: its side's three fields (pending add,
+// pending removal, posted add); the other side's are 0.
+__device__ __forceinline__ u128 record_field(int f, bool credit, bool pend, bool pv,
+                                             bool post_grp, u128 amt, u128 p_amount) {
+  if (f / 3 != (credit ? 1 : 0)) return 0;
+  int kind = f % 3;
+  return kind == 0 ? ((pend && !pv) ? amt : 0) : kind == 1 ? (pv ? p_amount : 0)
+                                                           : (post_grp ? amt : 0);
+}
+
+// An event's lanes over its pending's group: a post, a void.
+__device__ __forceinline__ void event_lanes(Lanes<kEvLanes>& v, bool in_a, bool in_b,
+                                            bool post, bool void_) {
+  v.a[0] = in_a && post;
+  v.a[1] = in_a && void_;
+  v.b[0] = in_b && post;
+  v.b[1] = in_b && void_;
 }
 
 __device__ void post_row(const Args& g, uint4* table, int32_t slot, uint4 v,
@@ -532,241 +728,319 @@ __device__ __forceinline__ bool row_overflows(const uint4* dp, const uint4* dpo,
          tb::sum_overflows(ld(cp + r), ld(cpo + r));
 }
 
-__global__ void __launch_bounds__(kBlock)
-    exact_kernel(Args g) {
-  extern __shared__ unsigned long long off[];  // [tiles][kLanes] prefixes
-  cg::grid_group grid = cg::this_grid();
-  const int n = g.n, e2 = 2 * n;
-  const int tiles = (e2 + kBlock - 1) / kBlock;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long nthreads = (long long)gridDim.x * blockDim.x;
+// The grid barrier of the sweep blocks (the k-th waits for k * blocks
+// arrivals); the copy blocks never arrive.
+__device__ void sync_sweep_blocks(uint32_t* counter, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(counter, 1u);
+    while (ld_acquire(counter) < target) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
 
-  // Phase 0: copy the tables, the static ladders.
+// Rows [first, A) by `stride` of the four tables into the new ones; true
+// if an old row's pending + posted overflows.
+__device__ bool copy_tables(const Args& g, long long first, long long stride) {
   bool over = false;
-  for (long long r = tid; !g.external && r < g.a; r += nthreads) {
-    uint4 dp = g.dp[r], dpo = g.dpo[r], cp = g.cp[r], cpo = g.cpo[r];
-    g.ndp[r] = dp;
-    g.ndpo[r] = dpo;
-    g.ncp[r] = cp;
-    g.ncpo[r] = cpo;
+  for (long long r = first; r < g.a; r += stride) {
+    uint4 dp = __ldcs(g.dp + r), dpo = __ldcs(g.dpo + r);
+    uint4 cp = __ldcs(g.cp + r), cpo = __ldcs(g.cpo + r);
+    __stcs(g.ndp + r, dp);
+    __stcs(g.ndpo + r, dpo);
+    __stcs(g.ncp + r, cp);
+    __stcs(g.ncpo + r, cpo);
     over |= tb::sum_overflows(dp, dpo) | tb::sum_overflows(cp, cpo);
   }
-  if (over) atomicOr(g.ctrl + C_OLD_OVER, 1u);
-  for (long long e = tid; e < n; e += nthreads) {
-    event_static(g, (int)e);
-    g.stamp[e] = 0;
-    g.cfirst[e] = 0xFFFFFFFFu;
-  }
-  for (long long i = tid; i < 4ll * e2; i += nthreads) {
-    g.obs[i] = make_uint4(0, 0, 0, 0);
-  }
-  grid.sync();
+  return over;
+}
 
-  // Phase 1: seed against the pre-batch balances, no fulfillments.
-  for (long long e = tid; e < n; e += nthreads) {
-    uint32_t c;
-    u128 a;
-    evaluate(g, (int)e, base_obs(g, (int)e), base_obs(g, (int)e + n), false,
-             false, c, a);
-    g.ok[e] = c == 0;
-    g.amt[e] = from_u128(c == 0 ? a : 0);
-    g.codes[e] = c;
-  }
-  grid.sync();
-
-  // Phase 2: the sweeps.
-  bool stable = false;
-  int sweeps = 0;
-  for (int it = 0; it < g.max_sweeps; ++it) {
-    const uint32_t stamp = it + 1;
-    uint32_t* unstable = g.ctrl + C_SWEEP + it;
-    uint32_t* under = g.ctrl + C_SWEEP + g.max_sweeps + it;
-    // a. chain outcomes
-    if (g.has_chains) {
-      for (long long e = tid; e < n; e += nthreads) {
-        if (!ld(g.ok + e)) g.stamp[g.chain_id[e]] = stamp;
-      }
-      grid.sync();
-    }
-    // b. per-tile exclusive prefixes of every lane
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      int p = t * kBlock + threadIdx.x;
-      for (int l = 0; l < kLanes; ++l) {
-        if (!lane_active(g, l)) continue;
-        unsigned long long v = lane_value(g, p, l, stamp);
-        unsigned long long incl = block_incl_sum(v);
-        if (p < e2) g.loc[(size_t)l * e2 + p] = incl - v;
-        if (threadIdx.x == kBlock - 1) g.tot[(size_t)t * kLanes + l] = incl;
-      }
-    }
-    grid.sync();
-    // c. observed balances per record; fulfillment per event
-    for (int l = threadIdx.x; l < kLanes; l += blockDim.x) {
-      unsigned long long run = 0;
-      bool act = lane_active(g, l);
-      for (int t = 0; t < tiles; ++t) {
-        off[t * kLanes + l] = run;
-        if (act) run += ld(g.tot + (size_t)t * kLanes + l);
+__global__ void __launch_bounds__(kBlock, 2) exact_kernel(Args g) {
+  const int n = g.n, e2 = 2 * n;
+  const int tid = threadIdx.x;
+  const int sweep_blocks = g.r_tiles + g.e_tiles;
+  if ((int)blockIdx.x >= sweep_blocks) {  // a copy block
+    // after phase 0, whose random reads of the old tables it would slow
+    if (tid == 0) {
+      while (ld_acquire(g.ctrl + C_BARRIER) < (unsigned)sweep_blocks) {
       }
     }
     __syncthreads();
+    long long first = ((long long)blockIdx.x - sweep_blocks) * kBlock + tid;
+    bool over = copy_tables(g, first, (long long)g.copy_blocks * kBlock);
+    if (__syncthreads_or(over) && tid == 0) atomicOr(g.ctrl + C_OLD_OVER, 1u);
+    if (tid == 0) {
+      __threadfence();
+      atomicAdd(g.ctrl + C_COPIED, 1u);
+    }
+    return;
+  }
+  __shared__ ScanShared s;
+  __shared__ uint4 s_base[4][kBlock];  // a record tile's base balances
+  const long long gid = (long long)blockIdx.x * kBlock + tid;
+  const long long nthreads = (long long)sweep_blocks * kBlock;
+  unsigned barriers = 0;
+  auto barrier = [&]() { sync_sweep_blocks(g.ctrl + C_BARRIER, ++barriers * sweep_blocks); };
+
+  // This thread's scan position, loaded once for every sweep: a posting
+  // record (record tiles) or a group-sorted event (event tiles).
+  const bool record_tile = (int)blockIdx.x < g.r_tiles;
+  const int tile = record_tile ? (int)blockIdx.x : (int)blockIdx.x - g.r_tiles;
+  const int p = tile * kBlock + tid;
+  const bool live = record_tile ? p < e2 : (g.has_pv && p < n);
+  int r = 0, e = 0, chain = 0;
+  bool credit = false, pend = false, pv = false, post = false, post_grp = false;
+  unsigned heads0 = S_HEAD_A | S_HEAD_B;  // past the chain's end
+  u128 p_amount = 0;
+  if (live && record_tile) {
+    r = g.perm[p];
+    credit = r >= n;
+    e = credit ? r - n : r;
+    heads0 = (g.head_pos[p] == p ? S_HEAD_A : 0) | (g.sub_head_pos[p] == p ? S_HEAD_B : 0);
+  } else if (live) {
+    e = g.f_perm[p];
+    heads0 = (g.f_head_pos[p] == p ? S_HEAD_A : 0) | (g.f_sub_head_pos[p] == p ? S_HEAD_B : 0);
+  }
+  if (live) {
+    chain = g.chain_id[e];
+    uint32_t fl = g.flags[e];
+    pend = fl & F_PENDING;
+    pv = fl & (F_POST | F_VOID);
+    post = pv && (fl & F_POST);
+    post_grp = (!pend && !pv) || post;
+  }
+  if (live && record_tile) {
+    if (g.has_pv && pv) p_amount = to_u128(g.p_amount[e]);
+    if (g.external) {
+      s_base[0][tid] = g.base_dp[r];
+      s_base[1][tid] = g.base_dpo[r];
+      s_base[2][tid] = g.base_cp[r];
+      s_base[3][tid] = g.base_cpo[r];
+    } else {
+      int32_t slot = pv ? (credit ? g.p_cr[e] : g.p_dr[e]) : (credit ? g.cr_slot[e] : g.dr_slot[e]);
+      long long sl = clip(slot, g.a);
+      s_base[0][tid] = g.dp[sl];
+      s_base[1][tid] = g.dpo[sl];
+      s_base[2][tid] = g.cp[sl];
+      s_base[3][tid] = g.cpo[sl];
+    }
+  }
+
+  // Phase 0: the static ladders and the seed against the pre-batch
+  // balances, no fulfillments.
+  if (gid < n) {
+    const int ev = (int)gid;
+    event_static(g, ev);
+    uint32_t c;
+    u128 a;
+    evaluate(g, ev, base_obs(g, ev), base_obs(g, ev + n), false, false, c, a);
+    g.ok[ev] = c == 0;
+    g.amt[ev] = from_u128(c == 0 ? a : 0);
+    g.codes[ev] = c;
+    if (g.has_chains && c != 0) atomicMax(g.cf + g.chain_id[ev], (1u << 16) | (0xFFFFu - ev));
+  }
+  for (long long i = gid; g.max_sweeps == 0 && i < 4ll * e2; i += nthreads) {
+    g.obs[i] = make_uint4(0, 0, 0, 0);
+  }
+  barrier();
+
+  // The sweeps. Sweep it reads the chain stamps it + 1 (the seed's, or the
+  // last sweep's ladder) and its tiles publish under version it + 1.
+  bool stable = false;
+  int sweeps = 0;
+  for (int it = 0; it < g.max_sweeps; ++it) {
+    const unsigned ver = it + 1;
+    // a. segmented sums; observed balances, in-batch fulfillments
+    bool in_a = false, in_b = false;
+    u128 amt = 0;
+    if (live) {
+      bool ok = ld(g.ok + e) != 0;
+      bool cok = g.has_chains ? (ld(g.cf + chain) >> 16) != ver : ok;
+      in_a = ok && cok;
+      in_b = ok && !cok;
+      if (record_tile) amt = to_u128(ld(g.amt + e));
+    }
     bool und = false;
-    for (long long q = tid; q < e2; q += nthreads) {
-      int p = (int)q;
-      int r = g.perm[p];
-      int ha = g.head_pos[p], hb = g.sub_head_pos[p];
-      u128 d[6];
-      for (int f = 0; f < 6; ++f) {
-        unsigned long long s[4];
-        for (int k = 0; k < 4; ++k) {
-          int la = 4 * f + k;
-          s[k] = lane_active(g, la) ? seg(g, off, la, p, ha) : 0;
-          if (lane_active(g, 24 + la)) s[k] += seg(g, off, 24 + la, p, hb);
-        }
-        d[f] = limbs_sum(s);
+    if (record_tile) {
+      // the record's lanes in the view its event's outcome puts it in
+      Lanes<kRecLanes> v;
+#pragma unroll
+      for (int f = 0; f < kRecLanes; ++f) {
+        u128 x = record_field(f, credit, pend, pv, post_grp, amt, p_amount);
+        v.a[f] = in_a ? x : 0;
+        v.b[f] = in_b ? x : 0;
       }
-      Obs b = base_obs(g, r);
-      u128 dp = b.dp + d[0], cp = b.cp + d[3];
-      bool ud = dp < d[1], uc = cp < d[4];
-      und |= ud | uc;
-      uint4* o = g.obs + 4 * (size_t)r;
-      o[0] = from_u128(ud ? 0 : dp - d[1]);
-      o[1] = from_u128(b.dpo + d[2]);
-      o[2] = from_u128(uc ? 0 : cp - d[4]);
-      o[3] = from_u128(b.cpo + d[5]);
-    }
-    if (und) atomicOr(under, 1u);
-    if (g.has_pv) {
-      for (long long q = tid; q < n; q += nthreads) {
-        int p = (int)q;
-        int fh = g.f_head_pos[p], fs = g.f_sub_head_pos[p];
-        unsigned long long post = seg(g, off, 48, p, fh);
-        unsigned long long vd = seg(g, off, 49, p, fh);
-        if (g.has_chains) {
-          post += seg(g, off, 50, p, fs);
-          vd += seg(g, off, 51, p, fs);
+      scan_tile<kRecLanes>(s, g.r_status, g.r_agg, g.r_incl, tile, ver, heads0, v);
+      if (live) {
+        u128 d[kRecLanes];  // the exclusive sums: inclusive minus its own
+#pragma unroll
+        for (int f = 0; f < kRecLanes; ++f) {
+          u128 x = record_field(f, credit, pend, pv, post_grp, amt, p_amount);
+          d[f] = (v.a[f] - (in_a ? x : 0)) + (v.b[f] - (in_b ? x : 0));
         }
-        g.epv[g.f_perm[p]] = (post > 0 ? 1u : 0u) | (vd > 0 ? 2u : 0u);
+        u128 dp = to_u128(s_base[0][tid]) + d[0], cp = to_u128(s_base[2][tid]) + d[3];
+        bool ud = dp < d[1], uc = cp < d[4];
+        und = ud || uc;
+        uint4* o = g.obs + 4 * (size_t)r;
+        o[0] = from_u128(ud ? 0 : dp - d[1]);
+        o[1] = from_u128(to_u128(s_base[1][tid]) + d[2]);
+        o[2] = from_u128(uc ? 0 : cp - d[4]);
+        o[3] = from_u128(to_u128(s_base[3][tid]) + d[5]);
+      }
+    } else if (g.has_pv) {
+      Lanes<kEvLanes> v, own;
+      event_lanes(v, in_a, in_b, post, pv && !post);
+      scan_tile<kEvLanes>(s, g.e_status, g.e_agg, g.e_incl, tile, ver, heads0, v);
+      if (live) {
+        event_lanes(own, in_a, in_b, post, pv && !post);
+        u128 posts = (v.a[0] - own.a[0]) + (v.b[0] - own.b[0]);
+        u128 voids = (v.a[1] - own.a[1]) + (v.b[1] - own.b[1]);
+        g.epv[e] = (posts != 0 ? 1u : 0u) | (voids != 0 ? 2u : 0u);
       }
     }
-    grid.sync();
-    // d. the dynamic ladder; stability
+    if (__syncthreads_or(und) && tid == 0) atomicOr(g.ctrl + C_SWEEP + g.max_sweeps + it, 1u);
+    barrier();
+    // b. the dynamic ladder; stability; the chain stamps of the next sweep
     bool moved = false;
-    for (long long q = tid; q < n; q += nthreads) {
-      int e = (int)q;
-      uint32_t fp = g.has_pv ? ld(g.epv + e) : 0;
+    if (gid < n) {
+      const int ev = (int)gid;
+      uint32_t fp = g.has_pv ? ld(g.epv + ev) : 0;
       uint32_t c;
       u128 a;
-      evaluate(g, e, load_obs(g, e), load_obs(g, e + n), fp & 1, fp & 2, c, a);
+      evaluate(g, ev, load_obs(g, ev), load_obs(g, ev + n), fp & 1, fp & 2, c, a);
       bool nok = c == 0;
       u128 na = nok ? a : 0;
-      bool ook = ld(g.ok + e) != 0;
-      u128 oa = to_u128(ld(g.amt + e));
-      moved |= (nok != ook) || (na != oa);
-      g.ok[e] = nok;
-      g.amt[e] = from_u128(na);
-      g.codes[e] = c;
+      moved = (nok != (ld(g.ok + ev) != 0)) || (na != to_u128(ld(g.amt + ev)));
+      g.ok[ev] = nok;
+      g.amt[ev] = from_u128(na);
+      g.codes[ev] = c;
+      if (g.has_chains && c != 0) {
+        atomicMax(g.cf + g.chain_id[ev], ((ver + 1) << 16) | (0xFFFFu - ev));
+      }
     }
-    if (moved) atomicOr(unstable, 1u);
-    grid.sync();
+    if (__syncthreads_or(moved) && tid == 0) atomicOr(g.ctrl + C_SWEEP + it, 1u);
+    barrier();
     sweeps = it + 1;
-    if (ld(unstable) == 0) {
+    if (ld(g.ctrl + C_SWEEP + it) == 0) {
       stable = true;
       break;
     }
   }
-  bool under_final =
-      sweeps > 0 && ld(g.ctrl + C_SWEEP + g.max_sweeps + sweeps - 1) != 0;
+  const unsigned final_stamp = sweeps + 1;
 
-  // Phase 3: linked-chain rollback (reference :824-833), then the adds.
-  if (g.has_chains) {
-    for (long long e = tid; e < n; e += nthreads) {
-      if (ld(g.codes + e) != 0) atomicMin(g.cfirst + g.chain_id[e], (uint32_t)e);
+  // The posting writes the new tables: the copy must be done.
+  if (!g.external) {
+    if (tid == 0) {
+      while (ld_acquire(g.ctrl + C_COPIED) < (unsigned)g.copy_blocks) {
+      }
+      __threadfence();
     }
-    grid.sync();
+    __syncthreads();
   }
-  over = false;
-  for (long long q = tid; q < n; q += nthreads) {
-    int e = (int)q;
-    uint32_t c = ld(g.codes + e);
+  // Phase 3: linked-chain rollback (reference :824-833), then the adds.
+  bool over = false;
+  if (gid < n) {
+    const int ev = (int)gid;
+    uint32_t c = ld(g.codes + ev);
     if (g.has_chains) {
-      uint32_t first = ld(g.cfirst + g.chain_id[e]);
-      bool chain_fails = first != 0xFFFFFFFFu;
-      bool keep = (c != 0 && first == (uint32_t)e) || c == LINKED_EVENT_CHAIN_OPEN;
+      // the chain's first failing event of the last sweep
+      uint32_t w = ld(g.cf + g.chain_id[ev]);
+      bool chain_fails = (w >> 16) == final_stamp;
+      bool keep = (c != 0 && 0xFFFFu - (w & 0xFFFFu) == (uint32_t)ev) ||
+                  c == LINKED_EVENT_CHAIN_OPEN;
       if (chain_fails && !keep) c = LINKED_EVENT_FAILED;
     }
     bool ok = c == 0;
-    uint4 amount = ok ? ld(g.amt + e) : make_uint4(0, 0, 0, 0);
-    g.codes[e] = c;
-    g.amounts[e] = amount;
+    uint4 amount = ok ? ld(g.amt + ev) : make_uint4(0, 0, 0, 0);
+    g.codes[ev] = c;
+    g.amounts[ev] = amount;
     // post-event balances for history rows (reference :845-860)
-    uint32_t bits = g.bits[e];
-    bool pv = bits & B_PV, pend = bits & B_PEND;
-    u128 a = to_u128(amount);
-    u128 a_pend = (ok && pend && !pv) ? a : 0;
-    u128 a_post = (ok && !pend && !pv) ? a : 0;
-    Obs dr = load_obs(g, e), cr = load_obs(g, e + n);
-    g.dr_dp[e] = from_u128(dr.dp + a_pend);
-    g.dr_dpo[e] = from_u128(dr.dpo + a_post);
-    g.dr_cp[e] = from_u128(dr.cp);
-    g.dr_cpo[e] = from_u128(dr.cpo);
-    g.cr_dp[e] = from_u128(cr.dp);
-    g.cr_dpo[e] = from_u128(cr.dpo);
-    g.cr_cp[e] = from_u128(cr.cp + a_pend);
-    g.cr_cpo[e] = from_u128(cr.cpo + a_post);
+    uint32_t bits = g.bits[ev];
+    bool epv = bits & B_PV, epend = bits & B_PEND;
+    u128 am = to_u128(amount);
+    u128 a_pend = (ok && epend && !epv) ? am : 0;
+    u128 a_post = (ok && !epend && !epv) ? am : 0;
+    Obs dr = load_obs(g, ev), cr = load_obs(g, ev + n);
+    g.dr_dp[ev] = from_u128(dr.dp + a_pend);
+    g.dr_dpo[ev] = from_u128(dr.dpo + a_post);
+    g.dr_cp[ev] = from_u128(dr.cp);
+    g.dr_cpo[ev] = from_u128(dr.cpo);
+    g.cr_dp[ev] = from_u128(cr.dp);
+    g.cr_dpo[ev] = from_u128(cr.dpo);
+    g.cr_cp[ev] = from_u128(cr.cp + a_pend);
+    g.cr_cpo[ev] = from_u128(cr.cpo + a_post);
     if (g.external) {
       // _apply's masks (reference :866-874) for the shards to post
-      bool post = pv && (bits & B_POST);
-      g.out_eff_dr[e] = g.eff_dr[e];
-      g.out_eff_cr[e] = g.eff_cr[e];
-      g.out_mask[e] = (ok && pend && !pv ? M_ADD_PEND : 0) |
-                      (ok && ((!pend && !pv) || post) ? M_ADD_POST : 0) |
-                      (ok && pv ? M_SUB_PEND : 0);
-    } else if (ok && !(pv && !(bits & B_POST))) {
+      bool epost = epv && (bits & B_POST);
+      g.out_eff_dr[ev] = g.eff_dr[ev];
+      g.out_eff_cr[ev] = g.eff_cr[ev];
+      g.out_mask[ev] = (ok && epend && !epv ? M_ADD_PEND : 0) |
+                       (ok && ((!epend && !epv) || epost) ? M_ADD_POST : 0) |
+                       (ok && epv ? M_SUB_PEND : 0);
+    } else if (ok && !(epv && !(bits & B_POST))) {
       // _apply's adds (reference :882-885)
-      bool to_pend = pend && !pv;
-      post_row(g, to_pend ? g.ndp : g.ndpo, g.eff_dr[e], amount, false, over);
-      post_row(g, to_pend ? g.ncp : g.ncpo, g.eff_cr[e], amount, false, over);
+      bool to_pend = epend && !epv;
+      post_row(g, to_pend ? g.ndp : g.ndpo, g.eff_dr[ev], amount, false, over);
+      post_row(g, to_pend ? g.ncp : g.ncpo, g.eff_cr[ev], amount, false, over);
     }
   }
-  grid.sync();
+  barrier();
   // Phase 4: the pending removals of post/void (reference :886-887).
-  for (long long q = tid; !g.external && q < n; q += nthreads) {
-    int e = (int)q;
-    if ((g.bits[e] & B_PV) && ld(g.codes + e) == 0) {
-      uint4 pa = g.p_amount[e];
-      post_row(g, g.ndp, g.eff_dr[e], pa, true, over);
-      post_row(g, g.ncp, g.eff_cr[e], pa, true, over);
+  if (!g.external && gid < n) {
+    const int ev = (int)gid;
+    if ((g.bits[ev] & B_PV) && ld(g.codes + ev) == 0) {
+      uint4 pa = g.p_amount[ev];
+      post_row(g, g.ndp, g.eff_dr[ev], pa, true, over);
+      post_row(g, g.ncp, g.eff_cr[ev], pa, true, over);
     }
   }
-  grid.sync();
+  barrier();
   // Phase 5: pending + posted of the touched rows, or of all rows
   // (reference :888-889).
   if (g.external) {
     // the shards check their own rows (sharded_apply.cu)
   } else if (ld(g.ctrl + C_OLD_OVER)) {
-    for (long long r = tid; r < g.a; r += nthreads) {
-      over |= row_overflows(g.ndp, g.ndpo, g.ncp, g.ncpo, r);
-    }
-  } else {
-    for (long long q = tid; q < n; q += nthreads) {
-      if (ld(g.codes + q) != 0) continue;
-      long long rows[2] = {scatter_row(g.eff_dr[q], g.a),
-                           scatter_row(g.eff_cr[q], g.a)};
-      for (int s = 0; s < 2; ++s) {
-        if (rows[s] >= 0) over |= row_overflows(g.ndp, g.ndpo, g.ncp, g.ncpo, rows[s]);
+    // four rows a step, so the sweep blocks alone keep as many loads in
+    // flight as the whole grid would with one
+    for (long long row = gid; row < g.a; row += 4 * nthreads) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        long long r = row + k * nthreads;
+        if (r < g.a) over |= row_overflows(g.ndp, g.ndpo, g.ncp, g.ncpo, r);
       }
     }
+  } else if (gid < n && ld(g.codes + gid) == 0) {
+    long long rows[2] = {scatter_row(g.eff_dr[gid], g.a), scatter_row(g.eff_cr[gid], g.a)};
+    for (int k = 0; k < 2; ++k) {
+      if (rows[k] >= 0) over |= row_overflows(g.ndp, g.ndpo, g.ncp, g.ncpo, rows[k]);
+    }
   }
-  if (over) atomicOr(g.ctrl + C_OVER, 1u);
-  grid.sync();
+  // The last sweep block to finish writes bail.
+  bool any = __syncthreads_or(over);
   if (tid == 0) {
-    *g.bail = !stable || ld(g.ctrl + C_OVER) != 0 || under_final;
-    atomicAdd(g.sweep_stats, (unsigned long long)sweeps);
-    atomicAdd(g.sweep_stats + 1, 1ull);
-    atomicMax(g.sweep_stats + 2, (unsigned long long)sweeps);
+    if (any) atomicOr(g.ctrl + C_OVER, 1u);
+    __threadfence();
+    if (atomicAdd(g.ctrl + C_FINISHED, 1u) == (unsigned)sweep_blocks - 1) {
+      __threadfence();  // every block's flags before its count
+      bool under_final =
+          sweeps > 0 && ld_acquire(g.ctrl + C_SWEEP + g.max_sweeps + sweeps - 1) != 0;
+      *g.bail = !stable || ld_acquire(g.ctrl + C_OVER) != 0 || under_final;
+      atomicAdd(g.sweep_stats, (unsigned long long)sweeps);
+      atomicAdd(g.sweep_stats + 1, 1ull);
+      atomicMax(g.sweep_stats + 2, (unsigned long long)sweeps);
+    }
   }
 }
+
+// Per device: SMs and resident blocks an SM, queried once.
+struct DeviceInfo {
+  bool ready;
+  int sms, per_sm;
+};
+DeviceInfo g_device[64];
 
 }  // namespace
 
@@ -787,7 +1061,7 @@ extern "C" long long tb_create_transfers_exact_scratch(long long n,
 extern "C" int tb_create_transfers_exact(void* const* ptrs,
                                          const long long* dims, void* stream) {
   long long a = dims[0], n = dims[1], max_sweeps = dims[2];
-  if (n < 1 || 2 * n > 16384 || max_sweeps < 0 || a < 1)
+  if (n < 1 || 2 * n > 16384 || max_sweeps < 0 || max_sweeps > 0xFFFE || a < 1)
     return (int)cudaErrorInvalidValue;
   Layout lay = layout(n, max_sweeps);
   if ((long long)lay.end > dims[5]) return (int)cudaErrorInvalidValue;
@@ -835,35 +1109,48 @@ extern "C" int tb_create_transfers_exact(void* const* ptrs,
   g.eff_cr = (int32_t*)(scratch + lay.eff_cr);
   g.ok = (uint32_t*)(scratch + lay.ok);
   g.amt = (uint4*)(scratch + lay.amt);
-  g.stamp = (uint32_t*)(scratch + lay.stamp);
-  g.cfirst = (uint32_t*)(scratch + lay.cfirst);
   g.epv = (uint32_t*)(scratch + lay.epv);
   g.obs = (uint4*)(scratch + lay.obs);
-  g.loc = (unsigned long long*)(scratch + lay.loc);
-  g.tot = (unsigned long long*)(scratch + lay.tot);
+  g.r_agg = (uint4*)(scratch + lay.r_agg);
+  g.r_incl = (uint4*)(scratch + lay.r_incl);
+  g.e_agg = (uint4*)(scratch + lay.e_agg);
+  g.e_incl = (uint4*)(scratch + lay.e_incl);
   g.ctrl = (uint32_t*)(scratch + lay.ctrl);
+  g.cf = (uint32_t*)(scratch + lay.cf);
+  g.r_status = (uint32_t*)(scratch + lay.r_status);
+  g.e_status = (uint32_t*)(scratch + lay.e_status);
   g.a = a;
   g.n = (int)n;
   g.max_sweeps = (int)max_sweeps;
+  g.r_tiles = tiles_of(2 * n);
+  g.e_tiles = tiles_of(n);
   g.has_pv = dims[3] != 0;
   g.has_chains = dims[4] != 0;
 
-  cudaError_t err = cudaMemsetAsync(g.ctrl, 0, lay.ctrl_bytes, s);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  int tiles = (int)((2 * n + kBlock - 1) / kBlock);
-  size_t smem = (size_t)tiles * kLanes * sizeof(unsigned long long);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, exact_kernel, kBlock, smem)) !=
-      cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  dim3 grid(sms * (per_sm < 2 ? per_sm : 2));
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  DeviceInfo& info = g_device[dev];
+  if (!info.ready) {
+    err = cudaDeviceGetAttribute(&info.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info.per_sm, exact_kernel, kBlock, 0);
+    if (err != cudaSuccess) return (int)err;
+    info.ready = true;
+  }
+  const int sweep_blocks = g.r_tiles + g.e_tiles;
+  const int resident = info.sms * (info.per_sm < 2 ? info.per_sm : 2);
+  // the sweep blocks and, unless external, at least one copy block
+  if (resident < sweep_blocks + (g.external ? 0 : 1))
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  g.copy_blocks = g.external ? 0 : resident - sweep_blocks;
+
+  err = cudaMemsetAsync(scratch + lay.ctrl, 0, lay.end - lay.ctrl, s);
+  if (err != cudaSuccess) return (int)err;
   void* kargs[] = {&g};
-  err = cudaLaunchCooperativeKernel((const void*)exact_kernel, grid, dim3(kBlock), kargs,
-                                    smem, s);
+  err = cudaLaunchCooperativeKernel((const void*)exact_kernel, dim3(sweep_blocks + g.copy_blocks),
+                                    dim3(kBlock), kargs, 0, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -88,11 +88,12 @@ COSTS = {
         _nbytes(cols, ts, rows, pad) + 2 * 5 * rows.numel() * 12,
         40 * rows.numel(),
     ),
-    # the same bytes; a stable sort of 5 n rows, ~20 operations a row for
-    # each of up to 15 radix passes.
+    # the same bytes; a stable sort of 5 n rows of the function, whatever
+    # the design: ~4 operations a row (a 96-bit compare and a move) for
+    # each of log2(n) merge levels.
     "query_index_keys_sorted": lambda cols, ts, rows, pad: (
         _nbytes(cols, ts, rows, pad) + 2 * 5 * rows.numel() * 12,
-        40 * rows.numel() + 15 * 20 * 5 * rows.numel(),
+        40 * rows.numel() + 4 * 5 * rows.numel() * max(1, (rows.numel() - 1).bit_length()),
     ),
     # both runs in, their merge out; a binary search in a tile per row.
     "merge_kernel_tiled": lambda ka, pa, kb, pb, tile=256: (

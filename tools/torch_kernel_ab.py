@@ -1,7 +1,6 @@
-"""The exact route's sort plan and the compaction fold (kernels 5b and 10
-of PERF.md) from two checkouts in alternation on one card: the kernels'
-CUDA-event times at the main path's shapes, so that a redesign can be
-held against its parent inside one call.
+"""Four hand-written kernels of PERF.md from two checkouts in alternation
+on one card: the kernels' CUDA-event times at the main path's shapes, so
+that a redesign can be held against its parent inside one call.
 
     python3 tools/torch_kernel_ab.py A_ROOT B_ROOT [--pairs 2] [--seed S]
 
@@ -9,14 +8,26 @@ A_ROOT and B_ROOT are checkouts of the repo (for example a parent commit
 and a change unpacked with `git archive`). Runs go A B B A A B B A ...,
 each in a process of its own that imports that checkout's
 `tigerbeetle_tpu_torch`, builds its kernels and times, on the same inputs
-from the same seed: `sort_plan` on a config-3 batch (n = 8192, A = 2^20,
-accounts over 10,000 slots, as chip_smoke.py's timed batch) and
-`compact_fold_kernel` on a 16 x 131,072 stack of sorted top-bit runs of
-uneven lengths (phase 8's storm chunk, chip_smoke.py's fold_stack), each
-by chip_smoke.py's cuda_ms (the median of 3 windows of 10 calls queued
-behind a device sleep), with `torch.sort` of the record keys beside the
-first. A line of JSON per run, then the medians per tree and the card's
-name and power limit. Needs one CUDA card.
+from the same seed, each by chip_smoke.py's cuda_ms (the median of 3
+windows of 10 calls queued behind a device sleep), after checking each
+kernel byte-equal to its plain version:
+  - row 5a, `create_transfers_exact` on chip_smoke.py's timed config-3 and
+    config-4 batches (n = 8192, A = 2^20, accounts over 10,000 slots, the
+    host's sort plan), with the sweeps each takes, and its external-base
+    mode on both (the base: the records' rows of the tables), and the
+    config-4 batch over tables with one untouched row whose pending +
+    posted already overflows (the bail path's whole-table check);
+  - row 5b, `sort_plan` on the config-3 batch, with `torch.sort` of the
+    record keys beside it;
+  - row 7, `query_index_keys_sorted` (the build and the sort) on
+    chip_smoke.py's fold56-edge columns and its query mix at n = 8190,
+    with the library yardstick beside each (`torch.sort(stable=True)` of
+    the built block's packed keys + 2 `index_select`);
+  - row 10, `compact_fold_kernel` on a 16 x 131,072 stack of sorted
+    top-bit runs of uneven lengths (phase 8's storm chunk, chip_smoke.py's
+    fold_stack).
+A line of JSON per run, then the medians per tree and the card's name and
+power limit. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -39,38 +50,95 @@ def child(root: str, seed: int) -> None:
     import torch
 
     import chip_smoke as cs
-    import exact_batches as X
     from tigerbeetle_tpu_torch.ops import commit as C
     from tigerbeetle_tpu_torch.ops import commit_exact as E
     from tigerbeetle_tpu_torch.ops import kernels
     from tigerbeetle_tpu_torch.ops import merge as M
+    from tigerbeetle_tpu_torch.ops import qindex as Q
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
-    kernels.build_all(["exact_sort_plan", "compact_fold_kernel"])
+    kernels.build_all(["exact_sort_plan", "compact_fold_kernel", "create_transfers_exact",
+                       "query_index_keys", "query_index_keys_sorted"])
     dev = torch.device("cuda", 0)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     rng = np.random.default_rng(seed)
-    bn, pn, chain, _ = X.batch(rng, "config3", N, A_MAX, span=10_000, hot_frac=0.0)
-    b = C.TransferBatch(**{k: t(v) for k, v in bn.items()})
-    p = E.PendingInfo(**{k: t(v) for k, v in pn.items()})
-    chain = t(chain)
-    ks, ps = cs.fold_stack(torch, dev, rng, FOLD_K, FOLD_B)
-    for g, w in ((E.sort_plan(b, p, chain, A_MAX), E.sort_plan_plain(b, p, chain, A_MAX)),
-                 (M.compact_fold_kernel(ks, ps), M.compact_fold_kernel_plain(ks, ps))):
-        if not all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(g, w)):
-            raise SystemExit(f"{root}: a kernel disagrees with its plain version")
+
+    def same(what, got, want):
+        if not all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+                   for x, y in zip(cs.flat(got), cs.flat(want), strict=True)):
+            raise SystemExit(f"{root}: {what} disagrees with its plain version")
+
+    row = {"root": root}
+    # Row 5a on chip_smoke.py's timed batches, and in its external-base mode.
+    for label, seed_ in (("config3", 41), ("config4", 42)):
+        st = cs.exact_staged(torch, C, E, dev, label, seed_, baseline=True)
+        got, row[f"sweeps_{label}"] = cs.sweeps_of(torch, E, dev, lambda: E.create_transfers_exact(*st))
+        same(f"create_transfers_exact {label}", got, E.create_transfers_exact_plain(*st))
+        row[f"create_transfers_exact_{label}_ms"] = cs.cuda_ms(
+            torch, lambda: E.create_transfers_exact(*st), 10)
+        state, b, host, p, chain, plan = st
+        is_pv = (b.flags.view(torch.int32) & (C.F_POST | C.F_VOID)) != 0
+        rec = torch.cat([torch.where(is_pv, p.dr_slot, b.dr_slot),
+                         torch.where(is_pv, p.cr_slot, b.cr_slot)])
+        base = E.Observed(*C.read_balances(state, rec))
+        ext = lambda: E.create_transfers_exact_external(state, base, b, host, p, chain, plan)
+        same(f"create_transfers_exact external {label}", ext(),
+             E.create_transfers_exact_external_plain(state, base, b, host, p, chain, plan))
+        row[f"create_transfers_exact_external_{label}_ms"] = cs.cuda_ms(torch, ext, 10)
+        if label == "config4":
+            # an untouched row at 2^127 pending and 2^127 posted
+            old = C.LedgerState(*(x.clone() for x in state))
+            for table in (old.debits_pending, old.debits_posted):
+                table.view(torch.int32)[A_MAX // 2 + 5, 3] = -(1 << 31)
+            st_old = (old, *st[1:])
+            got_old = E.create_transfers_exact(*st_old)
+            same("create_transfers_exact old_overflow", got_old,
+                 E.create_transfers_exact_plain(*st_old))
+            if not bool(got_old[-1]):
+                raise SystemExit(f"{root}: create_transfers_exact old_overflow did not bail")
+            row["create_transfers_exact_old_overflow_ms"] = cs.cuda_ms(
+                torch, lambda: E.create_transfers_exact(*st_old), 10)
+            del old, st_old, got_old
+        if label == "config3":
+            c3 = st
+        del st, got, base
+    # Row 5b on the config-3 batch.
+    _, b, _, p, chain, _ = c3
+    same("sort_plan", E.sort_plan(b, p, chain, A_MAX), E.sort_plan_plain(b, p, chain, A_MAX))
     is_pv = (b.flags.view(torch.int32) & (C.F_POST | C.F_VOID)) != 0
     rec_slot = torch.cat([torch.where(is_pv, p.dr_slot, b.dr_slot),
                           torch.where(is_pv, p.cr_slot, b.cr_slot)]).long()
     key = ((torch.where(rec_slot >= 0, rec_slot, A_MAX) << 32)
            | (torch.cat([chain, chain]).long() << 16) | torch.cat([torch.arange(N, device=dev)] * 2))
-    print(json.dumps({
-        "root": root,
-        "exact_sort_plan_ms": cs.cuda_ms(torch, lambda: E.sort_plan(b, p, chain, A_MAX), 10),
-        "compact_fold_kernel_ms": cs.cuda_ms(torch, lambda: M.compact_fold_kernel(ks, ps), 10),
-        "torch_sort_records_ms": cs.cuda_ms(torch, lambda: torch.sort(key, stable=True), 10),
-    }), flush=True)
+    row["exact_sort_plan_ms"] = cs.cuda_ms(torch, lambda: E.sort_plan(b, p, chain, A_MAX), 10)
+    row["torch_sort_records_ms"] = cs.cuda_ms(torch, lambda: torch.sort(key, stable=True), 10)
+    del c3
+    # Row 7 on chip_smoke.py's phase-2 inputs, the library yardstick beside.
+    pool = rng.integers(1, 1 << 62, 1024, dtype=np.uint64)
+    for label, recs in (("edge", cs.edge_columns(rng, cs.TX_BATCH)),
+                        ("query_mix", cs.query_mix(rng, cs.TX_BATCH, pool, 1))):
+        rows = np.arange(len(recs), dtype=np.uint32)
+        ts = np.arange(1, len(recs) + 1, dtype=np.uint64) + np.uint64(1 << 40)
+        staged = [t(a) for a in Q.stage_query_batch(recs, rows, ts)]
+        same(f"query_index_keys_sorted {label}", Q.query_index_keys_sorted(*staged),
+             Q.query_index_keys_sorted_plain(*staged))
+        keys_p, pay_p = Q.query_index_keys_plain(*staged)
+        key64 = cs.packed_key(torch, keys_p)
+        k32, p32 = keys_p.view(torch.int32), pay_p.view(torch.int32)
+
+        def library():
+            idx = torch.sort(key64, stable=True).indices
+            return k32.index_select(0, idx), p32.index_select(0, idx)
+
+        row[f"query_index_keys_sorted_{label}_ms"] = cs.cuda_ms(
+            torch, lambda: Q.query_index_keys_sorted(*staged), 10)
+        row[f"library_sort_gather_{label}_ms"] = cs.cuda_ms(torch, library, 10)
+    # Row 10 on the storm's chunk shape.
+    ks, ps = cs.fold_stack(torch, dev, rng, FOLD_K, FOLD_B)
+    same("compact_fold_kernel", M.compact_fold_kernel(ks, ps), M.compact_fold_kernel_plain(ks, ps))
+    row["compact_fold_kernel_ms"] = cs.cuda_ms(torch, lambda: M.compact_fold_kernel(ks, ps), 10)
+    print(json.dumps(row), flush=True)
 
 
 def main() -> int:
@@ -99,7 +167,7 @@ def main() -> int:
 
     for root, rows in runs.items():
         print(json.dumps({"root": os.path.abspath(root), "runs": len(rows), **{
-            k: float(np.median([r[k] for r in rows])) for k in rows[0] if k.endswith("_ms")
+            k: float(np.median([r[k] for r in rows])) for k in rows[0] if k.endswith("_ms") or k.startswith("sweeps")
         }}))
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -6,8 +6,9 @@
 Phases, in order; any failure exits non-zero and no phase's failure is
 caught:
 
-  1. Build: compile the fifteen CUDA kernels (tigerbeetle_tpu_torch/csrc,
-     one nvcc per source, all started together) and print the seconds.
+  1. Build: compile the sixteen CUDA kernels (fifteen sources in
+     tigerbeetle_tpu_torch/csrc, one nvcc per source, all started
+     together) and print the seconds.
   2. Kernels vs plain, at the main path's shapes (A = 2^20 accounts,
      n = 8192 events, k = 16384 / 8192 slot rows): each kernel must be
      byte-equal to its plain PyTorch version on the same inputs on the
@@ -41,8 +42,12 @@ caught:
      SORT_EDGES: equal keys, spans of 8 and 56 bits, a 64-bit composite,
      wide pad words, duplicates; n = 1, 300, 8190, 8192), the tiled
      merge at each flush shape of the query tree (40,960 + 40,960,
-     81,920 + 40,960 and 122,880 + 40,960 rows) and on top-bit keys with
-     heavy duplicates across both runs, the intersect at 2^17 candidates
+     81,920 + 40,960 and 122,880 + 40,960 rows), on top-bit keys with
+     heavy duplicates across both runs and on its edge inputs
+     (tests/fold_stacks.py MERGE_EDGES: one run empty, odd tile counts,
+     one key everywhere, lo of all ones and pad rows, one run below the
+     other, spans off 16-byte boundaries, the wrapper's tile 1), the
+     intersect at 2^17 candidates
      in a 2^20-row run; the store's dispatch runs under sync-debug mode
      "error". The mesh's kernels at phase 9's layout (2^18 rows a shard):
      sharded_validate on both dp slices of the ladder batch (each bails)
@@ -50,7 +55,10 @@ caught:
      on each of the four shards, and over a pending + posted overflow on
      a row of shard 3 that no event touches (must bail); sharded_read at
      2n = 16384 slots with -1 and the last row, its four shards combined
-     equal to read_balances; the exact kernel's external-base mode on a
+     equal to read_balances; register_accounts_sharded into the mesh's
+     eight ledger and flags tables in one launch (k = 8192, 10% masked,
+     slots -1, -A, A and -A - 1), timed beside eight launches of
+     register_accounts; the exact kernel's external-base mode on a
      config-3 and a config-4 batch; one sharded fast and one sharded
      exact commit on a virtual mesh under sync-debug mode "error", equal
      to the single-device kernels. The compaction kernels run after
@@ -127,7 +135,9 @@ caught:
      (10,000 accounts, 16 batches, a clock jump of 2 s). Every result, the
      sampled accounts' lookup bytes and the dense balance tables read back
      from the shards must equal the single-device machine's, and the dp
-     replicas must be byte-equal. It prints both machines' transfers/s and
+     replicas must be byte-equal. Registration launches once a
+     create_accounts batch and card (register_accounts_sharded), never
+     register_accounts. It prints both machines' transfers/s and
      p50/p99. The mesh is virtual: it proves the sharded arithmetic, the
      slot routing and the bail contract on the card, not NVLink.
 
@@ -740,6 +750,43 @@ def phase_sharded(torch, C, rng, dev):
            masked_select, nbytes, ops, err, owned_rows=owned)
     del blocks, shards
 
+    # register_accounts_sharded at the mesh's layout: the eight ledger and
+    # flags tables of dp 2 x shard 4 on the card, one create_accounts batch
+    # (k = 8192), 10% masked out, slots -1 and -A (from the end), A and
+    # -A - 1 (dropped). In place: each side gets its own copies of the
+    # tables; timed calls rewrite the same rows.
+    mesh = S.make_mesh([dev] * MESH_DEVICES)
+    tables = list(S.init_sharded_state(A_MAX, mesh).shards)
+    k = N
+    slots_np = (1 + rng.choice(A_MAX - 2, k, replace=False)).astype(np.int32)  # distinct
+    slots_np[:4] = [-1, -A_MAX, A_MAX, -A_MAX - 1]
+    reg = (torch.from_numpy(slots_np).to(dev),
+           torch.from_numpy(rng.integers(1, 9, k).astype(np.uint32)).to(dev),
+           torch.from_numpy(rng.integers(0, 1 << 16, k).astype(np.uint32)).to(dev),
+           torch.from_numpy(rng.random(k) < 0.9).to(dev))
+    copies = lambda: [st._replace(ledger=st.ledger.clone(), flags=st.flags.clone()) for st in tables]
+    err = max_abs_err(torch, f"register_accounts_sharded ({len(tables)} tables)",
+                      tuple(S.register_accounts_grouped(copies(), *reg)),
+                      tuple(S.register_accounts_grouped_plain(copies(), *reg)))
+    at = reg[0].long()
+    at = torch.where(at < 0, at + A_MAX, at)
+    keep = (at >= 0) & (at < A_MAX) & reg[3]
+    k_in, at = int(keep.sum()), at[keep]
+    cols = [reg[1].view(torch.int32)[keep], reg[2].view(torch.int32)[keep]]
+    lib = lambda: [t.view(torch.int32).index_copy_(0, at, c) for st in tables
+                   for t, c in zip((st.ledger, st.flags), cols)]
+    record(torch, "register_accounts_sharded", "register_accounts.cu",
+           "tigerbeetle_tpu/parallel/sharding.py:295",
+           lambda: S.register_accounts_grouped(tables, *reg),
+           lambda: S.register_accounts_grouped_plain(tables, *reg),
+           lib, k * 13 + k_in * 8 * len(tables), 4 * k + 2 * k_in * len(tables), err,
+           tables=len(tables), library_is="16 index_copy_ (ledger and flags of each table)",
+           ms_8x_register_accounts=cuda_ms(
+               torch, lambda: [C.register_accounts(st, *reg) for st in tables], 10))
+    log(f"register_accounts_sharded: 8 x register_accounts "
+        f"{RESULTS['register_accounts_sharded']['ms_8x_register_accounts']:.4f} ms")
+    del tables
+
     # The exact kernel's external-base mode on the config-3 and config-4
     # batches (base: sharded_read over the four shards of their states, combined).
     ext = {}
@@ -766,7 +813,6 @@ def phase_sharded(torch, C, rng, dev):
 
     # One sharded fast and one sharded exact commit on the virtual mesh,
     # under sync-debug mode "error", against the single-device kernels.
-    mesh = S.make_mesh([dev] * MESH_DEVICES)
     sops = ShardedOps(mesh, A_MAX)
     fast_state = S.sharded_state_from_reference(st_np, mesh)
     exact_state = S.sharded_state_from_reference(C.state_to_numpy(c3[0]), mesh)
@@ -912,7 +958,7 @@ def phase_qindex(torch, dev, rng):
     runs = [Q.query_index_keys_sorted(*staged_of(query_mix(rng, n, pool, 1 + i * n), i * n))
             for i in range(4)]
     merr = 0
-    shapes = {}
+    shapes, alone = {}, {}  # 10 calls back to back; one call a window
     ka, pa = runs[0]
     for i, (kb, pb) in enumerate(runs[1:], 1):
         got = M.merge_kernel_tiled(ka, pa, kb, pb)
@@ -921,6 +967,7 @@ def phase_qindex(torch, dev, rng):
         merr = max(merr, max_abs_err(torch, f"merge_kernel_tiled flush {label}", got, want))
         a, b = (ka, pa), (kb, pb)
         shapes[label] = cuda_ms(torch, lambda: M.merge_kernel_tiled(*a, *b), 10)
+        alone[label] = cuda_ms(torch, lambda: M.merge_kernel_tiled(*a, *b), 1)
         last = (ka, pa, kb, pb)
         ka, pa = got
     # Top-bit keys (lo1 >= 2^31) with heavy duplicates across both runs.
@@ -935,6 +982,15 @@ def phase_qindex(torch, dev, rng):
     top = (*top_run(5 * N), *top_run(5 * N))
     merr = max(merr, max_abs_err(torch, "merge_kernel_tiled top-bit duplicates",
                                  M.merge_kernel_tiled(*top), M.merge_kernel_tiled_plain(*top)))
+    # The kernel's edge inputs (tests/fold_stacks.py MERGE_EDGES).
+    import fold_stacks
+
+    for case, n_a, n_b, tile in fold_stacks.MERGE_EDGES:
+        pair = [torch.from_numpy(x).to(dev) for x in
+                fold_stacks.merge_pair(np.random.default_rng(n_a + 3 * n_b), case, n_a, n_b)]
+        merr = max(merr, max_abs_err(
+            torch, f"merge_kernel_tiled {case} {n_a}+{n_b} tile {tile}",
+            M.merge_kernel_tiled(*pair, tile), M.merge_kernel_tiled_plain(*pair, tile)))
     cat_key = torch.cat([packed_key(torch, last[0]), packed_key(torch, last[2])])
     cat_k = torch.cat([last[0].view(torch.int32), last[2].view(torch.int32)])
     cat_p = torch.cat([last[1].view(torch.int32), last[3].view(torch.int32)])
@@ -947,7 +1003,7 @@ def phase_qindex(torch, dev, rng):
     record(torch, "merge_kernel_tiled", "merge_kernel_tiled.cu", "tigerbeetle_tpu/ops/merge.py:104",
            lambda: M.merge_kernel_tiled(*last), lambda: M.merge_kernel_tiled_plain(*last),
            merge_library, nbytes, ops, merr, shape=f"{last[0].shape[0]}+{last[2].shape[0]}",
-           ms_by_shape=shapes,
+           ms_by_shape=shapes, ms_alone_by_shape=alone,
            library_is="torch.sort(stable=True) of the concatenation's packed keys + 2 index_select")
 
     # The intersect: 2^17 candidates in a 2^20-row run, rows >= 2^31 too.
@@ -1928,7 +1984,7 @@ def run_compaction_config(torch, rng, n_batches=STORM_BATCHES):
 
 # --- phase 9: the commit path on a mesh (one card named eight times) ------
 
-MESH_KERNELS = ("sharded_validate", "sharded_apply", "sharded_read", "register_accounts",
+MESH_KERNELS = ("sharded_validate", "sharded_apply", "sharded_read", "register_accounts_sharded",
                 "write_balances", "create_transfers_exact", "exact_sort_plan")
 
 
@@ -1960,6 +2016,7 @@ def run_mesh_config(torch, name, mesh, n_accounts, acc_flags, n_batches, next_ba
             lo = ev["id_lo"].astype(np.int64) - 1
             ev["flags"] = acc_flags[lo]
             results.append(sm.create_accounts(ev))
+        account_ops = len(results)
         got = None
         for i in range(n_batches + (bail_ids is not None)):
             if label == "mesh":
@@ -1997,6 +2054,15 @@ def run_mesh_config(torch, name, mesh, n_accounts, acc_flags, n_batches, next_ba
                           launches=launches, lat_ms=lat_ms, snap=tracer.snapshot())
         del sm
     m, s = out["mesh"], out["single"]
+    # One registration launch a create_accounts batch and card (a launch
+    # takes at most GROUP_TABLES of the card's tables), none a table.
+    per_batch = sum(-(-mesh.flat.count(d) // S.GROUP_TABLES) for d in mesh.distinct())
+    if (m["launches"]["register_accounts_sharded"] != account_ops * per_batch
+            or m["launches"]["register_accounts"]):
+        raise SystemExit(f"{name}: registration launched register_accounts_sharded "
+                         f"{m['launches']['register_accounts_sharded']} times (want {account_ops} "
+                         f"batches x {per_batch}) and register_accounts "
+                         f"{m['launches']['register_accounts']} times (want 0)")
     for i, (g, w) in enumerate(zip(m["results"], s["results"], strict=True)):
         expect_equal(g, w, f"{name} mesh op {i}")
     for g, w in zip(m["looked"], s["looked"], strict=True):
@@ -2088,7 +2154,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels.build_all()
-    log(f"phase 1: built {len(kernels.SIGNATURES)} kernels in {time.perf_counter() - t0:.2f} s")
+    log(f"phase 1: built {len(kernels.SIGNATURES)} kernels from "
+        f"{len(set(kernels.SIGNATURES) - set(kernels.SOURCES))} sources in "
+        f"{time.perf_counter() - t0:.2f} s")
     # The C host shims (staging, hash map, block checksum) build at first
     # use too: build them here, outside the timed batches.
     t0 = time.perf_counter()

@@ -412,6 +412,68 @@ def test_merge_kernel_tiled_kernel(dev, tile):
     assert _equal(got[0], want[0]) and _equal(got[1], want[1])
 
 
+def _merge_equal(dev, runs, tile):
+    from tigerbeetle_tpu_torch.ops import merge as M
+
+    ka, pa, kb, pb = (torch.from_numpy(x).to(dev) for x in runs)
+    before = C.LAUNCHES["merge_kernel_tiled"]
+    got = M.merge_kernel_tiled(ka, pa, kb, pb, tile)
+    want = M.merge_kernel_tiled_plain(ka, pa, kb, pb, tile)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["merge_kernel_tiled"] == before + (1 if ka.shape[0] + kb.shape[0] else 0)
+    assert _equal(got[0], want[0]) and _equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,n,m,tile", fold_stacks.MERGE_EDGES)
+def test_merge_kernel_tiled_edges_kernel(dev, case, n, m, tile):
+    """One run empty, odd tile counts, one key everywhere, lo of all ones
+    and pad rows, one run below the other, spans off 16-byte boundaries,
+    the wrapper's tile 1 (tests/fold_stacks.py MERGE_EDGES)."""
+    _merge_equal(dev, fold_stacks.merge_pair(np.random.default_rng(n + 3 * m), case, n, m), tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(40_960, 40_960), (81_920, 40_960), (122_880, 40_960)])
+def test_merge_kernel_tiled_flush_shapes_kernel(dev, n, m):
+    """The query tree's three flush shapes, top-bit keys with duplicates."""
+    _merge_equal(dev, fold_stacks.merge_pair(np.random.default_rng(n), "uneven", n, m), 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tables,k,case", [
+    (1, 256, "edges"), (2, 256, "edges"), (8, 8192, "edges"), (40, 256, "edges"),
+    (8, 0, "edges"), (8, 1, "edges"), (8, 256, "mask_none"),
+])
+def test_register_accounts_grouped_kernel(dev, tables, k, case):
+    """The grouped registration over `tables` LedgerStates of one card
+    against register_accounts_plain on each (40 tables: two launches of
+    at most GROUP_TABLES). Slots -1 and -A count from the end; A and
+    -A - 1 are dropped."""
+    from tigerbeetle_tpu_torch.parallel import sharding as S
+
+    rng = np.random.default_rng(tables * 1000 + k)
+    states = [_state(rng, dev) for _ in range(tables)]
+    # distinct slots: 1 .. A - 2 at random, -1 (A - 1) and -A (0) from the
+    # end, A and -A - 1 dropped
+    slots_np = rng.choice(np.arange(1, A - 1), k, replace=False).astype(np.int32)
+    edge = [-1, -A, A, -A - 1][:k]
+    slots_np[:len(edge)] = edge
+    slots = torch.from_numpy(slots_np).to(dev)
+    ledger = torch.from_numpy(rng.integers(1, 9, k).astype(np.uint32)).to(dev)
+    flags = torch.from_numpy(rng.integers(0, 1 << 16, k).astype(np.uint32)).to(dev)
+    share = 0.0 if case == "mask_none" else 0.9
+    mask = torch.from_numpy(rng.random(k) < share).to(dev)
+    got, want = [_clone(st) for st in states], [_clone(st) for st in states]
+    before = C.LAUNCHES["register_accounts_sharded"]
+    S.register_accounts_grouped(got, slots, ledger, flags, mask)
+    S.register_accounts_grouped_plain(want, slots, ledger, flags, mask)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["register_accounts_sharded"] == before + -(-tables // S.GROUP_TABLES)
+    for g, w in zip(got, want):
+        assert all(_equal(getattr(g, f), getattr(w, f)) for f in C.LedgerState._fields)
+
+
 @pytest.mark.cuda
 def test_scan_intersect_mask_kernel(dev):
     from tigerbeetle_tpu_torch.ops import scanops as S

@@ -5,7 +5,8 @@ merge_kernel_tiled's plain version must be byte-equal to the JAX kernel
 (jit on the CPU) on the same numpy runs: keys whose high word has its top
 bit set (a signed carrier would disorder them), duplicates inside a run
 and across both runs (A's rows first), padding rows, and runs shorter
-than a tile, at the 256-row tile and a smaller one. The host helpers
+than a tile, at the 256-row tile and a smaller one, and the card kernel's
+edge inputs (tests/fold_stacks.py MERGE_EDGES). The host helpers
 (bucket_pow2, to_device_run / from_device_run, merge_device, merge_host,
 merge_host_kway) must agree with the reference's too.
 """
@@ -17,6 +18,8 @@ import torch
 from tigerbeetle_tpu.ops import merge as ref_merge
 from tigerbeetle_tpu_torch.lsm.store import KEY_DTYPE, sort_kv
 from tigerbeetle_tpu_torch.ops import merge
+
+import fold_stacks
 
 
 def host_run(rng, n, space, top_bit=False):
@@ -59,6 +62,22 @@ def test_merge_kernel_tiled_matches_reference(na, nb, space, top_bit, tile):
     runs = device_runs(rng, na, nb, space, top_bit)  # 256-row multiples
     pk, pp = merge.merge_kernel_tiled(*_t(runs), tile=tile)
     rk, rp = ref_merge.merge_kernel_tiled(*runs, tile=tile)
+    assert pk.numpy().tobytes() == np.asarray(rk).tobytes()
+    assert pp.numpy().tobytes() == np.asarray(rp).tobytes()
+
+
+@pytest.mark.parametrize("case,n,m,tile", fold_stacks.MERGE_EDGES)
+def test_merge_kernel_tiled_edges_match_reference(case, n, m, tile):
+    """The card kernel's edge inputs (tests/fold_stacks.py MERGE_EDGES)
+    through the plain version and the reference. The reference's tiled
+    merge indexes into an empty run, so where one run is empty its global
+    merge (ops/merge.py merge_kernel, the same function) stands in."""
+    runs = fold_stacks.merge_pair(np.random.default_rng(n + 3 * m), case, n, m)
+    pk, pp = merge.merge_kernel_tiled(*_t(runs), tile=tile)
+    if n and m:
+        rk, rp = ref_merge.merge_kernel_tiled(*runs, tile=tile)
+    else:
+        rk, rp = ref_merge.merge_kernel(*runs)
     assert pk.numpy().tobytes() == np.asarray(rk).tobytes()
     assert pp.numpy().tobytes() == np.asarray(rp).tobytes()
 

@@ -360,6 +360,52 @@ def test_slot_conventions(mesh):
         np.testing.assert_array_equal(_np(g), np.asarray(w))
 
 
+REG_CASES = {  # (k, share of rows masked in, slots placed at the front)
+    "edges": (256, 0.9, [-1, -A, A, -A - 1, -(A // 4) - 1, A // 4]),
+    "mask_none": (64, 0.0, [-1, -A, A, -A - 1]),
+    "k0": (0, 1.0, []),
+    "k1": (1, 1.0, [-A]),
+}
+
+
+@pytest.mark.parametrize("case", list(REG_CASES))
+def test_register_accounts_sharded_matches_reference(ref_mesh, mesh, monkeypatch, case):
+    """Registration on the mesh: one grouped call for each distinct device
+    (one here: the eight shards of make_mesh([cpu] * 8)), over every table
+    that device holds, and every shard's ledger and flags equal to the
+    reference's register_accounts_sharded on its 8-device mesh. Slots -1
+    and -A count from the end; A and -A - 1 are dropped, as masked rows."""
+    k, share, edge = REG_CASES[case]
+    rng = np.random.default_rng(len(case) * 31 + k)
+    dense = X.state(rng, A)
+    # distinct slots (the contract): the random ones avoid the edges' rows
+    free = np.setdiff1d(np.arange(A), [0, A - 1, A - A // 4 - 1, A // 4])
+    slots = rng.choice(free, k, replace=False).astype(np.int32)
+    slots[:len(edge)] = edge
+    ledger = rng.integers(1, 9, k).astype(np.uint32)
+    flags = rng.integers(0, 1 << 16, k).astype(np.uint32)
+    mask = rng.random(k) < share
+    calls = []
+    grouped = S.register_accounts_grouped
+
+    def counted(tables, *args):
+        calls.append(len(tables))
+        return grouped(tables, *args)
+
+    monkeypatch.setattr(S, "register_accounts_grouped", counted)
+    state = S.register_accounts_sharded(mesh, S.sharded_state_from_reference(dense, mesh),
+                                        *(_t(x) for x in (slots, ledger, flags, mask)))
+    assert calls == [8]
+    ref = ref_sharding.register_accounts_sharded(
+        ref_mesh, _ref_place(dense, ref_mesh),
+        *(jnp.asarray(x) for x in (slots, ledger, flags, mask)))
+    want = _ref_dense(ref)
+    for sh in state.shards:
+        np.testing.assert_array_equal(_np(sh.ledger), want["ledger"])
+        np.testing.assert_array_equal(_np(sh.flags), want["flags"])
+    _assert_dense(state, mesh, want)
+
+
 def _mesh_run(mesh, dense, seed):
     """One fast and one exact commit on `mesh`, from the same inputs."""
     _, b, host = _setup(np.random.default_rng(seed))

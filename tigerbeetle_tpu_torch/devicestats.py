@@ -95,10 +95,13 @@ COSTS = {
         _nbytes(cols, ts, rows, pad) + 2 * 5 * rows.numel() * 12,
         40 * rows.numel() + 4 * 5 * rows.numel() * max(1, (rows.numel() - 1).bit_length()),
     ),
-    # both runs in, their merge out; a binary search in a tile per row.
-    "merge_kernel_tiled": lambda ka, pa, kb, pb, tile=256: (
+    # both runs in, their merge out; ~8 operations a key compare, and
+    # about five compares a row: its merge step, its share of a thread's
+    # merge-path search in shared memory (9 steps for 3 rows) and of the
+    # tile's two co-rank searches (3 rounds of up to 64 probes for 384 rows).
+    "merge_kernel_tiled": lambda ka, pa, kb, pb: (
         2 * _nbytes(ka, pa, kb, pb),
-        (ka.shape[0] + kb.shape[0]) * 8 * _log2(tile),
+        (ka.shape[0] + kb.shape[0]) * 8 * 5,
     ),
     # both runs in, their merge out; a binary search over the other run
     # per row.

@@ -61,7 +61,11 @@ SIGNATURES = {
     "sharded_validate": ("tb_sharded_validate", [_P] * 15 + [_I] * 3 + [_P]),
     "sharded_apply": ("tb_sharded_apply", [_P] * 15 + [_I] * 3 + [_P]),
     "sharded_read": ("tb_sharded_read", [_P] * 9 + [_I] * 4 + [_P]),
+    "register_accounts_sharded": ("tb_register_accounts_sharded", [_P, _P, _I] + [_P] * 4 + [_I, _I, _P]),
 }
+
+# The source of each entry that is not csrc/<entry>.cu.
+SOURCES = {"register_accounts_sharded": "register_accounts"}
 
 # Kernel launches per entry (plain-version calls do not count).
 LAUNCHES: Dict[str, int] = dict.fromkeys(SIGNATURES, 0)
@@ -99,10 +103,12 @@ def _lib_path(name: str) -> str:
 
 
 def build_all(names: List[str] = None) -> None:
-    """Compile every missing library, one nvcc process per source, all
-    started together; raises with nvcc's output if any build fails."""
+    """Compile the missing libraries of entries `names` (default: all), one
+    nvcc process per source, all started together; raises with nvcc's
+    output if any build fails."""
     names = list(SIGNATURES) if names is None else names
-    todo = [n for n in names if not os.path.exists(_lib_path(n))]
+    sources = dict.fromkeys(SOURCES.get(n, n) for n in names)
+    todo = [n for n in sources if not os.path.exists(_lib_path(n))]
     if not todo:
         return
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -129,6 +135,7 @@ def build_all(names: List[str] = None) -> None:
 
 def _library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`, building it if needed."""
+    name = SOURCES.get(name, name)
     with _lock:
         lib = _libs.get(name)
         if lib is None:

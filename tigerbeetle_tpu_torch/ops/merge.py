@@ -14,7 +14,8 @@ and its plain PyTorch version (`*_plain`) for CPU tensors; a CUDA tensor
 never takes the plain version:
 
   - `merge_kernel_tiled` (csrc/merge_kernel_tiled.cu): the merge-path
-    tiled merge; the memtable flush of the query index folds its sorted
+    tiled merge (the kernel picks its own tile; `tile` is the callers'
+    padding); the memtable flush of the query index folds its sorted
     runs through it (ops/qindex.fold_runs_device).
   - `merge_kernel` (csrc/merge_kernel.cu): the reference's global
     binary-search merge, any run lengths and payload widths; on no path

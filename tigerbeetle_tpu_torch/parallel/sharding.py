@@ -33,9 +33,11 @@ writeback of the state machine's lookups and serial route
 (`read_balances_sharded`, `write_balances_sharded`). On a mesh of CUDA
 devices the commits launch three hand-written kernels
 (csrc/sharded_validate.cu, sharded_apply.cu, sharded_read.cu) and the
-exact kernel's external-base mode; on a mesh of CPUs they run their plain
-versions (`*_plain`), the reference's shard_map step written out device
-by device. Each kernel wrapper has its own plain version beside it.
+exact kernel's external-base mode, and registration one
+(csrc/register_accounts.cu) a card; on a mesh of CPUs they run
+their plain versions (`*_plain`), the reference's shard_map step written
+out device by device. Each kernel wrapper has its own plain version
+beside it.
 """
 
 from __future__ import annotations
@@ -634,14 +636,58 @@ def make_sharded_commit_exact(mesh: Mesh, accounts_max: int):
 # --- registration, lookups and the serial writeback ----------------------
 
 
+GROUP_TABLES = 32  # tables a launch (csrc/register_accounts.cu kMaxTables)
+
+
+def register_accounts_grouped_plain(tables, slots, ledger, flags, mask):
+    """Plain PyTorch version of register_accounts_grouped:
+    ops/commit.register_accounts_plain on each table in turn."""
+    for st in tables:
+        commit.register_accounts_plain(st, slots, ledger, flags, mask)
+    return tables
+
+
+def register_accounts_grouped(tables, slots, ledger, flags, mask):
+    """ops/commit.register_accounts into every LedgerState of `tables`
+    (all on one device), in place: csrc/register_accounts.cu's grouped
+    entry, one
+    launch a GROUP_TABLES tables, for CUDA tensors; the plain version for
+    CPU tensors. Reads and writes only ledger and flags ((A,) uint32
+    each). Returns `tables`."""
+    dev = tables[0].ledger.device
+    if dev.type == "cpu":
+        return register_accounts_grouped_plain(tables, slots, ledger, flags, mask)
+    a = tables[0].ledger.shape[0]
+    for st in tables:
+        _check(st.ledger, "tables[].ledger", torch.uint32, (a,), dev)
+        _check(st.flags, "tables[].flags", torch.uint32, (a,), dev)
+    k = slots.shape[0]
+    _check(slots, "slots", torch.int32, (k,), dev)
+    _check(ledger, "ledger", torch.uint32, (k,), dev)
+    _check(flags, "flags", torch.uint32, (k,), dev)
+    _check(mask, "mask", torch.bool, (k,), dev)
+    for lo in range(0, len(tables), GROUP_TABLES):
+        chunk = tables[lo:lo + GROUP_TABLES]
+        kernels.launch(
+            "register_accounts_sharded", dev,
+            kernels.pointer_array([st.ledger.data_ptr() for st in chunk]),
+            kernels.pointer_array([st.flags.data_ptr() for st in chunk]), len(chunk),
+            slots.data_ptr(), ledger.data_ptr(), flags.data_ptr(), mask.data_ptr(), a, k,
+        )
+    return tables
+
+
 def register_accounts_sharded(
     mesh: Mesh, state: ShardedState, slots, ledger, flags, mask,
 ) -> ShardedState:
-    """Install new accounts' replicated ledger and flags (reference :295):
-    ops/commit.register_accounts (kernel 2, or its plain version on a
-    CPU) once per mesh device, in place. Balances stay zero."""
-    for sh, d in zip(state.shards, mesh.flat):
-        commit.register_accounts(sh, *(_peer(x, d) for x in (slots, ledger, flags, mask)))
+    """Install new accounts' replicated ledger and flags (reference :295),
+    in place: register_accounts_grouped once for each distinct device of
+    the mesh, over the shards that device holds. Balances stay zero."""
+    for d in mesh.distinct():
+        register_accounts_grouped(
+            [sh for sh, at in zip(state.shards, mesh.flat) if at == d],
+            *(_peer(x, d) for x in (slots, ledger, flags, mask)),
+        )
     return state
 
 

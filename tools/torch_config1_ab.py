@@ -1,18 +1,22 @@
 """BASELINE config 1 on the PyTorch port (chip_smoke.py's phase 3) alone,
-from two checkouts in alternation on one card: batch latencies and span
-totals of each run, so that a shift between two trees can be told from
-the run-to-run spread.
+or the mesh (its phase 9), from two checkouts in alternation on one card:
+batch latencies and span totals of each run, so that a shift between two
+trees can be told from the run-to-run spread.
 
     python3 tools/torch_config1_ab.py A_ROOT B_ROOT [--pairs 4] [--seed S]
+        [--phase config1|mesh]
 
 A_ROOT and B_ROOT are checkouts of the repo (for example a parent commit
 and a change unpacked with `git archive`). Runs go A B B A A B B A ...,
 each in a process of its own that imports that checkout's
 `tigerbeetle_tpu_torch` and `chip_smoke.py`, builds its kernels, then
 drives config 1 (10,000 accounts, 64 uniform batches of 8190 transfers
-on CUDA against a CPU twin) `--reps` times from the same seed. A line of
-JSON per run and a summary per tree go to standard output. Needs one
-CUDA card.
+on CUDA against a CPU twin) `--reps` times from the same seed; with
+`--phase mesh` it drives phase 9 once instead (config 2's and config 3's
+traffic on `make_mesh([cuda:0] * 8)` and on one device, chip_smoke.py's
+seed for it): transfers/s, p50 and p99 of each of the four machine runs
+and the mean of each of the mesh's device windows. A line of JSON per
+run and a summary per tree go to standard output. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -26,7 +30,36 @@ import sys
 SPAN_PREFIXES = ("sm.", "lsm.", "qindex.", "device.step.")
 
 
-def child(root: str, seed: int, reps: int) -> None:
+def mesh_child(cs, torch, np, root: str, seed: int) -> None:
+    """Phase 9 once: a JSON line per machine run, from chip_smoke.py's log."""
+    from tigerbeetle_tpu_torch.parallel import sharding
+
+    lines = []
+    cs.log = lambda *a: lines.append(" ".join(map(str, a)))
+    cs.CARD[0] = cs.gpu_name_power()
+    mesh = sharding.make_mesh([torch.device("cuda", 0)] * cs.MESH_DEVICES)
+    cs.phase_mesh(torch, np.random.default_rng(seed + 19), cs.zipf_of(1_000_000), mesh)
+    windows = {}
+    for line in lines:
+        if " mesh: device windows " in line:
+            name, _, rest = line.partition(" mesh: device windows ")
+            windows[name] = {k: v["mean_ms"] for k, v in
+                             json.loads(rest.partition("; launches ")[0]).items()}
+    for line in lines:
+        if "transfers_per_s=" not in line:
+            continue
+        head, _, rest = line.partition(": ")
+        name, label = head.split(" (")[0].rsplit(" ", 1)
+        vals = dict(kv.split("=", 1) for kv in rest.split(" stats=")[0].split())
+        print(json.dumps({
+            "root": root, "run": f"{name} {label}",
+            "transfers_per_s": float(vals["transfers_per_s"]),
+            "p50_ms": float(vals["batch_p50_ms"]), "p99_ms": float(vals["batch_p99_ms"]),
+            "windows_mean_ms": windows.get(name, {}) if label == "mesh" else {},
+        }), flush=True)
+
+
+def child(root: str, seed: int, reps: int, phase: str) -> None:
     root = os.path.abspath(root)
     sys.path[:0] = [root, os.path.join(root, "tests")]
     import numpy as np
@@ -40,6 +73,8 @@ def child(root: str, seed: int, reps: int) -> None:
         raise SystemExit("no CUDA device")
     kernels.build_all()
     native.hostops()
+    if phase == "mesh":
+        return mesh_child(cs, torch, np, root, seed)
     lines = []
     cs.log = lambda *a: lines.append(" ".join(map(str, a)))
     n1 = 10_000
@@ -54,7 +89,7 @@ def child(root: str, seed: int, reps: int) -> None:
         lat = json.loads(next(l for l in lines if l.startswith(tag))[len(tag):])
         ms = np.array(lat[1:])  # the first batch pays one-time setup
         print(json.dumps({
-            "root": root, "rep": rep, "batches": len(ms),
+            "root": root, "run": "config1", "rep": rep, "batches": len(ms),
             "p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
             "mean_ms": float(ms.mean()),
             "spans_ms": {k: round(v["total_ms"], 3) for k, v in sorted(snap.items())
@@ -68,10 +103,11 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=4)
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--seed", type=int, default=20261017)
+    ap.add_argument("--phase", choices=("config1", "mesh"), default="config1")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(args.child, args.seed, args.reps)
+        child(args.child, args.seed, args.reps, args.phase)
         return 0
     if len(args.roots) != 2:
         ap.error("give two checkouts, A_ROOT and B_ROOT")
@@ -86,7 +122,7 @@ def main() -> int:
     for k in order:
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--child", args.roots[k],
-             "--seed", str(args.seed), "--reps", str(args.reps)],
+             "--seed", str(args.seed), "--reps", str(args.reps), "--phase", args.phase],
             capture_output=True, text=True, timeout=900,
         )
         if out.returncode != 0:
@@ -98,17 +134,23 @@ def main() -> int:
                 row["tree"] = "AB"[k]
                 runs[k].append(row)
                 print(json.dumps(row), flush=True)
-    for k, rows in runs.items():
-        p50 = sorted(r["p50_ms"] for r in rows)
-        mean = sorted(r["mean_ms"] for r in rows)
-        spans = sorted({s for r in rows for s in r["spans_ms"]})
-        print(json.dumps({
-            "tree": "AB"[k], "root": args.roots[k], "runs": len(rows),
-            "p50_ms": p50, "mean_ms": mean,
-            "spans_ms_min_max": {s: [min(r["spans_ms"].get(s, 0.0) for r in rows),
-                                     max(r["spans_ms"].get(s, 0.0) for r in rows)]
-                                 for s in spans},
-        }), flush=True)
+    for k, all_rows in runs.items():
+        for run in dict.fromkeys(r["run"] for r in all_rows):
+            rows = [r for r in all_rows if r["run"] == run]
+            summary = {"tree": "AB"[k], "root": args.roots[k], "run": run, "runs": len(rows),
+                       "p50_ms": sorted(r["p50_ms"] for r in rows)}
+            if run == "config1":
+                spans = sorted({s for r in rows for s in r["spans_ms"]})
+                summary["mean_ms"] = sorted(r["mean_ms"] for r in rows)
+                summary["spans_ms_min_max"] = {
+                    s: [min(r["spans_ms"].get(s, 0.0) for r in rows),
+                        max(r["spans_ms"].get(s, 0.0) for r in rows)] for s in spans}
+            else:
+                summary["transfers_per_s"] = sorted(r["transfers_per_s"] for r in rows)
+                windows = sorted({w for r in rows for w in r["windows_mean_ms"]})
+                summary["windows_mean_ms"] = {
+                    w: sorted(r["windows_mean_ms"][w] for r in rows) for w in windows}
+            print(json.dumps(summary), flush=True)
     return 0
 
 

@@ -1,4 +1,4 @@
-"""Four hand-written kernels of PERF.md from two checkouts in alternation
+"""Six hand-written kernels of PERF.md from two checkouts in alternation
 on one card: the kernels' CUDA-event times at the main path's shapes, so
 that a redesign can be held against its parent inside one call.
 
@@ -25,7 +25,17 @@ kernel byte-equal to its plain version:
     the built block's packed keys + 2 `index_select`);
   - row 10, `compact_fold_kernel` on a 16 x 131,072 stack of sorted
     top-bit runs of uneven lengths (phase 8's storm chunk, chip_smoke.py's
-    fold_stack).
+    fold_stack);
+  - row 9, `merge_kernel_tiled` at the query tree's three flush shapes
+    (`flush_pairs`: four sorted runs of the query mix, 40,960 rows each,
+    folded oldest first: 40,960 + 40,960, 81,920 + 40,960 and 122,880 +
+    40,960 rows), 10 calls back to back (`_ms`, as every row) and one
+    call a window (`_alone_ms`);
+  - rows 2 and 14, the registration of one create_accounts batch (k =
+    8192, 10% masked, slots -1, -A, A and -A - 1) into the eight ledger
+    and flags tables of phase 9's mesh (dp 2 x shard 4 on the card):
+    eight launches of `register_accounts`, and, where the checkout has
+    it, the one grouped launch of `register_accounts_grouped`.
 A line of JSON per run, then the medians per tree and the card's name and
 power limit. Needs one CUDA card.
 """
@@ -38,15 +48,37 @@ import os
 import subprocess
 import sys
 
+import numpy as np
+
 N = 8192
 A_MAX = 1 << 20
 FOLD_K, FOLD_B = 16, 131_072
 
 
+def flush_pairs(torch, cs, Q, M, dev, rng):
+    """The tiled merge's (A, B) pairs at the flush shapes, as chip_smoke.py
+    phase 2 makes them: four sorted runs of the query mix (n = 8190, 40,960
+    rows each, from Q.query_index_keys_sorted_plain), folded oldest first
+    through the plain merge. Returns [(label, (ka, pa, kb, pb))]."""
+    pool = rng.integers(1, 1 << 62, 1024, dtype=np.uint64)
+    runs = []
+    for i in range(4):
+        recs = cs.query_mix(rng, cs.TX_BATCH, pool, 1 + i * cs.TX_BATCH)
+        rows = np.arange(i * len(recs), (i + 1) * len(recs), dtype=np.uint32)
+        ts = np.arange(1, len(recs) + 1, dtype=np.uint64) + np.uint64(i * len(recs) + (1 << 40))
+        staged = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                  for a in Q.stage_query_batch(recs, rows, ts)]
+        runs.append(Q.query_index_keys_sorted_plain(*staged))
+    pairs, (ka, pa) = [], runs[0]
+    for kb, pb in runs[1:]:
+        pairs.append((f"{ka.shape[0]}+{kb.shape[0]}", (ka, pa, kb, pb)))
+        ka, pa = M.merge_kernel_tiled_plain(ka, pa, kb, pb)
+    return pairs
+
+
 def child(root: str, seed: int) -> None:
     root = os.path.abspath(root)
     sys.path[:0] = [root, os.path.join(root, "tests")]
-    import numpy as np
     import torch
 
     import chip_smoke as cs
@@ -55,11 +87,14 @@ def child(root: str, seed: int) -> None:
     from tigerbeetle_tpu_torch.ops import kernels
     from tigerbeetle_tpu_torch.ops import merge as M
     from tigerbeetle_tpu_torch.ops import qindex as Q
+    from tigerbeetle_tpu_torch.parallel import sharding as S
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
+    grouped = "register_accounts_sharded" in kernels.SIGNATURES
     kernels.build_all(["exact_sort_plan", "compact_fold_kernel", "create_transfers_exact",
-                       "query_index_keys", "query_index_keys_sorted"])
+                       "query_index_keys", "query_index_keys_sorted", "merge_kernel_tiled",
+                       "register_accounts"] + ["register_accounts_sharded"] * grouped)
     dev = torch.device("cuda", 0)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     rng = np.random.default_rng(seed)
@@ -138,6 +173,31 @@ def child(root: str, seed: int) -> None:
     ks, ps = cs.fold_stack(torch, dev, rng, FOLD_K, FOLD_B)
     same("compact_fold_kernel", M.compact_fold_kernel(ks, ps), M.compact_fold_kernel_plain(ks, ps))
     row["compact_fold_kernel_ms"] = cs.cuda_ms(torch, lambda: M.compact_fold_kernel(ks, ps), 10)
+    del ks, ps
+    # Row 9 at the three flush shapes.
+    for label, pair in flush_pairs(torch, cs, Q, M, dev, rng):
+        same(f"merge_kernel_tiled {label}", M.merge_kernel_tiled(*pair),
+             M.merge_kernel_tiled_plain(*pair))
+        row[f"merge_kernel_tiled_{label}_ms"] = cs.cuda_ms(
+            torch, lambda: M.merge_kernel_tiled(*pair), 10)
+        row[f"merge_kernel_tiled_{label}_alone_ms"] = cs.cuda_ms(
+            torch, lambda: M.merge_kernel_tiled(*pair), 1)
+    # Rows 2 and 14 at phase 9's layout.
+    tables = list(S.init_sharded_state(A_MAX, S.make_mesh([dev] * 8)).shards)
+    slots = (1 + rng.choice(A_MAX - 2, N, replace=False)).astype(np.int32)  # distinct
+    slots[:4] = [-1, -A_MAX, A_MAX, -A_MAX - 1]
+    reg = (t(slots), t(rng.integers(1, 9, N).astype(np.uint32)),
+           t(rng.integers(0, 1 << 16, N).astype(np.uint32)), t(rng.random(N) < 0.9))
+    eight = lambda: [C.register_accounts(st, *reg) for st in tables]
+    copies = lambda: [st._replace(ledger=st.ledger.clone(), flags=st.flags.clone()) for st in tables]
+    same("register_accounts x 8", tuple(C.register_accounts(st, *reg) for st in copies()),
+         tuple(C.register_accounts_plain(st, *reg) for st in copies()))
+    row["register_accounts_x8_ms"] = cs.cuda_ms(torch, eight, 10)
+    if grouped:
+        same("register_accounts_grouped", tuple(S.register_accounts_grouped(copies(), *reg)),
+             tuple(S.register_accounts_grouped_plain(copies(), *reg)))
+        row["register_accounts_grouped_ms"] = cs.cuda_ms(
+            torch, lambda: S.register_accounts_grouped(tables, *reg), 10)
     print(json.dumps(row), flush=True)
 
 
@@ -163,7 +223,6 @@ def main() -> int:
         row = json.loads(out.strip().splitlines()[-1])
         print(json.dumps(row), flush=True)
         runs[root].append(row)
-    import numpy as np
 
     for root, rows in runs.items():
         print(json.dumps({"root": os.path.abspath(root), "runs": len(rows), **{

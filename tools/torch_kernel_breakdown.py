@@ -1,6 +1,6 @@
 """Where the device time of the sorted key build (row 7 of PERF.md), the
-exact sweep kernel (row 5a) and the exact sort plan (row 5b) goes, phase
-by phase, on one card.
+exact sweep kernel (row 5a), the exact sort plan (row 5b) and the tiled
+merge (row 9) goes, phase by phase, on one card.
 
     python3 tools/torch_kernel_breakdown.py ROOT [--reps 5] [--seed S]
 
@@ -8,20 +8,23 @@ ROOT is a checkout of the repo. The tool copies its package, its
 chip_smoke.py and tests/exact_batches.py to .chipcheck/breakdown/ (listed
 in .gitignore), inserts %globaltimer and clock64 stamps at the phase
 boundaries of the copies of csrc/query_index_keys_sorted.cu,
-csrc/create_transfers_exact.cu and csrc/exact_sort_plan.cu (thread 0 of
-each block writes them to a device array; the committed sources carry no
-stamp and no switch), builds the copies and runs each kernel `--reps`
-times on chip_smoke.py's phase-2 inputs: the key build and sort of the
-fold56-edge columns and of the query mix at n = 8190, the exact kernel on
-the config-3 and config-4 timed batches (A = 2^20, n = 8192, host plan)
-and the sort plan of the config-3 batch. It prints one JSON line per
+csrc/create_transfers_exact.cu, csrc/exact_sort_plan.cu and
+csrc/merge_kernel_tiled.cu (thread 0 of each block writes them to a
+device array; the committed sources carry no stamp and no switch), builds
+the copies and runs each kernel `--reps` times on chip_smoke.py's phase-2
+inputs: the key build and sort of the fold56-edge columns and of the
+query mix at n = 8190, the exact kernel on the config-3 and config-4
+timed batches (A = 2^20, n = 8192, host plan), the sort plan of the
+config-3 batch and the tiled merge at the three flush shapes
+(tools/torch_kernel_ab.py flush_pairs). It prints one JSON line per
 kernel and input: the median microseconds of each phase (by clock64 of
 the stamping block, scaled by the kernel's globaltimer span), the steps
-of the last radix pass or sweep (µs since the block's start) and the
-whole kernel's. The stamps are anchored on the sources' text: if an
-anchor no longer occurs exactly once, the tool stops with an error
-naming it, and the anchor is to be moved with the source. Needs one CUDA
-card.
+of the last radix pass or sweep (µs since the block's start), the whole
+kernel's CUDA-event time and the span from the first stamped block's
+start to the last stamp of any (blocks 0-63). The stamps are anchored on
+the sources' text: if an anchor no longer occurs exactly once, the tool
+stops with an error naming it, and the anchor is to be moved with the
+source. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -74,6 +77,8 @@ LABELS = {
     9: "scan", 10: "exchange", 11: "perm+inv_perm", 12: "heads",
     41: "0 static+seed", 42: "a scans+observe", 43: "b ladder", 44: "3 rollback+adds",
     45: "4 removals", 46: "copy wait", 47: "5 overflow check",
+    20: "co-ranks", 21: "spans to shared", 22: "merge", 23: "store", 24: "in-tile search",
+    25: "stage",
 }
 
 # [(anchor, replacement)] of each source: each anchor must occur exactly
@@ -162,6 +167,34 @@ EXACT_SWEEP += [
 ]
 EXACT_SWEEP_BARRIERS = [41, 42, 43, 44, 45]
 
+# The tiled merge as designed for the card (csrc/merge_kernel_tiled.cu).
+MERGE_TILED = [
+    ("  const long long d1 = d0 + kTile < n + m ? d0 + kTile : n + m;\n",
+     "  const long long d1 = d0 + kTile < n + m ? d0 + kTile : n + m;\n  int tb_k = 0;\n"
+     "  TB_STAMP(tb_k++, 0);\n"),
+    ("    if (lane == 0) s_split[warp] = a;\n  }\n  __syncthreads();\n",
+     "    if (lane == 0) s_split[warp] = a;\n  }\n  __syncthreads();\n  TB_STAMP(tb_k++, 20);\n"),
+    ("  __syncthreads();  // the spans are in shared memory\n",
+     "  __syncthreads();  // the spans are in shared memory\n  TB_STAMP(tb_k++, 21);\n"),
+    ("  int i = c, j = diag - c;\n",
+     "  __syncthreads();\n  TB_STAMP(tb_k++, 24);\n  int i = c, j = diag - c;\n"),
+    ("  __syncthreads();  // every span row read: the buffers take the output\n",
+     "  __syncthreads();  // every span row read: the buffers take the output\n"
+     "  TB_STAMP(tb_k++, 22);\n"),
+    ("  __syncthreads();\n  store_tile(ok + 3 * d0, s_key, 3 * rows);\n",
+     "  __syncthreads();\n  TB_STAMP(tb_k++, 25);\n  store_tile(ok + 3 * d0, s_key, 3 * rows);\n"),
+    ("  store_tile(op + 3 * d0, s_pay, 3 * rows);\n}\n",
+     "  store_tile(op + 3 * d0, s_pay, 3 * rows);\n  __syncthreads();\n  TB_STAMP(tb_k++, 23);\n}\n"),
+]
+
+# source -> (edits, barrier labels)
+STAMPS = {
+    "query_index_keys_sorted": (QIKS_CLUSTER, None),
+    "exact_sort_plan": (PLAN, None),
+    "create_transfers_exact": (EXACT_SWEEP, EXACT_SWEEP_BARRIERS),
+    "merge_kernel_tiled": (MERGE_TILED, None),
+}
+
 
 def patch(name: str, src: str, edits, barrier_labels=None) -> str:
     """src with the stamps inserted; exits naming the first anchor that
@@ -182,7 +215,7 @@ def patch(name: str, src: str, edits, barrier_labels=None) -> str:
 
 
 def prepare(root: str) -> None:
-    """Copy ROOT's package and the two scripts to OUT and stamp the three
+    """Copy ROOT's package and the two scripts to OUT and stamp the four
     sources."""
     if os.path.exists(OUT):
         shutil.rmtree(OUT)
@@ -192,11 +225,7 @@ def prepare(root: str) -> None:
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
     shutil.copy(os.path.join(root, "chip_smoke.py"), OUT)
     shutil.copy(os.path.join(root, "tests", "exact_batches.py"), os.path.join(OUT, "tests"))
-    for name, edits, barriers in (
-        ("query_index_keys_sorted", QIKS_CLUSTER, None),
-        ("exact_sort_plan", PLAN, None),
-        ("create_transfers_exact", EXACT_SWEEP, EXACT_SWEEP_BARRIERS),
-    ):
+    for name, (edits, barriers) in STAMPS.items():
         path = os.path.join(OUT, "tigerbeetle_tpu_torch", "csrc", f"{name}.cu")
         with open(path) as f:
             src = patch(name, f.read(), edits, barriers)
@@ -222,6 +251,18 @@ def phases(dbg, blocks):
     return out
 
 
+def grid_span(dbg) -> float:
+    """µs from the first start of a stamped block (blocks 0-63) to the last
+    stamp of any of them, by globaltimer."""
+    starts, ends = [], []
+    for blk in range(64):
+        g = [int(x) for x in dbg[blk * SLOTS:blk * SLOTS + 48]]
+        if g[0]:
+            starts.append(g[0])
+            ends.append(max(g))
+    return (max(ends) - min(starts)) / 1e3 if starts else 0.0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root")
@@ -237,12 +278,14 @@ def main() -> int:
     from tigerbeetle_tpu_torch.ops import commit as C
     from tigerbeetle_tpu_torch.ops import commit_exact as E
     from tigerbeetle_tpu_torch.ops import kernels
+    from tigerbeetle_tpu_torch.ops import merge as M
     from tigerbeetle_tpu_torch.ops import qindex as Q
+    from torch_kernel_ab import flush_pairs
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     kernels.build_all(["query_index_keys_sorted", "exact_sort_plan", "create_transfers_exact",
-                       "query_index_keys"])
+                       "query_index_keys", "merge_kernel_tiled"])
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
     pool = rng.integers(1, 1 << 62, 1024, dtype=np.uint64)
@@ -267,6 +310,10 @@ def main() -> int:
     _, b, _, p, chain, _ = c3
     runs.append(("exact_sort_plan", "config3",
                  lambda: E.sort_plan(b, p, chain, cs.A_MAX), [0, 1]))
+    # the first, a middle and the last of the 64 stamped blocks
+    for label, pair in flush_pairs(torch, cs, Q, M, dev, rng):
+        runs.append(("merge_kernel_tiled", label,
+                     lambda pair=pair: M.merge_kernel_tiled(*pair), [0, 31, 63]))
     for name, label, fn, blocks in runs:
         lib = kernels._library(name)
         lib.tb_debug_clear.restype = ctypes.c_int
@@ -275,7 +322,7 @@ def main() -> int:
         fn()
         torch.cuda.synchronize()
         per_block, details = {}, {}
-        extra = []
+        extra, spans = [], []
         for _ in range(args.reps):
             if lib.tb_debug_clear() != 0:
                 raise SystemExit(f"{name}: debug clear failed")
@@ -287,6 +334,7 @@ def main() -> int:
             for blk, (ph, span, detail) in zip(blocks, phases(buf, blocks)):
                 per_block.setdefault(blk, []).append((ph, span))
                 details.setdefault(blk, []).append(detail)
+            spans.append(grid_span(buf))
             if name == "create_transfers_exact":
                 extra.append((int(buf[63]) - int(buf[0])) / 1e3)
         for blk, reps in per_block.items():
@@ -304,8 +352,8 @@ def main() -> int:
                 # pass or sweep (fixed slots 48-55), the last run's
                 row["last_pass_stamps_us"] = details[blk][-1]
             print(json.dumps(row), flush=True)
-        print(json.dumps({"kernel": name, "input": label,
-                          "cuda_ms": cs.cuda_ms(torch, fn, 10)}), flush=True)
+        print(json.dumps({"kernel": name, "input": label, "cuda_ms": cs.cuda_ms(torch, fn, 10),
+                          "stamped_blocks_span_us": float(np.median(spans))}), flush=True)
     print(os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip())
     return 0
 

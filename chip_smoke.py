@@ -6,7 +6,7 @@
 Phases, in order; any failure exits non-zero and no phase's failure is
 caught:
 
-  1. Build: compile the sixteen CUDA kernels (fifteen sources in
+  1. Build: compile the seventeen CUDA kernels (fifteen sources in
      tigerbeetle_tpu_torch/csrc, one nvcc per source, all started
      together) and print the seconds.
   2. Kernels vs plain, at the main path's shapes (A = 2^20 accounts,
@@ -35,7 +35,9 @@ caught:
      over 3.35 TB/s; integer operations over 67 TOP/s never dominate), the
      plain version's time and, where one exists, the PyTorch call
      computing the same function. The store stage's and the query path's
-     kernels at their main-path shapes: both key builds at n = 8190 (fold56
+     kernels at their main-path shapes: both key builds at n = 8190, each
+     one launch of its own kernel and the sorted build none of the build's
+     (fold56
      edge values, random columns, pad words 0, 1, 2 and 2^32 - 1, and the
      query mix of phase 7, each timed beside the library sort), the sorted
      build on the radix sort's edge blocks (tests/exact_batches.py
@@ -53,7 +55,11 @@ caught:
      sharded_validate on both dp slices of the ladder batch (each bails)
      and of the post batch; sharded_apply with the post batch's routing
      on each of the four shards, and over a pending + posted overflow on
-     a row of shard 3 that no event touches (must bail); sharded_read at
+     a row of shard 3 that no event touches (must bail); its grouped
+     entry over phase 9's eight shards in one launch (the clean batch;
+     an untouched overflow on mesh device 3 alone, must bail; an old
+     overflow on device 6 that a removal cures, must not), timed beside
+     eight one-shard launches; sharded_read at
      2n = 16384 slots with -1 and the last row, its four shards combined
      equal to read_balances; register_accounts_sharded into the mesh's
      eight ledger and flags tables in one launch (k = 8192, 10% masked,
@@ -137,8 +143,10 @@ caught:
      from the shards must equal the single-device machine's, and the dp
      replicas must be byte-equal. Registration launches once a
      create_accounts batch and card (register_accounts_sharded), never
-     register_accounts. It prints both machines' transfers/s and
-     p50/p99. The mesh is virtual: it proves the sharded arithmetic, the
+     register_accounts; the posting once a commit and card
+     (sharded_apply_grouped), never the one-shard sharded_apply. It
+     prints both machines' transfers/s and p50/p99 and the mesh's
+     launches. The mesh is virtual: it proves the sharded arithmetic, the
      slot routing and the bail contract on the card, not NVLink.
 
 With --mesh-cards N, phase 1 and then phase 9 alone run, on a mesh of
@@ -148,7 +156,11 @@ single-device machine on the first: the peer copies between cards.
 Kernel launch counts are reset to 0 just before each main-path run (each
 of phases 3-8, phase 7's storm and phase 9's two mesh runs) and read just
 after; each kernel of that path must have launched in it. merge_kernel is on no path (as in the
-reference, whose only callers are its tests): its launches stay 0. The
+reference, whose only callers are its tests): its launches stay 0. Nor
+are query_index_keys (the sorted build computes its keys in its own
+launch) and the one-shard sharded_apply (the mesh posts through the
+grouped entry, once a commit and card): every main-path run checks
+that they launch 0 times. The
 last lines are the kernels' JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. Without CUDA (or without the repository
 beside it) the script exits non-zero and prints no result.
@@ -719,6 +731,51 @@ def phase_sharded(torch, C, rng, dev):
            lambda: S.sharded_apply_plain(shards[0], *args, 0),
            None, nbytes, ops, err, n_routed=int((route != 0).sum()))
 
+    # sharded_apply_grouped over phase 9's eight shards (dp 2 x shard 4, mesh
+    # device k holds shard k % 4) in one launch: the clean post batch; an
+    # untouched overflow on mesh device 3 alone (its dp replica 7 stays
+    # clean: must bail); an old overflow on a row of device 6 that a
+    # removal cures (no bail: device 6's whole-shard check sees the cured
+    # row, and no other shard's flag is set).
+    group = [shards[k % SHARD] for k in range(MESH_DEVICES)]
+    bases = [(k % SHARD) * ROWS for k in range(MESH_DEVICES)]
+    cases = [("clean", group, args, False)]
+    over_group = list(group)
+    over_group[3] = C.LedgerState(*(t.clone() for t in group[3]))
+    set_row(torch, over_group[3].debits_pending, row, [0, 0, 0, 1 << 31])
+    set_row(torch, over_group[3].debits_posted, row, [0, 0, 0, 1 << 31])
+    cases.append(("untouched overflow on device 3", over_group, args, True))
+    cured = next(r for r in range(3 * ROWS - 1, 2 * ROWS, -1) if r not in used)
+    cured_group = list(group)
+    cured_group[6] = C.LedgerState(*(t.clone() for t in group[6]))
+    set_row(torch, cured_group[6].debits_pending, cured - 2 * ROWS, [0, 0, 0, 1 << 31])
+    set_row(torch, cured_group[6].debits_posted, cured - 2 * ROWS, [0, 0, 0, 1 << 31])
+    dr_c, cr_c, mask_c = b.dr_slot.clone(), b.cr_slot.clone(), route.clone()
+    dr_c[0], cr_c[0], mask_c[0] = cured, -1, E.M_SUB_PEND
+    p_amount = torch.zeros_like(b.amount)
+    p_amount[0, 0] = 1
+    cases.append(("overflow cured by a removal on device 6", cured_group,
+                  (dr_c, cr_c, b.amount, p_amount, mask_c), False))
+    err = 0
+    for label, states, a, bails in cases:
+        got = S.sharded_apply_grouped(states, bases, *a)
+        want = S.sharded_apply_grouped_plain(states, bases, *a)
+        err = max(err, max_abs_err(torch, f"sharded_apply_grouped {label}", got, want))
+        if bool(want[1]) != bails:
+            raise SystemExit(f"sharded_apply_grouped {label}: bail {bool(want[1])}, want {bails}")
+    del cases, over_group, cured_group, got, want
+    nbytes, ops = devicestats.cost("sharded_apply_grouped", (group, bases, *args))
+    record(torch, "sharded_apply_grouped", "sharded_apply.cu",
+           "tigerbeetle_tpu/parallel/sharding.py:113",
+           lambda: S.sharded_apply_grouped(group, bases, *args),
+           lambda: S.sharded_apply_grouped_plain(group, bases, *args),
+           None, nbytes, ops, err, shards=len(group),
+           ms_8x_sharded_apply=cuda_ms(
+               torch, lambda: [S.sharded_apply(st, *args, base) for st, base in zip(group, bases)], 10))
+    log(f"sharded_apply_grouped: 8 x sharded_apply "
+        f"{RESULTS['sharded_apply_grouped']['ms_8x_sharded_apply']:.4f} ms")
+    del group
+
     # sharded_read: 2n = 16384 slots with -1, the last row and slots past it; the OR
     # of the four shards equals the single-device gather.
     k = 2 * N
@@ -890,6 +947,7 @@ def packed_key(torch, keys):
 
 def phase_qindex(torch, dev, rng):
     from tigerbeetle_tpu_torch import devicestats
+    from tigerbeetle_tpu_torch.ops import kernels as K
     from tigerbeetle_tpu_torch.ops import merge as M
     from tigerbeetle_tpu_torch.ops import qindex as Q
     from tigerbeetle_tpu_torch.ops import scanops as S
@@ -914,9 +972,14 @@ def phase_qindex(torch, dev, rng):
     err = {"query_index_keys": 0, "query_index_keys_sorted": 0}
     for label, st in (("fold56 edges", edge), ("query mix", mix), ("pad words", pad_words)):
         for name in err:
+            before = dict(K.LAUNCHES)
             got = getattr(Q, name)(*st)
+            launched = {k: K.LAUNCHES[k] - before[k] for k in err}
             want = getattr(Q, f"{name}_plain")(*st)
             err[name] = max(err[name], max_abs_err(torch, f"{name} {label} n={n}", got, want))
+            # one launch of its own kernel; the sorted build launches no build
+            if launched != {k: int(k == name) for k in err}:
+                raise SystemExit(f"{name} {label}: launched {launched}")
     # The radix sort's edge blocks (tests/exact_batches.py SORT_EDGES).
     import exact_batches as X
 
@@ -1085,7 +1148,9 @@ def expect_equal(got, want, what):
         raise SystemExit(f"{what}: the CUDA run and the CPU run differ")
 
 
-QUERY_KERNELS = ("query_index_keys", "query_index_keys_sorted", "merge_kernel_tiled")
+# The store stage's kernels; the sorted build computes the keys in its own
+# launch, so the build alone (query_index_keys) is on no path.
+QUERY_KERNELS = ("query_index_keys_sorted", "merge_kernel_tiled")
 
 
 def query_tables(sm) -> list:
@@ -1109,8 +1174,9 @@ def check_query_tree(name, gpu, cpu, launches) -> None:
     g, c = query_tables(gpu), query_tables(cpu)
     if not g or g != c:
         raise SystemExit(f"{name}: the query tree's tables differ from the CPU run's")
-    if min(launches[k] for k in QUERY_KERNELS) == 0:
-        raise SystemExit(f"{name}: a query-index kernel did not launch: {launches}")
+    if min(launches[k] for k in QUERY_KERNELS) == 0 or launches["query_index_keys"]:
+        raise SystemExit(f"{name}: a query-index kernel did not launch, or the build "
+                         f"alone did: {launches}")
     log(f"{name}: query tree: {len(g)} level-0 tables, {sum(map(len, g))} bytes, "
         f"equal to the CPU run's; launches " + json.dumps({k: launches[k] for k in QUERY_KERNELS}))
 
@@ -1960,6 +2026,8 @@ def run_compaction_config(torch, rng, n_batches=STORM_BATCHES):
     for k in ("create_transfers_fast", "query_index_keys_sorted", "merge_kernel_tiled", "compact_fold_kernel"):
         if launches[k] == 0:
             raise SystemExit(f"{name}: {k} did not launch: {launches}")
+    if launches["query_index_keys"]:
+        raise SystemExit(f"{name}: the key build launched alone: {launches}")
     steady = STEADY_BATCHES * TX_BATCH / steady_s
     storm = storm_ops * TX_BATCH / storm_s
     merge_ms = snap.get("lsm.compact.merge", {"total_ms": 0.0})["total_ms"]
@@ -1984,8 +2052,9 @@ def run_compaction_config(torch, rng, n_batches=STORM_BATCHES):
 
 # --- phase 9: the commit path on a mesh (one card named eight times) ------
 
-MESH_KERNELS = ("sharded_validate", "sharded_apply", "sharded_read", "register_accounts_sharded",
-                "write_balances", "create_transfers_exact", "exact_sort_plan")
+MESH_KERNELS = ("sharded_validate", "sharded_apply_grouped", "sharded_read",
+                "register_accounts_sharded", "write_balances", "create_transfers_exact",
+                "exact_sort_plan", "query_index_keys_sorted")
 
 
 def run_mesh_config(torch, name, mesh, n_accounts, acc_flags, n_batches, next_batch, check_ids,
@@ -2063,6 +2132,20 @@ def run_mesh_config(torch, name, mesh, n_accounts, acc_flags, n_batches, next_ba
                          f"{m['launches']['register_accounts_sharded']} times (want {account_ops} "
                          f"batches x {per_batch}) and register_accounts "
                          f"{m['launches']['register_accounts']} times (want 0)")
+    # One posting launch a commit and card (a launch takes at most
+    # GROUP_SHARDS of the card's shards), none a shard: a fast commit
+    # validates once a dp row, an exact commit sweeps once a card.
+    devices = mesh.distinct()
+    per_commit = sum(-(-mesh.flat.count(d) // S.GROUP_SHARDS) for d in devices)
+    ml = m["launches"]
+    commits = ml["sharded_validate"] // mesh.dp + ml["create_transfers_exact"] // len(devices)
+    if ml["sharded_apply_grouped"] != commits * per_commit or ml["sharded_apply"] or ml["query_index_keys"]:
+        raise SystemExit(f"{name}: posting launched sharded_apply_grouped "
+                         f"{ml['sharded_apply_grouped']} times (want {commits} commits x "
+                         f"{per_commit}), sharded_apply {ml['sharded_apply']} times and "
+                         f"query_index_keys {ml['query_index_keys']} times (want 0)")
+    log(f"{name} mesh: {commits} commits, {ml['sharded_apply_grouped']} launches of "
+        f"sharded_apply_grouped, {ml['register_accounts_sharded']} of register_accounts_sharded")
     for i, (g, w) in enumerate(zip(m["results"], s["results"], strict=True)):
         expect_equal(g, w, f"{name} mesh op {i}")
     for g, w in zip(m["looked"], s["looked"], strict=True):

@@ -22,6 +22,12 @@ build's input, ops/qindex.py) for the cases the sorted build's radix sort
 is likely to get wrong (SORT_EDGES): a tag block of equal keys, key spans
 of exactly 8 and 56 bits, a composite of 64 bits, pad words spanning 256
 values or more, duplicate keys.
+
+`apply_group(rng, case, a, n)` gives the grouped posting's inputs (the
+tables of every mesh device, one event set) for its edge cases
+(APPLY_CASES): a clean post, removals, an add overflow, an old overflow
+untouched or cured on one device alone, an underflow, the slots at the
+shards' edges, n = 0 and more devices than one launch holds.
 """
 
 import numpy as np
@@ -461,3 +467,85 @@ def sort_block(rng, case, n):
     else:
         raise ValueError(case)
     return cols, ts, rows, pad
+
+
+# The grouped posting's cases (parallel/sharding.py sharded_apply_grouped).
+APPLY_CASES = (
+    "post", "pending_removals", "add_overflow", "untouched_overflow", "cured_overflow",
+    "underflow", "edge_slots", "empty", "chunked",
+)
+M_ADD_PEND, M_ADD_POST, M_SUB_PEND = 1, 2, 4
+
+
+def apply_group(rng, case, a, n, dp=2, shard=4):
+    """One grouped posting's inputs on a dp x shard mesh: the four (rows,
+    4) tables of each mesh device k (shard k % shard, rows = a / shard,
+    global rows [base, base + rows), base = (k % shard) * rows; the dp
+    replicas start byte-equal), one event set over the global slots (dr,
+    cr (n,) int32, amount and p_amount (n, 4) uint32, mask (n,) uint8 of
+    M_* bits) and whether the group must bail. Balances are at least 2^40
+    and amounts below 2^32, removals below 2^24, so only a case's own edge
+    bails. Cases: "post" (adds alone, no p_amount), "pending_removals"
+    (adds and removals), "add_overflow" (an add past 2^128 on device 1
+    alone), "untouched_overflow" (an old overflowed row of device 3 that
+    no event touches), "cured_overflow" (an old overflow of device 6 that
+    a removal cures: no bail), "underflow" (a removal above a pending
+    balance), "edge_slots" (slots -1, base + rows - 1, base + rows, a - 1,
+    a and past it), "empty" (n = 0) and "chunked" (33 devices: more than
+    one launch holds). Returns dict(tables=[{field: array}], bases, dr,
+    cr, amount, p_amount (None for "post"), mask, bail)."""
+    count = 33 if case == "chunked" else dp * shard
+    n = 0 if case == "empty" else n
+    rows = a // shard
+    dense = {f: np.zeros((a, 4), U32) for f in BALANCE_FIELDS}
+    for f in dense:
+        dense[f][:, 0] = rng.integers(0, 1 << 32, a, dtype=np.uint64)
+        dense[f][:, 1] = rng.integers(1 << 8, 1 << 16, a)
+    bases = [(k % shard) * rows for k in range(count)]
+    tables = [{f: dense[f][b:b + rows].copy() for f in BALANCE_FIELDS} for b in bases]
+    dr = rng.integers(0, a, n).astype(np.int32)
+    cr = rng.integers(0, a, n).astype(np.int32)
+    amount = np.zeros((n, 4), U32)
+    amount[:, 0] = rng.integers(1, 1 << 32, n, dtype=np.uint64)
+    p_amount = np.zeros((n, 4), U32)
+    p_amount[:, 0] = rng.integers(0, 1 << 24, n)
+    kinds = [0, M_ADD_PEND, M_ADD_POST] + ([] if case == "post" else [M_SUB_PEND])
+    mask = rng.choice(kinds, n).astype(np.uint8)
+    used = set(dr.tolist()) | set(cr.tolist())
+
+    def free(s):
+        """A global row of shard s that no event touches."""
+        return next(r for r in range((s + 1) * rows - 2, s * rows, -1) if r not in used)
+
+    def put(k, f, g, v):
+        tables[k][f][g - bases[k]] = limbs(v)
+
+    bail = False
+    if case == "add_overflow":
+        g = free(1)
+        put(1, "debits_posted", g, (1 << 128) - 1)  # device 5, its replica, stays clean
+        dr[0], mask[0] = g, M_ADD_POST
+        bail = True
+    elif case == "untouched_overflow":
+        g = free(3)
+        put(3, "debits_pending", g, 1 << 127)
+        put(3, "debits_posted", g, 1 << 127)
+        bail = True
+    elif case == "cured_overflow":
+        g = free(2)
+        put(6, "debits_pending", g, 1 << 127)
+        put(6, "debits_posted", g, 1 << 127)
+        dr[0], cr[0], mask[0] = g, -1, M_SUB_PEND
+        p_amount[0] = limbs(1)
+    elif case == "underflow":
+        g = free(0)
+        dr[0], mask[0] = g, M_SUB_PEND
+        p_amount[0] = limbs(1 << 96)
+        bail = True
+    elif case == "edge_slots":
+        edge = [-1, rows - 1, rows, 2 * rows - 1, a - 1, a, a + 5, -a]
+        dr[:len(edge)] = edge
+        cr[:len(edge)] = edge[::-1]
+        mask[:len(edge)] = M_ADD_POST
+    return dict(tables=tables, bases=bases, dr=dr, cr=cr, amount=amount,
+                p_amount=None if case == "post" else p_amount, mask=mask, bail=bail)

@@ -16,7 +16,7 @@ import torch
 from tigerbeetle_tpu_torch.ops import commit as C
 
 import fold_stacks
-from exact_batches import PLAN_EDGES, SORT_EDGES, SWEEP_EDGES
+from exact_batches import APPLY_CASES, PLAN_EDGES, SORT_EDGES, SWEEP_EDGES
 
 A = 1 << 14
 N = 1024
@@ -306,8 +306,9 @@ def _query_recs(rng, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 300, 8190])
 def test_query_index_keys_kernels(dev, n):
-    """Both key builds (the build kernel; the build and the sort kernel)
-    against their plain versions on the same staged batch on the card."""
+    """Both key builds (the build kernel; the sorted build, which computes
+    the keys in its own launch) against their plain versions on the same
+    staged batch on the card: one launch each, of its own kernel alone."""
     from tigerbeetle_tpu_torch.ops import qindex as Q
 
     rng = np.random.default_rng(n)
@@ -320,16 +321,17 @@ def test_query_index_keys_kernels(dev, n):
         got = getattr(Q, name)(*staged)
         want = getattr(Q, f"{name}_plain")(*staged)
         torch.cuda.synchronize()
-        assert C.LAUNCHES["query_index_keys"] == before["query_index_keys"] + 1
-        assert C.LAUNCHES[name] == before[name] + 1
+        for k in ("query_index_keys", "query_index_keys_sorted"):
+            assert C.LAUNCHES[k] == before[k] + (k == name), (name, k)
         assert _equal(got[0], want[0]) and _equal(got[1], want[1]), name
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [7, 300, 8190])
+@pytest.mark.parametrize("n", [1, 7, 300, 8190, 8192])
 def test_query_index_keys_sorted_any_pad_word(dev, n):
     """Pad words 0, 1, 2 and 2^32 - 1: the sorted build orders them by the
-    whole word, as its plain version (and the reference) do."""
+    whole word, as its plain version (and the reference) do; one launch,
+    none of the build alone."""
     from tigerbeetle_tpu_torch.ops import qindex as Q
 
     rng = np.random.default_rng(n + 7)
@@ -340,11 +342,12 @@ def test_query_index_keys_sorted_any_pad_word(dev, n):
     pad[:4] = [0, 1, 2, 0xFFFFFFFF]
     staged[3] = pad
     staged = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in staged]
-    before = C.LAUNCHES["query_index_keys_sorted"]
+    before = dict(C.LAUNCHES)
     got = Q.query_index_keys_sorted(*staged)
     want = Q.query_index_keys_sorted_plain(*staged)
     torch.cuda.synchronize()
-    assert C.LAUNCHES["query_index_keys_sorted"] == before + 1
+    assert C.LAUNCHES["query_index_keys_sorted"] == before["query_index_keys_sorted"] + 1
+    assert C.LAUNCHES["query_index_keys"] == before["query_index_keys"]
     assert _equal(got[0], want[0]) and _equal(got[1], want[1])
 
 
@@ -355,7 +358,8 @@ def test_query_index_keys_sorted_edges_kernel(dev, case, n):
     blocks (tests/exact_batches.py sort_block): a tag block of equal keys
     (no pass), spans of exactly 8 and 56 bits, a 64-bit composite, pad
     words spanning 1000 values (the pad passes), duplicate keys inside and
-    across blocks, n = 1, 8190 and 8192. One launch of each kernel."""
+    across blocks, n = 1, 8190 and 8192. One launch of the sorted build,
+    none of the build alone."""
     from exact_batches import sort_block
 
     from tigerbeetle_tpu_torch.ops import qindex as Q
@@ -366,7 +370,7 @@ def test_query_index_keys_sorted_edges_kernel(dev, case, n):
     got = Q.query_index_keys_sorted(*staged)
     want = Q.query_index_keys_sorted_plain(*staged)
     torch.cuda.synchronize()
-    assert C.LAUNCHES["query_index_keys"] == before["query_index_keys"] + 1
+    assert C.LAUNCHES["query_index_keys"] == before["query_index_keys"]
     assert C.LAUNCHES["query_index_keys_sorted"] == before["query_index_keys_sorted"] + 1
     assert _equal(got[0], want[0]) and _equal(got[1], want[1])
 
@@ -378,10 +382,10 @@ def test_query_index_keys_sorted_refuses_a_block_above_8192(dev):
     n = 16384
     args = [torch.zeros(s, dtype=torch.int32, device=dev).view(torch.uint32)
             for s in ((n, 9), (n, 2), (n,), (n,))]
-    before = C.LAUNCHES["query_index_keys"]
+    before = dict(C.LAUNCHES)
     with pytest.raises(ValueError):
         Q.query_index_keys_sorted(*args)
-    assert C.LAUNCHES["query_index_keys"] == before
+    assert C.LAUNCHES == before
 
 
 @pytest.mark.cuda
@@ -518,7 +522,8 @@ def test_build_run_dispatch_does_not_sync(dev):
 @pytest.mark.cuda
 def test_state_machine_query_index_route_on_cuda(dev):
     """A small machine on the card (the device route) against one on the
-    CPU (the host route): query tree tables and query results equal."""
+    CPU (the host route): query tree tables and query results equal; the
+    store launches the sorted build, never the build alone."""
     from tigerbeetle_tpu_torch import types
     from tigerbeetle_tpu_torch.constants import Config
     from tigerbeetle_tpu_torch.models.state_machine import StateMachine
@@ -547,8 +552,10 @@ def test_state_machine_query_index_route_on_cuda(dev):
     f = np.zeros(1, dtype=types.QUERY_FILTER_V2_DTYPE)[0]
     f["code"], f["ledger"], f["debit_account_id_lo"], f["limit"] = 2, 1, 3, 8190
     assert gpu.query_transfers(f).tobytes() == cpu.query_transfers(f).tobytes()
-    for k in ("query_index_keys", "query_index_keys_sorted", "merge_kernel_tiled"):
+    for k in ("query_index_keys_sorted", "merge_kernel_tiled"):
         assert C.LAUNCHES[k] > before[k], k
+    # the sorted build computes its keys in its own launch
+    assert C.LAUNCHES["query_index_keys"] == before["query_index_keys"]
     tables = []
     for sm in (gpu, cpu):
         t = sm.query_rows
@@ -770,6 +777,42 @@ def test_sharded_apply_kernel(dev, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case,count", [(c, None) for c in APPLY_CASES]
+                         + [("pending_removals", 1), ("underflow", 1), ("empty", 1)])
+def test_sharded_apply_grouped_kernel(dev, case, count):
+    """The grouped posting against its plain version (tests/exact_batches.py
+    apply_group): 8 shards of dp 2 x shard 4, 33 (two launches), a group
+    of one, n = 0, and each overflow case, whose bail the case decides.
+    One launch a 32 shards; the old tables stay as they were."""
+    from exact_batches import apply_group
+
+    from tigerbeetle_tpu_torch.parallel import sharding as S
+
+    g = apply_group(np.random.default_rng(sum(map(ord, case))), case, A, N)
+    count = count or len(g["tables"])
+    t = lambda x: None if x is None else torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    zero = torch.zeros(A, dtype=torch.int32, device=dev).view(torch.uint32)
+    states = [C.LedgerState(*(t(tb[f]) for f in C.BALANCE_FIELDS), zero, zero)
+              for tb in g["tables"][:count]]
+    old = [[x.clone() for x in st] for st in states]
+    ev = [t(g[k]) for k in ("dr", "cr", "amount", "p_amount", "mask")]
+    before = dict(C.LAUNCHES)
+    got = S.sharded_apply_grouped(states, g["bases"][:count], *ev)
+    want = S.sharded_apply_grouped_plain(states, g["bases"][:count], *ev)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["sharded_apply_grouped"] == before["sharded_apply_grouped"] + -(-count // 32)
+    assert C.LAUNCHES["sharded_apply"] == before["sharded_apply"]
+    for k, (x, y) in enumerate(zip(got[0], want[0], strict=True)):
+        for f in C.BALANCE_FIELDS:
+            assert _equal(getattr(x, f), getattr(y, f)), (k, f)
+    assert bool(got[1]) == bool(want[1])
+    if count == len(g["tables"]) or case == "underflow":
+        assert bool(got[1]) == g["bail"]
+    for st, o in zip(states, old):
+        assert all(_equal(x, y) for x, y in zip(st, o))
+
+
+@pytest.mark.cuda
 def test_sharded_read_kernel(dev):
     """sharded_read: slots clip to [0, A-1] first (-1 reads row 0 on shard 0), then
     each shard returns the rows it owns and zeros elsewhere; the OR of the
@@ -859,7 +902,8 @@ def test_sharded_commits_on_a_virtual_mesh(dev):
         runs[name] = (f_out, e_out, dict(C.LAUNCHES), mesh)
     f_card, e_card, launches, mesh = runs["card"]
     f_cpu, e_cpu, _, cpu_mesh = runs["cpu"]
-    assert launches["sharded_validate"] == 2 and launches["sharded_apply"] == 16
+    assert launches["sharded_validate"] == 2 and launches["sharded_apply"] == 0
+    assert launches["sharded_apply_grouped"] == 2  # one a commit: the card holds all 8 shards
     assert launches["sharded_read"] == 4 and launches["create_transfers_exact"] == 1
     assert launches["exact_sort_plan"] == 1
     assert _equal(f_card[1].cpu(), f_cpu[1])

@@ -1,18 +1,24 @@
-// query_index_keys_sorted: the stable sort of one batch's composite-key
-// block, on the card.
+// query_index_keys_sorted: one batch's composite-key block, built and
+// stably sorted on the card in one launch.
 //
-// Replaces the sort of the reference package's ops/qindex.py
-// query_index_keys_sorted (the entry at :136; `jax.lax.sort` at :143): a
-// stable sort of the 5n key rows by (pad, lo1, lo0), carrying the payload.
-// ops/qindex.py launches query_index_keys.cu first (the build), then this
-// kernel on its output. ops/qindex.py query_index_keys_sorted_plain is the
-// same function in PyTorch.
+// Replaces the reference package's ops/qindex.py query_index_keys_sorted
+// (the entry at :136: `_build_blocks` at :106, then `jax.lax.sort` at
+// :143): the five-tag key build of query_index_keys.cu, then a stable sort
+// of the 5n key rows by (pad, lo1, lo0), carrying the payload. ops/qindex.py
+// query_index_keys_sorted_plain is the same function in PyTorch.
 //
-// What bounds it on this card: latency. The block is 5n rows of 24 bytes
-// (about 1 MB at n = 8192), moved once in and once out; what costs is the
-// chain of dependent radix passes inside each tag block.
+// What bounds it on this card: latency. The staged columns are 52 bytes a
+// record in, the sorted block 5n rows of 24 bytes out (about 1.4 MB in all
+// at n = 8192); what costs is the chain of dependent radix passes inside
+// each tag block.
 //
-// Design. The build puts tag block b at rows [b n, (b + 1) n), and a real
+// Design. The build is fused into the sort's load: each CTA computes its
+// tag block's (lo0, lo1) of its 1024 records in registers from the staged
+// columns (qindex_fold.cuh, the key build's own arithmetic), one record a
+// lane, consecutive records in consecutive lanes, and the final store
+// takes the payload (ts0, ts1, row) from ts and rows at the record's
+// index. No key or payload block is written between. Tag block b stands
+// at rows [b n, (b + 1) n) of the natural order, and a real
 // row's lo1 carries its block's tag (5, 6, 7, 9, 10: ascending) in its top
 // byte, since the fold leaves lo1 below 2^24. So among the rows of any one
 // pad word, block b sorts wholly before block b + 1, and the global stable
@@ -45,12 +51,12 @@
 //     payload. The wide path finds its pad word's bounds by binary search
 //     over the sorted pad words in the cluster's shared memory.
 //
-// The contract is the build's: lo1's top byte is the block's tag. The
-// wrapper refuses n > 8192 (the largest bucket of a batch of at most 8190
-// events).
+// The wrapper refuses n > 8192 (the largest bucket of a batch of at most
+// 8190 events).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "qindex_fold.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -63,7 +69,6 @@ constexpr int kItems = 4;                    // rows a thread
 constexpr int kSlice = kThreads * kItems;    // 1024 rows a CTA
 constexpr int kMaxRows = kCluster * kSlice;  // 8192
 constexpr int kBins = 256;                   // 8-bit digits
-constexpr int kBlocks = 5;
 static_assert(kThreads == kBins, "one digit a thread in the scans");
 
 struct Shared {
@@ -179,16 +184,14 @@ __device__ void radix_pass(Shared& sm, const cg::cluster_group& cluster, int ran
 }
 
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
-    sort_blocks(const uint32_t* __restrict__ keys, const uint32_t* __restrict__ pay,
-                const uint32_t* __restrict__ pad, uint32_t* __restrict__ out_keys,
-                uint32_t* __restrict__ out_pay, int n) {
+    sort_blocks(const uint32_t* __restrict__ cols, const uint32_t* __restrict__ ts,
+                const uint32_t* __restrict__ rows, const uint32_t* __restrict__ pad,
+                uint32_t* __restrict__ out_keys, uint32_t* __restrict__ out_pay, int n) {
   __shared__ Shared sm;
   const cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const long long blk = blockIdx.x / kCluster;
+  const int blk = blockIdx.x / kCluster;  // the tag block
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const uint32_t* kb = keys + blk * n * 3;
-  const uint32_t* pb = pay + blk * n * 3;
   // Item i of lane l of warp w holds the row at place
   // rank * 1024 + w * 128 + i * 32 + l of the block (its sorted place
   // after the passes; its row index before them).
@@ -206,7 +209,9 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
     key[i] = 0;
     pw[i] = 0;
     if (p < n) {
-      key[i] = ((unsigned long long)kb[3 * p + 1] << 32) | kb[3 * p];
+      uint32_t lo0, lo1;
+      tb::block_key(cols + 9ll * p, blk, lo0, lo1);
+      key[i] = ((unsigned long long)lo1 << 32) | lo0;
       pw[i] = pad[p];
       kmin = min(kmin, key[i]);
       kmax = max(kmax, key[i]);
@@ -355,24 +360,24 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
     out_keys[dst * 3] = (uint32_t)key[i];
     out_keys[dst * 3 + 1] = (uint32_t)(key[i] >> 32);
     out_keys[dst * 3 + 2] = word[i];
-    out_pay[dst * 3] = pb[3 * x];
-    out_pay[dst * 3 + 1] = pb[3 * x + 1];
-    out_pay[dst * 3 + 2] = pb[3 * x + 2];
+    out_pay[dst * 3] = ts[2 * x];
+    out_pay[dst * 3 + 1] = ts[2 * x + 1];
+    out_pay[dst * 3 + 2] = rows[x];
   }
   cluster_wait();
 }
 
 }  // namespace
 
-// keys, pay (5n, 3) as query_index_keys.cu writes them, pad (n,) ->
-// out_keys, out_pay (5n, 3); all uint32, contiguous; 1 <= n <= 8192.
-extern "C" int tb_query_index_keys_sorted(const void* keys, const void* pay,
-                                          const void* pad, void* out_keys,
-                                          void* out_pay, long long n,
+// cols (n, 9), ts (n, 2), rows (n,), pad (n,) as ops/qindex.py stages them
+// -> out_keys, out_pay (5n, 3); all uint32, contiguous; 1 <= n <= 8192.
+extern "C" int tb_query_index_keys_sorted(const void* cols, const void* ts,
+                                          const void* rows, const void* pad,
+                                          void* out_keys, void* out_pay, long long n,
                                           void* stream) {
   if (n < 1 || n > kMaxRows) return (int)cudaErrorInvalidValue;
-  sort_blocks<<<kBlocks * kCluster, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      (const uint32_t*)keys, (const uint32_t*)pay, (const uint32_t*)pad,
+  sort_blocks<<<tb::kTagBlocks * kCluster, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      (const uint32_t*)cols, (const uint32_t*)ts, (const uint32_t*)rows, (const uint32_t*)pad,
       (uint32_t*)out_keys, (uint32_t*)out_pay, (int)n);
   return (int)cudaGetLastError();
 }

@@ -138,6 +138,13 @@ COSTS = {
         + (0 if p_amount is None else _nbytes(p_amount)) + 1,
         24 * state[0].shape[0] + 80 * dr.shape[0],
     ),
+    # every shard's four tables in and out, the events once (every shard of
+    # a launch reads one copy); the operations of sharded_apply a shard.
+    "sharded_apply_grouped": lambda states, bases, dr, cr, amount, p_amount, mask: (
+        sum(2 * _nbytes(*st[:4]) for st in states) + _nbytes(dr, cr, amount, mask)
+        + (0 if p_amount is None else _nbytes(p_amount)) + 1,
+        len(states) * (24 * states[0][0].shape[0] + 80 * dr.shape[0]),
+    ),
     # the slots in, four (k, 4) blocks out, and the rows the shard owns
     # read once (`owned` of them where the caller counted them, else k).
     "sharded_read": lambda state, slots, base, a, owned=None: (

@@ -52,7 +52,7 @@ SIGNATURES = {
     "create_transfers_exact": ("tb_create_transfers_exact", [_P, _P, _P]),
     "exact_sort_plan": ("tb_exact_sort_plan", [_P, _P, _P]),
     "query_index_keys": ("tb_query_index_keys", [_P] * 6 + [_I, _P]),
-    "query_index_keys_sorted": ("tb_query_index_keys_sorted", [_P] * 5 + [_I, _P]),
+    "query_index_keys_sorted": ("tb_query_index_keys_sorted", [_P] * 6 + [_I, _P]),
     "merge_kernel_tiled": ("tb_merge_kernel_tiled", [_P] * 6 + [_I, _I, _I, _P]),
     "scan_intersect_mask": ("tb_scan_intersect_mask", [_P] * 3 + [_I, _I, _P]),
     "merge_kernel": ("tb_merge_kernel", [_P] * 6 + [_I, _I, _I, _P]),
@@ -60,12 +60,14 @@ SIGNATURES = {
     # the commit path over balance tables sharded on a device mesh
     "sharded_validate": ("tb_sharded_validate", [_P] * 15 + [_I] * 3 + [_P]),
     "sharded_apply": ("tb_sharded_apply", [_P] * 15 + [_I] * 3 + [_P]),
+    "sharded_apply_grouped": ("tb_sharded_apply_grouped", [_P] * 3 + [_I] + [_P] * 7 + [_I, _I, _P]),
     "sharded_read": ("tb_sharded_read", [_P] * 9 + [_I] * 4 + [_P]),
     "register_accounts_sharded": ("tb_register_accounts_sharded", [_P, _P, _I] + [_P] * 4 + [_I, _I, _P]),
 }
 
 # The source of each entry that is not csrc/<entry>.cu.
-SOURCES = {"register_accounts_sharded": "register_accounts"}
+SOURCES = {"register_accounts_sharded": "register_accounts",
+           "sharded_apply_grouped": "sharded_apply"}
 
 # Kernel launches per entry (plain-version calls do not count).
 LAUNCHES: Dict[str, int] = dict.fromkeys(SIGNATURES, 0)

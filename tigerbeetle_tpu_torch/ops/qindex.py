@@ -14,11 +14,13 @@ in the merge kernel's run format (ops/merge.py): keys (5 n, 3) =
 [b n, (b + 1) n) of the natural order.
 
   - `query_index_keys`: the build alone, natural block order
-    (csrc/query_index_keys.cu).
+    (csrc/query_index_keys.cu); the main path does not call it.
   - `query_index_keys_sorted`: the build, then a stable sort by
-    (pad, lo1, lo0) carrying the payload (csrc/query_index_keys_sorted.cu),
-    so the run leaves the device lo-major sorted with its padding last,
-    and memtable flushes fold sorted runs through merge_kernel_tiled.
+    (pad, lo1, lo0) carrying the payload, in one launch
+    (csrc/query_index_keys_sorted.cu builds each tag block's keys from
+    the staged columns as it loads them), so the run leaves the device
+    lo-major sorted with its padding last, and memtable flushes fold
+    sorted runs through merge_kernel_tiled.
 
 Each launches its CUDA kernels for CUDA tensors and runs its plain
 PyTorch version (`*_plain`, here) for CPU tensors; a CUDA tensor never
@@ -150,7 +152,13 @@ def _check_args(cols, ts, rows, pad) -> int:
     return n
 
 
-def _launch_build(cols, ts, rows, pad, n: int):
+def query_index_keys(cols, ts, rows, pad):
+    """The five-tag composite-key build in natural block order (pads
+    flagged in the key's pad word, left in place): cols (n, 9), ts (n, 2),
+    rows (n,), pad (n,) uint32 -> keys (5 n, 3), payload (5 n, 3)."""
+    if rows.device.type == "cpu":
+        return query_index_keys_plain(cols, ts, rows, pad)
+    n = _check_args(cols, ts, rows, pad)
     dev = rows.device
     keys = torch.empty((5 * n, 3), dtype=torch.uint32, device=dev)
     pay = torch.empty((5 * n, 3), dtype=torch.uint32, device=dev)
@@ -159,16 +167,6 @@ def _launch_build(cols, ts, rows, pad, n: int):
         rows.data_ptr(), pad.data_ptr(), keys.data_ptr(), pay.data_ptr(), n,
     )
     return keys, pay
-
-
-def query_index_keys(cols, ts, rows, pad):
-    """The five-tag composite-key build in natural block order (pads
-    flagged in the key's pad word, left in place): cols (n, 9), ts (n, 2),
-    rows (n,), pad (n,) uint32 -> keys (5 n, 3), payload (5 n, 3)."""
-    if rows.device.type == "cpu":
-        return query_index_keys_plain(cols, ts, rows, pad)
-    n = _check_args(cols, ts, rows, pad)
-    return _launch_build(cols, ts, rows, pad, n)
 
 
 def query_index_keys_sorted(cols, ts, rows, pad):
@@ -187,12 +185,12 @@ def query_index_keys_sorted(cols, ts, rows, pad):
             f"sort takes at most {SORTED_ROWS_MAX}"
         )
     _check_args(cols, ts, rows, pad)
-    keys, pay = _launch_build(cols, ts, rows, pad, n)
-    out_keys = torch.empty_like(keys)
-    out_pay = torch.empty_like(pay)
+    dev = rows.device
+    out_keys = torch.empty((5 * n, 3), dtype=torch.uint32, device=dev)
+    out_pay = torch.empty((5 * n, 3), dtype=torch.uint32, device=dev)
     kernels.launch(
-        "query_index_keys_sorted", rows.device, keys.data_ptr(),
-        pay.data_ptr(), pad.data_ptr(), out_keys.data_ptr(),
+        "query_index_keys_sorted", dev, cols.data_ptr(), ts.data_ptr(),
+        rows.data_ptr(), pad.data_ptr(), out_keys.data_ptr(),
         out_pay.data_ptr(), n,
     )
     return out_keys, out_pay

@@ -33,8 +33,9 @@ writeback of the state machine's lookups and serial route
 (`read_balances_sharded`, `write_balances_sharded`). On a mesh of CUDA
 devices the commits launch three hand-written kernels
 (csrc/sharded_validate.cu, sharded_apply.cu, sharded_read.cu) and the
-exact kernel's external-base mode, and registration one
-(csrc/register_accounts.cu) a card; on a mesh of CPUs they run
+exact kernel's external-base mode, the posting and registration once a
+card over the shards it holds (csrc/sharded_apply.cu,
+csrc/register_accounts.cu); on a mesh of CPUs they run
 their plain versions (`*_plain`), the reference's shard_map step written
 out device by device. Each kernel wrapper has its own plain version
 beside it.
@@ -368,18 +369,11 @@ def sharded_apply_plain(state: LedgerState, dr, cr, amount, p_amount, mask, base
     return new, (over | o5 | o6).any()
 
 
-def sharded_apply(state: LedgerState, dr, cr, amount, p_amount, mask, base: int):
-    """Exact posting of a whole batch into one shard (the shard's four
-    tables in `state`, rows [base, base + rows) of the global slots):
-    csrc/sharded_apply.cu for CUDA tensors, the plain version for CPU
-    tensors. Out of place: returns (the shard's LedgerState with new
-    tables, bail () bool); `state` is left as it was."""
-    if state.ledger.device.type == "cpu":
-        return sharded_apply_plain(state, dr, cr, amount, p_amount, mask, base)
-    dev = state.ledger.device
-    rows = state.debits_pending.shape[0]
-    for f in BALANCE_FIELDS:
-        _check(getattr(state, f), f, torch.uint32, (rows, 4), dev)
+GROUP_SHARDS = 32  # shards a launch (csrc/sharded_apply.cu kMaxShards)
+APPLY_SCRATCH_WORDS = 2048  # a word a block (csrc/sharded_apply.cu kMaxGrid)
+
+
+def _check_events(dr, cr, amount, p_amount, mask, dev) -> int:
     n = dr.shape[0]
     _check(dr, "dr", torch.int32, (n,), dev)
     _check(cr, "cr", torch.int32, (n,), dev)
@@ -387,18 +381,102 @@ def sharded_apply(state: LedgerState, dr, cr, amount, p_amount, mask, base: int)
     if p_amount is not None:
         _check(p_amount, "p_amount", torch.uint32, (n, 4), dev)
     _check(mask, "mask", torch.uint8, (n,), dev)
-    new = [torch.empty((rows, 4), dtype=torch.uint32, device=dev) for _ in range(4)]
-    ctrl = torch.empty((4,), dtype=torch.int32, device=dev)
+    return n
+
+
+def _check_tables(states, dev) -> int:
+    rows = states[0].debits_pending.shape[0]
+    for st in states:
+        for f in BALANCE_FIELDS:
+            _check(getattr(st, f), f, torch.uint32, (rows, 4), dev)
+    return rows
+
+
+def _empty_tables(rows: int, dev) -> list:
+    return [torch.empty((rows, 4), dtype=torch.uint32, device=dev) for _ in range(4)]
+
+
+def sharded_apply(state: LedgerState, dr, cr, amount, p_amount, mask, base: int):
+    """Exact posting of a whole batch into one shard (the shard's four
+    tables in `state`, rows [base, base + rows) of the global slots):
+    csrc/sharded_apply.cu (the one-shard entry) for CUDA tensors, the
+    plain version for CPU tensors. Out of place: returns (the shard's
+    LedgerState with new tables, bail () bool); `state` is left as it
+    was."""
+    if state.ledger.device.type == "cpu":
+        return sharded_apply_plain(state, dr, cr, amount, p_amount, mask, base)
+    dev = state.ledger.device
+    rows = _check_tables([state], dev)
+    n = _check_events(dr, cr, amount, p_amount, mask, dev)
+    new = _empty_tables(rows, dev)
+    scratch = torch.empty((APPLY_SCRATCH_WORDS,), dtype=torch.int32, device=dev)
     bail = torch.empty((), dtype=torch.bool, device=dev)
     kernels.launch(
         "sharded_apply", dev,
         *(getattr(state, f).data_ptr() for f in BALANCE_FIELDS),
         *(t.data_ptr() for t in (*new, dr, cr, amount)),
         0 if p_amount is None else p_amount.data_ptr(),
-        *(t.data_ptr() for t in (mask, ctrl, bail)),
+        *(t.data_ptr() for t in (mask, scratch, bail)),
         base, rows, n,
     )
     return state._replace(**dict(zip(BALANCE_FIELDS, new))), bail
+
+
+def sharded_apply_grouped_plain(states, bases, dr, cr, amount, p_amount, mask):
+    """Plain PyTorch version of sharded_apply_grouped: sharded_apply_plain
+    on each shard in turn, the bails OR-ed."""
+    out = [sharded_apply_plain(st, dr, cr, amount, p_amount, mask, base)
+           for st, base in zip(states, bases)]
+    return tuple(sh for sh, _ in out), torch.stack([bail for _, bail in out]).any()
+
+
+def sharded_apply_grouped(states, bases, dr, cr, amount, p_amount, mask):
+    """sharded_apply into every shard of `states` (LedgerStates of equal
+    rows, all on one device; shard j at global rows [bases[j], bases[j] +
+    rows)) from one copy of the events: csrc/sharded_apply.cu's grouped
+    entry, one launch a GROUP_SHARDS shards, for CUDA tensors; the plain
+    version for CPU tensors. Out of place: returns (the shards'
+    LedgerStates with new tables, in order, and bail () bool: any
+    shard's)."""
+    dev = states[0].ledger.device
+    if dev.type == "cpu":
+        return sharded_apply_grouped_plain(states, bases, dr, cr, amount, p_amount, mask)
+    rows = _check_tables(states, dev)
+    n = _check_events(dr, cr, amount, p_amount, mask, dev)
+    new = [_empty_tables(rows, dev) for _ in states]
+    scratch = torch.empty((APPLY_SCRATCH_WORDS,), dtype=torch.int32, device=dev)
+    chunks = range(0, len(states), GROUP_SHARDS)
+    bails = torch.empty((len(chunks),), dtype=torch.bool, device=dev)
+    for c, lo in enumerate(chunks):
+        part = slice(lo, lo + GROUP_SHARDS)
+        kernels.launch(
+            "sharded_apply_grouped", dev,
+            kernels.pointer_array([getattr(st, f).data_ptr() for st in states[part]
+                                   for f in BALANCE_FIELDS]),
+            kernels.pointer_array([t.data_ptr() for ts in new[part] for t in ts]),
+            kernels.size_array(bases[part]), len(states[part]),
+            *(t.data_ptr() for t in (dr, cr, amount)),
+            0 if p_amount is None else p_amount.data_ptr(),
+            mask.data_ptr(), scratch.data_ptr(), bails[c].data_ptr(), rows, n,
+        )
+    shards = tuple(st._replace(**dict(zip(BALANCE_FIELDS, ts))) for st, ts in zip(states, new))
+    return shards, bails[0] if len(chunks) == 1 else bails.any()
+
+
+def _apply_by_device(mesh: Mesh, rows: int, state: ShardedState, events):
+    """sharded_apply_grouped once for each distinct device of the mesh,
+    over the shards that device holds, with `events[d]` = (dr, cr,
+    amount, p_amount, mask) on device d. Returns (the new shards in mesh
+    order, the bail words, one a device)."""
+    shards, bails = list(state.shards), []
+    for d in mesh.distinct():
+        ks = [k for k, at in enumerate(mesh.flat) if at == d]
+        new, bail = sharded_apply_grouped(
+            [state.shards[k] for k in ks], [(k % mesh.shard) * rows for k in ks], *events[d])
+        for k, sh in zip(ks, new):
+            shards[k] = sh
+        bails.append(bail)
+    return tuple(shards), bails
 
 
 def sharded_read_plain(state: LedgerState, slots, base: int, a: int):
@@ -442,7 +520,8 @@ def sharded_read(state: LedgerState, slots, base: int, a: int):
 def sharded_commit(mesh: Mesh, accounts_max: int, state: ShardedState, b: TransferBatch, host_code):
     """The fast commit on the mesh's kernels: sharded_validate on
     each dp slice, all_gather over dp of the slots, amounts and routing,
-    sharded_apply on every device, psum_any of the bail words.
+    sharded_apply_grouped once a distinct device over the shards it
+    holds, psum_any of the bail words.
     n must be a multiple of dp (ShardedOps pads). Returns (new_state,
     codes (n,) uint32 and bail () bool on the mesh's first device)."""
     rows = _rows(mesh, accounts_max)
@@ -465,16 +544,11 @@ def sharded_commit(mesh: Mesh, accounts_max: int, state: ShardedState, b: Transf
     flat = mesh.flat
     g_dr, g_cr, g_amount = (all_gather_dp([s[j] for s in slices], flat) for j in range(3))
     g_route = all_gather_dp(routes, flat)
-    shards = []
-    for k, d in enumerate(flat):
-        sh, bail = sharded_apply(
-            state.shards[k], g_dr[d], g_cr[d], g_amount[d], None, g_route[d],
-            (k % mesh.shard) * rows,
-        )
-        shards.append(sh)
-        bails.append(bail)
+    shards, apply_bails = _apply_by_device(
+        mesh, rows, state, {d: (g_dr[d], g_cr[d], g_amount[d], None, g_route[d]) for d in g_dr})
     first = mesh.first
-    return ShardedState(tuple(shards)), all_gather_dp(codes, [first])[first], psum_any(bails, first)
+    return (ShardedState(shards), all_gather_dp(codes, [first])[first],
+            psum_any(bails + apply_bails, first))
 
 
 def sharded_commit_plain(
@@ -540,8 +614,9 @@ def sharded_commit_exact(
     on a virtual mesh), against the records' pre-batch balances that
     sharded_read gathers from the shards of the device's dp row and
     combine_shards joins; the exact kernel's external-base mode sweeps
-    and returns the posting, which sharded_apply applies on every
-    device. bail: psum_any of every sweep's and every shard's word.
+    and returns the posting, which sharded_apply_grouped applies once a
+    distinct device over the shards it holds. bail: psum_any of every
+    sweep's and every launch's word.
     Returns (new_state, codes, amounts, dr_after, cr_after, bail) as
     ops/commit_exact.create_transfers_exact, on the mesh's first device."""
     rows = _rows(mesh, accounts_max)
@@ -570,19 +645,12 @@ def sharded_commit_exact(
             max_sweeps, has_pv, has_chains,
         )
         p_amount[d] = pend_d.amount
-    bails = [sweeps[d][7] for d in sweeps]
-    shards = []
-    for k, d in enumerate(flat):
-        _, amounts, _, _, eff_dr, eff_cr, mask, _ = sweeps[d]
-        sh, bail = sharded_apply(
-            state.shards[k], eff_dr, eff_cr, amounts, p_amount[d], mask, (k % mesh.shard) * rows,
-        )
-        shards.append(sh)
-        bails.append(bail)
+    shards, apply_bails = _apply_by_device(mesh, rows, state, {
+        d: (sw[4], sw[5], sw[1], p_amount[d], sw[6]) for d, sw in sweeps.items()})
     first = mesh.first
     codes, amounts, dr_after, cr_after = sweeps[first][:4]
-    return (ShardedState(tuple(shards)), codes, amounts, dr_after, cr_after,
-            psum_any(bails, first))
+    return (ShardedState(shards), codes, amounts, dr_after, cr_after,
+            psum_any([sw[7] for sw in sweeps.values()] + apply_bails, first))
 
 
 def sharded_commit_exact_plain(
@@ -608,14 +676,10 @@ def sharded_commit_exact_plain(
         return [u128.narrow(t) for t in total]
 
     def balance_apply(st, eff_dr, eff_cr, amounts, p_amount, add_pend, add_post, sub_pend):
-        mask = posting_mask(add_pend, add_post, sub_pend)
-        shards, over = [], []
-        for k, sh in enumerate(state.shards):
-            new, o = sharded_apply_plain(
-                sh, eff_dr, eff_cr, amounts, p_amount, mask, (k % mesh.shard) * rows)
-            shards.append(new)
-            over.append(o)
-        return ShardedState(tuple(shards)), torch.stack(over).any()
+        shards, over = sharded_apply_grouped_plain(
+            state.shards, [(k % mesh.shard) * rows for k in range(len(state.shards))],
+            eff_dr, eff_cr, amounts, p_amount, posting_mask(add_pend, add_post, sub_pend))
+        return ShardedState(shards), over
 
     return E.create_transfers_exact_plain(
         state.shards[0], b, host_code, pending, chain_id, plan, max_sweeps, has_pv, has_chains,

@@ -1,4 +1,4 @@
-"""Six hand-written kernels of PERF.md from two checkouts in alternation
+"""Seven hand-written kernels of PERF.md from two checkouts in alternation
 on one card: the kernels' CUDA-event times at the main path's shapes, so
 that a redesign can be held against its parent inside one call.
 
@@ -19,10 +19,12 @@ kernel byte-equal to its plain version:
     posted already overflows (the bail path's whole-table check);
   - row 5b, `sort_plan` on the config-3 batch, with `torch.sort` of the
     record keys beside it;
-  - row 7, `query_index_keys_sorted` (the build and the sort) on
+  - row 7, `query_index_keys_sorted` (the build and the sort: two
+    launches in a tree before the build moved into the sort's launch) on
     chip_smoke.py's fold56-edge columns and its query mix at n = 8190,
     with the library yardstick beside each (`torch.sort(stable=True)` of
-    the built block's packed keys + 2 `index_select`);
+    the built block's packed keys + 2 `index_select`), and on each of the
+    radix sort's edge blocks (tests/exact_batches.py SORT_EDGES);
   - row 10, `compact_fold_kernel` on a 16 x 131,072 stack of sorted
     top-bit runs of uneven lengths (phase 8's storm chunk, chip_smoke.py's
     fold_stack);
@@ -35,7 +37,12 @@ kernel byte-equal to its plain version:
     8192, 10% masked, slots -1, -A, A and -A - 1) into the eight ledger
     and flags tables of phase 9's mesh (dp 2 x shard 4 on the card):
     eight launches of `register_accounts`, and, where the checkout has
-    it, the one grouped launch of `register_accounts_grouped`.
+    it, the one grouped launch of `register_accounts_grouped`;
+  - row 12, the posting of the post batch's routing (chip_smoke.py phase
+    2's `kernel_batch`, n = 8192, A = 2^20) into the eight shards of phase
+    9's mesh (2^18 rows a shard): eight launches of the one-shard
+    `sharded_apply`, one shard alone, and, where the checkout has it, the
+    one grouped launch of `sharded_apply_grouped`.
 A line of JSON per run, then the medians per tree and the card's name and
 power limit. Needs one CUDA card.
 """
@@ -92,9 +99,11 @@ def child(root: str, seed: int) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     grouped = "register_accounts_sharded" in kernels.SIGNATURES
+    posting = "sharded_apply_grouped" in kernels.SIGNATURES
     kernels.build_all(["exact_sort_plan", "compact_fold_kernel", "create_transfers_exact",
                        "query_index_keys", "query_index_keys_sorted", "merge_kernel_tiled",
-                       "register_accounts"] + ["register_accounts_sharded"] * grouped)
+                       "register_accounts", "sharded_apply"]
+                      + ["register_accounts_sharded"] * grouped)
     dev = torch.device("cuda", 0)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     rng = np.random.default_rng(seed)
@@ -169,6 +178,14 @@ def child(root: str, seed: int) -> None:
         row[f"query_index_keys_sorted_{label}_ms"] = cs.cuda_ms(
             torch, lambda: Q.query_index_keys_sorted(*staged), 10)
         row[f"library_sort_gather_{label}_ms"] = cs.cuda_ms(torch, library, 10)
+    import exact_batches as X
+
+    for case, n in X.SORT_EDGES:
+        staged = [t(a) for a in X.sort_block(np.random.default_rng(sum(map(ord, case)) + n), case, n)]
+        same(f"query_index_keys_sorted {case} {n}", Q.query_index_keys_sorted(*staged),
+             Q.query_index_keys_sorted_plain(*staged))
+        row[f"query_index_keys_sorted_{case}_{n}_ms"] = cs.cuda_ms(
+            torch, lambda: Q.query_index_keys_sorted(*staged), 10)
     # Row 10 on the storm's chunk shape.
     ks, ps = cs.fold_stack(torch, dev, rng, FOLD_K, FOLD_B)
     same("compact_fold_kernel", M.compact_fold_kernel(ks, ps), M.compact_fold_kernel_plain(ks, ps))
@@ -198,6 +215,29 @@ def child(root: str, seed: int) -> None:
              tuple(S.register_accounts_grouped_plain(copies(), *reg)))
         row["register_accounts_grouped_ms"] = cs.cuda_ms(
             torch, lambda: S.register_accounts_grouped(tables, *reg), 10)
+    del tables
+    # Row 12 at phase 9's layout: the post batch's routing into 8 shards.
+    C_st = C.state_from_reference(cs.kernel_state(rng, C), dev)
+    b_np, host_np = cs.kernel_batch(rng, C, False)
+    b = C.TransferBatch(**{k: t(v) for k, v in b_np.items()})
+    route = torch.cat([S.sharded_validate_plain(C_st, b, t(host_np), lo, N // 2)[1]
+                       for lo in (0, N // 2)])
+    args = (b.dr_slot, b.cr_slot, b.amount, None, route)
+    shards = [cs.shard_of(C, C_st, k % cs.SHARD) for k in range(cs.MESH_DEVICES)]
+    bases = [(k % cs.SHARD) * cs.ROWS for k in range(cs.MESH_DEVICES)]
+    del C_st
+    for k in range(cs.MESH_DEVICES):
+        same(f"sharded_apply shard {k}", S.sharded_apply(shards[k], *args, bases[k]),
+             S.sharded_apply_plain(shards[k], *args, bases[k]))
+    row["sharded_apply_x8_ms"] = cs.cuda_ms(
+        torch, lambda: [S.sharded_apply(st, *args, base) for st, base in zip(shards, bases)], 10)
+    row["sharded_apply_one_ms"] = cs.cuda_ms(
+        torch, lambda: S.sharded_apply(shards[0], *args, bases[0]), 10)
+    if posting:
+        same("sharded_apply_grouped", S.sharded_apply_grouped(shards, bases, *args),
+             S.sharded_apply_grouped_plain(shards, bases, *args))
+        row["sharded_apply_grouped_ms"] = cs.cuda_ms(
+            torch, lambda: S.sharded_apply_grouped(shards, bases, *args), 10)
     print(json.dumps(row), flush=True)
 
 

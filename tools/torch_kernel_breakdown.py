@@ -1,6 +1,7 @@
 """Where the device time of the sorted key build (row 7 of PERF.md), the
-exact sweep kernel (row 5a), the exact sort plan (row 5b) and the tiled
-merge (row 9) goes, phase by phase, on one card.
+exact sweep kernel (row 5a), the exact sort plan (row 5b), the tiled
+merge (row 9) and the mesh's posting (row 12) goes, phase by phase, on
+one card.
 
     python3 tools/torch_kernel_breakdown.py ROOT [--reps 5] [--seed S]
 
@@ -8,15 +9,18 @@ ROOT is a checkout of the repo. The tool copies its package, its
 chip_smoke.py and tests/exact_batches.py to .chipcheck/breakdown/ (listed
 in .gitignore), inserts %globaltimer and clock64 stamps at the phase
 boundaries of the copies of csrc/query_index_keys_sorted.cu,
-csrc/create_transfers_exact.cu, csrc/exact_sort_plan.cu and
-csrc/merge_kernel_tiled.cu (thread 0 of each block writes them to a
+csrc/create_transfers_exact.cu, csrc/exact_sort_plan.cu,
+csrc/merge_kernel_tiled.cu and csrc/sharded_apply.cu (its grid barriers;
+thread 0 of each block writes them to a
 device array; the committed sources carry no stamp and no switch), builds
 the copies and runs each kernel `--reps` times on chip_smoke.py's phase-2
 inputs: the key build and sort of the fold56-edge columns and of the
 query mix at n = 8190, the exact kernel on the config-3 and config-4
 timed batches (A = 2^20, n = 8192, host plan), the sort plan of the
-config-3 batch and the tiled merge at the three flush shapes
-(tools/torch_kernel_ab.py flush_pairs). It prints one JSON line per
+config-3 batch, the tiled merge at the three flush shapes
+(tools/torch_kernel_ab.py flush_pairs) and the posting of the post
+batch's routing into phase 9's eight shards (one grouped launch) and
+into one shard. It prints one JSON line per
 kernel and input: the median microseconds of each phase (by clock64 of
 the stamping block, scaled by the kernel's globaltimer span), the steps
 of the last radix pass or sweep (µs since the block's start), the whole
@@ -72,13 +76,14 @@ extern "C" int tb_debug_clear() {
 
 # Labels of the stamps (the phase that ends at the stamp).
 LABELS = {
-    0: "start", 1: "load+minmax", 2: "key pass", 3: "pad pass", 4: "sorted pads",
+    0: "start", 13: "load (key build)", 1: "minmax", 2: "key pass", 3: "pad pass", 4: "sorted pads",
     5: "placement", 6: "monotone check", 7: "key build+minmax", 8: "rank",
     9: "scan", 10: "exchange", 11: "perm+inv_perm", 12: "heads",
     41: "0 static+seed", 42: "a scans+observe", 43: "b ladder", 44: "3 rollback+adds",
     45: "4 removals", 46: "copy wait", 47: "5 overflow check",
     20: "co-ranks", 21: "spans to shared", 22: "merge", 23: "store", 24: "in-tile search",
     25: "stage",
+    30: "copy+old overflow", 31: "adds", 32: "removals", 33: "check",
 }
 
 # [(anchor, replacement)] of each source: each anchor must occur exactly
@@ -89,6 +94,8 @@ QIKS_CLUSTER = [
     ("  const int p0 = rank * kSlice + warp * 32 * kItems + lane;\n",
      "  const int p0 = rank * kSlice + warp * 32 * kItems + lane;\n  int tb_k = 0;\n"
      "  TB_STAMP(tb_k++, 0);\n"),
+    ("  for (int o = 16; o; o >>= 1) {\n",
+     "  TB_STAMP(tb_k++, 13);\n  for (int o = 16; o; o >>= 1) {\n"),
     ("  const unsigned long long kspan = kmax - kmin;\n",
      "  TB_STAMP(tb_k++, 1);\n  const unsigned long long kspan = kmax - kmin;\n"),
     ("  for (int shift = 0; shift < kbits_total; shift += 8) {\n",
@@ -97,8 +104,8 @@ QIKS_CLUSTER = [
      "    for (int shift = 0; shift < pbits; shift += 8) {\n      TB_STAMP(tb_k++, 3);\n"),
     ("  // No CTA leaves while another may still read its shared memory.\n",
      "  TB_STAMP(tb_k++, 4);\n  // No CTA leaves while another may still read its shared memory.\n"),
-    ("    out_pay[dst * 3 + 2] = pb[3 * x + 2];\n  }\n",
-     "    out_pay[dst * 3 + 2] = pb[3 * x + 2];\n  }\n  __syncthreads();\n  TB_STAMP(tb_k++, 5);\n"),
+    ("    out_pay[dst * 3 + 2] = rows[x];\n  }\n",
+     "    out_pay[dst * 3 + 2] = rows[x];\n  }\n  __syncthreads();\n  TB_STAMP(tb_k++, 5);\n"),
     # inside the last radix pass, at fixed slots 48-53
     ("  int* wh = sm.whist[warp];\n", "  TB_STAMP(48, 48);\n  int* wh = sm.whist[warp];\n"),
     ("  __syncthreads();\n  int run = 0;\n", "  __syncthreads();\n  TB_STAMP(49, 49);\n  int run = 0;\n"),
@@ -187,12 +194,29 @@ MERGE_TILED = [
      "  store_tile(op + 3 * d0, s_pay, 3 * rows);\n  __syncthreads();\n  TB_STAMP(tb_k++, 23);\n}\n"),
 ]
 
+# The posting (csrc/sharded_apply.cu): each block after each grid barrier
+# (the removals' only where the launch has them), and at its end.
+APPLY = [
+    ("  __syncthreads();\n\n  // 1. copy",
+     "  __syncthreads();\n  int tb_k = 0;\n  TB_STAMP(tb_k++, 0);\n\n  // 1. copy"),
+    ("  if (threadIdx.x == 0) a.block_over[blockIdx.x] = s_over;\n  grid.sync();\n",
+     "  if (threadIdx.x == 0) a.block_over[blockIdx.x] = s_over;\n  grid.sync();\n"
+     "  TB_STAMP(tb_k++, 30);\n"),
+    ("  grid.sync();\n\n  // 3. removals", "  grid.sync();\n  TB_STAMP(tb_k++, 31);\n\n  // 3. removals"),
+    ("    grid.sync();\n  }\n\n  // 4. the pending",
+     "    grid.sync();\n    TB_STAMP(tb_k++, 32);\n  }\n\n  // 4. the pending"),
+    ("  if (bad) *a.bail = true;  // every writer stores the same value\n",
+     "  if (bad) *a.bail = true;  // every writer stores the same value\n"
+     "  __syncthreads();\n  TB_STAMP(tb_k++, 33);\n"),
+]
+
 # source -> (edits, barrier labels)
 STAMPS = {
     "query_index_keys_sorted": (QIKS_CLUSTER, None),
     "exact_sort_plan": (PLAN, None),
     "create_transfers_exact": (EXACT_SWEEP, EXACT_SWEEP_BARRIERS),
     "merge_kernel_tiled": (MERGE_TILED, None),
+    "sharded_apply": (APPLY, None),
 }
 
 
@@ -215,7 +239,7 @@ def patch(name: str, src: str, edits, barrier_labels=None) -> str:
 
 
 def prepare(root: str) -> None:
-    """Copy ROOT's package and the two scripts to OUT and stamp the four
+    """Copy ROOT's package and the two scripts to OUT and stamp the five
     sources."""
     if os.path.exists(OUT):
         shutil.rmtree(OUT)
@@ -280,12 +304,13 @@ def main() -> int:
     from tigerbeetle_tpu_torch.ops import kernels
     from tigerbeetle_tpu_torch.ops import merge as M
     from tigerbeetle_tpu_torch.ops import qindex as Q
+    from tigerbeetle_tpu_torch.parallel import sharding as S
     from torch_kernel_ab import flush_pairs
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     kernels.build_all(["query_index_keys_sorted", "exact_sort_plan", "create_transfers_exact",
-                       "query_index_keys", "merge_kernel_tiled"])
+                       "query_index_keys", "merge_kernel_tiled", "sharded_apply"])
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
     pool = rng.integers(1, 1 << 62, 1024, dtype=np.uint64)
@@ -314,6 +339,21 @@ def main() -> int:
     for label, pair in flush_pairs(torch, cs, Q, M, dev, rng):
         runs.append(("merge_kernel_tiled", label,
                      lambda pair=pair: M.merge_kernel_tiled(*pair), [0, 31, 63]))
+    # the posting at phase 9's layout: the post batch's routing
+    state = C.state_from_reference(cs.kernel_state(rng, C), dev)
+    b_np, host_np = cs.kernel_batch(rng, C, False)
+    b = C.TransferBatch(**{k: torch.from_numpy(v).to(dev) for k, v in b_np.items()})
+    host = torch.from_numpy(host_np).to(dev)
+    route = torch.cat([S.sharded_validate_plain(state, b, host, lo, cs.N // 2)[1]
+                       for lo in (0, cs.N // 2)])
+    post = (b.dr_slot, b.cr_slot, b.amount, None, route)
+    shards = [cs.shard_of(C, state, k % cs.SHARD) for k in range(cs.MESH_DEVICES)]
+    bases = [(k % cs.SHARD) * cs.ROWS for k in range(cs.MESH_DEVICES)]
+    del state
+    runs.append(("sharded_apply", "8 shards, one grouped launch",
+                 lambda: S.sharded_apply_grouped(shards, bases, *post), [0, 1, 63]))
+    runs.append(("sharded_apply", "one shard",
+                 lambda: S.sharded_apply(shards[0], *post, 0), [0, 1, 63]))
     for name, label, fn, blocks in runs:
         lib = kernels._library(name)
         lib.tb_debug_clear.restype = ctypes.c_int

@@ -6,8 +6,8 @@
 Phases, in order; any failure exits non-zero and no phase's failure is
 caught:
 
-  1. Build: compile the seventeen CUDA kernels (fifteen sources in
-     tigerbeetle_tpu_torch/csrc, one nvcc per source, all started
+  1. Build: compile the nineteen CUDA kernel entries (fifteen sources
+     in tigerbeetle_tpu_torch/csrc, one nvcc per source, all started
      together) and print the seconds.
   2. Kernels vs plain, at the main path's shapes (A = 2^20 accounts,
      n = 8192 events, k = 16384 / 8192 slot rows): each kernel must be
@@ -52,16 +52,25 @@ caught:
      intersect at 2^17 candidates
      in a 2^20-row run; the store's dispatch runs under sync-debug mode
      "error". The mesh's kernels at phase 9's layout (2^18 rows a shard):
-     sharded_validate on both dp slices of the ladder batch (each bails)
-     and of the post batch; sharded_apply with the post batch's routing
+     sharded_validate_grouped over both dp slices in one call (one card's
+     gathered layout) on the ladder batch (every rung; unsupported flags
+     in both slices), on it with them in slice 1 only and in neither (the
+     routing bytes' unsupported bits must mark exactly those slices), and
+     on the post batch, timed beside two launches of the one-slice
+     sharded_validate, which runs on each slice of the ladder and the
+     post batch (its bail word must mark the same slices); sharded_apply
+     with the post batch's routing
      on each of the four shards, and over a pending + posted overflow on
      a row of shard 3 that no event touches (must bail); its grouped
      entry over phase 9's eight shards in one launch (the clean batch;
      an untouched overflow on mesh device 3 alone, must bail; an old
-     overflow on device 6 that a removal cures, must not), timed beside
-     eight one-shard launches; sharded_read at
-     2n = 16384 slots with -1 and the last row, its four shards combined
-     equal to read_balances; register_accounts_sharded into the mesh's
+     overflow on device 6 that a removal cures, must not; an unsupported
+     event's routing bit, must), timed beside eight one-shard launches;
+     sharded_read at 2n = 16384 slots with -1, the last row, slots past
+     it, the int32 minimum and each shard's first and last row, its four
+     shards combined equal to read_balances, and sharded_read_grouped
+     over the four shards in one call equal to both, timed beside four
+     one-shard launches and their combine; register_accounts_sharded into the mesh's
      eight ledger and flags tables in one launch (k = 8192, 10% masked,
      slots -1, -A, A and -A - 1), timed beside eight launches of
      register_accounts; the exact kernel's external-base mode on a
@@ -143,8 +152,11 @@ caught:
      from the shards must equal the single-device machine's, and the dp
      replicas must be byte-equal. Registration launches once a
      create_accounts batch and card (register_accounts_sharded), never
-     register_accounts; the posting once a commit and card
-     (sharded_apply_grouped), never the one-shard sharded_apply. It
+     register_accounts; the validation once a fast commit and validating
+     card (sharded_validate_grouped), the posting once a commit and card
+     (sharded_apply_grouped), the read once an exact commit or a serial
+     read and card of the dp row read (sharded_read_grouped), never the
+     one-slice, one-shard entries. It
      prints both machines' transfers/s and p50/p99 and the mesh's
      launches. The mesh is virtual: it proves the sharded arithmetic, the
      slot routing and the bail contract on the card, not NVLink.
@@ -158,9 +170,10 @@ of phases 3-8, phase 7's storm and phase 9's two mesh runs) and read just
 after; each kernel of that path must have launched in it. merge_kernel is on no path (as in the
 reference, whose only callers are its tests): its launches stay 0. Nor
 are query_index_keys (the sorted build computes its keys in its own
-launch) and the one-shard sharded_apply (the mesh posts through the
-grouped entry, once a commit and card): every main-path run checks
-that they launch 0 times. The
+launch) and the one-slice sharded_validate, one-shard sharded_apply and
+one-shard sharded_read (the mesh launches the grouped entries, once a
+card): every main-path run checks that they launch 0 times
+(OFF_PATH). The
 last lines are the kernels' JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. Without CUDA (or without the repository
 beside it) the script exits non-zero and prints no result.
@@ -680,29 +693,57 @@ def phase_sharded(torch, C, rng, dev):
     shards = [shard_of(C, state, s) for s in range(SHARD)]
     to_dev = lambda d: {k: torch.from_numpy(v).to(dev) for k, v in d.items()}
 
-    # sharded_validate on both dp slices of the ladder batch (every rung; a linked flag
-    # bails its slice) and of the post batch.
+    # sharded_validate_grouped on both dp slices in one call (phase 9's one card):
+    # the ladder batch (every rung; unsupported flags in both slices), the
+    # ladder batch with them in slice 1 only and in neither, and the post
+    # batch; the routing bytes' unsupported bits mark the slices that bail.
+    # The one-slice entry on each slice of the ladder and the post batch.
     m = N // 2
-    err = 0
-    for kind, ladder in (("ladder", True), ("post", False)):
-        b_np, host_np = kernel_batch(rng, C, ladder)
+    err, err_one = 0, 0
+    ladder_np, ladder_host = kernel_batch(rng, C, True)
+    post_np, post_host = kernel_batch(rng, C, False)
+    unsupported = C.F_LINKED | C.F_POST | C.F_VOID | C.F_BAL_DR | C.F_BAL_CR
+    in_slice1, in_none = dict(ladder_np), dict(ladder_np)
+    in_slice1["flags"] = ladder_np["flags"].copy()
+    in_slice1["flags"][:m] &= ~np.uint32(unsupported)
+    in_none["flags"] = ladder_np["flags"] & ~np.uint32(unsupported)
+    for kind, b_np, host_np, bails in (
+            ("ladder", ladder_np, ladder_host, [True, True]),
+            ("ladder, unsupported in slice 1 only", in_slice1, ladder_host, [False, True]),
+            ("ladder, unsupported in neither slice", in_none, ladder_host, [False, False]),
+            ("post", post_np, post_host, [False, False])):
         b = C.TransferBatch(**to_dev(b_np))
         host = torch.from_numpy(host_np).to(dev)
-        routes, bails = [], []
-        for lo in (0, m):
-            got = S.sharded_validate(shards[0], b, host, lo, m)
-            want = S.sharded_validate_plain(shards[0], b, host, lo, m)
-            err = max(err, max_abs_err(torch, f"sharded_validate {kind} [{lo}, {lo + m})", got, want))
-            routes.append(want[1])
-            bails.append(bool(want[2]))
-        if bails != ([True, True] if ladder else [False, False]):
-            raise SystemExit(f"sharded_validate {kind} batch: bail {bails}")
-    route = torch.cat(routes)
+        got = S.sharded_validate_grouped(shards[0], b, host, 0, N)
+        want = S.sharded_validate_grouped_plain(shards[0], b, host, 0, N)
+        err = max(err, max_abs_err(torch, f"sharded_validate_grouped {kind}", got, want))
+        unsup = ((want[1] & S.M_UNSUPPORTED) != 0).view(2, m).any(1).tolist()
+        if unsup != bails:
+            raise SystemExit(f"sharded_validate_grouped {kind}: unsupported slices {unsup}, want {bails}")
+        if kind in ("ladder", "post"):
+            for lo in (0, m):
+                one = S.sharded_validate(shards[0], b, host, lo, m)
+                err_one = max(err_one, max_abs_err(
+                    torch, f"sharded_validate {kind} [{lo}, {lo + m})", one,
+                    S.sharded_validate_plain(shards[0], b, host, lo, m)))
+                if bool(one[2]) != bails[lo // m]:
+                    raise SystemExit(f"sharded_validate {kind} [{lo}, {lo + m}): bail {bool(one[2])}")
+    route = want[1]  # the post batch's gathered routing
     nbytes, ops = devicestats.cost("sharded_validate", (shards[0], b, host, m, m))
     record(torch, "sharded_validate", "sharded_validate.cu", "tigerbeetle_tpu/parallel/sharding.py:113",
            lambda: S.sharded_validate(shards[0], b, host, m, m),
            lambda: S.sharded_validate_plain(shards[0], b, host, m, m),
-           None, nbytes, ops, err)
+           None, nbytes, ops, err_one)
+    nbytes, ops = devicestats.cost("sharded_validate_grouped", (shards[0], b, host, 0, N))
+    record(torch, "sharded_validate_grouped", "sharded_validate.cu",
+           "tigerbeetle_tpu/parallel/sharding.py:113",
+           lambda: S.sharded_validate_grouped(shards[0], b, host, 0, N),
+           lambda: S.sharded_validate_grouped_plain(shards[0], b, host, 0, N),
+           None, nbytes, ops, err, slices=2,
+           ms_2x_sharded_validate=cuda_ms(
+               torch, lambda: [S.sharded_validate(shards[0], b, host, lo, m) for lo in (0, m)], 10))
+    log(f"sharded_validate_grouped: 2 x sharded_validate "
+        f"{RESULTS['sharded_validate_grouped']['ms_2x_sharded_validate']:.4f} ms")
 
     # sharded_apply: the post batch's gathered routing on every shard (clean), then an
     # overflow on a row of shard 3 that no event touches (must bail).
@@ -756,6 +797,10 @@ def phase_sharded(torch, C, rng, dev):
     p_amount[0, 0] = 1
     cases.append(("overflow cured by a removal on device 6", cured_group,
                   (dr_c, cr_c, b.amount, p_amount, mask_c), False))
+    unsup_route = route.clone()
+    unsup_route[N - 3] |= S.M_UNSUPPORTED  # the validation's mark: the posting bails
+    cases.append(("an unsupported event's routing bit", group,
+                  (b.dr_slot, b.cr_slot, b.amount, None, unsup_route), True))
     err = 0
     for label, states, a, bails in cases:
         got = S.sharded_apply_grouped(states, bases, *a)
@@ -776,11 +821,15 @@ def phase_sharded(torch, C, rng, dev):
         f"{RESULTS['sharded_apply_grouped']['ms_8x_sharded_apply']:.4f} ms")
     del group
 
-    # sharded_read: 2n = 16384 slots with -1, the last row and slots past it; the OR
-    # of the four shards equals the single-device gather.
+    # sharded_read: 2n = 16384 slots with -1, the last row, slots past it and each
+    # shard's first and last row; the OR of the four shards equals the
+    # single-device gather. sharded_read_grouped over the four shards in one
+    # call (a dp row of phase 9's one card) gives it directly.
     k = 2 * N
     slots_np = rng.integers(0, A_MAX, k).astype(np.int32)
-    slots_np[:4] = [-1, A_MAX - 1, A_MAX, 0]
+    edges = [-1, A_MAX - 1, A_MAX, A_MAX + 5, -(1 << 31), 0]
+    edges += [s * ROWS for s in range(SHARD)] + [(s + 1) * ROWS - 1 for s in range(SHARD)]
+    slots_np[:len(edges)] = edges
     slots = torch.from_numpy(slots_np).to(dev)
     err, blocks = 0, []
     for s in range(SHARD):
@@ -788,8 +837,23 @@ def phase_sharded(torch, C, rng, dev):
         want = S.sharded_read_plain(shards[s], slots, s * ROWS, A_MAX)
         err = max(err, max_abs_err(torch, f"sharded_read shard {s}", got, want))
         blocks.append(got)
+    dense_read = C.read_balances(state, slots)
     max_abs_err(torch, "sharded_read combined vs read_balances", tuple(S.combine_shards(blocks, dev)),
-                C.read_balances(state, slots))
+                dense_read)
+    bases = [s * ROWS for s in range(SHARD)]
+    grouped = S.sharded_read_grouped(shards, bases, slots, A_MAX)
+    err_g = max_abs_err(torch, "sharded_read_grouped (4 shards)", grouped,
+                        S.sharded_read_grouped_plain(shards, bases, slots, A_MAX))
+    max_abs_err(torch, "sharded_read_grouped vs read_balances", grouped, dense_read)
+    nbytes, ops = devicestats.cost("sharded_read_grouped", (shards, bases, slots, A_MAX))
+    record(torch, "sharded_read_grouped", "sharded_read.cu", "tigerbeetle_tpu/parallel/sharding.py:215",
+           lambda: S.sharded_read_grouped(shards, bases, slots, A_MAX),
+           lambda: S.sharded_read_grouped_plain(shards, bases, slots, A_MAX),
+           None, nbytes, ops, err_g, shards=SHARD,
+           ms_4x_sharded_read_combined=cuda_ms(torch, lambda: S.combine_shards(
+               [S.sharded_read(shards[s], slots, bases[s], A_MAX) for s in range(SHARD)], dev), 10))
+    log(f"sharded_read_grouped: 4 x sharded_read and combine_shards "
+        f"{RESULTS['sharded_read_grouped']['ms_4x_sharded_read_combined']:.4f} ms")
     clipped = np.clip(slots_np.astype(np.int64), 0, A_MAX - 1)
     owned = int((clipped < ROWS).sum())
     tables = [getattr(shards[0], f).view(torch.int32) for f in C.BALANCE_FIELDS]
@@ -845,7 +909,7 @@ def phase_sharded(torch, C, rng, dev):
     del tables
 
     # The exact kernel's external-base mode on the config-3 and config-4
-    # batches (base: sharded_read over the four shards of their states, combined).
+    # batches (base: sharded_read_grouped over the four shards of their states).
     ext = {}
     for label, seed in (("config3", 41), ("config4", 42)):
         st, eb, ehost, p, chain, plan = exact_staged(torch, C, E, dev, label, seed, baseline=True)
@@ -853,7 +917,7 @@ def phase_sharded(torch, C, rng, dev):
         is_pv = (eb.flags.view(torch.int32) & (C.F_POST | C.F_VOID)) != 0
         rec = torch.cat([torch.where(is_pv, p.dr_slot, eb.dr_slot),
                          torch.where(is_pv, p.cr_slot, eb.cr_slot)])
-        base = S.combine_shards([S.sharded_read(parts[s], rec, s * ROWS, A_MAX) for s in range(SHARD)], dev)
+        base = E.Observed(*S.sharded_read_grouped(parts, [s * ROWS for s in range(SHARD)], rec, A_MAX))
         run = lambda: E.create_transfers_exact_external(st, base, eb, ehost, p, chain, plan)
         want = E.create_transfers_exact_external_plain(st, base, eb, ehost, p, chain, plan)
         got, ext[f"sweeps_external_{label}"] = sweeps_of(torch, E, dev, run)
@@ -2052,7 +2116,20 @@ def run_compaction_config(torch, rng, n_batches=STORM_BATCHES):
 
 # --- phase 9: the commit path on a mesh (one card named eight times) ------
 
-MESH_KERNELS = ("sharded_validate", "sharded_apply_grouped", "sharded_read",
+# Entries on no main path: the key build alone (the sorted build computes
+# its keys in its own launch) and the mesh's one-slice and one-shard
+# entries (the mesh launches the grouped ones, once a card).
+OFF_PATH = ("query_index_keys", "sharded_validate", "sharded_apply", "sharded_read")
+
+
+def check_off_path(name, launches) -> None:
+    """Fail unless every OFF_PATH entry launched 0 times in the run."""
+    if any(launches[k] for k in OFF_PATH):
+        raise SystemExit(f"{name}: an entry on no path launched: "
+                         f"{json.dumps({k: launches[k] for k in OFF_PATH})}")
+
+
+MESH_KERNELS = ("sharded_validate_grouped", "sharded_apply_grouped", "sharded_read_grouped",
                 "register_accounts_sharded", "write_balances", "create_transfers_exact",
                 "exact_sort_plan", "query_index_keys_sorted")
 
@@ -2132,20 +2209,36 @@ def run_mesh_config(torch, name, mesh, n_accounts, acc_flags, n_batches, next_ba
                          f"{m['launches']['register_accounts_sharded']} times (want {account_ops} "
                          f"batches x {per_batch}) and register_accounts "
                          f"{m['launches']['register_accounts']} times (want 0)")
-    # One posting launch a commit and card (a launch takes at most
-    # GROUP_SHARDS of the card's shards), none a shard: a fast commit
-    # validates once a dp row, an exact commit sweeps once a card.
+    # One validation launch a fast commit and validating card (dp row i's
+    # first device validates slice i), one posting launch a commit and card
+    # (at most GROUP_SHARDS shards a launch), one read launch a card of
+    # each dp row read by an exact commit (the rows of the distinct
+    # devices) or by the serial route's read_balances (row 0): none of the
+    # one-slice, one-shard entries (check_off_path). The fast and exact
+    # commits are the machine's own dispatch counts, bailed ones included.
     devices = mesh.distinct()
-    per_commit = sum(-(-mesh.flat.count(d) // S.GROUP_SHARDS) for d in devices)
-    ml = m["launches"]
-    commits = ml["sharded_validate"] // mesh.dp + ml["create_transfers_exact"] // len(devices)
-    if ml["sharded_apply_grouped"] != commits * per_commit or ml["sharded_apply"] or ml["query_index_keys"]:
-        raise SystemExit(f"{name}: posting launched sharded_apply_grouped "
-                         f"{ml['sharded_apply_grouped']} times (want {commits} commits x "
-                         f"{per_commit}), sharded_apply {ml['sharded_apply']} times and "
-                         f"query_index_keys {ml['query_index_keys']} times (want 0)")
-    log(f"{name} mesh: {commits} commits, {ml['sharded_apply_grouped']} launches of "
-        f"sharded_apply_grouped, {ml['register_accounts_sharded']} of register_accounts_sharded")
+    chunks = lambda ds, group: sum(-(-ds.count(d) // group) for d in dict.fromkeys(ds))
+    per_fast = len(dict.fromkeys(row[0] for row in mesh.devices))
+    per_commit = chunks(list(mesh.flat), S.GROUP_SHARDS)
+    per_row = lambda rows: sum(chunks(list(mesh.devices[i]), S.GROUP_SHARDS) for i in rows)
+    per_exact = per_row({mesh.flat.index(d) // mesh.shard for d in devices})
+    ml, snap, st = m["launches"], m["snap"], m["stats"]
+    dispatched = lambda entry: snap.get(f"device.sharded.{entry}.dispatches", {"count": 0})["count"]
+    fast, exact = dispatched("create_transfers_fast"), dispatched("create_transfers_exact")
+    if fast + exact != st["fast_batches"] + st["exact_batches"] + st["bail_batches"]:
+        raise SystemExit(f"{name}: {fast} fast and {exact} exact dispatches, stats {json.dumps(st)}")
+    reads = snap.get("device.sharded.read_balances", {"count": 0})["count"]
+    want = {"sharded_validate_grouped": fast * per_fast,
+            "sharded_apply_grouped": (fast + exact) * per_commit,
+            "sharded_read_grouped": exact * per_exact + reads * per_row([0]),
+            "create_transfers_exact": exact * len(devices)}
+    if any(ml[k] != v for k, v in want.items()):
+        raise SystemExit(f"{name}: launched {json.dumps({k: ml[k] for k in want})}, want "
+                         f"{json.dumps(want)} ({fast} fast, {exact} exact commits, {reads} reads)")
+    check_off_path(name, ml)
+    log(f"{name} mesh: {fast} fast and {exact} exact commits, {reads} serial reads: launches "
+        f"{json.dumps({k: ml[k] for k in want})}, {ml['register_accounts_sharded']} of "
+        f"register_accounts_sharded")
     for i, (g, w) in enumerate(zip(m["results"], s["results"], strict=True)):
         expect_equal(g, w, f"{name} mesh op {i}")
     for g, w in zip(m["looked"], s["looked"], strict=True):
@@ -2323,6 +2416,8 @@ def main() -> int:
 
     phases = {"config1": l1, "config2": l2, "config3": l3, "config4": l4, "query": l7,
               "query_storm": l7s, "compaction": l8, "mesh": l9}
+    for label, launches in phases.items():
+        check_off_path(label, launches)
     for name, row in RESULTS.items():
         row["launches"] = sum(l[name] for l in phases.values())
         for label, l in phases.items():

@@ -705,6 +705,25 @@ def _shard(state, s, n_shard):
                            for f in C.BALANCE_FIELDS), state.ledger, state.flags)
 
 
+def _validate_inputs(rng, dev, n):
+    """A batch of n events reaching every rung of the fast ladder, with
+    unsupported (linked) and reserved flags, and host codes."""
+    b = {
+        "id": rng.integers(0, 4, (n, 4)).astype(np.uint32),
+        "dr_slot": rng.integers(-1, A + 2, n).astype(np.int32),
+        "cr_slot": rng.integers(0, 64, n).astype(np.int32),
+        "amount": rng.integers(0, 3, (n, 4)).astype(np.uint32),
+        "pending_id": (rng.random((n, 4)) < 0.01).astype(np.uint32),
+        "timeout": (rng.random(n) < 0.05).astype(np.uint32),
+        "ledger": rng.integers(0, 3, n).astype(np.uint32),
+        "code": rng.integers(0, 3, n).astype(np.uint32),
+        "flags": rng.choice([0, 0, 0, 2, 1, 64], n).astype(np.uint32),
+        "timestamp": np.ones((n, 2), np.uint32),
+    }
+    batch = C.TransferBatch(**{k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+    return batch, torch.from_numpy(rng.choice([0, 0, 0, 8, 12], n).astype(np.uint32)).to(dev)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("lo,m", [(0, N), (N // 2, N // 2), (3, 5)])
 def test_sharded_validate_kernel(dev, lo, m):
@@ -714,26 +733,39 @@ def test_sharded_validate_kernel(dev, lo, m):
 
     rng = np.random.default_rng(11)
     state = _state(rng, dev)
-    b = {
-        "id": rng.integers(0, 4, (N, 4)).astype(np.uint32),
-        "dr_slot": rng.integers(-1, A + 2, N).astype(np.int32),
-        "cr_slot": rng.integers(0, 64, N).astype(np.int32),
-        "amount": rng.integers(0, 3, (N, 4)).astype(np.uint32),
-        "pending_id": (rng.random((N, 4)) < 0.01).astype(np.uint32),
-        "timeout": (rng.random(N) < 0.05).astype(np.uint32),
-        "ledger": rng.integers(0, 3, N).astype(np.uint32),
-        "code": rng.integers(0, 3, N).astype(np.uint32),
-        "flags": rng.choice([0, 0, 0, 2, 1, 64], N).astype(np.uint32),
-        "timestamp": np.ones((N, 2), np.uint32),
-    }
-    batch = C.TransferBatch(**{k: torch.from_numpy(v).to(dev) for k, v in b.items()})
-    host = torch.from_numpy(rng.choice([0, 0, 0, 8, 12], N).astype(np.uint32)).to(dev)
+    batch, host = _validate_inputs(rng, dev, N)
     before = C.LAUNCHES["sharded_validate"]
     got = S.sharded_validate(state, batch, host, lo, m)
     want = S.sharded_validate_plain(state, batch, host, lo, m)
     assert C.LAUNCHES["sharded_validate"] == before + 1
     assert _equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert bool(got[2]) == bool(want[2])
+    assert bool(got[2]) == bool(want[2]) == bool(((want[1] & S.M_UNSUPPORTED) != 0).any())
+    assert got[2].dtype == want[2].dtype == torch.bool and got[2].shape == ()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slices", [1, 2, 4, 8, 33])
+def test_sharded_validate_grouped_kernel(dev, slices):
+    """The grouped validation against its plain version over a run of
+    slices that follow each other, from an offset, in one launch: codes
+    and routing bytes, the unsupported bit included, byte-equal. No
+    one-slice launch."""
+    from tigerbeetle_tpu_torch.parallel import sharding as S
+
+    rng = np.random.default_rng(100 + slices)
+    state = _state(rng, dev)
+    batch, host = _validate_inputs(rng, dev, N)
+    k = slices * 16
+    lo = int(rng.integers(0, N - k + 1))
+    batch.flags.view(torch.int32)[lo + k - 1] |= int(C.F_LINKED)  # an unsupported event
+    before = dict(C.LAUNCHES)
+    got = S.sharded_validate_grouped(state, batch, host, lo, k)
+    want = S.sharded_validate_grouped_plain(state, batch, host, lo, k)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["sharded_validate_grouped"] == before["sharded_validate_grouped"] + 1
+    assert C.LAUNCHES["sharded_validate"] == before["sharded_validate"]
+    assert got[0].shape == (k,) and _equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool(((got[1] & S.M_UNSUPPORTED) != 0).any())
 
 
 @pytest.mark.cuda
@@ -813,6 +845,73 @@ def test_sharded_apply_grouped_kernel(dev, case, count):
 
 
 @pytest.mark.cuda
+def test_sharded_apply_grouped_unsupported_bit(dev):
+    """A routing byte's unsupported bit bails the grouped posting, on an
+    event no shard owns as on one it does, and changes no table."""
+    from tigerbeetle_tpu_torch.parallel import sharding as S
+
+    rng = np.random.default_rng(15)
+    state = _state(rng, dev)
+    states = [_shard(state, s % 4, 4) for s in range(8)]
+    bases = [(s % 4) * (A // 4) for s in range(8)]
+    dr = torch.from_numpy(rng.integers(0, A, N).astype(np.int32)).to(dev)
+    cr = torch.from_numpy(rng.integers(0, A, N).astype(np.int32)).to(dev)
+    amount = torch.from_numpy(rng.integers(0, 1 << 20, (N, 4)).astype(np.uint32)).to(dev)
+    amount[:, 1:] = 0
+    mask = torch.from_numpy(rng.choice([0, 1, 2], N).astype(np.uint8)).to(dev)
+    mask[0] = 0
+    clean = S.sharded_apply_grouped(states, bases, dr, cr, amount, None, mask)
+    assert not bool(clean[1])
+    for owned in (True, False):
+        d, c, m = dr.clone(), cr.clone(), mask.clone()
+        m[0] = S.M_UNSUPPORTED
+        if not owned:
+            d[0], c[0] = -1, -1
+        got = S.sharded_apply_grouped(states, bases, d, c, amount, None, m)
+        want = S.sharded_apply_grouped_plain(states, bases, d, c, amount, None, m)
+        torch.cuda.synchronize()
+        assert bool(got[1]) and bool(want[1])
+        for x, y, z in zip(got[0], want[0], clean[0], strict=True):
+            for f in C.BALANCE_FIELDS:
+                assert _equal(getattr(x, f), getattr(y, f)) and _equal(getattr(x, f), getattr(z, f))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 2, 4, 8, 33])
+def test_sharded_read_grouped_kernel(dev, shards):
+    """The grouped read against its plain version: a subset of 33 shards
+    (33 of them in two launches, the second storing only its own rows),
+    slots -1, the last row, past it and each shard's edges; where every
+    shard is there, the single-device gather. No one-shard launch."""
+    from tigerbeetle_tpu_torch.parallel import sharding as S
+
+    rows = 256
+    a = 33 * rows
+    rng = np.random.default_rng(200 + shards)
+    tables = {f: torch.from_numpy(rng.integers(0, 1 << 32, (a, 4), dtype=np.uint64)
+                                  .astype(np.uint32)).to(dev) for f in C.BALANCE_FIELDS}
+    zero = torch.zeros(a, dtype=torch.int32, device=dev).view(torch.uint32)
+    which = sorted(int(x) for x in rng.choice(33, shards, replace=False))
+    states = [C.LedgerState(*(tables[f][s * rows:(s + 1) * rows].clone() for f in C.BALANCE_FIELDS),
+                            zero, zero) for s in which]
+    bases = [s * rows for s in which]
+    slots_np = rng.integers(-3, a + 3, 2 * N).astype(np.int32)
+    edges = [-1, a - 1, a, -(1 << 31)] + [s * rows for s in range(33)] + [s * rows + rows - 1 for s in range(33)]
+    slots_np[:len(edges)] = edges
+    slots = torch.from_numpy(slots_np).to(dev)
+    before = dict(C.LAUNCHES)
+    got = S.sharded_read_grouped(states, bases, slots, a)
+    want = S.sharded_read_grouped_plain(states, bases, slots, a)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["sharded_read_grouped"] == before["sharded_read_grouped"] + -(-shards // 32)
+    assert C.LAUNCHES["sharded_read"] == before["sharded_read"]
+    assert all(_equal(g, w) for g, w in zip(got, want, strict=True))
+    if shards == 33:
+        dense = C.LedgerState(*(tables[f] for f in C.BALANCE_FIELDS), zero, zero)
+        assert all(_equal(g, w) for g, w in zip(got, C.read_balances(dense, slots)))
+
+
+@pytest.mark.cuda
 def test_sharded_read_kernel(dev):
     """sharded_read: slots clip to [0, A-1] first (-1 reads row 0 on shard 0), then
     each shard returns the rows it owns and zeros elsewhere; the OR of the
@@ -865,8 +964,9 @@ def test_create_transfers_exact_external_kernel(dev, kind, kw):
 @pytest.mark.cuda
 def test_sharded_commits_on_a_virtual_mesh(dev):
     """One card named eight times (dp 2 x shard 4): the sharded fast and
-    exact commits launch the three mesh kernels and the external mode, hide no device sync,
-    and equal the same commits on a mesh of CPUs."""
+    exact commits launch the three mesh kernels' grouped entries and the
+    external mode, hide no device sync, and equal the same commits on a
+    mesh of CPUs."""
     from exact_batches import batch, state
 
     from tigerbeetle_tpu_torch.ops import commit_exact as E
@@ -902,9 +1002,12 @@ def test_sharded_commits_on_a_virtual_mesh(dev):
         runs[name] = (f_out, e_out, dict(C.LAUNCHES), mesh)
     f_card, e_card, launches, mesh = runs["card"]
     f_cpu, e_cpu, _, cpu_mesh = runs["cpu"]
-    assert launches["sharded_validate"] == 2 and launches["sharded_apply"] == 0
-    assert launches["sharded_apply_grouped"] == 2  # one a commit: the card holds all 8 shards
-    assert launches["sharded_read"] == 4 and launches["create_transfers_exact"] == 1
+    # one launch of each grouped entry a commit: the card validates both dp
+    # slices, holds all 8 shards and reads dp row 0's 4 in one launch
+    assert launches["sharded_validate_grouped"] == 1 and launches["sharded_validate"] == 0
+    assert launches["sharded_apply_grouped"] == 2 and launches["sharded_apply"] == 0
+    assert launches["sharded_read_grouped"] == 1 and launches["sharded_read"] == 0
+    assert launches["create_transfers_exact"] == 1
     assert launches["exact_sort_plan"] == 1
     assert _equal(f_card[1].cpu(), f_cpu[1])
     assert not bool(f_card[2]) and not bool(f_cpu[2])

@@ -46,7 +46,9 @@
 //      and of the rows each other shard touched (untouched rows are
 //      unchanged; a removal can cure a touched row's old overflow).
 // bail = any add overflow, removal underflow or pending + posted overflow
-// on any shard of the launch (the reference's psum over its shards).
+// on any shard of the launch (the reference's psum over its shards), or an
+// event whose mask carries M_UNSUPPORTED (the fast route's validation marks
+// an unsupported flag so; read in phase 2 with the adds' masks).
 // Shard pointers travel in the kernel's parameters (__grid_constant__), at
 // most kMaxShards a launch; the wrapper launches a longer list in chunks.
 // Two blocks of 256 threads an SM: a grid barrier's cost grows with the
@@ -63,6 +65,7 @@ namespace {
 constexpr uint8_t M_ADD_PEND = 1;
 constexpr uint8_t M_ADD_POST = 2;
 constexpr uint8_t M_SUB_PEND = 4;
+constexpr uint8_t M_UNSUPPORTED = 8;  // csrc/sharded_validate.cu R_UNSUPPORTED: bail
 constexpr int kMaxShards = 32;   // parallel/sharding.py GROUP_SHARDS
 constexpr int kBlock = 256;
 constexpr int kBlocksPerSm = 2;  // fewer blocks, cheaper grid barriers
@@ -116,8 +119,8 @@ __device__ __forceinline__ void post(uint4* table, int r, uint4 v,
   over |= sub ? tb::atomic_sub_u128(row, v) : tb::atomic_add_u128(row, v);
 }
 
-// One (event, shard) pair: the shard j, the event's mask (0 where the
-// shard owns neither side), both sides' local rows (-1: not the shard's)
+// One (event, shard) pair: the shard j, the event's mask (M_UNSUPPORTED
+// alone where the shard owns neither side), both sides' local rows (-1: not the shard's)
 // and the amounts (p_amount's zero without removals).
 struct Pair {
   int j;
@@ -138,7 +141,7 @@ __device__ __forceinline__ Pair load_pair(const Args<N>& a, int e, int n, int ro
   p.cl = local_row(a.cr[i], base, rows);
   p.v = a.amount[i];
   p.pv = a.p_amount != nullptr ? a.p_amount[i] : make_uint4(0, 0, 0, 0);
-  if (p.dl < 0 && p.cl < 0) p.m = 0;
+  if (p.dl < 0 && p.cl < 0) p.m &= M_UNSUPPORTED;
   return p;
 }
 
@@ -207,6 +210,7 @@ __global__ void __launch_bounds__(kBlock, kBlocksPerSm)
   bool bad = false;
   for (int e = tid; e < pairs; e += stride) {
     const Pair p = pair_at(e);
+    bad |= (p.m & M_UNSUPPORTED) != 0;
     if (!(p.m & (M_ADD_PEND | M_ADD_POST))) continue;
     const Tables& t = a.shard[p.j].new_t;
     if (p.m & M_ADD_PEND) {
@@ -249,7 +253,7 @@ __global__ void __launch_bounds__(kBlock, kBlocksPerSm)
   if (old != (count == 32 ? 0xFFFFFFFFu : (1u << count) - 1)) {
     for (int e = tid; e < pairs; e += stride) {
       const Pair p = pair_at(e);
-      if (((old >> p.j) & 1) || !p.m) continue;
+      if (((old >> p.j) & 1) || !(p.m & ~M_UNSUPPORTED)) continue;
       const Tables& t = a.shard[p.j].new_t;
       if (p.dl >= 0) bad |= row_overflows(t, p.dl);
       if (p.cl >= 0) bad |= row_overflows(t, p.cl);

@@ -124,12 +124,13 @@ COSTS = {
         _nbytes(cand, run) + cand.numel(),
         cand.numel() * 4 * _log2(run.numel()),
     ),
-    # parallel/sharding.py, the commit over a device mesh. The slice's m
-    # events (ten fields and the host code) and two ledger words an event
-    # in, a code and a routing byte an event out; ~60 operations an event.
-    "sharded_validate": lambda state, b, host_code, lo, m: (
-        sum(_nbytes(x) // x.shape[0] for x in (*b, host_code)) * m + 8 * m + 5 * m + 1,
-        60 * m,
+    # parallel/sharding.py, the commit over a device mesh. The k events
+    # [lo, lo + k) (ten fields and the host code: one dp slice, or the
+    # slices one card validates) and two ledger words an event in, a code
+    # and a routing byte an event out; ~60 operations an event.
+    "sharded_validate": lambda state, b, host_code, lo, k: (
+        (sum(_nbytes(x) // x.shape[0] for x in (*b, host_code)) + 8 + 5) * k,
+        60 * k,
     ),
     # the shard's four tables in and out, the events' slots, amounts,
     # masks (and removal amounts) in; ~24 operations a row, ~80 an event.
@@ -151,7 +152,15 @@ COSTS = {
         _nbytes(slots) + 64 * slots.shape[0] + 64 * (slots.shape[0] if owned is None else owned),
         8 * slots.shape[0],
     ),
+    # the slots in, four (k, 4) blocks out, and the rows the launch's
+    # shards own read once (`owned` of them where the caller counted
+    # them, else k: every row of a dp row has its owner among them).
+    "sharded_read_grouped": lambda states, bases, slots, a, owned=None: (
+        _nbytes(slots) + 64 * slots.shape[0] + 64 * (slots.shape[0] if owned is None else owned),
+        8 * slots.shape[0],
+    ),
 }
+COSTS["sharded_validate_grouped"] = COSTS["sharded_validate"]
 
 
 def cost(entry: str, args: tuple):

@@ -58,16 +58,23 @@ SIGNATURES = {
     "merge_kernel": ("tb_merge_kernel", [_P] * 6 + [_I, _I, _I, _P]),
     "compact_fold_kernel": ("tb_compact_fold", [_P] * 5 + [_I, _I, _P]),
     # the commit path over balance tables sharded on a device mesh
-    "sharded_validate": ("tb_sharded_validate", [_P] * 15 + [_I] * 3 + [_P]),
     "sharded_apply": ("tb_sharded_apply", [_P] * 15 + [_I] * 3 + [_P]),
     "sharded_apply_grouped": ("tb_sharded_apply_grouped", [_P] * 3 + [_I] + [_P] * 7 + [_I, _I, _P]),
-    "sharded_read": ("tb_sharded_read", [_P] * 9 + [_I] * 4 + [_P]),
+    # one C entry each, launched under the name of the wrapper that calls it
+    # (the one-slice, one-shard wrapper or the mesh's grouped one), so that
+    # each wrapper's launches count apart
+    "sharded_validate": ("tb_sharded_validate", [_P] * 14 + [_I] * 3 + [_P]),
+    "sharded_validate_grouped": ("tb_sharded_validate", [_P] * 14 + [_I] * 3 + [_P]),
+    "sharded_read": ("tb_sharded_read", [_P, _P, _I] + [_P] * 5 + [_I] * 4 + [_P]),
+    "sharded_read_grouped": ("tb_sharded_read", [_P, _P, _I] + [_P] * 5 + [_I] * 4 + [_P]),
     "register_accounts_sharded": ("tb_register_accounts_sharded", [_P, _P, _I] + [_P] * 4 + [_I, _I, _P]),
 }
 
 # The source of each entry that is not csrc/<entry>.cu.
 SOURCES = {"register_accounts_sharded": "register_accounts",
-           "sharded_apply_grouped": "sharded_apply"}
+           "sharded_apply_grouped": "sharded_apply",
+           "sharded_validate_grouped": "sharded_validate",
+           "sharded_read_grouped": "sharded_read"}
 
 # Kernel launches per entry (plain-version calls do not count).
 LAUNCHES: Dict[str, int] = dict.fromkeys(SIGNATURES, 0)

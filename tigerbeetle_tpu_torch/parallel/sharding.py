@@ -31,14 +31,15 @@ Entries: `make_sharded_commit` (reference :113), `make_sharded_commit_exact`
 (:179) and `register_accounts_sharded` (:295), plus the gather and the
 writeback of the state machine's lookups and serial route
 (`read_balances_sharded`, `write_balances_sharded`). On a mesh of CUDA
-devices the commits launch three hand-written kernels
-(csrc/sharded_validate.cu, sharded_apply.cu, sharded_read.cu) and the
-exact kernel's external-base mode, the posting and registration once a
-card over the shards it holds (csrc/sharded_apply.cu,
-csrc/register_accounts.cu); on a mesh of CPUs they run
-their plain versions (`*_plain`), the reference's shard_map step written
-out device by device. Each kernel wrapper has its own plain version
-beside it.
+devices the commits launch three hand-written kernels and the exact
+kernel's external-base mode, each once a card over what that card holds:
+the validation over the dp slices it validates, written into the gathered
+layout (csrc/sharded_validate.cu), the read over the shards of a dp row,
+written as combined rows (csrc/sharded_read.cu), the posting and the
+registration over its shards (csrc/sharded_apply.cu,
+csrc/register_accounts.cu); on a mesh of CPUs they run their plain
+versions (`*_plain`), the reference's shard_map step written out device
+by device. Each kernel wrapper has its own plain version beside it.
 """
 
 from __future__ import annotations
@@ -68,6 +69,9 @@ from tigerbeetle_tpu_torch.ops.commit_exact import (
 )
 
 AXES = ("dp", "shard")
+# The routing byte's fourth bit: the event carries an unsupported flag
+# (csrc/sharded_validate.cu R_UNSUPPORTED); the posting ORs it into its bail.
+M_UNSUPPORTED = 8
 _check = kernels.check
 
 
@@ -238,14 +242,34 @@ def _cat(parts: list) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def _joined(parts: list, dev: torch.device) -> Optional[torch.Tensor]:
+    """The tensor that `parts` tile, where they are contiguous views on
+    `dev` of one storage, each beginning where the one before ends (a
+    view of it, no copy); else None."""
+    p0 = parts[0]
+    storage = p0.untyped_storage().data_ptr()
+    at = p0.data_ptr()
+    for p in parts:
+        if (p.device != dev or p.dtype != p0.dtype or p.shape[1:] != p0.shape[1:]
+                or not p.is_contiguous() or p.untyped_storage().data_ptr() != storage
+                or p.data_ptr() != at):
+            return None
+        at += p.numel() * p.element_size()
+    size = (sum(p.shape[0] for p in parts), *p0.shape[1:])
+    return p0.as_strided(size, p0.stride(), p0.storage_offset())
+
+
 def all_gather_dp(parts: list, devices) -> Dict[torch.device, torch.Tensor]:
     """The reference's all_gather over dp (tiled): the dp slices `parts`
     concatenated in dp order, placed once on each distinct device of
-    `devices` (device → tensor). Never waits for the device."""
+    `devices` (device → tensor). Where the parts already tile one tensor
+    on a device (one card's validation writes the gathered layout), that
+    device gets the tensor itself. Never waits for the device."""
     out: Dict[torch.device, torch.Tensor] = {}
     for d in devices:
         if d not in out:
-            out[d] = _cat([_peer(p, d) for p in parts])
+            whole = _joined(parts, d)
+            out[d] = whole if whole is not None else _cat([_peer(p, d) for p in parts])
     return out
 
 
@@ -261,10 +285,11 @@ def psum_any(flags: list, dev: torch.device) -> torch.Tensor:
 
 
 def combine_shards(blocks: list, dev: torch.device) -> Observed:
-    """One gather's rows from the shards of a dp row (`blocks[s]`: shard
-    s's four (k, 4) blocks, zero where it owns no row), combined on `dev`
-    in shard order. Each row has one owner, so the OR of the disjoint
-    words equals the reference's psum over the shard axis."""
+    """One gather's rows from the shards of a dp row (`blocks[c]`: four
+    (k, 4) blocks read from some of the row's shards, zero where those
+    own no row; the parts in shard order), combined on `dev`. Each row
+    has one owner, so the OR of the disjoint words equals the reference's
+    psum over the shard axis."""
     out = []
     for f in range(4):
         acc = _peer(blocks[0][f], dev).view(torch.int32)
@@ -295,39 +320,67 @@ def sharded_validate_plain(state: LedgerState, b: TransferBatch, host_code, lo: 
     """Plain PyTorch version of csrc/sharded_validate.cu: the fast ladder
     (commit.validate_simple, merge_codes) for events [lo, lo + m) of `b`
     against `state.ledger`. Returns (codes (m,) uint32, route (m,) uint8:
-    M_ADD_PEND for ok & pending, M_ADD_POST for ok & not pending, bail ()
-    bool: an unsupported flag in the slice)."""
+    M_ADD_PEND for ok & pending, M_ADD_POST for ok & not pending,
+    M_UNSUPPORTED for an unsupported flag, bail () bool: an unsupported
+    flag in the slice)."""
     sl = TransferBatch(*(x[lo:lo + m] for x in b))
     code, unsupported = commit.validate_simple(state, sl)
     code = commit.merge_codes(code, u128.widen(host_code[lo:lo + m]))
     ok = (code == 0) & ~unsupported
     pend = (u128.widen(sl.flags) & F_PENDING) != 0
     route = posting_mask(ok & pend, ok & ~pend, torch.zeros_like(ok))
+    route = route | torch.where(unsupported, M_UNSUPPORTED, 0).to(torch.uint8)
     return u128.narrow(code), route, unsupported.any()
+
+
+def _validate(name: str, state: LedgerState, b: TransferBatch, host_code, lo: int, k: int):
+    """csrc/sharded_validate.cu's one launch over events [lo, lo + k) of
+    `b`, counted under `name`: (codes (k,) uint32, route (k,) uint8)."""
+    dev = state.ledger.device
+    a = state.ledger.shape[0]
+    _check(state.ledger, "ledger", torch.uint32, (a,), dev)
+    n = _check_batch(b, host_code, dev)
+    if not (0 <= lo and 0 <= k and lo + k <= n):
+        raise ValueError(f"{name}: events [{lo}, {lo + k}) outside {n} events")
+    codes = torch.empty((k,), dtype=torch.uint32, device=dev)
+    route = torch.empty((k,), dtype=torch.uint8, device=dev)
+    kernels.launch(
+        name, dev, *(t.data_ptr() for t in (*b, host_code, state.ledger, codes, route)), lo, k, a,
+    )
+    return codes, route
 
 
 def sharded_validate(state: LedgerState, b: TransferBatch, host_code, lo: int, m: int):
     """The fast ladder for one dp slice, events [lo, lo + m) of `b`, on
     the device of `state` (whose ledger (A,) it reads): csrc/
-    sharded_validate.cu for CUDA tensors, the plain version for CPU
-    tensors. Returns (codes, route, bail) as the plain version."""
+    sharded_validate.cu for CUDA tensors, the bail the OR of the routing
+    bytes' unsupported bits; the plain version for CPU tensors. Returns
+    (codes, route, bail) as the plain version. The mesh's commits validate
+    through sharded_validate_grouped."""
     if state.ledger.device.type == "cpu":
         return sharded_validate_plain(state, b, host_code, lo, m)
-    dev = state.ledger.device
-    a = state.ledger.shape[0]
-    _check(state.ledger, "ledger", torch.uint32, (a,), dev)
-    n = _check_batch(b, host_code, dev)
-    if not (0 <= lo and 0 <= m and lo + m <= n):
-        raise ValueError(f"sharded_validate: slice [{lo}, {lo + m}) outside {n} events")
-    codes = torch.empty((m,), dtype=torch.uint32, device=dev)
-    route = torch.empty((m,), dtype=torch.uint8, device=dev)
-    bail = torch.empty((), dtype=torch.bool, device=dev)
-    kernels.launch(
-        "sharded_validate", dev,
-        *(t.data_ptr() for t in (*b, host_code, state.ledger, codes, route, bail)),
-        lo, m, a,
-    )
-    return codes, route, bail
+    codes, route = _validate("sharded_validate", state, b, host_code, lo, m)
+    return codes, route, ((route & M_UNSUPPORTED) != 0).any()
+
+
+def sharded_validate_grouped_plain(state: LedgerState, b: TransferBatch, host_code, lo: int, k: int):
+    """Plain PyTorch version of sharded_validate_grouped: sharded_validate_plain
+    over the k events, without its bail."""
+    return sharded_validate_plain(state, b, host_code, lo, k)[:2]
+
+
+def sharded_validate_grouped(state: LedgerState, b: TransferBatch, host_code, lo: int, k: int):
+    """The fast ladder for the dp slices that one card validates, events
+    [lo, lo + k) of `b` (slices that follow each other in the batch), on
+    the device of `state` (whose ledger (A,) it reads), into that card's
+    gathered layout: csrc/sharded_validate.cu in one launch for CUDA
+    tensors, the plain version for CPU tensors. Returns (codes (k,)
+    uint32, route (k,) uint8) in event order: routing bytes as the plain
+    version's, M_UNSUPPORTED included, which the posting ORs into its
+    bail (no bail word of its own)."""
+    if state.ledger.device.type == "cpu":
+        return sharded_validate_grouped_plain(state, b, host_code, lo, k)
+    return _validate("sharded_validate_grouped", state, b, host_code, lo, k)
 
 
 def _local(slots: torch.Tensor, base: int, rows: int):
@@ -344,7 +397,8 @@ def sharded_apply_plain(state: LedgerState, dr, cr, amount, p_amount, mask, base
     bits) on the sides of each event whose global slot (dr, cr (n,)
     int32) lies in [base, base + rows), and remove `p_amount` from
     pending under M_SUB_PEND (p_amount None: no removals). Returns (the
-    shard's LedgerState with new tables, bail () bool)."""
+    shard's LedgerState with new tables, bail () bool: also set by any
+    M_UNSUPPORTED in `mask`)."""
     rows = state.debits_pending.shape[0]
     m = mask.long()
     add_pend, add_post = (m & M_ADD_PEND) != 0, (m & M_ADD_POST) != 0
@@ -366,7 +420,7 @@ def sharded_apply_plain(state: LedgerState, dr, cr, amount, p_amount, mask, base
         debits_pending=new_dp, debits_posted=new_dpo,
         credits_pending=new_cp, credits_posted=new_cpo,
     )
-    return new, (over | o5 | o6).any()
+    return new, (over | o5 | o6).any() | ((m & M_UNSUPPORTED) != 0).any()
 
 
 GROUP_SHARDS = 32  # shards a launch (csrc/sharded_apply.cu kMaxShards)
@@ -495,52 +549,129 @@ def sharded_read_plain(state: LedgerState, slots, base: int, a: int):
 
 def sharded_read(state: LedgerState, slots, base: int, a: int):
     """One shard's part of a gather of the balance tables at global
-    `slots`: csrc/sharded_read.cu for CUDA tensors, the plain version for
-    CPU tensors. Returns four (k, 4) uint32 blocks."""
+    `slots`: csrc/sharded_read.cu over the one shard for CUDA tensors,
+    the plain version for CPU tensors. Returns four (k, 4) uint32 blocks.
+    The mesh reads through sharded_read_grouped."""
     if state.ledger.device.type == "cpu":
         return sharded_read_plain(state, slots, base, a)
-    dev = state.ledger.device
-    rows = state.debits_pending.shape[0]
-    for f in BALANCE_FIELDS:
-        _check(getattr(state, f), f, torch.uint32, (rows, 4), dev)
+    return _read("sharded_read", [state], [base], slots, a)
+
+
+def sharded_read_grouped_plain(states, bases, slots, a: int):
+    """Plain PyTorch version of sharded_read_grouped: each slot (clipped to
+    [0, a-1]) read from the shard of `states` that owns it, zeros where
+    none does."""
+    rows = states[0].debits_pending.shape[0]
+    glob = slots.long().clamp(0, a - 1)
+    out = [torch.zeros((slots.shape[0], 4), dtype=torch.int32, device=slots.device)
+           for _ in BALANCE_FIELDS]
+    for st, base in zip(states, bases):
+        local = glob - base
+        mine = ((local >= 0) & (local < rows))[:, None]
+        ix = local.clamp(0, rows - 1)
+        out = [torch.where(mine, getattr(st, f).view(torch.int32)[ix], o)
+               for f, o in zip(BALANCE_FIELDS, out)]
+    return tuple(o.view(torch.uint32) for o in out)
+
+
+def sharded_read_grouped(states, bases, slots, a: int):
+    """A gather of the balance tables at global `slots` (k,) int32 from
+    the shards `states` (all on one device; shard j at global rows
+    [bases[j], bases[j] + rows)): each slot clipped to [0, a-1] and read
+    from its owner, zeros where none of them owns it: csrc/sharded_read.cu,
+    one launch a GROUP_SHARDS shards (a later launch
+    stores only its own rows), for CUDA tensors; the plain version for CPU
+    tensors. Returns four (k, 4) uint32 blocks: the combined rows where
+    `states` are every shard of a dp row."""
+    if states[0].ledger.device.type == "cpu":
+        return sharded_read_grouped_plain(states, bases, slots, a)
+    return _read("sharded_read_grouped", states, bases, slots, a)
+
+
+def _read(name: str, states, bases, slots, a: int):
+    """csrc/sharded_read.cu over the shards `states` at `bases`, one launch
+    a GROUP_SHARDS shards, counted under `name`: four (k, 4) uint32
+    blocks."""
+    dev = states[0].ledger.device
+    rows = _check_tables(states, dev)
     k = slots.shape[0]
     _check(slots, "slots", torch.int32, (k,), dev)
-    out = [torch.empty((k, 4), dtype=torch.uint32, device=dev) for _ in range(4)]
-    kernels.launch(
-        "sharded_read", dev,
-        *(getattr(state, f).data_ptr() for f in BALANCE_FIELDS),
-        slots.data_ptr(), *(t.data_ptr() for t in out), base, rows, a, k,
-    )
+    out = _empty_tables(k, dev)
+    for lo in range(0, len(states), GROUP_SHARDS):
+        part = slice(lo, lo + GROUP_SHARDS)
+        kernels.launch(
+            name, dev,
+            kernels.pointer_array([getattr(st, f).data_ptr() for st in states[part]
+                                   for f in BALANCE_FIELDS]),
+            kernels.size_array(bases[part]), len(states[part]), slots.data_ptr(),
+            *(t.data_ptr() for t in out), rows, a, k, int(lo > 0),
+        )
     return tuple(out)
+
+
+def _read_row(mesh: Mesh, rows: int, a: int, state: ShardedState, i: int, slots) -> list:
+    """The rows at `slots` from dp row i's shards: sharded_read_grouped once
+    for each distinct device of the row, over the shards that device holds.
+    Returns the devices' blocks in shard order (one block on a virtual
+    mesh)."""
+    row = mesh.devices[i]
+    blocks = []
+    for d in dict.fromkeys(row):
+        ss = [s for s in range(mesh.shard) if row[s] == d]
+        blocks.append(sharded_read_grouped(
+            [state.shards[i * mesh.shard + s] for s in ss], [s * rows for s in ss],
+            _peer(slots, d), a))
+    return blocks
+
+
+def _rows_on(blocks: list, dev: torch.device) -> Observed:
+    """A dp row's read (`_read_row`) on `dev`: one device's block as it
+    is, several combined in shard order."""
+    if len(blocks) == 1:
+        return Observed(*(_peer(t, dev) for t in blocks[0]))
+    return combine_shards(blocks, dev)
 
 
 # --- the fast commit (reference make_sharded_commit, :113) ---------------
 
 
+def _dp_rows(x: torch.Tensor, rows_i: list, m: int) -> torch.Tensor:
+    """The events of dp rows `rows_i` (ascending) of x, in order: a view
+    where the rows follow each other."""
+    if rows_i == list(range(rows_i[0], rows_i[-1] + 1)):
+        return x[rows_i[0] * m:(rows_i[-1] + 1) * m]
+    return _cat([x[i * m:(i + 1) * m] for i in rows_i])
+
+
 def sharded_commit(mesh: Mesh, accounts_max: int, state: ShardedState, b: TransferBatch, host_code):
-    """The fast commit on the mesh's kernels: sharded_validate on
-    each dp slice, all_gather over dp of the slots, amounts and routing,
-    sharded_apply_grouped once a distinct device over the shards it
-    holds, psum_any of the bail words.
+    """The fast commit on the mesh's kernels: sharded_validate_grouped
+    once for each device that validates a dp slice (dp row i's first),
+    over the slices it validates as one range, into its gathered layout; all_gather
+    over dp of the slots, amounts and routing (on one card, the tensors
+    themselves); sharded_apply_grouped once a distinct device over the
+    shards it holds, which ORs the routing's unsupported bits into its
+    bail; psum_any of the bail words.
     n must be a multiple of dp (ShardedOps pads). Returns (new_state,
     codes (n,) uint32 and bail () bool on the mesh's first device)."""
     rows = _rows(mesh, accounts_max)
     n = b.flags.shape[0]
     assert n % mesh.dp == 0, "the batch must split evenly over dp"
     m = n // mesh.dp
-    codes, routes, slices, bails = [], [], [], []
+    by_device: Dict[torch.device, list] = {}
     for i in range(mesh.dp):
-        dev = mesh.devices[i][0]
-        if b.flags.device == dev:
-            bi, hi, lo = b, host_code, i * m
-        else:  # the slice alone crosses to the dp row's device
-            cut = lambda x: _peer(x[i * m:(i + 1) * m].contiguous(), dev)
-            bi, hi, lo = TransferBatch(*(cut(x) for x in b)), cut(host_code), 0
-        c, r, bail = sharded_validate(state.shards[i * mesh.shard], bi, hi, lo, m)
-        codes.append(c)
-        routes.append(r)
-        bails.append(bail)
-        slices.append([x[lo:lo + m] for x in (bi.dr_slot, bi.cr_slot, bi.amount)])
+        by_device.setdefault(mesh.devices[i][0], []).append(i)
+    codes, routes, slices = [None] * mesh.dp, [None] * mesh.dp, [None] * mesh.dp
+    for dev, rows_i in by_device.items():
+        k = len(rows_i) * m
+        if b.flags.device == dev and rows_i == list(range(rows_i[0], rows_i[0] + len(rows_i))):
+            bd, hd, lo = b, host_code, rows_i[0] * m
+        else:  # the device's slices alone, in dp order, cross to it (or join on it)
+            cut = lambda x: _peer(_dp_rows(x, rows_i, m), dev)
+            bd, hd, lo = TransferBatch(*(cut(x) for x in b)), cut(host_code), 0
+        c, r = sharded_validate_grouped(state.shards[rows_i[0] * mesh.shard], bd, hd, lo, k)
+        for j, i in enumerate(rows_i):
+            codes[i], routes[i] = c[j * m:(j + 1) * m], r[j * m:(j + 1) * m]
+            slices[i] = [x[lo + j * m:lo + (j + 1) * m] for x in (bd.dr_slot, bd.cr_slot, bd.amount)]
     flat = mesh.flat
     g_dr, g_cr, g_amount = (all_gather_dp([s[j] for s in slices], flat) for j in range(3))
     g_route = all_gather_dp(routes, flat)
@@ -548,7 +679,7 @@ def sharded_commit(mesh: Mesh, accounts_max: int, state: ShardedState, b: Transf
         mesh, rows, state, {d: (g_dr[d], g_cr[d], g_amount[d], None, g_route[d]) for d in g_dr})
     first = mesh.first
     return (ShardedState(shards), all_gather_dp(codes, [first])[first],
-            psum_any(bails + apply_bails, first))
+            psum_any(apply_bails, first))
 
 
 def sharded_commit_plain(
@@ -612,8 +743,10 @@ def sharded_commit_exact(
     """The exact commit on the mesh's kernels. The sweep is batch-global,
     so it runs replicated: once on each distinct device of the mesh (once
     on a virtual mesh), against the records' pre-batch balances that
-    sharded_read gathers from the shards of the device's dp row and
-    combine_shards joins; the exact kernel's external-base mode sweeps
+    sharded_read_grouped reads from the shards of the device's dp row,
+    once a card of the row (one launch, the combined rows, on a virtual
+    mesh; across cards combine_shards joins the cards' blocks); the
+    exact kernel's external-base mode sweeps
     and returns the posting, which sharded_apply_grouped applies once a
     distinct device over the shards it holds. bail: psum_any of every
     sweep's and every launch's word.
@@ -630,13 +763,9 @@ def sharded_commit_exact(
     for d in mesh.distinct():
         k = flat.index(d)
         i = k // mesh.shard
-        if i not in reads:  # the dp row's shards, each on its own device
-            reads[i] = [
-                sharded_read(state.shards[i * mesh.shard + s],
-                             _peer(rec_slot, mesh.devices[i][s]), s * rows, accounts_max)
-                for s in range(mesh.shard)
-            ]
-        base = combine_shards(reads[i], d)
+        if i not in reads:
+            reads[i] = _read_row(mesh, rows, accounts_max, state, i, rec_slot)
+        base = _rows_on(reads[i], d)
         on = lambda x: _peer(x, d)
         pend_d = E.PendingInfo(*(on(x) for x in pending))
         sweeps[d] = E.create_transfers_exact_external(
@@ -756,15 +885,12 @@ def register_accounts_sharded(
 
 
 def read_balances_sharded(mesh: Mesh, accounts_max: int, state: ShardedState, slots):
-    """ops/commit.read_balances over a ShardedState: sharded_read on each device of
-    dp row 0, combined on the mesh's first device. slots (k,) int32 are
-    clipped to [0, A-1]."""
+    """ops/commit.read_balances over a ShardedState: sharded_read_grouped
+    once for each device of dp row 0, over the shards it holds, on the
+    mesh's first device (combined in shard order where the row spans
+    devices). slots (k,) int32 are clipped to [0, A-1]."""
     rows = _rows(mesh, accounts_max)
-    blocks = [
-        sharded_read(state.shards[s], _peer(slots, mesh.devices[0][s]), s * rows, accounts_max)
-        for s in range(mesh.shard)
-    ]
-    return tuple(combine_shards(blocks, mesh.first))
+    return tuple(_rows_on(_read_row(mesh, rows, accounts_max, state, 0, slots), mesh.first))
 
 
 def write_balances_sharded(

@@ -4,7 +4,7 @@ batch latencies and span totals of each run, so that a shift between two
 trees can be told from the run-to-run spread.
 
     python3 tools/torch_config1_ab.py A_ROOT B_ROOT [--pairs 4] [--seed S]
-        [--phase config1|mesh]
+        [--phase config1|mesh|commit]
 
 A_ROOT and B_ROOT are checkouts of the repo (for example a parent commit
 and a change unpacked with `git archive`). Runs go A B B A A B B A ...,
@@ -16,7 +16,13 @@ on CUDA against a CPU twin) `--reps` times from the same seed; with
 traffic on `make_mesh([cuda:0] * 8)` and on one device, chip_smoke.py's
 seed for it): transfers/s, p50 and p99 of each of the four machine runs
 and the mean of each of the mesh's device windows. A line of JSON per
-run and a summary per tree go to standard output. Needs one CUDA card.
+run and a summary per tree go to standard output. With `--phase commit`
+it times the mesh's two host-orchestrated calls alone, warm, on phase 9's
+mesh (2^20 accounts, chip_smoke.py's post batch of 8192 events, 16,384
+slots): `sharded_commit` (the fast commit) and `read_balances_sharded`
+(the serial route's and the lookups' read), 30 calls each to warm up,
+then 200, each from the call to its return (`*_enqueue_ms`) and to the
+device's finish after it (`*_ms`): medians a run. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -59,6 +65,43 @@ def mesh_child(cs, torch, np, root: str, seed: int) -> None:
         }), flush=True)
 
 
+def commit_child(cs, torch, np, root: str, seed: int) -> None:
+    """The mesh's fast commit and sharded read, warm: one JSON line."""
+    import time
+
+    from tigerbeetle_tpu_torch.ops import commit as C
+    from tigerbeetle_tpu_torch.parallel import sharding as S
+
+    dev = torch.device("cuda", 0)
+    mesh = S.make_mesh([dev] * cs.MESH_DEVICES)
+    rng = np.random.default_rng(seed)
+    state = S.sharded_state_from_reference(cs.kernel_state(rng, C), mesh)
+    b_np, host_np = cs.kernel_batch(rng, C, False)
+    b = C.TransferBatch(**{k: torch.from_numpy(v).to(dev) for k, v in b_np.items()})
+    host = torch.from_numpy(host_np).to(dev)
+    slots = torch.from_numpy(rng.integers(0, cs.A_MAX, 2 * cs.N).astype(np.int32)).to(dev)
+    calls = {"fast_commit": lambda: S.sharded_commit(mesh, cs.A_MAX, state, b, host),
+             "read": lambda: S.read_balances_sharded(mesh, cs.A_MAX, state, slots)}
+    row = {"root": root, "run": "commit"}
+    for name, call in calls.items():
+        enqueue, wall = [], []
+        for i in range(230):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            del out
+            if i >= 30:
+                enqueue.append(t1 - t0)
+                wall.append(t2 - t0)
+        row[f"{name}_enqueue_ms"] = float(np.median(enqueue) * 1e3)
+        row[f"{name}_ms"] = float(np.median(wall) * 1e3)
+    row["p50_ms"] = row["fast_commit_ms"]
+    print(json.dumps(row), flush=True)
+
+
 def child(root: str, seed: int, reps: int, phase: str) -> None:
     root = os.path.abspath(root)
     sys.path[:0] = [root, os.path.join(root, "tests")]
@@ -75,6 +118,8 @@ def child(root: str, seed: int, reps: int, phase: str) -> None:
     native.hostops()
     if phase == "mesh":
         return mesh_child(cs, torch, np, root, seed)
+    if phase == "commit":
+        return commit_child(cs, torch, np, root, seed)
     lines = []
     cs.log = lambda *a: lines.append(" ".join(map(str, a)))
     n1 = 10_000
@@ -103,7 +148,7 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=4)
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--seed", type=int, default=20261017)
-    ap.add_argument("--phase", choices=("config1", "mesh"), default="config1")
+    ap.add_argument("--phase", choices=("config1", "mesh", "commit"), default="config1")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
@@ -139,7 +184,11 @@ def main() -> int:
             rows = [r for r in all_rows if r["run"] == run]
             summary = {"tree": "AB"[k], "root": args.roots[k], "run": run, "runs": len(rows),
                        "p50_ms": sorted(r["p50_ms"] for r in rows)}
-            if run == "config1":
+            if run == "commit":
+                for key in rows[0]:
+                    if key.endswith("_ms"):
+                        summary[key] = sorted(r[key] for r in rows)
+            elif run == "config1":
                 spans = sorted({s for r in rows for s in r["spans_ms"]})
                 summary["mean_ms"] = sorted(r["mean_ms"] for r in rows)
                 summary["spans_ms_min_max"] = {

@@ -1,4 +1,4 @@
-"""Seven hand-written kernels of PERF.md from two checkouts in alternation
+"""Nine hand-written kernels of PERF.md from two checkouts in alternation
 on one card: the kernels' CUDA-event times at the main path's shapes, so
 that a redesign can be held against its parent inside one call.
 
@@ -42,7 +42,16 @@ kernel byte-equal to its plain version:
     2's `kernel_batch`, n = 8192, A = 2^20) into the eight shards of phase
     9's mesh (2^18 rows a shard): eight launches of the one-shard
     `sharded_apply`, one shard alone, and, where the checkout has it, the
-    one grouped launch of `sharded_apply_grouped`.
+    one grouped launch of `sharded_apply_grouped`;
+  - row 12's validation of the post batch over both dp slices of phase
+    9's card (n = 8192, A = 2^20): two launches of the one-slice
+    `sharded_validate`, and, where the checkout has it, the one grouped
+    launch of `sharded_validate_grouped`;
+  - row 13's read of 2n = 16,384 slots (-1, the last row, past it, each
+    shard's edges) from the four shards of phase 9's dp row: four
+    launches of the one-shard `sharded_read` and `combine_shards`, and,
+    where the checkout has it, the one grouped launch of
+    `sharded_read_grouped`.
 A line of JSON per run, then the medians per tree and the card's name and
 power limit. Needs one CUDA card.
 """
@@ -100,9 +109,11 @@ def child(root: str, seed: int) -> None:
         raise SystemExit("no CUDA device")
     grouped = "register_accounts_sharded" in kernels.SIGNATURES
     posting = "sharded_apply_grouped" in kernels.SIGNATURES
+    gathered = "sharded_read_grouped" in kernels.SIGNATURES
     kernels.build_all(["exact_sort_plan", "compact_fold_kernel", "create_transfers_exact",
                        "query_index_keys", "query_index_keys_sorted", "merge_kernel_tiled",
-                       "register_accounts", "sharded_apply"]
+                       "register_accounts", "sharded_apply", "sharded_validate", "sharded_read",
+                       "read_balances"]
                       + ["register_accounts_sharded"] * grouped)
     dev = torch.device("cuda", 0)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
@@ -238,6 +249,37 @@ def child(root: str, seed: int) -> None:
              S.sharded_apply_grouped_plain(shards, bases, *args))
         row["sharded_apply_grouped_ms"] = cs.cuda_ms(
             torch, lambda: S.sharded_apply_grouped(shards, bases, *args), 10)
+    # Row 12's validation of the post batch over both dp slices.
+    m, host = N // 2, t(host_np)
+    for lo in (0, m):
+        same(f"sharded_validate [{lo}, {lo + m})", S.sharded_validate(shards[0], b, host, lo, m),
+             S.sharded_validate_plain(shards[0], b, host, lo, m))
+    row["sharded_validate_x2_ms"] = cs.cuda_ms(
+        torch, lambda: [S.sharded_validate(shards[0], b, host, lo, m) for lo in (0, m)], 10)
+    if gathered:
+        same("sharded_validate_grouped", S.sharded_validate_grouped(shards[0], b, host, 0, N),
+             S.sharded_validate_grouped_plain(shards[0], b, host, 0, N))
+        row["sharded_validate_grouped_ms"] = cs.cuda_ms(
+            torch, lambda: S.sharded_validate_grouped(shards[0], b, host, 0, N), 10)
+    # Row 13's read of 2n slots from the four shards of a dp row.
+    slots_np = rng.integers(0, A_MAX, 2 * N).astype(np.int32)
+    edges = [-1, A_MAX - 1, A_MAX] + [s * cs.ROWS for s in range(cs.SHARD)] + [
+        (s + 1) * cs.ROWS - 1 for s in range(cs.SHARD)]
+    slots_np[:len(edges)] = edges
+    slots = t(slots_np)
+    row_shards = shards[:cs.SHARD]
+    four = lambda: S.combine_shards(
+        [S.sharded_read(st, slots, base, A_MAX) for st, base in zip(row_shards, bases)], dev)
+    same("sharded_read x 4 combined", four(), C.read_balances(
+        C.LedgerState(*(torch.cat([getattr(st, f).view(torch.int32) for st in row_shards])
+                        .view(torch.uint32) for f in C.BALANCE_FIELDS),
+                      shards[0].ledger, shards[0].flags), slots))
+    row["sharded_read_x4_combined_ms"] = cs.cuda_ms(torch, four, 10)
+    if gathered:
+        same("sharded_read_grouped", S.sharded_read_grouped(row_shards, bases[:cs.SHARD], slots, A_MAX),
+             tuple(four()))
+        row["sharded_read_grouped_ms"] = cs.cuda_ms(
+            torch, lambda: S.sharded_read_grouped(row_shards, bases[:cs.SHARD], slots, A_MAX), 10)
     print(json.dumps(row), flush=True)
 
 

@@ -6,7 +6,7 @@
 Phases, in order; any failure exits non-zero and no phase's failure is
 caught:
 
-  1. Build: compile the nineteen CUDA kernel entries (fifteen sources
+  1. Build: compile the twenty CUDA kernel entries (fifteen sources
      in tigerbeetle_tpu_torch/csrc, one nvcc per source, all started
      together) and print the seconds.
   2. Kernels vs plain, at the main path's shapes (A = 2^20 accounts,
@@ -49,9 +49,15 @@ caught:
      (tests/fold_stacks.py MERGE_EDGES: one run empty, odd tile counts,
      one key everywhere, lo of all ones and pad rows, one run below the
      other, spans off 16-byte boundaries, the wrapper's tile 1), the
-     intersect at 2^17 candidates
-     in a 2^20-row run; the store's dispatch runs under sync-debug mode
-     "error". The mesh's kernels at phase 9's layout (2^18 rows a shard):
+     intersect at 2^17 candidates in a 2^20-row run, on its edge inputs
+     (tests/intersect_cases.py EDGES: one run row, more candidates than
+     run rows, pads only, top-bit rows, every candidate below or above the
+     run, ties on the splitters and across tiles), at nc = nr = 2^24 + 1
+     (past 2^16 blocks of 256: the tiles loop) and at the query path's
+     shapes (intersect_cases.QUERY_SHAPES: 256 and 8192 candidates in
+     runs of 2^12 to 2^18 rows, each timed beside the library call); the
+     store's dispatch runs under sync-debug mode "error". The mesh's
+     kernels at phase 9's layout (2^18 rows a shard):
      sharded_validate_grouped over both dp slices in one call (one card's
      gathered layout) on the ladder batch (every rung; unsupported flags
      in both slices), on it with them in slice 1 only and in neither (the
@@ -73,7 +79,10 @@ caught:
      one-shard launches and their combine; register_accounts_sharded into the mesh's
      eight ledger and flags tables in one launch (k = 8192, 10% masked,
      slots -1, -A, A and -A - 1), timed beside eight launches of
-     register_accounts; the exact kernel's external-base mode on a
+     register_accounts; write_balances_sharded into the mesh's eight
+     balance tables in one launch (k = 16384, slots -1, -A, -A - 1, A,
+     A + 9 and each shard's edges), timed beside eight launches of
+     write_balances; the exact kernel's external-base mode on a
      config-3 and a config-4 batch; one sharded fast and one sharded
      exact commit on a virtual mesh under sync-debug mode "error", equal
      to the single-device kernels. The compaction kernels run after
@@ -123,7 +132,8 @@ caught:
      window, limit 8190) through query_transfers, each equal to the CPU
      run's, with their p50/p99 on the card, and ScanBuilder.execute
      ("materialize") for 16 of them on the CUDA machine, equal to the host
-     gallop's rows. Then both machines run a major compaction (a storm),
+     gallop's rows (the intersect's (nc, nr) are logged). Then both
+     machines run a major compaction (a storm),
      drained by one query-mix batch and one beat at a time; every one of
      the 108 queries is asked again and must equal its answer before the
      storm and the CPU run's, and the five trees must be equal.
@@ -155,8 +165,9 @@ caught:
      register_accounts; the validation once a fast commit and validating
      card (sharded_validate_grouped), the posting once a commit and card
      (sharded_apply_grouped), the read once an exact commit or a serial
-     read and card of the dp row read (sharded_read_grouped), never the
-     one-slice, one-shard entries. It
+     read and card of the dp row read (sharded_read_grouped), the serial
+     writeback once a writeback and card (write_balances_sharded), never
+     the one-slice, one-shard or one-table entries. It
      prints both machines' transfers/s and p50/p99 and the mesh's
      launches. The mesh is virtual: it proves the sharded arithmetic, the
      slot routing and the bail contract on the card, not NVLink.
@@ -906,6 +917,40 @@ def phase_sharded(torch, C, rng, dev):
                torch, lambda: [C.register_accounts(st, *reg) for st in tables], 10))
     log(f"register_accounts_sharded: 8 x register_accounts "
         f"{RESULTS['register_accounts_sharded']['ms_8x_register_accounts']:.4f} ms")
+
+    # write_balances_sharded, the serial writeback, into the mesh's eight
+    # shards (dp 2 x shard 4 on the card) in one launch: k = 2n = 16384
+    # distinct slots, -1 and -A (from the end), -A - 1, A and A + 9
+    # (dropped), each shard's edges. Timed beside eight launches of
+    # write_balances, one a shard with its slots localized (a slot it does
+    # not own at its end, where the kernel drops it), as before the
+    # grouped entry. In place: each side gets its own copies of the tables.
+    tables = [shard_of(C, state, k % SHARD) for k in range(MESH_DEVICES)]
+    bases = [(k % SHARD) * ROWS for k in range(MESH_DEVICES)]
+    k = 2 * N
+    edges = [-1, -A_MAX, -A_MAX - 1, A_MAX, A_MAX + 9] + [s * ROWS for s in range(1, SHARD)] + [
+        s * ROWS + ROWS - 1 for s in range(SHARD - 1)]
+    free = np.setdiff1d(np.arange(A_MAX), np.array(edges) % A_MAX)
+    slots_np = np.concatenate([edges, rng.choice(free, k - len(edges), replace=False)]).astype(np.int32)
+    slots = torch.from_numpy(slots_np).to(dev)
+    rows = [torch.from_numpy(rng.integers(0, 1 << 32, (k, 4), dtype=np.uint64).astype(np.uint32)).to(dev)
+            for _ in range(4)]
+    copies = lambda: [C.LedgerState(*(t.clone() for t in st)) for st in tables]
+    err = max_abs_err(torch, f"write_balances_sharded ({len(tables)} tables)",
+                      tuple(S.write_balances_grouped(copies(), bases, slots, *rows, A_MAX)),
+                      tuple(S.write_balances_grouped_plain(copies(), bases, slots, *rows, A_MAX)))
+    glob = slots.long()
+    glob = torch.where(glob < 0, glob + A_MAX, glob)
+    local = [torch.where((glob >= b) & (glob < b + ROWS), glob - b, ROWS).int() for b in bases]
+    nbytes, ops = devicestats.cost("write_balances_sharded", (tables, bases, slots, *rows, A_MAX))
+    record(torch, "write_balances_sharded", "write_balances.cu", "tigerbeetle_tpu/ops/commit.py:334",
+           lambda: S.write_balances_grouped(tables, bases, slots, *rows, A_MAX),
+           lambda: S.write_balances_grouped_plain(tables, bases, slots, *rows, A_MAX),
+           None, nbytes, ops, err, tables=len(tables),
+           ms_8x_write_balances=cuda_ms(
+               torch, lambda: [C.write_balances(st, l, *rows) for st, l in zip(tables, local)], 10))
+    log(f"write_balances_sharded: 8 x write_balances "
+        f"{RESULTS['write_balances_sharded']['ms_8x_write_balances']:.4f} ms")
     del tables
 
     # The exact kernel's external-base mode on the config-3 and config-4
@@ -1152,11 +1197,45 @@ def phase_qindex(torch, dev, rng):
         ix = torch.searchsorted(r64, c64).clamp_(max=last_ix)
         return r64[ix] == c64
 
+    # Its edge cases, nc = nr = 2^24 + 1 (past 2^16 blocks of 256: the
+    # tiles loop over the grid), and the query path's shapes (phase 7's
+    # launches; the library call beside each).
+    import intersect_cases as IC
+
+    for case in IC.EDGES:
+        c, r = (torch.from_numpy(x).to(dev) for x in IC.edge(np.random.default_rng(len(case)), case))
+        ierr = max(ierr, max_abs_err(torch, f"scan_intersect_mask {case}",
+                                     S.scan_intersect_mask(c, r).view(torch.uint8),
+                                     S.scan_intersect_mask_plain(c, r).view(torch.uint8)))
+    big = (1 << 24) + 1
+    gen = torch.Generator(device=dev).manual_seed(11)
+    steps = lambda: torch.randint(1, 4, (big,), device=dev, generator=gen).cumsum(0).int().view(torch.uint32)
+    c, r = steps(), steps()
+    ierr = max(ierr, max_abs_err(torch, f"scan_intersect_mask {big} in {big}",
+                                 S.scan_intersect_mask(c, r).view(torch.uint8),
+                                 S.scan_intersect_mask_plain(c, r).view(torch.uint8)))
+    del c, r
+    by_shape, lib_by_shape, bound_by_shape = {}, {}, {}
+    for nc, nr in IC.QUERY_SHAPES:
+        c, r = (torch.from_numpy(x).to(dev) for x in IC.query_shape(np.random.default_rng(nc + nr), nc, nr))
+        label = f"{nc} in {nr}"
+        ierr = max(ierr, max_abs_err(torch, f"scan_intersect_mask query shape {label}",
+                                     S.scan_intersect_mask(c, r).view(torch.uint8),
+                                     S.scan_intersect_mask_plain(c, r).view(torch.uint8)))
+        c64, r64 = (x.view(torch.int32).long() & 0xFFFFFFFF for x in (c, r))
+        by_shape[label] = cuda_ms(torch, lambda: S.scan_intersect_mask(c, r), 10)
+        lib_by_shape[label] = cuda_ms(
+            torch, lambda: r64[torch.searchsorted(r64, c64).clamp_(max=nr - 1)] == c64, 10)
+        nbytes, ops = devicestats.cost("scan_intersect_mask", (c, r))
+        bound_by_shape[label] = max(nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
+        log(f"scan_intersect_mask {label} ({CARD[0]}): kernel {by_shape[label]:.4f} ms, "
+            f"bound {bound_by_shape[label]:.5f} ms, library {lib_by_shape[label]:.4f} ms")
     nbytes, ops = devicestats.cost("scan_intersect_mask", (cand_d, run_d))
     record(torch, "scan_intersect_mask", "scan_intersect_mask.cu", "tigerbeetle_tpu/ops/scanops.py:38",
            lambda: S.scan_intersect_mask(cand_d, run_d),
            lambda: S.scan_intersect_mask_plain(cand_d, run_d),
-           searchsorted_eq, nbytes, ops, ierr,
+           searchsorted_eq, nbytes, ops, ierr, ms_by_query_shape=by_shape,
+           bound_ms_by_query_shape=bound_by_shape, library_ms_by_query_shape=lib_by_shape,
            library_is="torch.searchsorted + gather + eq on int64 widenings")
 
     # The store's dispatch hides no device sync: two runs built and folded
@@ -1613,7 +1692,7 @@ def run_query_config(torch, rng, n_batches=64):
     """bench_query's traffic through both machines; the CUDA machine's
     query-index route end to end: key builds, device folds, a host merge
     after a read barrier, queries, and the device intersect."""
-    from tigerbeetle_tpu_torch import tracer, types
+    from tigerbeetle_tpu_torch import devicestats, tracer, types
     from tigerbeetle_tpu_torch.constants import PRODUCTION
     from tigerbeetle_tpu_torch.lsm import scan
     from tigerbeetle_tpu_torch.models.state_machine import StateMachine
@@ -1696,9 +1775,12 @@ def run_query_config(torch, rng, n_batches=64):
         elapsed, n_rows = both(f, f"{name} query {k}")
         qlat.append(elapsed)
         hits += n_rows
-    # The materializing strategy's AND-merge through the device intersect.
+    # The materializing strategy's AND-merge through the device intersect,
+    # its launches' (nc, nr) recorded (devicestats, with the tracer on).
     gpu.flush_deferred()
     inter = 0
+    devicestats.reset()
+    tracer.enable()
     for k, f in enumerate(final[:16]):
         w0, w1 = int(f["timestamp_min"]), int(f["timestamp_max"])
         dev_b = gpu.scan_builder(w0, w1)
@@ -1711,8 +1793,12 @@ def run_query_config(torch, rng, n_batches=64):
         if not np.array_equal(got, want):
             raise SystemExit(f"{name}: materialized filter {k} differs from the host gallop")
         inter += len(got)
+    tracer.disable()
     torch.cuda.synchronize()
     launches = dict(C.LAUNCHES)
+    shapes = [tuple(int(x.split(":")[0]) for x in key.split("|"))
+              for key in devicestats.observed_shapes().get("scan_intersect_mask", [])]
+    log(f"{name}: scan_intersect_mask launched at (nc, nr) {sorted(shapes)}")
     snap = tracer.snapshot()
     check_query_tree(name, gpu, cpu, launches)
     tables = len(gpu.query_rows.levels[0])
@@ -2130,7 +2216,7 @@ def check_off_path(name, launches) -> None:
 
 
 MESH_KERNELS = ("sharded_validate_grouped", "sharded_apply_grouped", "sharded_read_grouped",
-                "register_accounts_sharded", "write_balances", "create_transfers_exact",
+                "register_accounts_sharded", "write_balances_sharded", "create_transfers_exact",
                 "exact_sort_plan", "query_index_keys_sorted")
 
 
@@ -2213,9 +2299,12 @@ def run_mesh_config(torch, name, mesh, n_accounts, acc_flags, n_batches, next_ba
     # first device validates slice i), one posting launch a commit and card
     # (at most GROUP_SHARDS shards a launch), one read launch a card of
     # each dp row read by an exact commit (the rows of the distinct
-    # devices) or by the serial route's read_balances (row 0): none of the
+    # devices) or by the serial route's read_balances (row 0), one
+    # writeback launch a serial writeback and card (at most GROUP_TABLES
+    # tables a launch), never the one-table write_balances: none of the
     # one-slice, one-shard entries (check_off_path). The fast and exact
-    # commits are the machine's own dispatch counts, bailed ones included.
+    # commits are the machine's own dispatch counts, bailed ones included;
+    # the serial reads and writebacks its device-step counts.
     devices = mesh.distinct()
     chunks = lambda ds, group: sum(-(-ds.count(d) // group) for d in dict.fromkeys(ds))
     per_fast = len(dict.fromkeys(row[0] for row in mesh.devices))
@@ -2228,17 +2317,21 @@ def run_mesh_config(torch, name, mesh, n_accounts, acc_flags, n_batches, next_ba
     if fast + exact != st["fast_batches"] + st["exact_batches"] + st["bail_batches"]:
         raise SystemExit(f"{name}: {fast} fast and {exact} exact dispatches, stats {json.dumps(st)}")
     reads = snap.get("device.sharded.read_balances", {"count": 0})["count"]
+    writes = snap.get("device.sharded.write_balances", {"count": 0})["count"]
     want = {"sharded_validate_grouped": fast * per_fast,
             "sharded_apply_grouped": (fast + exact) * per_commit,
             "sharded_read_grouped": exact * per_exact + reads * per_row([0]),
+            "write_balances_sharded": writes * chunks(list(mesh.flat), S.GROUP_TABLES),
+            "write_balances": 0,
             "create_transfers_exact": exact * len(devices)}
     if any(ml[k] != v for k, v in want.items()):
         raise SystemExit(f"{name}: launched {json.dumps({k: ml[k] for k in want})}, want "
-                         f"{json.dumps(want)} ({fast} fast, {exact} exact commits, {reads} reads)")
+                         f"{json.dumps(want)} ({fast} fast, {exact} exact commits, {reads} reads, "
+                         f"{writes} writebacks)")
     check_off_path(name, ml)
-    log(f"{name} mesh: {fast} fast and {exact} exact commits, {reads} serial reads: launches "
-        f"{json.dumps({k: ml[k] for k in want})}, {ml['register_accounts_sharded']} of "
-        f"register_accounts_sharded")
+    log(f"{name} mesh: {fast} fast and {exact} exact commits, {reads} serial reads, {writes} serial "
+        f"writebacks: launches {json.dumps({k: ml[k] for k in want})}, "
+        f"{ml['register_accounts_sharded']} of register_accounts_sharded")
     for i, (g, w) in enumerate(zip(m["results"], s["results"], strict=True)):
         expect_equal(g, w, f"{name} mesh op {i}")
     for g, w in zip(m["looked"], s["looked"], strict=True):
@@ -2292,7 +2385,8 @@ def phase_mesh(torch, rng, zipf, mesh, n2=1_000_000, n3=10_000, n_batches=16):
                          np.arange(1, n3 + 1), jump_at=n_batches // 2)
     launches = {k: la[k] + lb[k] for k in la}
     if (min(launches[k] for k in MESH_KERNELS) == 0
-            or launches["create_transfers_fast"] or launches["read_balances"]):
+            or launches["create_transfers_fast"] or launches["read_balances"]
+            or launches["write_balances"]):
         raise SystemExit(f"phase 9: a mesh kernel did not launch, or a single-device "
                          f"kernel the mesh replaces did: {launches}")
     return launches

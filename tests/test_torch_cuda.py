@@ -16,6 +16,7 @@ import torch
 from tigerbeetle_tpu_torch.ops import commit as C
 
 import fold_stacks
+import intersect_cases as IC
 from exact_batches import APPLY_CASES, PLAN_EDGES, SORT_EDGES, SWEEP_EDGES
 
 A = 1 << 14
@@ -498,6 +499,66 @@ def test_scan_intersect_mask_kernel(dev):
                           np.intersect1d(cand, run))
 
 
+def _mask_equal(dev, cand, run):
+    """One launch of the membership kernel, byte-equal to its plain version."""
+    from tigerbeetle_tpu_torch.ops import scanops as S
+
+    before = C.LAUNCHES["scan_intersect_mask"]
+    got = S.scan_intersect_mask(cand, run)
+    want = S.scan_intersect_mask_plain(cand, run)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["scan_intersect_mask"] == before + 1
+    assert torch.equal(got, want)
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", IC.EDGES + [f"{nc} in {nr}" for nc, nr in IC.QUERY_SHAPES])
+def test_scan_intersect_mask_cases_kernel(dev, case):
+    """The edge cases of tests/intersect_cases.py (splitter and tile-edge
+    ties, pads across tiles, one run row, more candidates than run rows,
+    every candidate outside the run) and the query path's shapes."""
+    rng = np.random.default_rng(len(case))
+    if case in IC.EDGES:
+        cand, run = IC.edge(rng, case)
+    else:
+        nc, nr = map(int, case.split(" in "))
+        cand, run = IC.query_shape(rng, nc, nr)
+    _mask_equal(dev, torch.from_numpy(cand).to(dev), torch.from_numpy(run).to(dev))
+
+
+@pytest.mark.cuda
+def test_scan_intersect_mask_past_the_old_cap(dev):
+    """nc = nr = 2^24 + 1, past 2^16 blocks of 256 candidates (the grid's
+    cap): the tiles loop over the grid. Gaps of 1-3 on both sides, so
+    about a third of the candidates are rows."""
+    n = (1 << 24) + 1
+    g = torch.Generator(device=dev).manual_seed(11)
+    steps = lambda: torch.randint(1, 4, (n,), device=dev, generator=g).cumsum(0).int().view(torch.uint32)
+    want = _mask_equal(dev, steps(), steps())
+    assert 0 < int(want.sum()) < n
+
+
+@pytest.mark.cuda
+def test_query_index_keys_past_the_old_cap(dev):
+    """The key build at n = 2^24 + 1 records, past 2^16 blocks of 256 (the
+    grid's cap: the records loop over the grid), against its plain
+    version: one launch."""
+    from tigerbeetle_tpu_torch.ops import qindex as Q
+
+    n = (1 << 24) + 1
+    g = torch.Generator(device=dev).manual_seed(12)
+    words = lambda *shape: torch.randint(-(1 << 31), 1 << 31, shape, device=dev, generator=g,
+                                         dtype=torch.int64).int()
+    staged = tuple(w.view(torch.uint32) for w in (words(n, 9), words(n, 2), words(n), words(n) & 1))
+    before = C.LAUNCHES["query_index_keys"]
+    got = Q.query_index_keys(*staged)
+    want = Q.query_index_keys_plain(*staged)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["query_index_keys"] == before + 1
+    assert _equal(got[0], want[0]) and _equal(got[1], want[1])
+
+
 @pytest.mark.cuda
 def test_build_run_dispatch_does_not_sync(dev):
     from tigerbeetle_tpu_torch.ops import qindex as Q
@@ -909,6 +970,46 @@ def test_sharded_read_grouped_kernel(dev, shards):
     if shards == 33:
         dense = C.LedgerState(*(tables[f] for f in C.BALANCE_FIELDS), zero, zero)
         assert all(_equal(g, w) for g, w in zip(got, C.read_balances(dense, slots)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp,shard", [(2, 4), (3, 11)])
+def test_write_balances_grouped_kernel(dev, dp, shard):
+    """The grouped writeback into dp x shard tables of one card (8: phase
+    9's layout; 33: two launches of at most GROUP_TABLES) against its plain
+    version: slots -1 and -A count from the end, -A - 1, A and A + 9 are
+    dropped, each shard's edges land, in every dp replica. One launch a
+    chunk, none of the one-table entry."""
+    from tigerbeetle_tpu_torch.parallel import sharding as S
+
+    rows = 512
+    a = shard * rows
+    rng = np.random.default_rng(dp * 100 + shard)
+    zero = torch.zeros(a, dtype=torch.int32, device=dev).view(torch.uint32)
+    row0 = [C.LedgerState(*(torch.from_numpy(rng.integers(0, 1 << 32, (rows, 4), dtype=np.uint64)
+                                             .astype(np.uint32)).to(dev) for _ in range(4)),
+                          zero, zero) for _ in range(shard)]
+    tables = [_clone(row0[k % shard]) for k in range(dp * shard)]  # dp replicas
+    bases = [(k % shard) * rows for k in range(dp * shard)]
+    edge = [-1, -a, -a - 1, a, a + 9] + [s * rows for s in range(1, shard)] + [
+        s * rows + rows - 1 for s in range(shard - 1)]
+    free = np.setdiff1d(np.arange(a), np.array(edge) % a)
+    slots_np = np.concatenate([edge, rng.choice(free, N, replace=False)]).astype(np.int32)
+    k = len(slots_np)
+    blocks = [torch.from_numpy(rng.integers(0, 1 << 32, (k, 4), dtype=np.uint64).astype(np.uint32)).to(dev)
+              for _ in range(4)]
+    slots = torch.from_numpy(slots_np).to(dev)
+    got, want = [_clone(st) for st in tables], [_clone(st) for st in tables]
+    before = dict(C.LAUNCHES)
+    S.write_balances_grouped(got, bases, slots, *blocks, a)
+    S.write_balances_grouped_plain(want, bases, slots, *blocks, a)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["write_balances_sharded"] == before["write_balances_sharded"] + -(-len(tables) // 32)
+    assert C.LAUNCHES["write_balances"] == before["write_balances"]
+    for g, w in zip(got, want):
+        assert all(_equal(getattr(g, f), getattr(w, f)) for f in C.BALANCE_FIELDS)
+    for j, g in enumerate(got):  # the dp replicas
+        assert all(_equal(getattr(g, f), getattr(got[j % shard], f)) for f in C.BALANCE_FIELDS)
 
 
 @pytest.mark.cuda

@@ -5,14 +5,16 @@ scan_intersect_mask's plain version must be byte-equal to the JAX kernel
 (jit on the CPU) on the same numpy arrays: candidates and runs with rows
 at and above 2^31 (an int32 view would order them as negative), the
 0xFFFFFFFF pads on both sides, candidates below, between and above every
-run row. The device route of intersect_rows and of ScanBuilder's
-materializing strategy must give the host gallop's rows.
+run row, and the edge cases of tests/intersect_cases.py. The device
+route of intersect_rows and of ScanBuilder's materializing strategy must
+give the host gallop's rows.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import intersect_cases as IC
 from tigerbeetle_tpu.ops import scanops as ref_scanops
 from tigerbeetle_tpu_torch.io.grid import MemGrid
 from tigerbeetle_tpu_torch.lsm import scan
@@ -42,6 +44,20 @@ def test_scan_intersect_mask_matches_reference(nc, nr, lo):
     assert got.dtype == torch.bool
     assert np.array_equal(got.numpy(), want)
     assert got.numpy()[len(cand):].all()  # pads meet pads
+
+
+@pytest.mark.parametrize("case", IC.EDGES)
+def test_scan_intersect_mask_edges_match_reference(case):
+    """The kernel's edge inputs (tests/intersect_cases.py): one run row,
+    more candidates than run rows, pads only, top-bit rows, every
+    candidate below or above the run, candidates on and beside every
+    32nd row with pads across the tiles, and the query path's sparse
+    256 in 2^16."""
+    cand, run = IC.edge(np.random.default_rng(len(case)), case)
+    got = scanops.scan_intersect_mask(torch.from_numpy(cand), torch.from_numpy(run))
+    want = np.asarray(ref_scanops.scan_intersect_mask(cand, run))
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(want, np.isin(cand, run))
 
 
 @pytest.mark.parametrize("na,nb", [(0, 5), (1, 1), (200, 3000), (5000, 700)])

@@ -406,6 +406,49 @@ def test_register_accounts_sharded_matches_reference(ref_mesh, mesh, monkeypatch
     _assert_dense(state, mesh, want)
 
 
+WRITE_LAYOUTS = {"dp1": (4, 1), "dp2": (8, 2), "dp4": (16, 4), "33 tables": (33, 33)}
+
+
+@pytest.mark.parametrize("layout", list(WRITE_LAYOUTS))
+def test_write_balances_sharded_matches_reference(monkeypatch, layout):
+    """The serial writeback on meshes of dp 1, 2 and 4 (x shard 4) and on
+    33 tables (dp 33 x shard 1: more than a launch's GROUP_TABLES): one
+    grouped call for the one device, through write_balances_grouped_plain,
+    and the dense tables equal the reference's write_balances on its dense
+    state; every dp replica byte-equal. Slots -1 and -A count from the
+    end, -A - 1, A and A + 9 are dropped, and each shard's first and last
+    rows land."""
+    n, dp = WRITE_LAYOUTS[layout]
+    mesh = S.make_mesh([CPU] * n, dp=dp)
+    rows = A // mesh.shard
+    rng = np.random.default_rng(n)
+    dense = X.state(rng, A)
+    # distinct landing slots: -1 is row A - 1 and -A row 0, so the edges
+    # name every other shard edge
+    edge = [-1, -A, -A - 1, A, A + 9] + [s * rows for s in range(1, mesh.shard)] + [
+        s * rows + rows - 1 for s in range(mesh.shard - 1)]
+    free = np.setdiff1d(np.arange(A), np.array(edge) % A)
+    slots = np.concatenate([edge, rng.choice(free, 200, replace=False)]).astype(np.int32)
+    blocks = [rng.integers(0, 1 << 32, (len(slots), 4), dtype=np.uint64).astype(np.uint32)
+              for _ in range(4)]
+    ref = ref_commit.write_balances(
+        ref_commit.LedgerState(**{k: jnp.asarray(v) for k, v in dense.items()}),
+        jnp.asarray(slots), *(jnp.asarray(r) for r in blocks))
+    calls = []
+    grouped = S.write_balances_grouped
+
+    def counted(tables, *args):
+        calls.append(len(tables))
+        return grouped(tables, *args)
+
+    monkeypatch.setattr(S, "write_balances_grouped", counted)
+    state = ShardedOps(mesh, A).write_balances(
+        S.sharded_state_from_reference(dense, mesh), _t(slots), *(_t(r) for r in blocks))
+    assert calls == [n]
+    _assert_dense(state, mesh, _ref_dense(ref))
+    _assert_replicas(state, mesh)
+
+
 def _mesh_run(mesh, dense, seed):
     """One fast and one exact commit on `mesh`, from the same inputs."""
     _, b, host = _setup(np.random.default_rng(seed))

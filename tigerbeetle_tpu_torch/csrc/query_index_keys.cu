@@ -13,11 +13,12 @@
 // writes 30, with a few dozen integer operations between; at n = 8192 the
 // whole call moves about 1.4 MB, so launch latency dominates.
 //
-// Design: one thread per record, which writes its five key rows and five
-// payload rows. The key words come from qindex_fold.cuh, whose limb
-// arithmetic the sorted build (query_index_keys_sorted.cu) shares. The
-// main path no longer launches this kernel: the sorted build computes the
-// same keys inside its own launch.
+// Design: one thread per record (a grid-stride loop past 2^16 blocks),
+// which writes its five key rows and five payload rows. The key words
+// come from qindex_fold.cuh, whose limb arithmetic the sorted build
+// (query_index_keys_sorted.cu) shares. The main path no longer launches
+// this kernel: the sorted build computes the same keys inside its own
+// launch.
 #include "common.cuh"
 #include "qindex_fold.cuh"
 
@@ -29,21 +30,22 @@ __global__ void build_keys(const uint32_t* __restrict__ cols,
                            const uint32_t* __restrict__ pad,
                            uint32_t* __restrict__ keys,
                            uint32_t* __restrict__ pay, long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const uint32_t* c = cols + i * 9;
-  uint32_t p = pad[i], t0 = ts[2 * i], t1 = ts[2 * i + 1], r = rows[i];
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const uint32_t* c = cols + i * 9;
+    uint32_t p = pad[i], t0 = ts[2 * i], t1 = ts[2 * i + 1], r = rows[i];
 #pragma unroll
-  for (int b = 0; b < tb::kTagBlocks; ++b) {
-    long long o = ((long long)b * n + i) * 3;
-    uint32_t lo0, lo1;
-    tb::block_key(c, b, lo0, lo1);
-    keys[o] = lo0;
-    keys[o + 1] = lo1;
-    keys[o + 2] = p;
-    pay[o] = t0;
-    pay[o + 1] = t1;
-    pay[o + 2] = r;
+    for (int b = 0; b < tb::kTagBlocks; ++b) {
+      long long o = ((long long)b * n + i) * 3;
+      uint32_t lo0, lo1;
+      tb::block_key(c, b, lo0, lo1);
+      keys[o] = lo0;
+      keys[o + 1] = lo1;
+      keys[o + 2] = p;
+      pay[o] = t0;
+      pay[o + 1] = t1;
+      pay[o + 2] = r;
+    }
   }
 }
 
@@ -55,7 +57,7 @@ extern "C" int tb_query_index_keys(const void* cols, const void* ts,
                                    const void* rows, const void* pad,
                                    void* keys, void* pay, long long n,
                                    void* stream) {
-  if (n < 1 || n > (1ll << 16) * tb::kThreads) return (int)cudaErrorInvalidValue;
+  if (n < 1) return (int)cudaErrorInvalidValue;
   build_keys<<<tb::blocks_for(n), tb::kThreads, 0,
                static_cast<cudaStream_t>(stream)>>>(
       (const uint32_t*)cols, (const uint32_t*)ts, (const uint32_t*)rows,

@@ -159,8 +159,25 @@ COSTS = {
         _nbytes(slots) + 64 * slots.shape[0] + 64 * (slots.shape[0] if owned is None else owned),
         8 * slots.shape[0],
     ),
+    # the slots and the four (k, 4) blocks in once, 64 bytes written a
+    # landed row and table (a row lands in each table whose rows hold its
+    # slot, normalized as the kernel does: negative from the end, dropped
+    # outside [0, a)); a slot compare a table.
+    "write_balances_sharded": lambda states, bases, slots, dp, dpo, cp, cpo, a: (
+        _nbytes(slots, dp, dpo, cp, cpo) + 64 * _landed(states, bases, slots, a),
+        slots.numel() * (4 + 2 * len(states)),
+    ),
 }
 COSTS["sharded_validate_grouped"] = COSTS["sharded_validate"]
+
+
+def _landed(states, bases, slots, a: int) -> int:
+    """The (row, table) pairs of a grouped writeback that store a row."""
+    rows = states[0].debits_pending.shape[0]
+    s = slots.long()
+    s = s.where(s >= 0, s + a)
+    s = s[(s >= 0) & (s < a)]
+    return sum(int(((s >= b) & (s < b + rows)).sum()) for b in bases)
 
 
 def cost(entry: str, args: tuple):

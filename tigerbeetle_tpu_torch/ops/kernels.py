@@ -68,10 +68,12 @@ SIGNATURES = {
     "sharded_read": ("tb_sharded_read", [_P, _P, _I] + [_P] * 5 + [_I] * 4 + [_P]),
     "sharded_read_grouped": ("tb_sharded_read", [_P, _P, _I] + [_P] * 5 + [_I] * 4 + [_P]),
     "register_accounts_sharded": ("tb_register_accounts_sharded", [_P, _P, _I] + [_P] * 4 + [_I, _I, _P]),
+    "write_balances_sharded": ("tb_write_balances_sharded", [_P, _P, _I] + [_P] * 5 + [_I] * 3 + [_P]),
 }
 
 # The source of each entry that is not csrc/<entry>.cu.
 SOURCES = {"register_accounts_sharded": "register_accounts",
+           "write_balances_sharded": "write_balances",
            "sharded_apply_grouped": "sharded_apply",
            "sharded_validate_grouped": "sharded_validate",
            "sharded_read_grouped": "sharded_read"}

@@ -3,10 +3,10 @@
 
 The host gallops one sorted row list through another in C
 (lsm/store.intersect_sorted_u32). On the device route the pairwise
-AND-merge is a membership test instead: one binary search per candidate
-(`scan_intersect_mask`, csrc/scan_intersect_mask.cu for CUDA tensors, its
-plain PyTorch version for CPU tensors), then the host compresses the
-candidates by the mask. Both routes give the same rows.
+AND-merge is a membership test instead: a search per candidate
+(`scan_intersect_mask`, csrc/scan_intersect_mask.cu for CUDA tensors, any
+nc and nr; its plain PyTorch version for CPU tensors), then the host
+compresses the candidates by the mask. Both routes give the same rows.
 
 `intersect_sorted_device` stages, dispatches and finishes in one call:
 the query path is allowed its read-side sync (`finish_intersect`, the

@@ -31,13 +31,14 @@ Entries: `make_sharded_commit` (reference :113), `make_sharded_commit_exact`
 (:179) and `register_accounts_sharded` (:295), plus the gather and the
 writeback of the state machine's lookups and serial route
 (`read_balances_sharded`, `write_balances_sharded`). On a mesh of CUDA
-devices the commits launch three hand-written kernels and the exact
-kernel's external-base mode, each once a card over what that card holds:
+devices each launches its hand-written kernel (the exact commit also the
+exact kernel's external-base mode) once a card over what that card holds:
 the validation over the dp slices it validates, written into the gathered
 layout (csrc/sharded_validate.cu), the read over the shards of a dp row,
-written as combined rows (csrc/sharded_read.cu), the posting and the
-registration over its shards (csrc/sharded_apply.cu,
-csrc/register_accounts.cu); on a mesh of CPUs they run their plain
+written as combined rows (csrc/sharded_read.cu), the posting, the
+registration and the serial writeback over its shards
+(csrc/sharded_apply.cu, csrc/register_accounts.cu,
+csrc/write_balances.cu); on a mesh of CPUs they run their plain
 versions (`*_plain`), the reference's shard_map step written out device
 by device. Each kernel wrapper has its own plain version beside it.
 """
@@ -829,7 +830,7 @@ def make_sharded_commit_exact(mesh: Mesh, accounts_max: int):
 # --- registration, lookups and the serial writeback ----------------------
 
 
-GROUP_TABLES = 32  # tables a launch (csrc/register_accounts.cu kMaxTables)
+GROUP_TABLES = 32  # tables a launch (csrc/register_accounts.cu, write_balances.cu kMaxTables)
 
 
 def register_accounts_grouped_plain(tables, slots, ledger, flags, mask):
@@ -893,22 +894,62 @@ def read_balances_sharded(mesh: Mesh, accounts_max: int, state: ShardedState, sl
     return tuple(_rows_on(_read_row(mesh, rows, accounts_max, state, 0, slots), mesh.first))
 
 
+def write_balances_grouped_plain(tables, bases, slots, dp, dpo, cp, cpo, a: int):
+    """Plain PyTorch version of write_balances_grouped: the rows whose slot,
+    normalized against the global length `a` (negative from the end,
+    dropped outside [0, a)), lies in each table's rows, written into it."""
+    rows = tables[0].debits_pending.shape[0]
+    keep, s = commit._scatter_rows(slots, a)
+    for st, base in zip(tables, bases):
+        own = keep & (s >= base) & (s < base + rows)
+        local = s[own] - base
+        for f, r in zip(BALANCE_FIELDS, (dp, dpo, cp, cpo)):
+            getattr(st, f).view(torch.int32)[local] = r.view(torch.int32)[own]
+    return tables
+
+
+def write_balances_grouped(tables, bases, slots, dp, dpo, cp, cpo, a: int):
+    """ops/commit.write_balances over the shards `tables` (all on one
+    device; table j at global rows [bases[j], bases[j] + rows)), in place:
+    a slot (k,) int32 in [-a, 0) counts from the end of the global table,
+    one outside [-a, a) is dropped, and each row (k, 4) uint32 x 4 lands
+    in every table whose rows hold its slot (the dp replicas of a shard
+    each take it): csrc/write_balances.cu's grouped entry, one launch a
+    GROUP_TABLES tables, for CUDA tensors; the plain version for CPU
+    tensors. Returns `tables`."""
+    dev = tables[0].ledger.device
+    if dev.type == "cpu":
+        return write_balances_grouped_plain(tables, bases, slots, dp, dpo, cp, cpo, a)
+    rows = _check_tables(tables, dev)
+    k = slots.shape[0]
+    _check(slots, "slots", torch.int32, (k,), dev)
+    blocks = (dp, dpo, cp, cpo)
+    for f, t in zip(BALANCE_FIELDS, blocks):
+        _check(t, f, torch.uint32, (k, 4), dev)
+    for lo in range(0, len(tables), GROUP_TABLES):
+        part = slice(lo, lo + GROUP_TABLES)
+        kernels.launch(
+            "write_balances_sharded", dev,
+            kernels.pointer_array([getattr(st, f).data_ptr() for st in tables[part]
+                                   for f in BALANCE_FIELDS]),
+            kernels.size_array(bases[part]), len(tables[part]), slots.data_ptr(),
+            *(t.data_ptr() for t in blocks), rows, a, k,
+        )
+    return tables
+
+
 def write_balances_sharded(
     mesh: Mesh, accounts_max: int, state: ShardedState, slots, dp, dpo, cp, cpo,
 ):
-    """ops/commit.write_balances over a ShardedState, in place: a slot in
-    [-A, 0) counts from the end of the global table (normalized before it
-    is localized), a slot outside [-A, A) is dropped; each device writes
-    the rows its shard owns through ops/commit.write_balances (kernel 4,
-    or its plain version on a CPU), every other row at local slot `rows`,
-    past its shard's end, where the kernel drops it."""
+    """ops/commit.write_balances over a ShardedState, in place (the serial
+    route's writeback): write_balances_grouped once for each distinct
+    device of the mesh, over the shards that device holds, with the slots
+    and rows peered once a device."""
     rows = _rows(mesh, accounts_max)
-    s = slots.long()
-    s = torch.where(s < 0, s + accounts_max, s)
-    keep = (s >= 0) & (s < accounts_max)
-    for k, (sh, d) in enumerate(zip(state.shards, mesh.flat)):
-        local = s - (k % mesh.shard) * rows
-        own = keep & (local >= 0) & (local < rows)
-        local = torch.where(own, local, rows).to(torch.int32)
-        commit.write_balances(sh, *(_peer(x, d) for x in (local, dp, dpo, cp, cpo)))
+    for d in mesh.distinct():
+        ks = [k for k, at in enumerate(mesh.flat) if at == d]
+        write_balances_grouped(
+            [state.shards[k] for k in ks], [(k % mesh.shard) * rows for k in ks],
+            *(_peer(x, d) for x in (slots, dp, dpo, cp, cpo)), accounts_max,
+        )
     return state

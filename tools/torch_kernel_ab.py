@@ -1,4 +1,4 @@
-"""Nine hand-written kernels of PERF.md from two checkouts in alternation
+"""Eleven hand-written kernels of PERF.md from two checkouts in alternation
 on one card: the kernels' CUDA-event times at the main path's shapes, so
 that a redesign can be held against its parent inside one call.
 
@@ -51,7 +51,15 @@ kernel byte-equal to its plain version:
     shard's edges) from the four shards of phase 9's dp row: four
     launches of the one-shard `sharded_read` and `combine_shards`, and,
     where the checkout has it, the one grouped launch of
-    `sharded_read_grouped`.
+    `sharded_read_grouped`;
+  - row 11, `scan_intersect_mask`, at the table's shape (2^17 candidates
+    in a 2^20-row run, chip_smoke.py's inputs) and at the query path's
+    shapes (tests/intersect_cases.py QUERY_SHAPES), with the library
+    yardstick beside each (`torch.searchsorted` + gather + `eq`);
+  - row 4, `write_balances`, one serial writeback of k = 16,384 rows into
+    the dense table, and into phase 9's eight shard tables: eight
+    launches of `write_balances`, and, where the checkout has it, the one
+    grouped launch of `write_balances_grouped`.
 A line of JSON per run, then the medians per tree and the card's name and
 power limit. Needs one CUDA card.
 """
@@ -110,10 +118,11 @@ def child(root: str, seed: int) -> None:
     grouped = "register_accounts_sharded" in kernels.SIGNATURES
     posting = "sharded_apply_grouped" in kernels.SIGNATURES
     gathered = "sharded_read_grouped" in kernels.SIGNATURES
+    writeback = "write_balances_sharded" in kernels.SIGNATURES
     kernels.build_all(["exact_sort_plan", "compact_fold_kernel", "create_transfers_exact",
                        "query_index_keys", "query_index_keys_sorted", "merge_kernel_tiled",
                        "register_accounts", "sharded_apply", "sharded_validate", "sharded_read",
-                       "read_balances"]
+                       "read_balances", "scan_intersect_mask", "write_balances"]
                       + ["register_accounts_sharded"] * grouped)
     dev = torch.device("cuda", 0)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
@@ -280,6 +289,53 @@ def child(root: str, seed: int) -> None:
              tuple(four()))
         row["sharded_read_grouped_ms"] = cs.cuda_ms(
             torch, lambda: S.sharded_read_grouped(row_shards, bases[:cs.SHARD], slots, A_MAX), 10)
+    # Row 11 at the table's shape (chip_smoke.py's inputs) and at the
+    # query path's shapes (this repo's tests/intersect_cases.py, which an
+    # older checkout lacks), the library call beside each.
+    sys.path.append(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests"))
+    import intersect_cases as IC
+    from tigerbeetle_tpu_torch.ops import scanops as SC
+
+    run = np.unique(rng.integers(0, (1 << 32) - 1, (1 << 20) - 4096, dtype=np.uint64)).astype(np.uint32)
+    cand = np.unique(np.concatenate([
+        rng.choice(run, 1 << 16), rng.integers(0, (1 << 32) - 1, 1 << 16, dtype=np.uint64).astype(np.uint32)]))
+    inputs = [("131072_in_1048576", IC.pad(cand, 1 << 17), IC.pad(run, 1 << 20))] + [
+        (f"{nc}_in_{nr}", *IC.query_shape(np.random.default_rng(nc + nr), nc, nr))
+        for nc, nr in IC.QUERY_SHAPES]
+    for label, cand, run in inputs:
+        c, r = t(cand), t(run)
+        same(f"scan_intersect_mask {label}", SC.scan_intersect_mask(c, r),
+             SC.scan_intersect_mask_plain(c, r))
+        c64, r64 = (x.view(torch.int32).long() & 0xFFFFFFFF for x in (c, r))
+        row[f"scan_intersect_mask_{label}_ms"] = cs.cuda_ms(torch, lambda: SC.scan_intersect_mask(c, r), 10)
+        row[f"library_searchsorted_{label}_ms"] = cs.cuda_ms(
+            torch, lambda: r64[torch.searchsorted(r64, c64).clamp_(max=r64.shape[0] - 1)] == c64, 10)
+    # Row 4: one serial writeback (k = 2n = 16384 distinct slots) into the
+    # dense table, and into phase 9's eight shard tables: eight launches
+    # of write_balances (slots localized a shard, the others dropped), and
+    # the one grouped launch where the checkout has it.
+    k = 2 * N
+    slots = t(rng.choice(A_MAX, k, replace=False).astype(np.int32))
+    blocks = [t(rng.integers(0, 1 << 32, (k, 4), dtype=np.uint64).astype(np.uint32)) for _ in range(4)]
+    dense = C.state_from_reference(cs.kernel_state(rng, C), dev)
+    clone = lambda st: C.LedgerState(*(x.clone() for x in st))
+    same("write_balances", C.write_balances(clone(dense), slots, *blocks),
+         C.write_balances_plain(clone(dense), slots, *blocks))
+    row["write_balances_ms"] = cs.cuda_ms(torch, lambda: C.write_balances(dense, slots, *blocks), 10)
+    tables = [cs.shard_of(C, dense, j % cs.SHARD) for j in range(cs.MESH_DEVICES)]
+    del dense
+    glob = slots.long()
+    local = [torch.where((glob >= b) & (glob < b + cs.ROWS), glob - b, cs.ROWS).int() for b in bases]
+    same("write_balances x 8", tuple(C.write_balances(clone(st), l, *blocks) for st, l in zip(tables, local)),
+         tuple(C.write_balances_plain(clone(st), l, *blocks) for st, l in zip(tables, local)))
+    row["write_balances_x8_ms"] = cs.cuda_ms(
+        torch, lambda: [C.write_balances(st, l, *blocks) for st, l in zip(tables, local)], 10)
+    if writeback:
+        same("write_balances_grouped",
+             tuple(S.write_balances_grouped([clone(st) for st in tables], bases, slots, *blocks, A_MAX)),
+             tuple(S.write_balances_grouped_plain([clone(st) for st in tables], bases, slots, *blocks, A_MAX)))
+        row["write_balances_grouped_ms"] = cs.cuda_ms(
+            torch, lambda: S.write_balances_grouped(tables, bases, slots, *blocks, A_MAX), 10)
     print(json.dumps(row), flush=True)
 
 

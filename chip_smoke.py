@@ -12,7 +12,8 @@ caught:
   2. Kernels vs plain, at the main path's shapes (A = 2^20 accounts,
      n = 8192 events, k = 16384 / 8192 slot rows): each kernel must be
      byte-equal to its plain PyTorch version on the same inputs on the
-     card. create_transfers_fast runs four batches: every ladder rung
+     card (read_balances also into a pinned host block, as the state
+     machine reads, and timed so). create_transfers_fast runs four batches: every ladder rung
      (bails), a clean post, and the post over a pending + posted overflow
      on an untouched row and on a touched row (each must bail).
      create_transfers_exact runs a config-3 batch (with the host's sort
@@ -89,7 +90,8 @@ caught:
      phase 8, whose chunk shapes they take (devicestats): merge_kernel
      at the flush shapes (122,880 +
      40,960 and 40,960 + 40,960 rows) on top-bit keys with duplicates
-     across the runs and a lo of all ones, payloads of 3 words and of 1;
+     across the runs and a lo of all ones, payloads of 3 words and of 1,
+     and at 122,879 + 40,961 rows (no tile multiple) with rows of 5 words;
      compact_fold_kernel at every (k, b) stack phase 8 folded, at k = 1
      and k = 2, and on the k-way merge's edge stacks (tests/fold_stacks.py:
      k = 2, 4, 16, 32 at b = 256, uneven lengths, equal keys across every
@@ -416,17 +418,24 @@ def phase_kernels(torch, C, rng, dev):
            lambda: C.register_accounts_plain(state, slots, ledger, flags, mask),
            lib, k * 13 + k_in * 8, 4 * k, err)
 
-    # read_balances: one lookup / serial prefetch (k = 16384).
+    # read_balances: one lookup / serial prefetch (k = 16384), into a
+    # device block and, as the state machine reads, into a pinned host
+    # block.
     k = 2 * N
     slots = torch.from_numpy(rng.integers(0, a, k).astype(np.int32)).to(dev)
     err = max_abs_err(torch, "read_balances", C.read_balances(state, slots),
                       C.read_balances_plain(state, slots))
+    pinned = torch.empty((4, k, 4), dtype=torch.uint32, pin_memory=True)
+    err = max(err, max_abs_err(torch, "read_balances into pinned host memory",
+                               C.read_balances(state, slots, out=pinned),
+                               tuple(t.cpu() for t in C.read_balances_plain(state, slots))))
     tables = [getattr(state, f).view(torch.int32) for f in C.BALANCE_FIELDS]
     record(torch, "read_balances", "read_balances.cu", "tigerbeetle_tpu/ops/commit.py:353",
            lambda: C.read_balances(state, slots),
            lambda: C.read_balances_plain(state, slots),
            lambda: [torch.index_select(t, 0, slots) for t in tables],
-           k * 4 + 2 * 4 * k * 16, 8 * k, err)
+           k * 4 + 2 * 4 * k * 16, 8 * k, err,
+           ms_into_pinned_host=cuda_ms(torch, lambda: C.read_balances(state, slots, out=pinned), 10))
 
     # write_balances: one serial writeback (k = 16384 distinct slots), in
     # place like register_accounts.
@@ -1424,12 +1433,18 @@ def run_config(torch, name, n_accounts, n_batches, pick, rng, check_ids, oracle_
     expect_equal(results[gpu], results[cpu], f"{name} bail batch")
     if gpu.stats["bail_batches"] != 1 or len(results[gpu]) != k - 1:
         raise SystemExit(f"{name}: the bail batch did not bail and re-run serially")
-    # Lookups (read_balances) on the card against the CPU run.
+    # Lookups (read_balances) on the card against the CPU run, one launch
+    # a lookup.
     ids = np.asarray(check_ids, dtype=np.uint64)
     for lo in range(0, len(ids), TX_BATCH):
         part = ids[lo:lo + TX_BATCH]
         zero = np.zeros(len(part), np.uint64)
-        expect_equal(gpu.lookup_accounts(part, zero), cpu.lookup_accounts(part, zero), f"{name} lookup")
+        reads = C.LAUNCHES["read_balances"]
+        got = gpu.lookup_accounts(part, zero)
+        if C.LAUNCHES["read_balances"] != reads + 1:
+            raise SystemExit(f"{name}: a lookup launched read_balances "
+                             f"{C.LAUNCHES['read_balances'] - reads} times")
+        expect_equal(got, cpu.lookup_accounts(part, zero), f"{name} lookup")
     bail_acc = gpu.lookup_accounts(np.array(bail_ids, np.uint64), np.zeros(2, np.uint64))
     expect_equal(bail_acc, cpu.lookup_accounts(np.array(bail_ids, np.uint64), np.zeros(2, np.uint64)), f"{name} bail accounts")
     torch.cuda.synchronize()
@@ -1923,12 +1938,14 @@ def sort_gather_of(torch, keys, pay):
 def phase_merge_kernel(torch, dev, rng):
     """merge_kernel at the query tree's flush shapes (122,880 + 40,960 and
     40,960 + 40,960 rows) on top-bit keys with duplicates across the runs
-    and a lo of all ones; payloads of 3 words and of 1."""
+    and a lo of all ones; payloads of 3 words and of 1 (flat); and at
+    lengths that are no tile multiple with payload rows of 5 words."""
     from tigerbeetle_tpu_torch import devicestats
     from tigerbeetle_tpu_torch.ops import merge as M
 
     err, shapes = 0, {}
-    for n, m, width in ((122_880, 40_960, 3), (40_960, 40_960, 3), (40_960, 40_960, 1)):
+    for n, m, width in ((122_880, 40_960, 3), (40_960, 40_960, 3), (40_960, 40_960, 1),
+                        (122_879, 40_961, 5)):
         la, lb = top_runs(rng, (n, m), 1 << 16)
         ka, pa = run_format(torch, dev, la, rng=rng, width=width)
         kb, pb = run_format(torch, dev, lb, rng=rng, width=width)
@@ -1937,8 +1954,7 @@ def phase_merge_kernel(torch, dev, rng):
         args = (ka, pa, kb, pb)
         err = max(err, max_abs_err(torch, f"merge_kernel {n}+{m} payload width {width}",
                                    M.merge_kernel(*args), M.merge_kernel_plain(*args)))
-        if width == 3:
-            shapes[f"{n}+{m}"] = cuda_ms(torch, lambda: M.merge_kernel(*args), 10)
+        shapes[f"{n}+{m} width {width}"] = cuda_ms(torch, lambda: M.merge_kernel(*args), 10)
         if (n, m, width) == (122_880, 40_960, 3):
             main = args
     ka, pa, kb, pb = main

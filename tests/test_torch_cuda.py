@@ -140,6 +140,67 @@ def test_balance_kernels(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, (1 << 24) + 1])
+def test_read_balances_block_kernel(dev, k):
+    """One launch, one thread a row over a grid-stride loop (no cap on k:
+    at 2^24 + 1 rows the last row comes round the loop). Slots -1, A - 1
+    and past A clip to the table; the four (k, 4) results are views of one
+    (4, k, 4) block, byte-equal to the plain version's."""
+    rng = np.random.default_rng(k % 1000)
+    state = _state(rng, dev)
+    slots = torch.randint(0, A, (k,), dtype=torch.int32, device=dev)
+    slots[:3] = torch.tensor([-1, A - 1, A], dtype=torch.int32)
+    slots[-1] = A + 5
+    before = C.LAUNCHES["read_balances"]
+    got = C.read_balances(state, slots)
+    want = C.read_balances_plain(state, slots)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["read_balances"] == before + 1
+    for i, g in enumerate(got):
+        assert g.shape == (k, 4) and g.data_ptr() == got[0].data_ptr() + i * k * 16
+    assert all(_equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["single", "mesh"])
+def test_state_machine_read_balances_on_cuda(dev, route):
+    """StateMachine._read_balances on the card: one launch a read (the
+    grouped read on a virtual mesh), the CPU twin's bytes, and arrays that
+    a later read of the same bucket does not overwrite."""
+    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch.constants import Config
+    from tigerbeetle_tpu_torch.models.state_machine import StateMachine
+    from tigerbeetle_tpu_torch.parallel import sharding as S
+
+    cfg = Config(name="unit", accounts_max=A, transfers_max=1 << 14, batch_max=8190)
+    gpu = StateMachine(cfg, mesh=S.make_mesh([dev] * 8)) if route == "mesh" else StateMachine(cfg)
+    cpu = StateMachine(cfg, device="cpu")
+    acc = np.zeros(64, dtype=types.ACCOUNT_DTYPE)
+    acc["id_lo"] = np.arange(1, 65)
+    acc["ledger"], acc["code"] = 1, 1
+    ev = np.zeros(63, dtype=types.TRANSFER_DTYPE)
+    ev["id_lo"] = np.arange(1000, 1063)
+    ev["debit_account_id_lo"], ev["credit_account_id_lo"] = 64, np.arange(1, 64)
+    ev["amount_lo"], ev["ledger"], ev["code"] = np.arange(5, 68), 1, 1
+    for sm in (gpu, cpu):
+        sm.create_accounts(acc.copy())
+        sm.create_transfers(ev.copy())
+    entry = "sharded_read_grouped" if route == "mesh" else "read_balances"
+    before = C.LAUNCHES[entry]
+    first = gpu._read_balances(np.arange(0, 17))
+    assert C.LAUNCHES[entry] == before + 1
+    kept = [a.copy() for a in first]
+    second = gpu._read_balances(np.arange(40, 57))
+    assert C.LAUNCHES[entry] == before + 2
+    for a, want in zip(first, kept):
+        assert np.array_equal(a, want)
+        assert not any(np.shares_memory(a, b) for b in second)
+    for got, slots in ((first, np.arange(0, 17)), (second, np.arange(40, 57))):
+        for g, w in zip(got, cpu._read_balances(slots)):
+            assert g.tobytes() == w.tobytes()
+
+
+@pytest.mark.cuda
 def test_cuda_tensor_never_takes_the_plain_version(dev):
     """A wrapper given CUDA tensors it cannot take raises; it does not
     fall back to the plain version."""
@@ -645,7 +706,11 @@ def _pay(rng, shape, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,m,width", [(1000, 3000, 3), (777, 5, None), (0, 300, 3), (300, 0, None)])
+@pytest.mark.parametrize("n,m,width", [
+    (1000, 3000, 3), (777, 5, None), (0, 300, 3), (300, 0, None), (1, 0, 2), (5, 37, 5),
+    (300, 1, 7), (777, 5, 2), (1000, 3000, 64), (3, 1000, 1000),
+    (122_880, 40_960, 3), (40_960, 40_960, 3), (40_960, 40_960, None),
+])
 def test_merge_kernel_kernel(dev, n, m, width):
     from tigerbeetle_tpu_torch.ops import merge as M
 
@@ -658,6 +723,26 @@ def test_merge_kernel_kernel(dev, n, m, width):
     want = M.merge_kernel_plain(ka, pa, kb, pb)
     torch.cuda.synchronize()
     assert C.LAUNCHES["merge_kernel"] == before + 1
+    assert _equal(got[0], want[0]) and _equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [None, 2, 3, 5])
+@pytest.mark.parametrize("case,n,m,tile", fold_stacks.MERGE_EDGES)
+def test_merge_kernel_edges_kernel(dev, case, n, m, tile, width):
+    """The tiled merge's edge inputs (tests/fold_stacks.py MERGE_EDGES)
+    through merge_kernel, flat payloads and rows of 2, 3 and 5 words."""
+    from tigerbeetle_tpu_torch.ops import merge as M
+
+    rng = np.random.default_rng(n + 3 * m)
+    ka, _, kb, _ = (torch.from_numpy(x).to(dev) for x in fold_stacks.merge_pair(rng, case, n, m))
+    shape = (lambda r: (r,)) if width is None else (lambda r: (r, width))
+    pa, pb = _pay(rng, shape(n), dev), _pay(rng, shape(m), dev)
+    before = C.LAUNCHES["merge_kernel"]
+    got = M.merge_kernel(ka, pa, kb, pb)
+    want = M.merge_kernel_plain(ka, pa, kb, pb)
+    torch.cuda.synchronize()
+    assert C.LAUNCHES["merge_kernel"] == before + (1 if n + m else 0)
     assert _equal(got[0], want[0]) and _equal(got[1], want[1])
 
 

@@ -6,7 +6,10 @@ merge_kernel_tiled's plain version must be byte-equal to the JAX kernel
 bit set (a signed carrier would disorder them), duplicates inside a run
 and across both runs (A's rows first), padding rows, and runs shorter
 than a tile, at the 256-row tile and a smaller one, and the card kernel's
-edge inputs (tests/fold_stacks.py MERGE_EDGES). The host helpers
+edge inputs (tests/fold_stacks.py MERGE_EDGES). merge_kernel's must be
+byte-equal to the JAX merge_kernel at run lengths that are no tile
+multiple, an empty run among them, with flat payloads and payload rows
+of 2, 3 and 5 words. The host helpers
 (bucket_pow2, to_device_run / from_device_run, merge_device, merge_host,
 merge_host_kway) must agree with the reference's too.
 """
@@ -78,6 +81,44 @@ def test_merge_kernel_tiled_edges_match_reference(case, n, m, tile):
         rk, rp = ref_merge.merge_kernel_tiled(*runs, tile=tile)
     else:
         rk, rp = ref_merge.merge_kernel(*runs)
+    assert pk.numpy().tobytes() == np.asarray(rk).tobytes()
+    assert pp.numpy().tobytes() == np.asarray(rp).tobytes()
+
+
+def raw_runs(rng, na, nb, width, top_bit):
+    """Two sorted run-format key blocks of na and nb rows (no padding to
+    a tile: a few pad rows [0, 0, 1] end a run of more than 8 rows), keys
+    drawn from few values so that they repeat inside and across the runs,
+    and random payloads: flat (width None) or (rows, width)."""
+    def keys(n):
+        lo = np.sort(rng.integers(0, 24, n, dtype=np.uint64))
+        if top_bit:
+            lo |= np.uint64(1 << 63)
+        k = np.zeros((n, 3), np.uint32)
+        k[:, 0] = lo & np.uint64(0xFFFFFFFF)
+        k[:, 1] = lo >> np.uint64(32)
+        if n > 8:
+            k[-3:] = [0, 0, 1]
+        return k
+
+    def pay(n):
+        shape = (n,) if width is None else (n, width)
+        return rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+
+    return keys(na), pay(na), keys(nb), pay(nb)
+
+
+@pytest.mark.parametrize("width", [None, 2, 3, 5])
+@pytest.mark.parametrize("na,nb", [(1, 0), (5, 37), (300, 1), (777, 5), (0, 40)])
+def test_merge_kernel_matches_reference(na, nb, width):
+    """Any run lengths (no tile multiple, one run empty), top-bit keys on
+    odd lengths, flat and wide payloads: the plain version, which the
+    card kernel must equal (tests/test_torch_cuda.py), byte-equal to the
+    reference's global merge."""
+    runs = raw_runs(np.random.default_rng(na * 31 + nb), na, nb, width, top_bit=(na + nb) % 2 == 1)
+    pk, pp = merge.merge_kernel(*_t(runs))
+    rk, rp = ref_merge.merge_kernel(*runs)
+    assert pk.shape == (na + nb, 3) and pp.shape == (na + nb, *runs[1].shape[1:])
     assert pk.numpy().tobytes() == np.asarray(rk).tobytes()
     assert pp.numpy().tobytes() == np.asarray(rp).tobytes()
 

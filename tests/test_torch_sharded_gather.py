@@ -260,9 +260,9 @@ def _counted(monkeypatch):
         calls["validate"].append((lo, k))
         return validate(state, b, host_code, lo, k)
 
-    def counted_read(states, bases, slots, a):
+    def counted_read(states, bases, slots, a, out=None):
         calls["read"].append(list(bases))
-        return read(states, bases, slots, a)
+        return read(states, bases, slots, a, out)
 
     def refused(*args):
         raise AssertionError("the mesh validates and reads through the grouped entries")

@@ -136,14 +136,4 @@ struct Four {
   }
 };
 
-struct FourOut {
-  uint4* t0;
-  uint4* t1;
-  uint4* t2;
-  uint4* t3;
-  __device__ uint4* operator[](int i) const {
-    return i == 0 ? t0 : i == 1 ? t1 : i == 2 ? t2 : t3;
-  }
-};
-
 }  // namespace tb

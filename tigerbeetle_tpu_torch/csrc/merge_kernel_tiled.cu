@@ -50,7 +50,14 @@
 
 namespace {
 
+using tb::merge_path::a_taken_warp;
+using tb::merge_path::bulk_bytes;
+using tb::merge_path::bulk_span;
+using tb::merge_path::edge_word;
 using tb::merge_path::key_le_words;
+using tb::merge_path::smem_addr;
+using tb::merge_path::store_tile;
+using tb::merge_path::wait_phase0;
 
 constexpr int kThreads = 128;
 constexpr int kRows = 3;  // outputs a thread: odd (see 3. above)
@@ -64,102 +71,6 @@ static_assert(kTile % 4 == 0, "a tile must start on a 16-byte boundary");
 // The largest power of two <= kTile: the first step of a search.
 constexpr int top_step(int n) { return n < 2 ? 1 : 2 * top_step(n / 2); }
 constexpr int kTopStep = top_step(kTile);
-
-// How many rows of A the first d outputs of the stable merge take: the
-// least ai in [max(0, d - m), min(d, n)] with A[ai] > B[d - ai - 1], by one
-// warp. A[ai] <= B[d - ai - 1] holds exactly below the answer, so the
-// probes where it holds are a prefix, and their count places the answer.
-// A round over more than 64 places probes 32 evenly spaced ones and keeps
-// (probe c - 1, probe c]; at most 64 places are probed whole, two a lane,
-// in the last round. Every lane returns the answer.
-__device__ long long a_taken_warp(const uint32_t* __restrict__ ka, long long n,
-                                  const uint32_t* __restrict__ kb, long long m,
-                                  long long d, int lane) {
-  long long lo = d - m > 0 ? d - m : 0;
-  long long hi = d < n ? d : n;
-  while (hi - lo > 64) {  // the same on every lane
-    const long long len = hi - lo;
-    const long long ai = lo + len * lane / 32;  // ai < n, d - ai - 1 >= 0
-    uint32_t x[3], y[3];  // both keys' loads in flight together
-#pragma unroll
-    for (int w = 0; w < 3; ++w) {
-      x[w] = __ldg(ka + 3 * ai + w);
-      y[w] = __ldg(kb + 3 * (d - ai - 1) + w);
-    }
-    const int c = __popc(__ballot_sync(
-        0xFFFFFFFFu, key_le_words(x[0], x[1], x[2], y[0], y[1], y[2])));
-    const long long nlo = c > 0 ? lo + len * (c - 1) / 32 + 1 : lo;
-    if (c < 32) hi = lo + len * c / 32;
-    lo = nlo;
-  }
-  if (lo == hi) return lo;
-  uint32_t x[2][3], y[2][3];
-  bool in[2];
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const long long ai = lo + q * 32 + lane;
-    in[q] = ai < hi;
-    const long long at = in[q] ? ai : lo;
-#pragma unroll
-    for (int w = 0; w < 3; ++w) {
-      x[q][w] = __ldg(ka + 3 * at + w);
-      y[q][w] = __ldg(kb + 3 * (d - at - 1) + w);
-    }
-  }
-  int c = 0;
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const bool le = key_le_words(x[q][0], x[q][1], x[q][2], y[q][0], y[q][1], y[q][2]);
-    c += __popc(__ballot_sync(0xFFFFFFFFu, in[q] && le));
-  }
-  return lo + c;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// The whole 16-byte chunks [i0, i1) of words [w0, w1): those a bulk copy
-// takes (i0 >= i1: none).
-__device__ __forceinline__ void interior(long long w0, long long w1, long long& i0,
-                                         long long& i1) {
-  i0 = (w0 + 3) & ~3ll;
-  i1 = w1 & ~3ll;
-}
-
-// Thread 0: the bulk copy of words [w0, w1)'s whole chunks of g to s, word
-// w at s[w - 4 floor(w0 / 4)], completing on the mbarrier at `bar`.
-__device__ void bulk_span(uint32_t* s, const uint32_t* __restrict__ g, long long w0,
-                          long long w1, unsigned bar) {
-  long long i0, i1;
-  interior(w0, w1, i0, i1);
-  if (i0 >= i1) return;
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-      "[%3];\n" ::"r"(smem_addr(s + (i0 - (w0 & ~3ll)))),
-      "l"(g + i0), "r"((unsigned)(4 * (i1 - i0))), "r"(bar)
-      : "memory");
-}
-
-// Slot k (0-5) of words [w0, w1): the words outside the whole chunks, up
-// to three before them and three after, by a plain load.
-__device__ void edge_word(uint32_t* s, const uint32_t* __restrict__ g, long long w0,
-                          long long w1, int k) {
-  long long i0, i1;
-  interior(w0, w1, i0, i1);
-  const long long head_end = i0 < w1 ? i0 : w1;
-  const long long w = k < 3 ? w0 + k : (i1 > head_end ? i1 : head_end) + (k - 3);
-  if (k < 3 ? w < head_end : w < w1) s[w - (w0 & ~3ll)] = g[w];
-}
-
-// Words [0, words) of s to g, as 16-byte vectors and then the tail.
-__device__ void store_tile(uint32_t* __restrict__ g, const uint32_t* s, int words) {
-  const int vecs = words >> 2;
-  for (int c = threadIdx.x; c < vecs; c += kThreads) {
-    reinterpret_cast<uint4*>(g)[c] = reinterpret_cast<const uint4*>(s)[c];
-  }
-  for (int w = 4 * vecs + threadIdx.x; w < words; w += kThreads) g[w] = s[w];
-}
 
 __global__ void __launch_bounds__(kThreads)
 merge_tiles(const uint32_t* __restrict__ ka, const uint32_t* __restrict__ pa,
@@ -199,11 +110,7 @@ merge_tiles(const uint32_t* __restrict__ ka, const uint32_t* __restrict__ pa,
   // and every thread waits for the mbarrier's first phase.
   const long long wa0 = 3 * a0, wa1 = 3 * (a0 + na), wb0 = 3 * b0, wb1 = 3 * (b0 + nb);
   if (t == 0) {
-    long long bytes = 0, i0, i1;
-    interior(wa0, wa1, i0, i1);
-    bytes += i1 > i0 ? 2 * 4 * (i1 - i0) : 0;
-    interior(wb0, wb1, i0, i1);
-    bytes += i1 > i0 ? 2 * 4 * (i1 - i0) : 0;
+    const long long bytes = 2 * (bulk_bytes(wa0, wa1) + bulk_bytes(wb0, wb1));
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
                  "r"((unsigned)bytes)
                  : "memory");
@@ -221,15 +128,7 @@ merge_tiles(const uint32_t* __restrict__ ka, const uint32_t* __restrict__ pa,
       default: edge_word(s_pay + bbase, pb, wb0, wb1, k); break;
     }
   }
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar)
-        : "memory");
-  }
+  wait_phase0(bar);
   __syncthreads();  // the spans are in shared memory
 
   // 3. This thread's kRows outputs, from output row `diag` of the tile:
@@ -291,8 +190,8 @@ merge_tiles(const uint32_t* __restrict__ ka, const uint32_t* __restrict__ pa,
     }
   }
   __syncthreads();
-  store_tile(ok + 3 * d0, s_key, 3 * rows);
-  store_tile(op + 3 * d0, s_pay, 3 * rows);
+  store_tile(ok + 3 * d0, s_key, 3 * rows, kThreads);
+  store_tile(op + 3 * d0, s_pay, 3 * rows, kThreads);
 }
 
 }  // namespace

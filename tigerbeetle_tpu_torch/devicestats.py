@@ -103,11 +103,12 @@ COSTS = {
         2 * _nbytes(ka, pa, kb, pb),
         (ka.shape[0] + kb.shape[0]) * 8 * 5,
     ),
-    # both runs in, their merge out; a binary search over the other run
-    # per row.
+    # both runs in, their merge out; the tiled merge's compares (about
+    # five of ~8 operations a row), and a source lookup and an address a
+    # payload word (~4 operations).
     "merge_kernel": lambda ka, pa, kb, pb: (
         2 * _nbytes(ka, pa, kb, pb),
-        (ka.shape[0] + kb.shape[0]) * 8 * _log2(max(ka.shape[0], kb.shape[0])),
+        (ka.shape[0] + kb.shape[0]) * 8 * 5 + 4 * (pa.numel() + pb.numel()),
     ),
     # the stack in, its merge out; a merge step a row at each of the
     # log2(k) levels of the in-tile tree, and a binary search over a run

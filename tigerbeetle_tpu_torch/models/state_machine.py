@@ -339,6 +339,9 @@ class StateMachine:
             {} for _ in range(DISPATCH_WINDOW_MAX)
         ]
         self._disp_seq = 0  # tidy: owner=commit
+        # The balance read's host buffers per pow-2 bucket (_read_balances):
+        # its padded slots and the (4, bucket, 4) block it reads back.
+        self._read_bufs: dict = {}
         # Last-use dispatch seq per scratch bucket (pow-2 pad size): a
         # bucket idle for SCRATCH_STALE_AFTER dispatches is retired —
         # buffers freed from every ring slot, its device.mem.scratch.*
@@ -674,17 +677,43 @@ class StateMachine:
         return [torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrs]
 
     def _read_balances(self, slots: np.ndarray):
+        """The four (k, 4) balance blocks at `slots`, as fresh host arrays
+        (views of one (4, k, 4) block of their own). One copy of the padded
+        slots in from a pinned buffer, one launch that stores the (4,
+        n_pad, 4) block straight into pinned host memory, one sync on an
+        event. A mesh whose first dp row spans cards combines the row on
+        its first card and copies the four blocks back, with the same one
+        sync."""
         k = len(np.atleast_1d(slots))
-        # Pad slot 0 (clipped gather rows are sliced away below).
-        slots_p, = self._pad_slots([np.asarray(slots, dtype=np.int32)], k, [0])
-        slots_t, = self._to_device(slots_p)
+        n_pad = 1 << max(4, (max(k, 1) - 1).bit_length())
+        bufs = self._read_bufs.get(n_pad)
+        if bufs is None:
+            pin = self.device.type == "cuda"
+            bufs = self._read_bufs[n_pad] = (
+                torch.empty(n_pad, dtype=torch.int32, pin_memory=pin),
+                torch.empty((4, n_pad, 4), dtype=torch.uint32, pin_memory=pin),
+            )
+        slots_h, block_h = bufs
+        # Pad slot 0 (clipped gather rows are sliced away below). The
+        # previous call's copy out of the slots and its stores into the
+        # block ended at its sync.
+        staged = slots_h.numpy()
+        staged[:k] = np.atleast_1d(slots)
+        staged[k:] = 0
+        slots_t = slots_h.to(self.device, non_blocking=True)
         devicestats.note_call(self._entry("read_balances"), (self.state, slots_t))
         with tracer.device_step(self._entry("read_balances")):
-            full = [t.cpu().numpy() for t in self._ops.read_balances(self.state, slots_t)]
-        tracer.device_bytes(
-            h2d=slots_p.nbytes, d2h=sum(a.nbytes for a in full)
-        )
-        return tuple(a[:k] for a in full)
+            rows = self._ops.read_balances(self.state, slots_t, out=block_h)
+            if rows[0].device != block_h.device:
+                for dst, r in zip(block_h, rows):
+                    dst.copy_(r, non_blocking=True)
+            if self.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+                done.synchronize()
+            out = block_h.numpy()[:, :k].copy()
+        tracer.device_bytes(h2d=slots_h.nbytes, d2h=block_h.nbytes)
+        return tuple(out)
 
     def _write_balances(self, slots, dp, dpo, cp, cpo) -> None:
         k = len(np.atleast_1d(slots))

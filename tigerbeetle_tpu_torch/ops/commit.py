@@ -340,29 +340,44 @@ def register_accounts(state: LedgerState, slots, ledger, flags, mask) -> LedgerS
 # --- read_balances --------------------------------------------------------
 
 
-def read_balances_plain(state: LedgerState, slots):
+def balance_block(out, k: int, dev):
+    """The (4, k, 4) uint32 block a balance read writes: `out` once checked
+    (on `dev`, or pinned host memory, which a kernel on `dev` writes
+    straight through), or a new one on `dev` where None."""
+    if out is None:
+        return torch.empty((4, k, 4), dtype=torch.uint32, device=dev)
+    if out.device.type == "cpu" and dev.type != "cpu" and not out.is_pinned():
+        raise ValueError("out: a host block must be pinned")
+    _check(out, "out", torch.uint32, (4, k, 4), out.device if out.device.type == "cpu" else dev)
+    return out
+
+
+def read_balances_plain(state: LedgerState, slots, out=None):
     a = state.ledger.shape[0]
     s = slots.long().clamp(0, a - 1)
-    return tuple(
-        getattr(state, f).view(torch.int32)[s].view(torch.uint32)
-        for f in BALANCE_FIELDS
-    )
+    out = balance_block(out, slots.shape[0], slots.device)
+    torch.stack([getattr(state, f).view(torch.int32)[s] for f in BALANCE_FIELDS],
+                out=out.view(torch.int32))
+    return tuple(out)
 
 
-def read_balances(state: LedgerState, slots):
+def read_balances(state: LedgerState, slots, out=None):
     """Gather the four (k, 4) balance blocks at `slots` (k,) int32,
-    clipped to [0, A-1] (prefetch / lookup / serial fallback)."""
+    clipped to [0, A-1] (prefetch / lookup / serial fallback). Returns the
+    four as views of one (4, k, 4) uint32 block, in BALANCE_FIELDS order:
+    `out` where given (on the state's device, or pinned host memory,
+    which the kernel writes straight through), else a new device block."""
     if state.ledger.device.type == "cpu":
-        return read_balances_plain(state, slots)
+        return read_balances_plain(state, slots, out)
     a = _check_state(state)
     dev = state.ledger.device
     k = slots.shape[0]
     _check(slots, "slots", torch.int32, (k,), dev)
-    out = [torch.empty((k, 4), dtype=torch.uint32, device=dev) for _ in range(4)]
+    out = balance_block(out, k, dev)
     _launch(
         "read_balances", dev,
         *(getattr(state, f).data_ptr() for f in BALANCE_FIELDS),
-        slots.data_ptr(), *(t.data_ptr() for t in out), a, k,
+        slots.data_ptr(), out.data_ptr(), a, k,
     )
     return tuple(out)
 

@@ -47,7 +47,7 @@ _I = ctypes.c_int64
 SIGNATURES = {
     "create_transfers_fast": ("tb_create_transfers_fast", [_P] * 22 + [_I, _I, _P]),
     "register_accounts": ("tb_register_accounts", [_P] * 6 + [_I, _I, _P]),
-    "read_balances": ("tb_read_balances", [_P] * 9 + [_I, _I, _P]),
+    "read_balances": ("tb_read_balances", [_P] * 6 + [_I, _I, _P]),
     "write_balances": ("tb_write_balances", [_P] * 9 + [_I, _I, _P]),
     "create_transfers_exact": ("tb_create_transfers_exact", [_P, _P, _P]),
     "exact_sort_plan": ("tb_exact_sort_plan", [_P, _P, _P]),

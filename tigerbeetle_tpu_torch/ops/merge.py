@@ -17,9 +17,9 @@ never takes the plain version:
     tiled merge (the kernel picks its own tile; `tile` is the callers'
     padding); the memtable flush of the query index folds its sorted
     runs through it (ops/qindex.fold_runs_device).
-  - `merge_kernel` (csrc/merge_kernel.cu): the reference's global
-    binary-search merge, any run lengths and payload widths; on no path
-    of the tree (the reference's only callers are its tests).
+  - `merge_kernel` (csrc/merge_kernel.cu): the tiled merge's design
+    over any run lengths and payload widths; on no path of the tree (the
+    reference's only callers are its tests).
   - `compact_fold_kernel` (csrc/compact_fold_kernel.cu): one compaction chunk's
     k-way fold, one k-way merge-path pass that reads and writes each row
     once. The
@@ -133,20 +133,20 @@ def merge_kernel_tiled(keys_a, vals_a, keys_b, vals_b, tile: int = MERGE_TILE):
 
 
 def merge_kernel(keys_a, vals_a, keys_b, vals_b):
-    """Stable merge of two sorted runs by binary-search rank and scatter:
-    keys (n, 3) and (m, 3) uint32 [lo0, lo1, pad], payloads (n,) and (m,)
-    or (n, K) and (m, K) uint32. Row i of A lands at
-    i + |{j : B[j] < A[i]}|, row j of B at j + |{i : A[i] <= B[j]}|, so
-    A's rows come first at equal keys. Any run lengths, either run may be
-    empty. The positions form a permutation only for sorted runs, and
-    the kernel equals its plain version only there. Returns (keys
-    (n + m, 3), payload (n + m, ...))."""
+    """Stable merge of two sorted runs of any lengths: keys (n, 3) and
+    (m, 3) uint32 [lo0, lo1, pad], payloads (n,) and (m,) or (n, K) and
+    (m, K) uint32, K >= 1. A's rows come first at equal keys; either run
+    may be empty. The kernel is csrc/merge_kernel.cu, the tiled merge's
+    design with the payload taken by each output's source row, so it
+    takes every width and needs no tile multiple. It equals its plain
+    version on sorted runs only. Returns (keys (n + m, 3), payload
+    (n + m, ...))."""
     if keys_a.device.type == "cpu":
         return merge_kernel_plain(keys_a, vals_a, keys_b, vals_b)
     n, m = keys_a.shape[0], keys_b.shape[0]
     dev = keys_a.device
     tail = tuple(vals_a.shape[1:])
-    if len(tail) > 1:
+    if len(tail) > 1 or tail == (0,):
         raise ValueError(f"merge_kernel: payload rows of shape {tail}")
     width = tail[0] if tail else 1
     for name, t, shape in (("keys_a", keys_a, (n, 3)), ("vals_a", vals_a, (n, *tail)),
@@ -154,7 +154,7 @@ def merge_kernel(keys_a, vals_a, keys_b, vals_b):
         kernels.check(t, name, torch.uint32, shape, dev)
     ok = torch.empty((n + m, 3), dtype=torch.uint32, device=dev)
     op = torch.empty((n + m, *tail), dtype=torch.uint32, device=dev)
-    if n + m and width:
+    if n + m:
         kernels.launch(
             "merge_kernel", dev, keys_a.data_ptr(), vals_a.data_ptr(),
             keys_b.data_ptr(), vals_b.data_ptr(), ok.data_ptr(),

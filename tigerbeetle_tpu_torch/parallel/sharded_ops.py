@@ -66,8 +66,8 @@ class ShardedOps:
     def register_accounts(self, state, slots, ledger, flags, mask):
         return sharding.register_accounts_sharded(self.mesh, state, slots, ledger, flags, mask)
 
-    def read_balances(self, state, slots):
-        return sharding.read_balances_sharded(self.mesh, self.accounts_max, state, slots)
+    def read_balances(self, state, slots, out=None):
+        return sharding.read_balances_sharded(self.mesh, self.accounts_max, state, slots, out)
 
     def write_balances(self, state, slots, dp, dpo, cp, cpo):
         return sharding.write_balances_sharded(

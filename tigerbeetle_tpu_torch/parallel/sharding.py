@@ -558,46 +558,51 @@ def sharded_read(state: LedgerState, slots, base: int, a: int):
     return _read("sharded_read", [state], [base], slots, a)
 
 
-def sharded_read_grouped_plain(states, bases, slots, a: int):
+def sharded_read_grouped_plain(states, bases, slots, a: int, out=None):
     """Plain PyTorch version of sharded_read_grouped: each slot (clipped to
     [0, a-1]) read from the shard of `states` that owns it, zeros where
     none does."""
     rows = states[0].debits_pending.shape[0]
     glob = slots.long().clamp(0, a - 1)
-    out = [torch.zeros((slots.shape[0], 4), dtype=torch.int32, device=slots.device)
-           for _ in BALANCE_FIELDS]
+    parts = [torch.zeros((slots.shape[0], 4), dtype=torch.int32, device=slots.device)
+             for _ in BALANCE_FIELDS]
     for st, base in zip(states, bases):
         local = glob - base
         mine = ((local >= 0) & (local < rows))[:, None]
         ix = local.clamp(0, rows - 1)
-        out = [torch.where(mine, getattr(st, f).view(torch.int32)[ix], o)
-               for f, o in zip(BALANCE_FIELDS, out)]
-    return tuple(o.view(torch.uint32) for o in out)
+        parts = [torch.where(mine, getattr(st, f).view(torch.int32)[ix], o)
+                 for f, o in zip(BALANCE_FIELDS, parts)]
+    out = commit.balance_block(out, slots.shape[0], slots.device)
+    torch.stack(parts, out=out.view(torch.int32))
+    return tuple(out)
 
 
-def sharded_read_grouped(states, bases, slots, a: int):
+def sharded_read_grouped(states, bases, slots, a: int, out=None):
     """A gather of the balance tables at global `slots` (k,) int32 from
     the shards `states` (all on one device; shard j at global rows
     [bases[j], bases[j] + rows)): each slot clipped to [0, a-1] and read
     from its owner, zeros where none of them owns it: csrc/sharded_read.cu,
     one launch a GROUP_SHARDS shards (a later launch
     stores only its own rows), for CUDA tensors; the plain version for CPU
-    tensors. Returns four (k, 4) uint32 blocks: the combined rows where
-    `states` are every shard of a dp row."""
+    tensors. Returns four (k, 4) uint32 blocks, views of one (4, k, 4)
+    block: `out` where given (on the shards' device, or pinned host
+    memory, which the kernel writes straight through), else a new one on
+    the device. They are the combined rows where `states` are every shard
+    of a dp row."""
     if states[0].ledger.device.type == "cpu":
-        return sharded_read_grouped_plain(states, bases, slots, a)
-    return _read("sharded_read_grouped", states, bases, slots, a)
+        return sharded_read_grouped_plain(states, bases, slots, a, out)
+    return _read("sharded_read_grouped", states, bases, slots, a, out)
 
 
-def _read(name: str, states, bases, slots, a: int):
+def _read(name: str, states, bases, slots, a: int, out=None):
     """csrc/sharded_read.cu over the shards `states` at `bases`, one launch
-    a GROUP_SHARDS shards, counted under `name`: four (k, 4) uint32
-    blocks."""
+    a GROUP_SHARDS shards, counted under `name`, into the (4, k, 4) uint32
+    block `out` (new on the device where None): its four (k, 4) views."""
     dev = states[0].ledger.device
     rows = _check_tables(states, dev)
     k = slots.shape[0]
     _check(slots, "slots", torch.int32, (k,), dev)
-    out = _empty_tables(k, dev)
+    out = commit.balance_block(out, k, dev)
     for lo in range(0, len(states), GROUP_SHARDS):
         part = slice(lo, lo + GROUP_SHARDS)
         kernels.launch(
@@ -610,18 +615,19 @@ def _read(name: str, states, bases, slots, a: int):
     return tuple(out)
 
 
-def _read_row(mesh: Mesh, rows: int, a: int, state: ShardedState, i: int, slots) -> list:
+def _read_row(mesh: Mesh, rows: int, a: int, state: ShardedState, i: int, slots,
+              out=None) -> list:
     """The rows at `slots` from dp row i's shards: sharded_read_grouped once
     for each distinct device of the row, over the shards that device holds.
     Returns the devices' blocks in shard order (one block on a virtual
-    mesh)."""
+    mesh, written into `out` where given: a row on one device only)."""
     row = mesh.devices[i]
     blocks = []
     for d in dict.fromkeys(row):
         ss = [s for s in range(mesh.shard) if row[s] == d]
         blocks.append(sharded_read_grouped(
             [state.shards[i * mesh.shard + s] for s in ss], [s * rows for s in ss],
-            _peer(slots, d), a))
+            _peer(slots, d), a, out))
     return blocks
 
 
@@ -885,13 +891,20 @@ def register_accounts_sharded(
     return state
 
 
-def read_balances_sharded(mesh: Mesh, accounts_max: int, state: ShardedState, slots):
+def read_balances_sharded(mesh: Mesh, accounts_max: int, state: ShardedState, slots, out=None):
     """ops/commit.read_balances over a ShardedState: sharded_read_grouped
     once for each device of dp row 0, over the shards it holds, on the
     mesh's first device (combined in shard order where the row spans
-    devices). slots (k,) int32 are clipped to [0, A-1]."""
+    devices). slots (k,) int32 are clipped to [0, A-1]. Where the row lies
+    on one device the read goes into `out` if given (as
+    ops/commit.read_balances's `out`); across devices `out` is not
+    written."""
     rows = _rows(mesh, accounts_max)
-    return tuple(_rows_on(_read_row(mesh, rows, accounts_max, state, 0, slots), mesh.first))
+    one = len(set(mesh.devices[0])) == 1
+    blocks = _read_row(mesh, rows, accounts_max, state, 0, slots, out if one else None)
+    if one and out is not None:
+        return blocks[0]
+    return tuple(_rows_on(blocks, mesh.first))
 
 
 def write_balances_grouped_plain(tables, bases, slots, dp, dpo, cp, cpo, a: int):

@@ -1,4 +1,4 @@
-"""Eleven hand-written kernels of PERF.md from two checkouts in alternation
+"""Thirteen hand-written kernels of PERF.md from two checkouts in alternation
 on one card: the kernels' CUDA-event times at the main path's shapes, so
 that a redesign can be held against its parent inside one call.
 
@@ -59,7 +59,19 @@ kernel byte-equal to its plain version:
   - row 4, `write_balances`, one serial writeback of k = 16,384 rows into
     the dense table, and into phase 9's eight shard tables: eight
     launches of `write_balances`, and, where the checkout has it, the one
-    grouped launch of `write_balances_grouped`.
+    grouped launch of `write_balances_grouped`;
+  - row 3, `read_balances` at k = 16,384 (chip_smoke.py phase 2's
+    inputs), and its caller, `StateMachine._read_balances` on a
+    PRODUCTION machine holding 8,190 accounts: its host wall time (the
+    median of 200 calls) at k = 16, 8192 and 16,384 and the tracer's
+    `device.read_balances` window inside it (launch to sync), the
+    median host time of `lookup_accounts` over the 8,190 ids (50 calls)
+    and the window inside it; where the checkout's kernel stores one
+    block into the caller's pinned host block, the other form beside it
+    (the kernel's block on the device and one copy back: host time, in
+    turns with the caller's, and the device time of each form);
+  - row 8, `merge_kernel`, on the flush pairs of row 9 at payload width
+    3, and on 40,960 + 40,960 at width 1 (the payloads' last word).
 A line of JSON per run, then the medians per tree and the card's name and
 power limit. Needs one CUDA card.
 """
@@ -122,7 +134,7 @@ def child(root: str, seed: int) -> None:
     kernels.build_all(["exact_sort_plan", "compact_fold_kernel", "create_transfers_exact",
                        "query_index_keys", "query_index_keys_sorted", "merge_kernel_tiled",
                        "register_accounts", "sharded_apply", "sharded_validate", "sharded_read",
-                       "read_balances", "scan_intersect_mask", "write_balances"]
+                       "read_balances", "scan_intersect_mask", "write_balances", "merge_kernel"]
                       + ["register_accounts_sharded"] * grouped)
     dev = torch.device("cuda", 0)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
@@ -336,7 +348,106 @@ def child(root: str, seed: int) -> None:
              tuple(S.write_balances_grouped_plain([clone(st) for st in tables], bases, slots, *blocks, A_MAX)))
         row["write_balances_grouped_ms"] = cs.cuda_ms(
             torch, lambda: S.write_balances_grouped(tables, bases, slots, *blocks, A_MAX), 10)
+    # Row 8 on row 9's flush pairs (width 3), and at width 1.
+    for label, pair in flush_pairs(torch, cs, Q, M, dev, rng):
+        widths = [(3, pair)] + ([(1, (pair[0], pair[1][:, 2].contiguous(), pair[2],
+                                      pair[3][:, 2].contiguous()))] if label == "40960+40960" else [])
+        for width, args in widths:
+            same(f"merge_kernel {label} width {width}", M.merge_kernel(*args), M.merge_kernel_plain(*args))
+            row[f"merge_kernel_{label}_w{width}_ms"] = cs.cuda_ms(torch, lambda: M.merge_kernel(*args), 10)
+    # Row 3 and its caller.
+    read_rows(torch, cs, C, kernels, dev, rng, row, same)
     print(json.dumps(row), flush=True)
+
+
+def read_rows(torch, cs, C, kernels, dev, rng, row, same) -> None:
+    """Row 3's kernel at k = 2n, and StateMachine._read_balances around it
+    (see the module's docstring) into `row`."""
+    import time
+
+    from tigerbeetle_tpu_torch import tracer, types
+    from tigerbeetle_tpu_torch.constants import PRODUCTION
+    from tigerbeetle_tpu_torch.models.state_machine import StateMachine
+
+    state = C.state_from_reference(cs.kernel_state(rng, C), dev)
+    slots = torch.from_numpy(rng.integers(0, A_MAX, 2 * N).astype(np.int32)).to(dev)
+    same("read_balances", C.read_balances(state, slots), C.read_balances_plain(state, slots))
+    row["read_balances_ms"] = cs.cuda_ms(torch, lambda: C.read_balances(state, slots), 10)
+    del state
+    sm = StateMachine(PRODUCTION)
+    for ev in cs.account_batches(types, cs.TX_BATCH):
+        sm.create_accounts(ev)
+    # A checkout whose kernel stores one block into the caller's pinned
+    # host block (its wrapper takes `out`).
+    direct = len(kernels.SIGNATURES["read_balances"][1]) == 9
+
+    def copy_back(host_slots):
+        """_read_balances' steps with the kernel's block on the device and
+        one copy back into the pinned host block (the other form)."""
+        k = len(host_slots)
+        slots_h, block_h = sm._read_bufs[1 << max(4, (k - 1).bit_length())]
+        staged = slots_h.numpy()
+        staged[:k], staged[k:] = host_slots, 0
+        rows = C.read_balances(sm.state, slots_h.to(dev, non_blocking=True))
+        block_h.copy_(rows[0].as_strided(block_h.shape, block_h.stride()), non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        return tuple(block_h.numpy()[:, :k].copy())
+
+    def wall_us(fns, reps):
+        """Median host microseconds of each of `fns`, called in turns (the
+        order alternating each round)."""
+        for fn in fns:
+            fn()
+        times = [[] for _ in fns]
+        for r in range(reps):
+            order = list(enumerate(fns))
+            for i, fn in order[::-1] if r % 2 else order:
+                t0 = time.perf_counter()
+                fn()
+                times[i].append(time.perf_counter() - t0)
+        return [float(np.median(t)) * 1e6 for t in times]
+
+    for k in (16, N, 2 * N):
+        host_slots = rng.integers(0, cs.TX_BATCH, k)
+        read = lambda: sm._read_balances(host_slots)
+        if not direct:
+            row[f"read_balances_host_k{k}_us"], = wall_us([read], 200)
+        else:
+            want = read()
+            if not all(np.array_equal(g, w) for g, w in zip(copy_back(host_slots), want)):
+                raise SystemExit("read_balances copy-back form: differs from _read_balances")
+            (row[f"read_balances_host_k{k}_us"],
+             row[f"read_balances_copy_back_host_k{k}_us"]) = wall_us([read, lambda: copy_back(host_slots)], 200)
+            slots_h, block_h = sm._read_bufs[1 << max(4, (k - 1).bit_length())]
+            s_t = slots_h.to(dev)
+            row[f"read_balances_direct_k{k}_ms"] = cs.cuda_ms(
+                torch, lambda: C.read_balances(sm.state, s_t, out=block_h), 10)
+            row[f"read_balances_copy_back_k{k}_ms"] = cs.cuda_ms(torch, lambda: block_h.copy_(
+                C.read_balances(sm.state, s_t)[0].as_strided(block_h.shape, block_h.stride()),
+                non_blocking=True), 10)
+        tracer.enable()
+        tracer.reset()
+        try:
+            for _ in range(200):
+                read()
+            row[f"read_balances_window_k{k}_us"] = tracer.snapshot()["device.read_balances"]["avg_us"]
+        finally:
+            tracer.disable()
+            tracer.reset()
+    ids = np.arange(1, cs.TX_BATCH + 1, dtype=np.uint64)
+    zero = np.zeros(len(ids), np.uint64)
+    row["lookup_accounts_8190_host_us"], = wall_us([lambda: sm.lookup_accounts(ids, zero)], 50)
+    tracer.enable()
+    tracer.reset()
+    try:
+        for _ in range(50):
+            sm.lookup_accounts(ids, zero)
+        row["lookup_accounts_8190_read_window_us"] = tracer.snapshot()["device.read_balances"]["avg_us"]
+    finally:
+        tracer.disable()
+        tracer.reset()
 
 
 def main() -> int:
@@ -364,7 +475,7 @@ def main() -> int:
 
     for root, rows in runs.items():
         print(json.dumps({"root": os.path.abspath(root), "runs": len(rows), **{
-            k: float(np.median([r[k] for r in rows])) for k in rows[0] if k.endswith("_ms") or k.startswith("sweeps")
+            k: float(np.median([r[k] for r in rows])) for k in rows[0] if k.endswith(("_ms", "_us")) or k.startswith("sweeps")
         }}))
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -188,10 +188,10 @@ MERGE_TILED = [
     ("  __syncthreads();  // every span row read: the buffers take the output\n",
      "  __syncthreads();  // every span row read: the buffers take the output\n"
      "  TB_STAMP(tb_k++, 22);\n"),
-    ("  __syncthreads();\n  store_tile(ok + 3 * d0, s_key, 3 * rows);\n",
-     "  __syncthreads();\n  TB_STAMP(tb_k++, 25);\n  store_tile(ok + 3 * d0, s_key, 3 * rows);\n"),
-    ("  store_tile(op + 3 * d0, s_pay, 3 * rows);\n}\n",
-     "  store_tile(op + 3 * d0, s_pay, 3 * rows);\n  __syncthreads();\n  TB_STAMP(tb_k++, 23);\n}\n"),
+    ("  __syncthreads();\n  store_tile(ok + 3 * d0, s_key, 3 * rows, kThreads);\n",
+     "  __syncthreads();\n  TB_STAMP(tb_k++, 25);\n  store_tile(ok + 3 * d0, s_key, 3 * rows, kThreads);\n"),
+    ("  store_tile(op + 3 * d0, s_pay, 3 * rows, kThreads);\n}\n",
+     "  store_tile(op + 3 * d0, s_pay, 3 * rows, kThreads);\n  __syncthreads();\n  TB_STAMP(tb_k++, 23);\n}\n"),
 ]
 
 # The posting (csrc/sharded_apply.cu): each block after each grid barrier

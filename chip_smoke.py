@@ -174,13 +174,35 @@ caught:
      launches. The mesh is virtual: it proves the sharded arithmetic, the
      slot routing and the bail contract on the card, not NVLink.
 
+  10. The replica cluster: Cluster(replica_count=3, device="cuda",
+     overlap=True, store_async=True) at the default commit depth (the
+     commit executor and the async store stage), the three replicas'
+     state machines sharing the card, at PRODUCTION's widths cut in depth
+     (64 journal slots, so a checkpoint every 52 ops; 2^12 grid blocks):
+     10,000 accounts in two create_accounts batches, 104 batches of 8190
+     uniform transfers (BASELINE config 1), 8 batches of config 3's mix,
+     one lookup_accounts of 8190 ids and one query_transfers by account
+     and code, every replica on frozen time. After the first checkpoint a
+     backup is crashed; it restarts eight requests later from the
+     checkpoint and WAL replay on the card, and catches up. The same
+     requests through the port's serial CPU cluster must give every
+     commit checksum on every replica, both checkpoints' trailer section
+     digests and every reply; the card's cluster passes its state and
+     storage convergence checks. Rows 1-5b, 7 and 9 must launch in the
+     cluster run; compact_fold_kernel's launches are logged, and so are
+     scan_intersect_mask's, 0 (the query op answers with the engine's
+     probes, which intersect on the host). After the run, apart and
+     counted apart, the materializing scan on the primary must launch
+     the intersect and equal the query's answer. It prints the seconds
+     and committed transfers/s.
+
 With --mesh-cards N, phase 1 and then phase 9 alone run, on a mesh of
 the first N cards (make_mesh(N): N = 4 gives dp 2 x shard 2) against the
 single-device machine on the first: the peer copies between cards.
 
 Kernel launch counts are reset to 0 just before each main-path run (each
-of phases 3-8, phase 7's storm and phase 9's two mesh runs) and read just
-after; each kernel of that path must have launched in it. merge_kernel is on no path (as in the
+of phases 3-8, phase 7's storm, phase 9's two mesh runs and phase 10's card
+cluster) and read just after; each kernel of that path must have launched in it. merge_kernel is on no path (as in the
 reference, whose only callers are its tests): its launches stay 0. Nor
 are query_index_keys (the sorted build computes its keys in its own
 launch) and the one-slice sharded_validate, one-shard sharded_apply and
@@ -1493,8 +1515,8 @@ class Config3:
         self.pv_targets = None
         self.pend_ids = None
 
-    def batch(self, types, own_post=False):
-        rng, n = self.rng, TX_BATCH
+    def batch(self, types, own_post=False, n=TX_BATCH):
+        rng = self.rng
         ev = np.zeros(n, dtype=types.TRANSFER_DTYPE)
         ids = np.arange(self.next_id, self.next_id + n, dtype=np.uint64)
         self.next_id += n
@@ -2408,6 +2430,241 @@ def phase_mesh(torch, rng, zipf, mesh, n2=1_000_000, n3=10_000, n_batches=16):
     return launches
 
 
+# --- phase 10: the replica cluster on the card ----------------------------
+
+REPLICA_ACCOUNTS = 10_000  # BASELINE config 1's accounts, in two create_accounts batches
+REPLICA_BATCHES = 104  # of 8190 uniform transfers: 851,760 (upstream 10M: cut for time)
+REPLICA_EXACT = 8  # batches of config 3's mix
+# Rows 1-5b, 7 and 9 of PERF.md's table: each launches in phase 10's
+# cluster run. Row 11 (scan_intersect_mask) does not: query_transfers
+# through VSR answers with the query engine's probes, which intersect on
+# the host; phase 10 logs its 0 and checks the kernel apart.
+REPLICA_KERNELS = ("create_transfers_fast", "register_accounts", "read_balances", "write_balances",
+                   "create_transfers_exact", "exact_sort_plan", "query_index_keys_sorted",
+                   "merge_kernel_tiled")
+
+
+def replica_config():
+    """PRODUCTION at its published widths (accounts_max 2^20, batch_max
+    8190, 1 MiB messages, pipeline_max 8), cut in depth: 64 journal slots,
+    so a checkpoint every 52 ops by constants.py's formula and the run
+    crosses two, and 2^12 grid blocks of 256 KiB (1 GiB of MemStorage a
+    replica, from 8 GiB)."""
+    import dataclasses
+
+    from tigerbeetle_tpu_torch import constants as K
+
+    slots = 64
+    interval = (slots - K.LSM_BATCH_MULTIPLE - K.LSM_BATCH_MULTIPLE
+                * -(-K.PIPELINE_PREPARE_QUEUE_MAX // K.LSM_BATCH_MULTIPLE))
+    return dataclasses.replace(K.PRODUCTION, name="replica_smoke", journal_slot_count=slots,
+                               checkpoint_interval=interval, grid_block_count=1 << 12)
+
+
+def replica_requests(types, Operation, rng, n_accounts, n_batches, n_exact, batch):
+    """Phase 10's requests, in order, as (operation, body); each yield
+    receives the reply (config 3's mix learns its open pendings from the
+    result codes): two create_accounts batches, `n_batches` uniform
+    batches, `n_exact` batches of config 3's mix (the fourth posts a
+    pending of its own: the serial route), one lookup_accounts of `batch`
+    ids and one query_transfers by debit account 1 and code 7."""
+    from tigerbeetle_tpu_torch.testing.cluster import parse_results
+
+    half = n_accounts // 2
+    for start in (1, 1 + half):
+        ev = np.zeros(half, dtype=types.ACCOUNT_DTYPE)
+        ev["id_lo"] = np.arange(start, start + half, dtype=np.uint64)
+        ev["ledger"], ev["code"] = 1, 10
+        yield Operation.CREATE_ACCOUNTS, ev.tobytes()
+    next_id = 1 << 45
+    for _ in range(n_batches):
+        dr, cr = distinct_pair(rng.integers(0, n_accounts, batch),
+                               rng.integers(0, n_accounts, batch), n_accounts)
+        ev = transfer_batch(types, next_id, dr + 1, cr + 1, rng.integers(1, 1 << 20, batch))
+        next_id += batch
+        yield Operation.CREATE_TRANSFERS, ev.tobytes()
+    traffic = Config3(rng, n_accounts, 1 << 46)
+    for k in range(n_exact):
+        ev = traffic.batch(types, own_post=k == 3, n=batch)
+        reply = yield Operation.CREATE_TRANSFERS, ev.tobytes()
+        traffic.feedback(ev, parse_results(reply))
+    ids = np.zeros(min(batch, n_accounts), dtype=types.ID_DTYPE)
+    ids["lo"] = np.arange(1, len(ids) + 1)
+    yield Operation.LOOKUP_ACCOUNTS, ids.tobytes()
+    f = np.zeros(1, dtype=types.QUERY_FILTER_V2_DTYPE)
+    f["debit_account_id_lo"], f["code"], f["limit"] = 1, 7, batch
+    yield Operation.QUERY_TRANSFERS, f.tobytes()
+
+
+def drive_replica_cluster(cfg, device, requests, crash_at, restart_after, **pipeline):
+    """Phase 10's deployment: three replicas over the seeded packet
+    simulator, one client, every replica on frozen time
+    (DeterministicTime(tick_ns=0): prepare timestamps follow the op stream
+    alone, so the card's pipelined run and the CPU's serial run commit the
+    same bytes). After request `crash_at` a backup that has taken the
+    first checkpoint is crashed; it restarts `restart_after` requests
+    later, recovering from that checkpoint and WAL replay, and catches up.
+    Returns the cluster (stages drained) and a record of the run."""
+    from tigerbeetle_tpu_torch.testing.cluster import Cluster
+    from tigerbeetle_tpu_torch.vsr.clock import Clock, DeterministicTime
+
+    cl = Cluster(replica_count=3, config=cfg, seed=10, device=device, **pipeline)
+    for r in cl.replicas:
+        r.time = DeterministicTime(tick_ns=0)
+        r.clock = Clock(r.time, cl.replica_count, r.replica)
+    c = cl.clients[100]
+    c.register()
+    cl.run_until(lambda: c.registered, 200_000)
+    rec = {"sent": [], "replies": [], "victim": None}
+    t0 = time.perf_counter()
+    reply, i = None, 0
+    while True:
+        try:
+            op, body = requests.send(reply) if i else next(requests)
+        except StopIteration:
+            break
+        c.request(op, body)
+        cl.run_until(lambda: c.idle, 2_000_000)
+        reply = c.replies[-1]
+        rec["sent"].append((op, body))
+        rec["replies"].append(reply.to_bytes())
+        if i == crash_at:
+            v = rec["victim"] = next(r.replica for r in cl.replicas if not r.is_primary)
+            cl.run_until(lambda: cl.replicas[v].superblock.state.op_checkpoint
+                         >= cfg.checkpoint_interval, 2_000_000)
+            cl.storages[v].sync()
+            cl.crash_replica(v)
+        if i == crash_at + restart_after:
+            v = rec["victim"]
+            cl.restart_replica(v)
+            r = cl.replicas[v]
+            rec["restored"] = (r.superblock.state.op_checkpoint, r.commit_min)
+        i += 1
+    target = max(r.commit_min for r in cl.replicas)
+    cl.run_until(lambda: all(r.commit_min >= target for r in cl.replicas), 2_000_000)
+    cl.quiesce()
+    rec["seconds"] = time.perf_counter() - t0
+    rec["chains"] = [dict(r.commit_checksums) for r in cl.replicas]
+    rec["floors"] = [r.checksum_floor for r in cl.replicas]
+    rec["checkpoints"] = dict(cl._checkpoint_history)
+    rec["ops"] = target
+    return cl, rec
+
+
+def replicas_agree(name, runs, want_ops, checkpoints) -> None:
+    """Every commit checksum of every replica of every run equal op for
+    op, each chain contiguous from its floor to the last op, and every
+    checkpoint both runs took with equal trailer section digests."""
+    seen = {}
+    for rec in runs:
+        for chain, floor in zip(rec["chains"], rec["floors"]):
+            if max(chain) < want_ops or set(range(floor + 1, want_ops + 1)) - set(chain):
+                raise SystemExit(f"{name}: a replica's chain lags or has holes above {floor}")
+            for op, v in chain.items():
+                if seen.setdefault(op, v) != v:
+                    raise SystemExit(f"{name}: commit checksums differ at op {op}")
+    a, b = (rec["checkpoints"] for rec in runs)
+    if not set(checkpoints) <= set(a) & set(b) or any(a[op] != b[op] for op in checkpoints):
+        raise SystemExit(f"{name}: checkpoint trailer digests differ or are missing: "
+                         f"{sorted(a)} {sorted(b)}")
+
+
+def run_replica_phase(torch, rng, cfg=None, n_accounts=REPLICA_ACCOUNTS,
+                      n_batches=REPLICA_BATCHES, n_exact=REPLICA_EXACT, batch=TX_BATCH):
+    """Phase 10: Cluster(replica_count=3, device="cuda", overlap=True,
+    store_async=True) at the default commit depth, against the same run of
+    the port on the CPU (serial, device="cpu", the card run's requests
+    replayed). Returns the card run's launches."""
+    from tigerbeetle_tpu_torch import tracer, types
+    from tigerbeetle_tpu_torch.lsm import scan
+    from tigerbeetle_tpu_torch.ops import commit as C
+    from tigerbeetle_tpu_torch.vsr.header import Operation
+
+    name = "replica"
+    cfg = cfg or replica_config()
+    # Request i commits op i + 2 (op 1 registers the client): the crash
+    # follows op checkpoint_interval + 3.
+    crash_at = cfg.checkpoint_interval + 1
+    restart_after = 8
+    C.reset_launches()
+    tracer.reset()
+    tracer.enable()
+    requests = replica_requests(types, Operation, rng, n_accounts, n_batches, n_exact, batch)
+    gpu, card = drive_replica_cluster(cfg, "cuda", requests, crash_at, restart_after,
+                                      overlap=True, store_async=True)
+    launches = dict(C.LAUNCHES)
+    # Not the replica's path: the query engine answers query_transfers
+    # with its probes. The materializing strategy's AND-merge is the
+    # device intersect (scan_intersect_mask): run it apart, on the
+    # primary's machine, counted apart, against the query's answer.
+    C.reset_launches()
+    primary = next(r for r in gpu.replicas if r.is_primary).state_machine
+    primary.store_barrier()
+    b = primary.scan_builder(1, (1 << 64) - 2)
+    b.where_account(1, 0)
+    b.where_field(scan.TAG_CODE, 7)
+    rows = b.execute("materialize")
+    torch.cuda.synchronize()
+    scan_launches = C.LAUNCHES["scan_intersect_mask"]
+    gathered = primary.transfer_log.gather(rows)
+    scanned = gathered["id_lo"][(gathered["debit_account_id_lo"] == 1) & (gathered["code"] == 7)]
+    tracer.disable()
+    snap = tracer.snapshot()
+    storage_top = gpu.check_storage_convergence()
+    state_ops = gpu.check_state_convergence()
+    stats = [dict(r.state_machine.stats) for r in gpu.replicas]
+    gpu.close()
+    del gpu, primary
+
+    replay = (sent for sent in card["sent"])  # a generator: drive sends it the replies
+    cpu, twin = drive_replica_cluster(cfg, "cpu", replay, crash_at, restart_after)
+    cpu.close()
+    del cpu
+
+    if card["replies"] != twin["replies"]:
+        bad = next(k for k, (x, y) in enumerate(zip(card["replies"], twin["replies"])) if x != y)
+        raise SystemExit(f"{name}: reply {bad} differs from the CPU run's")
+    replicas_agree(name, (card, twin), card["ops"],
+                   (cfg.checkpoint_interval, 2 * cfg.checkpoint_interval))
+    if storage_top < 2 * cfg.checkpoint_interval or state_ops < card["ops"] - cfg.checkpoint_interval:
+        raise SystemExit(f"{name}: convergence checks compared too little: checkpoint "
+                         f"{storage_top}, ops {state_ops}")
+    if card["restored"][0] < cfg.checkpoint_interval:
+        raise SystemExit(f"{name}: the restarted backup did not recover from a checkpoint: "
+                         f"{card['restored']}")
+    answer = np.frombuffer(bytearray(card["replies"][-1][256:]), dtype=types.TRANSFER_DTYPE)
+    if not len(answer) or not np.array_equal(np.sort(scanned), np.sort(answer["id_lo"])):
+        raise SystemExit(f"{name}: the materialized scan differs from the query's answer")
+    if not scan_launches:
+        raise SystemExit(f"{name}: the materialized scan did not launch scan_intersect_mask")
+    if min(launches[k] for k in REPLICA_KERNELS) == 0:
+        raise SystemExit(f"{name}: a kernel of the replica path did not launch: {launches}")
+    transfers = (n_batches + n_exact) * batch
+    log(f"{name}: 3 replicas, {card['ops']} ops, checkpoints "
+        f"{sorted(card['checkpoints'])}, backup {card['victim']} crashed after request "
+        f"{crash_at} and restarted from checkpoint {card['restored'][0]} (commit_min "
+        f"{card['restored'][1]} at open); commit checksums, trailer digests and "
+        f"{len(card['replies'])} replies equal to the CPU run's; stats {stats}")
+    log(f"{name}: card run {card['seconds']:.1f} s, committed transfers/s "
+        f"{transfers / card['seconds']:.0f}; CPU run {twin['seconds']:.1f} s; on {CARD[0]}")
+    log(f"{name}: compact_fold_kernel launches {launches['compact_fold_kernel']}"
+        + ("" if launches["compact_fold_kernel"] else
+           " (the beats reached no level-0 compaction job in this run)"))
+    log(f"{name}: scan_intersect_mask launches {launches['scan_intersect_mask']} (query_transfers "
+        f"through VSR intersects on the host, with the engine's probes); the materialized scan "
+        f"on the primary, apart from the cluster run, launched it {scan_launches} times and "
+        f"equals the query's answer")
+    log(f"{name}: launches " + json.dumps({k: launches[k] for k in REPLICA_KERNELS
+                                           + ("compact_fold_kernel", "scan_intersect_mask")
+                                           + OFF_PATH}))
+    log_spans(name, snap)
+    lifecycle = {k: v for k, v in snap.items() if k.startswith(("op.", "stage.", "pipeline."))}
+    log(f"{name} lifecycle: " + json.dumps({
+        k: {"count": v["count"], "total_ms": round(v["total_ms"], 3)} for k, v in sorted(lifecycle.items())
+    }))
+    return launches
+
+
 def gpu_name_power() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -2524,8 +2781,15 @@ def main() -> int:
                     sharding.make_mesh([dev] * MESH_DEVICES))
     log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
 
+    log(f"phase 10: the replica cluster, 3 replicas on the card (overlap, store stage), "
+        f"{REPLICA_BATCHES} uniform and {REPLICA_EXACT} config-3 batches, two checkpoints, "
+        f"a backup crashed and restarted, against the CPU run")
+    t0 = time.perf_counter()
+    l10 = run_replica_phase(torch, np.random.default_rng(args.seed + 23))
+    log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+
     phases = {"config1": l1, "config2": l2, "config3": l3, "config4": l4, "query": l7,
-              "query_storm": l7s, "compaction": l8, "mesh": l9}
+              "query_storm": l7s, "compaction": l8, "mesh": l9, "replica": l10}
     for label, launches in phases.items():
         check_off_path(label, launches)
     for name, row in RESULTS.items():

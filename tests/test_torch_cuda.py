@@ -1273,3 +1273,17 @@ def test_peer_copy_waits_for_its_source(dev, dtype):
     y = S._peer(x.view(dtype), dst)
     assert y.device == dst and y.dtype == dtype
     assert torch.equal(y.view(torch.int32).cpu(), torch.full((1 << 20,), 7, dtype=torch.int32))
+
+
+@pytest.mark.cuda
+def test_replica_cluster_on_the_card_matches_the_cpu_port(dev):
+    """Three replicas at TEST_MIN on the card with the production
+    pipeline (commit executor and async store stage, the default commit
+    depth) against the port's serial CPU run of the same workload: every
+    commit checksum, every checkpoint's trailer digests and every reply
+    equal."""
+    from cluster_scenarios import PORT, PORT_HOST, check_runs_identical, drive_pipeline
+
+    cpu = drive_pipeline(PORT, ops=40, **PORT_HOST)
+    card = drive_pipeline(PORT, ops=40, overlap=True, store_async=True, device=dev)
+    check_runs_identical(42, cpu, card)

@@ -82,3 +82,73 @@ def test_state_machine_without_device_raises_without_cuda():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("raised:")
+
+
+def test_replica_slice_runs_without_jax_or_reference():
+    """The replica, the cluster, the codec and the runtime checks import
+    with jax blocked, and a one-replica cluster commits a few ops without
+    loading any module of the reference package."""
+    out = _run(
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import tigerbeetle_tpu_torch.vsr.replica, tigerbeetle_tpu_torch.testing.cluster\n"
+        "import tigerbeetle_tpu_torch.net.codec, tigerbeetle_tpu_torch.tidy.runtime\n"
+        "import numpy as np\n"
+        "from tigerbeetle_tpu_torch import types\n"
+        "from tigerbeetle_tpu_torch.testing.cluster import (\n"
+        "    Cluster, account_batch, parse_results, transfer_batch)\n"
+        "from tigerbeetle_tpu_torch.vsr.header import Operation\n"
+        "cl = Cluster(replica_count=1, device='cpu')\n"
+        "c = cl.clients[100]\n"
+        "c.register()\n"
+        "cl.run_until(lambda: c.registered)\n"
+        "def do(op, body):\n"
+        "    c.request(op, body)\n"
+        "    cl.run_until(lambda: c.idle)\n"
+        "    return c.replies[-1]\n"
+        "assert len(parse_results(do(Operation.CREATE_ACCOUNTS, account_batch([1, 2])))) == 0\n"
+        "r = do(Operation.CREATE_TRANSFERS, transfer_batch([dict(id=9, debit_account_id=1,\n"
+        "    credit_account_id=2, amount=3, ledger=1, code=1)]))\n"
+        "assert len(parse_results(r)) == 0\n"
+        "ids = np.zeros(1, dtype=types.ID_DTYPE)\n"
+        "ids['lo'] = [2]\n"
+        "acc = np.frombuffer(bytearray(do(Operation.LOOKUP_ACCOUNTS, ids.tobytes()).body),\n"
+        "    dtype=types.ACCOUNT_DTYPE)\n"
+        "assert types.u128_of(acc[0], 'credits_posted') == 3\n"
+        "assert cl.check_state_convergence() >= 3\n"
+        "bad = [m for m in sys.modules if m == 'tigerbeetle_tpu'"
+        " or m.startswith('tigerbeetle_tpu.')]\n"
+        "print('reference modules:', bad)\n"
+        "assert not bad\n"
+    )
+    assert out.returncode == 0, out.stderr + out.stdout
+
+
+def test_cluster_and_replica_without_device_raise_without_cuda():
+    """No fallback: a cluster or a replica asked for no device needs the
+    card, and raises where there is none."""
+    out = _run(
+        "import torch\n"
+        "from tigerbeetle_tpu_torch.constants import TEST_MIN\n"
+        "from tigerbeetle_tpu_torch.io.storage import MemStorage, Zone\n"
+        "from tigerbeetle_tpu_torch.testing.cluster import Cluster\n"
+        "from tigerbeetle_tpu_torch.vsr.replica import Replica\n"
+        "assert not torch.cuda.is_available()\n"
+        "for make in (\n"
+        "    lambda: Cluster(replica_count=1),\n"
+        "    lambda: Replica(cluster=1, replica_index=0, replica_count=1,\n"
+        "        storage=MemStorage(zone.total_size), zone=zone, config=TEST_MIN, bus=None),\n"
+        "):\n"
+        "    zone = Zone.for_config(TEST_MIN.journal_slot_count, TEST_MIN.message_size_max,\n"
+        "        grid_block_count=TEST_MIN.grid_block_count,\n"
+        "        grid_block_size=TEST_MIN.lsm_block_size)\n"
+        "    try:\n"
+        "        make()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'no CUDA device' in str(e), e\n"
+        "        print('raised')\n"
+        "    else:\n"
+        "        raise SystemExit('no error without a device')\n"
+    )
+    assert out.returncode == 0, out.stderr + out.stdout
+    assert out.stdout.split() == ["raised", "raised"]

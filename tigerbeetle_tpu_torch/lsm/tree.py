@@ -425,6 +425,17 @@ class DurableIndex:
             not isinstance(m, tuple) and not m.materialized for m in mem
         )
 
+    def release_device(self) -> None:
+        """Give back the device memory this tree holds (its machine was
+        replaced by a state-sync install): close every lazy run's
+        dispatch window and return its ledger bytes, and discard a
+        dispatched compaction fold. The tree is not used afterwards."""
+        for m in self._mem:
+            if not isinstance(m, tuple):
+                m.finish_dispatch()
+        if self._job is not None:
+            self._job.discard_pending()
+
     def prefetch_lazy_one(self) -> bool:
         """Materialize ONE pending device run (oldest first), the store
         stage's idle poll: the device-to-host copy moves into idle gaps so

@@ -51,6 +51,7 @@ the reference package and to models/oracle.py (tests/test_torch_*.py).
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -76,6 +77,7 @@ from tigerbeetle_tpu_torch.ops import commit as commit_ops
 from tigerbeetle_tpu_torch.ops import commit_exact
 from tigerbeetle_tpu_torch.results import CreateAccountResult as AR
 from tigerbeetle_tpu_torch.results import CreateTransferResult as TR
+from tigerbeetle_tpu_torch.tidy import runtime as tidy_runtime
 
 U64_MAX = types.U64_MAX
 
@@ -143,6 +145,11 @@ def _codes_to_results(codes: np.ndarray) -> np.ndarray:
     return out
 
 
+# Each machine's tag in the device memory ledger: its owners are
+# `<tag>.balances` and `<tag>.scratch.b<n>`, so the replicas of one process
+# count apart and a replaced machine's entries can be retired.
+_MACHINE_IDS = itertools.count()
+
 _PV_FLAGS = int(
     TransferFlags.POST_PENDING_TRANSFER | TransferFlags.VOID_PENDING_TRANSFER
 )
@@ -200,6 +207,10 @@ class StateMachine:
                 )
             device = "cuda"
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # Pin the index: worker threads bind to it (bind_thread), and
+            # a fresh thread's current device is 0.
+            self.device = torch.device("cuda", torch.cuda.current_device())
         if _hostops() is None:
             raise RuntimeError(
                 "StateMachine: the C host shim (csrc/hostops.c) did not build; "
@@ -228,10 +239,11 @@ class StateMachine:
             tensors = self.state.tensors()
         # Device memory ledger: the resident balance tables (every shard
         # and replica on a mesh).
+        self._mem_tag = f"sm{next(_MACHINE_IDS)}"
         self._balances_nbytes = sum(  # tidy: owner=commit
             x.numel() * x.element_size() for x in tensors
         )
-        tracer.device_mem_set("balances", self._balances_nbytes)
+        tracer.device_mem_set(f"{self._mem_tag}.balances", self._balances_nbytes)
 
         # Host mirrors of immutable per-account fields (slot-indexed).
         self.acc_key = np.zeros(a, dtype=KEY_DTYPE)
@@ -309,6 +321,10 @@ class StateMachine:
         # before anything that reads the store (every public operation
         # guards), so stores land in strict op order.
         self._deferred_store = None  # tidy: owner=commit
+        # The replica's async store stage (vsr/pipeline.StoreExecutor),
+        # when attached: store jobs then run on its thread, and reads
+        # drain it first (store_barrier).
+        self._store_stage = None  # tidy: owner=loop
         # Resume point within compact_beat's stage list after a
         # GridReadFault was repaired (see compact_beat).
         self._beat_stage = 0  # tidy: owner=commit|store
@@ -344,7 +360,7 @@ class StateMachine:
         self._read_bufs: dict = {}
         # Last-use dispatch seq per scratch bucket (pow-2 pad size): a
         # bucket idle for SCRATCH_STALE_AFTER dispatches is retired —
-        # buffers freed from every ring slot, its device.mem.scratch.*
+        # buffers freed from every ring slot, its device.mem.<tag>.scratch.*
         # gauges and devicestats cost rows dropped — so a workload
         # shift can't grow the ring (or the registry) unbounded.
         self._scratch_last_use: Dict[int, int] = {}  # tidy: owner=commit
@@ -355,15 +371,39 @@ class StateMachine:
             "bail_batches": 0,
         }
 
+    def attach_store_stage(self, stage) -> None:  # tidy: thread=loop
+        """Wire the replica's async store stage (replica
+        attach_store_executor, and the state-sync install). Reads then
+        drain it through store_barrier."""
+        self._store_stage = stage
+
     def store_barrier(self) -> None:  # tidy: thread=commit
-        """Read-your-writes guard before a store read. With no async store
-        stage (the replica's, not part of this package) that is the last
-        committed batch's deferred store."""
+        """Read-your-writes guard: every queued async store job and the
+        current op's deferred store are applied before a store read. A
+        stage parked on a corrupt block re-raises its GridReadFault here,
+        so the caller's op aborts cleanly (requeued behind the repair)
+        instead of reading half-stored state."""
+        stage = self._store_stage
+        if stage is not None:
+            tracer.count("sm.store_barrier_drains")
+            with tracer.span("sm.store.barrier"):
+                while True:
+                    stage.drain()
+                    # drain() returns idle or parked. Re-check in a loop:
+                    # the loop thread may repair and resume() (requeueing
+                    # the faulted job) between the return and this read,
+                    # and the queue must then be drained anew.
+                    fault = stage.fault
+                    if fault is not None and stage.parked:
+                        raise fault
+                    if stage.idle:
+                        break
         self.flush_deferred()
 
     def flush_deferred(self) -> None:  # tidy: thread=commit
         """Apply the last committed batch's deferred store (read-your-writes
         guard before any store read)."""
+        tidy_runtime.assert_role("commit", "loop")
         d = self._deferred_store
         if d is not None:
             self._deferred_store = None
@@ -373,18 +413,39 @@ class StateMachine:
                 self._store_new_transfers(recs, ts=ts, add_bloom=False)
 
     def _defer_store(self, recs: np.ndarray, ts=None) -> None:  # tidy: thread=commit
-        """Schedule the batch's store work for the next flush_deferred.
-        Bloom membership is published NOW, so the next batch's
-        duplicate-id pre-filter is accurate before the store lands — the
-        only store state the hot path consults ahead of the deferred
-        write."""
+        """Schedule the batch's store work for the next flush_deferred or
+        the replica's async store job. Bloom membership is published NOW,
+        on the commit thread, so the next batch's duplicate-id pre-filter
+        is accurate without a store barrier — the only store state the
+        hot path consults ahead of the queued writes."""
+        tidy_runtime.assert_role("commit", "loop")
         self.transfer_seen.add(recs["id_lo"], recs["id_hi"])
         self._deferred_store = (recs, ts)
 
+    def take_deferred_store(self):  # tidy: thread=commit
+        """Pop the deferred batch for an async store job (replica
+        _finish_commit). None when the op stored inline (exact/serial
+        paths) or wrote nothing."""
+        tidy_runtime.assert_role("commit", "loop")
+        d = self._deferred_store
+        self._deferred_store = None
+        return d
+
     def _confirm_maybe_ids(self, flagged_keys: np.ndarray) -> bool:  # tidy: thread=commit
-        """Duplicate confirm for bloom maybe-hits against the durable id
-        index (the caller flushed the deferred store first). A false
-        positive of the bloom only costs this probe."""
+        """Duplicate confirm for bloom maybe-hits WITHOUT draining the
+        async store stage: the pending write buffer (queued and in-flight
+        store jobs) is consulted first, then the durable id index, which
+        at that instant misses at most the batches still in the buffer.
+        Safe to read concurrently with the store thread: the id index's
+        memtable batches are insert-time sorted and flush/compaction
+        publish-then-retire (lsm/tree.py). The buffer probe is
+        conservative on id_lo alone: a false positive only routes the
+        batch to the byte-exact serial path."""
+        stage = self._store_stage
+        if stage is not None:
+            for recs, _ts in stage.unapplied_stores():
+                if bool(np.isin(flagged_keys["lo"], recs["id_lo"]).any()):
+                    return True
         return self.transfer_index.contains_any(flagged_keys)
 
     # tidy: thread=commit|store
@@ -550,14 +611,22 @@ class StateMachine:
     # background storage work between commits, so the commit and its
     # reply do no grid IO.
 
-    def compact_beat(self) -> None:  # tidy: thread=commit
+    def compact_beat(  # tidy: thread=commit|store
+        self, max_blocks: int = BEAT_LOG_BLOCKS, flush: bool = True,
+    ) -> None:
         """One beat of deferred storage work, driven once per committed op:
-        the op's deferred store, then up to BEAT_LOG_BLOCKS of each object
+        the op's deferred store, then up to `max_blocks` of each object
         log's pending blocks and one bounded compaction step on each
         durable index. Replaying the same ops replays the same beats, so
         grid allocation order (and with it the checkpoint's bytes) is the
-        same on every replica."""
-        self.flush_deferred()  # the op's store precedes its beat, always
+        same on every replica.
+
+        flush=False (the replica's async store jobs, which apply their
+        op's store before the beat): _deferred_store belongs to the commit
+        thread, and reading it from the store thread would race the next
+        op's defer."""
+        if flush:
+            self.flush_deferred()  # the op's store precedes its beat, always
         # Resumable by stage: a GridReadFault in a stage (a corrupt
         # compaction input) aborts that stage, and the retry after repair
         # resumes there; re-running completed stages would give their
@@ -565,8 +634,8 @@ class StateMachine:
         quota = self._compact_quota()
         tracer.gauge("sm.compact.quota", quota)
         stages = (
-            lambda: self.transfer_log.flush_pending(BEAT_LOG_BLOCKS),
-            lambda: self.history.flush_pending(BEAT_LOG_BLOCKS),
+            lambda: self.transfer_log.flush_pending(max_blocks),
+            lambda: self.history.flush_pending(max_blocks),
             lambda: self.transfer_index.compact_step(quota),
             lambda: self.account_rows.compact_step(quota),
             lambda: self.query_rows.compact_step(quota),
@@ -635,6 +704,33 @@ class StateMachine:
             or self.posted.storm_active()
             or self.history.storm_active()
         )
+
+    def bind_thread(self) -> None:
+        """Make this machine's device the calling thread's current CUDA
+        device (the replica's stage workers call it once, at start). No
+        stream is set: every thread launches on the device's default
+        stream, which orders the threads' kernels and copies."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+
+    def release(self) -> None:  # tidy: thread=loop
+        """Let go of this machine's device state: a state-sync install
+        replaced it with another machine. Closes the open dispatch
+        windows, returns the lazy query runs' and a pending compaction
+        fold's bytes to the memory ledger and retires its balance and
+        scratch entries there, and drops the balance tables and the host
+        blocks, so the card holds one set of tables per replica. The
+        machine is unusable afterwards."""
+        self.create_transfers_abandon_all()
+        for tree in (
+            self.transfer_index, self.account_rows, self.query_rows,
+            self.posted.index, self.history.rows,
+        ):
+            tree.release_device()
+        tracer.device_mem_retire_prefix(f"{self._mem_tag}.")
+        self.state = None
+        self._disp_scratch = [{} for _ in range(DISPATCH_WINDOW_MAX)]
+        self._read_bufs = {}
 
     def compact_prefetch_one(self) -> bool:
         """Warm one upcoming compaction-input block (idle read-ahead;
@@ -1403,8 +1499,10 @@ class StateMachine:
         linked chains and pending post/void. The device builds the batch's
         sort plan (the kernel's plan=None branch); a bail re-runs the
         batch serially."""
-        # The prefetch reads the id index, object log and posted groove:
-        # the caller (_create_transfers_impl) flushed the deferred store.
+        # The prefetch reads the id index, object log and posted groove,
+        # and the tail writes grooves inline: queued async store jobs land
+        # first (the stage is then idle for the inline writes too).
+        self.store_barrier()
         n = len(events)
         pv_code, pinfo_np, pending_recs, p_rec_idx = self._exact_prefetch(events, is_pv)
 
@@ -1546,7 +1644,7 @@ class StateMachine:
     def _scratch_note(self, n_pad: int) -> None:
         """Device-memory-ledger upkeep per dispatch: stamp the bucket's
         last use, publish its live bytes (summed over every ring slot)
-        as the `device.mem.scratch.b<n_pad>.bytes` gauge, and retire
+        as the `device.mem.<tag>.scratch.b<n_pad>.bytes` gauge, and retire
         buckets the workload stopped using (satellite: the registry and
         the ring stay bounded under bucket churn)."""
         self._scratch_last_use[n_pad] = self._disp_seq
@@ -1557,8 +1655,8 @@ class StateMachine:
                 for (_, bkt), a in slot.items()
                 if bkt == n_pad
             )
-            tracer.device_mem_set(f"scratch.b{n_pad}", nbytes)
-            tracer.device_mem_set("balances", self._balances_nbytes)
+            tracer.device_mem_set(f"{self._mem_tag}.scratch.b{n_pad}", nbytes)
+            tracer.device_mem_set(f"{self._mem_tag}.balances", self._balances_nbytes)
         if len(self._scratch_last_use) > 1:
             stale = [
                 b for b, last in self._scratch_last_use.items()
@@ -1577,7 +1675,7 @@ class StateMachine:
             for key in [k for k in slot if k[1] == n_pad]:
                 del slot[key]
         self._scratch_last_use.pop(n_pad, None)
-        tracer.device_mem_retire_prefix(f"scratch.b{n_pad}")
+        tracer.device_mem_retire_prefix(f"{self._mem_tag}.scratch.b{n_pad}")
         devicestats.retire_bucket(n_pad)
 
     # ------------------------------------------------------------------
@@ -1708,8 +1806,9 @@ class StateMachine:
         )
 
     def _create_transfers_serial(self, events: np.ndarray, timestamp: int) -> np.ndarray:
-        # The oracle reads (and its writeback writes) the whole store tier.
-        self.flush_deferred()
+        # The oracle reads (and its writeback writes) the whole store
+        # tier: the async stage must be idle.
+        self.store_barrier()
         orc = self._make_oracle()
         # Prefetch round 1: dr/cr accounts, existing transfers by event id
         # and by pending_id (reference prefetch, state_machine.zig:560-655).
@@ -1759,7 +1858,7 @@ class StateMachine:
         return _results_array(pairs)
 
     def _create_accounts_serial(self, events: np.ndarray, timestamp: int) -> np.ndarray:
-        self.flush_deferred()
+        self.store_barrier()
         orc = self._make_oracle()
         self._preload_accounts(orc, pack_keys(events["id_lo"], events["id_hi"]))
         ev_objs = [oracle_mod.account_from_numpy(events[i]) for i in range(len(events))]
@@ -1880,7 +1979,7 @@ class StateMachine:
         )
 
     def _query_transfers_inner(self, f: np.void, scan) -> np.ndarray:
-        self.flush_deferred()
+        self.store_barrier()
         names = f.dtype.names
         ud128_lo = int(f["user_data_128_lo"])
         ud128_hi = int(f["user_data_128_hi"])
@@ -2077,7 +2176,7 @@ class StateMachine:
         return self._accounts_at(s[:limit].astype(np.int64))
 
     def lookup_transfers(self, ids_lo: np.ndarray, ids_hi: np.ndarray) -> np.ndarray:
-        self.flush_deferred()
+        self.store_barrier()
         keys = pack_keys(
             np.asarray(ids_lo, dtype=np.uint64), np.asarray(ids_hi, dtype=np.uint64)
         )
@@ -2090,7 +2189,7 @@ class StateMachine:
         an account-index range read + gather, O(account's transfers), not
         O(history) (reference ScanTree over the secondary index,
         scan_tree.zig:31)."""
-        self.flush_deferred()
+        self.store_barrier()
         key = pack_keys(
             np.array([account_id & U64_MAX], dtype=np.uint64),
             np.array([account_id >> 64], dtype=np.uint64),
@@ -2147,7 +2246,7 @@ class StateMachine:
         slot = self._slot_of_id(account_id)
         if slot < 0 or not (int(self.acc_flags[slot]) & int(AccountFlags.HISTORY)):
             return []
-        self.flush_deferred()  # history groove rows may still be deferred
+        self.store_barrier()  # history groove rows may still be queued
         recs = self.history.account_rows(account_id)
         if len(recs) == 0:
             return []

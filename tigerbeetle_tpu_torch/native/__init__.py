@@ -4,7 +4,8 @@ The host runtime around the device kernels uses the repository's C
 sources where the reference does: AEGIS-128L checksums (csrc/aegis128l.c,
 one AES round per 16 bytes on AES-NI hardware) seal grid blocks, and the
 batch host primitives (csrc/hostops.c: u128 hash map, radix argsort,
-bloom, the create_transfers staging pass) stage every batch.
+bloom, the create_transfers staging pass) stage every batch, and the
+framed-message codec (csrc/busio.c) encodes replies and frames.
 
 Each shim is compiled with the system C compiler on first use into this
 package's own build directory (tigerbeetle_tpu_torch/build/, listed in
@@ -242,6 +243,62 @@ def aegis128l_mac() -> Optional[Callable[[bytes], bytes]]:
     _mac = mac
     return _mac
 
+
+
+_busio: Optional[ctypes.CDLL] = None
+_busio_tried = False
+
+
+def busio() -> Optional[ctypes.CDLL]:
+    """The framed-codec + WAL-ring shim (csrc/busio.c: scan, encode,
+    transfer SoA decode, batched pwrite). Frames are sealed with
+    AEGIS-128L, so the shim requires AES-NI like the checksum it
+    verifies; hosts without it keep the pure-Python encoding
+    (net/codec.py)."""
+    global _busio, _busio_tried
+    if _busio_tried:
+        return _busio
+    _busio_tried = True
+    if not _cpu_has_aes():
+        return None
+    src = os.path.join(_CSRC, "busio.c")
+    if not os.path.exists(src):
+        return None
+    lib_path = _build_lib(src, "busio", extra_flags=("-maes", "-mssse3"))
+    if lib_path is None:
+        return None
+    try:
+        lib = ctypes.CDLL(lib_path)
+    except OSError:
+        return None
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    u8pp = ctypes.POINTER(ctypes.c_char_p)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    lib.busio_scan.argtypes = [
+        ctypes.c_char_p, ctypes.c_uint64, u64p, ctypes.c_int64, u64p,
+    ]
+    lib.busio_scan.restype = ctypes.c_int64
+    # arg 3 (const uint64_t *p) takes codec._ENC_PARAMS.pack's 14-word
+    # bytes block: c_char_p marshals it in one conversion.
+    lib.busio_encode_frame.argtypes = [
+        u8p, ctypes.c_char_p, ctypes.c_uint64, ctypes.c_char_p,
+    ]
+    lib.busio_encode_frame.restype = None
+    lib.busio_decode_transfers.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint64,
+        i64p, i64p, u32p, u32p, u32p, i32p, i32p,
+        u32p, u32p, u32p, u32p, u32p,
+    ]
+    lib.busio_decode_transfers.restype = None
+    lib.busio_pwritev.argtypes = [
+        ctypes.c_int32, ctypes.c_int64, u8pp, u64p, u64p,
+    ]
+    lib.busio_pwritev.restype = ctypes.c_int64
+    _busio = lib
+    return _busio
 
 def aegis128l_mac_ptr() -> Optional[Callable[[int, int], bytes]]:
     """(address, nbytes) -> 16-byte tag over raw memory — the zero-copy

@@ -80,6 +80,7 @@ SOURCES = {"register_accounts_sharded": "register_accounts",
 
 # Kernel launches per entry (plain-version calls do not count).
 LAUNCHES: Dict[str, int] = dict.fromkeys(SIGNATURES, 0)
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -188,7 +189,8 @@ def launch(name: str, device, *args) -> None:
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
-    LAUNCHES[name] += 1
+    with _count_lock:  # the replica's stage threads launch concurrently
+        LAUNCHES[name] += 1
 
 
 def check(t: torch.Tensor, name: str, dtype, shape, device) -> None:

@@ -1,5 +1,6 @@
-"""Spans, counters, gauges and device windows (slim copy of the reference
-package's tracer.py: the calls the state machine and the LSM make).
+"""Spans, counters, gauges, device windows and the per-op lifecycle (slim
+copy of the reference package's tracer.py: the calls the state machine,
+the LSM and the replica make).
 
   - `span(event)` times a scoped host region: per-event count, total and
     max nanoseconds.
@@ -14,6 +15,12 @@ package's tracer.py: the calls the state machine and the LSM make).
     runs only where the caller synchronises anyway) and records the
     device time between the two under `device.step.<entry>`. Off CUDA the
     window is the host clock between the two calls.
+  - `op_begin` / `op_stamp` / `op_finish` / `op_store_done`: one record
+    per prepare, stamped at every pipeline hand-off, whose components
+    land in the span registry (`op.queue.*`, `op.service.*`).
+  - `flight_trip` / `flight_exception`: keep the last completed op
+    records (and the device windows and memory ledger) for post-hoc
+    inspection of a tail anomaly or a pipeline exception.
 
 Off until `enable()`; disabled, every call returns after one
 module-global check and allocates nothing.
@@ -23,7 +30,9 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict
+from array import array
+from collections import deque
+from typing import Dict, List, Optional
 
 _enabled = False
 
@@ -33,6 +42,7 @@ _counters: Dict[str, int] = {}
 _gauges: Dict[str, float] = {}
 _device_mem: Dict[str, int] = {}
 _device_mem_hw = [0]
+_device_inflight: Dict[str, int] = {}  # entry -> open dispatch windows
 
 # The kernel entries whose device windows the state machine opens.
 DEVICE_ENTRIES = frozenset({
@@ -70,6 +80,15 @@ def reset() -> None:
         _gauges.clear()
         _device_mem.clear()
         _device_mem_hw[0] = 0
+        _device_inflight.clear()
+        # The lifecycle re-arms with the spans: ring, pool, running
+        # perceived histogram, summary window and the dump budget.
+        _op_ring.clear()
+        _op_pool.clear()
+        _op_hist[:] = array("q", _HIST_ZEROS)
+        _op_window[:] = [0, 0, 0]
+        _flight.update(dumps=0, exception_dumps=0, last_dump_ns=0)
+        _flight_docs.clear()
 
 
 def observe(event: str, duration_ns: int) -> None:
@@ -136,6 +155,25 @@ def gauge(name: str, value: float) -> None:
         return
     with _lock:
         _gauges[name] = value
+
+
+def remove_gauge(name: str) -> None:
+    """Retire a gauge whose identity died: per-instance gauge families
+    must not grow without bound."""
+    if not _enabled:
+        return
+    with _lock:
+        _gauges.pop(name, None)
+
+
+def remove_gauges_prefix(prefix: str) -> None:
+    """Retire every gauge under a name prefix (a peer's `vsr.peer.<r>.*`
+    family when it goes away)."""
+    if not _enabled:
+        return
+    with _lock:
+        for name in [n for n in _gauges if n.startswith(prefix)]:
+            del _gauges[name]
 
 
 def device_mem_set(owner: str, nbytes: int) -> None:
@@ -214,6 +252,8 @@ def device_dispatch(entry: str, h2d_bytes: int = 0):
     count(f"device.{entry}.dispatches")
     if h2d_bytes:
         count("device.h2d_bytes", h2d_bytes)
+    with _lock:
+        _device_inflight[entry] = _device_inflight.get(entry, 0) + 1
     return _Window(time.perf_counter_ns(), _cuda_event())
 
 
@@ -222,6 +262,8 @@ def device_finish(entry: str, token, d2h_bytes: int = 0) -> None:
     time between the dispatch and this call (host time off CUDA)."""
     if not _enabled or not token:
         return
+    with _lock:
+        _device_inflight[entry] = max(0, _device_inflight.get(entry, 0) - 1)
     if d2h_bytes:
         count("device.d2h_bytes", d2h_bytes)
     if token.event is not None:
@@ -264,3 +306,417 @@ def snapshot() -> Dict[str, dict]:
         rec["count"] += counters[event]
     return out
 
+
+
+# --- histogram of the perceived latency -----------------------------------
+# Log-linear buckets over nanoseconds: 2^HIST_SUB_BITS sub-buckets per
+# octave (the reference's layout).
+
+HIST_SUB_BITS = 3
+_HIST_SUB = 1 << HIST_SUB_BITS
+HIST_BUCKETS = (64 - HIST_SUB_BITS) * _HIST_SUB
+_HIST_ZEROS = bytes(8 * HIST_BUCKETS)
+
+
+def bucket_index(v: int) -> int:
+    """Histogram bucket for a nanosecond value (v >= 0)."""
+    if v < _HIST_SUB:
+        return v
+    msb = v.bit_length() - 1
+    return ((msb - HIST_SUB_BITS + 1) << HIST_SUB_BITS) + (
+        (v >> (msb - HIST_SUB_BITS)) - _HIST_SUB
+    )
+
+
+def bucket_value(idx: int) -> int:
+    """Representative (midpoint) nanosecond value of a bucket."""
+    if idx < 2 * _HIST_SUB:
+        return idx
+    octave = idx >> HIST_SUB_BITS
+    sub = idx & (_HIST_SUB - 1)
+    shift = octave - 1
+    lo = (_HIST_SUB + sub) << shift
+    return lo + ((1 << shift) - 1) // 2
+
+
+def _hist_percentile(buckets, total: int, q: float) -> int:
+    """q-quantile in nanoseconds from a bucket array."""
+    if total <= 0:
+        return 0
+    rank = q * (total - 1)
+    cum = 0
+    for i, c in enumerate(buckets):
+        if c:
+            cum += c
+            if cum > rank:
+                return bucket_value(i)
+    return bucket_value(HIST_BUCKETS - 1)
+
+
+# --- per-operation lifecycle ------------------------------------------------
+#
+# One pooled OpRecord per prepare, stamped at every pipeline hand-off. The
+# stamps are plain perf_counter_ns writes into a preallocated array slot;
+# each stamp index is written by exactly one thread at a known hand-off,
+# and the record travels WITH the op (message attribute / job dict), so
+# stamp writes are ordered by the same queue hand-offs that order the op.
+# op_finish (loop thread) observes the derived components into the span
+# registry and files the record in the flight ring.
+
+(
+    OP_ARRIVE, OP_PREPARE, OP_WAL_ENQUEUE, OP_WAL_WRITE, OP_WAL_DURABLE,
+    OP_COMMIT_SUBMIT, OP_EXEC_START, OP_EXEC_END, OP_REPLY,
+    OP_STORE_SUBMIT, OP_STORE_START, OP_STORE_END,
+) = range(12)
+OP_STAMPS = 12
+OP_STAMP_NAMES = (
+    "arrive", "prepare", "wal_enqueue", "wal_write", "wal_durable",
+    "commit_submit", "exec_start", "exec_end", "reply",
+    "store_submit", "store_start", "store_end",
+)
+
+# (event, from-stamp, to-stamp): the arrive -> reply window. The window
+# components tile [ARRIVE, REPLY] exactly.
+OP_COMPONENTS = (
+    ("op.queue.request", OP_ARRIVE, OP_PREPARE),
+    ("op.service.prepare", OP_PREPARE, OP_WAL_ENQUEUE),
+    ("op.queue.wal", OP_WAL_ENQUEUE, OP_WAL_WRITE),
+    ("op.service.wal", OP_WAL_WRITE, OP_WAL_DURABLE),
+    ("op.queue.quorum", OP_WAL_DURABLE, OP_COMMIT_SUBMIT),
+    ("op.queue.commit", OP_COMMIT_SUBMIT, OP_EXEC_START),
+    ("op.service.execute", OP_EXEC_START, OP_EXEC_END),
+    ("op.service.reply", OP_EXEC_END, OP_REPLY),
+)
+# Store components trail the reply; excluded from the perceived window.
+OP_STORE_COMPONENTS = (
+    ("op.queue.store", OP_STORE_SUBMIT, OP_STORE_START),
+    ("op.service.store", OP_STORE_START, OP_STORE_END),
+)
+_OP_ZEROS = bytes(8 * OP_STAMPS)
+
+# Per-peer prepare_ok arrival stamps (vsr/peerstats.py, primary only):
+# slot index = acking replica index.
+OP_PEER_MAX = 8
+_PEER_ZEROS = bytes(8 * OP_PEER_MAX)
+
+
+class OpRecord:
+    """One prepare's lifecycle: identity + stamp array. Pooled: reset()
+    zeroes in place, no per-op allocation at steady state."""
+
+    __slots__ = (
+        "op", "client", "request", "operation", "n_events", "t", "done",
+        "released", "peer_t", "peer_bcast", "quorum_t", "quorum_peer",
+        "peers_open", "ring_evicted",
+    )
+
+    def __init__(self) -> None:
+        self.t = array("q", _OP_ZEROS)
+        self.peer_t = array("q", _PEER_ZEROS)
+        self.reset()
+
+    def reset(self) -> None:
+        self.op = 0
+        self.client = 0
+        self.request = 0
+        self.operation = 0
+        self.n_events = 0
+        self.done = False
+        # Set by op_store_done: no thread holds the record any longer, so
+        # an eviction may recycle it.
+        self.released = False
+        # Cluster-plane stamps (primary only): broadcast time, the q-th
+        # prepare_ok that completed the quorum and its peer. peers_open:
+        # the straggler tracker still holds the record.
+        self.peer_bcast = 0
+        self.quorum_t = 0
+        self.quorum_peer = -1
+        self.peers_open = False
+        # Evicted from the ring while its peer window was open:
+        # op_peer_release re-offers it to the pool.
+        self.ring_evicted = False
+        t = self.t
+        for i in range(OP_STAMPS):
+            t[i] = 0
+        pt = self.peer_t
+        for i in range(OP_PEER_MAX):
+            pt[i] = 0
+
+
+OP_RING_DEFAULT = 128  # completed records retained for the flight dump
+
+_op_ring_size = OP_RING_DEFAULT
+_op_ring: deque = deque()
+_op_pool: List[OpRecord] = []
+# Running histogram of the perceived latency (arrive -> reply): the
+# anomaly rule's running p99 and the admission control's source.
+_op_hist = array("q", _HIST_ZEROS)
+# [first_finalize_ns, last_finalize_ns, perceived_count]
+_op_window = [0, 0, 0]
+
+# Flight-recorder policy. latency_mult: trip when the perceived latency
+# exceeds mult x the running p99; stall_ns: trip when one component
+# exceeds it; min_ops: samples before the latency rule arms. Dumps are
+# kept in memory (flight_dumps()).
+_flight = {
+    "latency_mult": 8.0,
+    "stall_ns": 2_000_000_000,
+    "min_ops": 64,
+    "max_dumps": 3,
+    "cooldown_ns": 5_000_000_000,
+    "dumps": 0,
+    # Pipeline-exception trips, counted even when the dump was rate
+    # limited: "did an exception happen" is answerable on its own.
+    "exception_dumps": 0,
+    "last_dump_ns": 0,
+}
+_flight_docs: List[dict] = []
+
+
+def op_begin() -> Optional[OpRecord]:
+    """Claim a pooled lifecycle record (None when tracing is disabled;
+    every op_* accessor accepts None and returns at once)."""
+    if not _enabled:
+        return None
+    with _lock:
+        rec = _op_pool.pop() if _op_pool else None
+    if rec is None:
+        return OpRecord()
+    rec.reset()
+    return rec
+
+
+def op_stamp(rec: Optional[OpRecord], idx: int, t_ns: Optional[int] = None) -> None:
+    """Record one hand-off stamp (now, or an injected t_ns). Overwrites:
+    a requeued op re-stamps."""
+    if rec is None:
+        return
+    rec.t[idx] = time.perf_counter_ns() if t_ns is None else t_ns
+
+
+def op_stamp_first(rec: Optional[OpRecord], idx: int) -> None:
+    """Stamp only if unset (the split-phase path marks exec-start at
+    dispatch; the settle path must not overwrite it)."""
+    if rec is None or rec.t[idx]:
+        return
+    rec.t[idx] = time.perf_counter_ns()
+
+
+def op_clear(rec: Optional[OpRecord], *indices: int) -> None:
+    """Unset stamps on a requeued op, so the retry re-stamps."""
+    if rec is None:
+        return
+    for i in indices:
+        rec.t[i] = 0
+
+
+def op_meta(rec: Optional[OpRecord], op: int = 0, client: int = 0,
+            request: int = 0, operation: int = 0, n_events: int = 0) -> None:
+    if rec is None:
+        return
+    rec.op = op
+    rec.client = client
+    rec.request = request
+    rec.operation = operation
+    rec.n_events = n_events
+
+
+def _op_components(rec: OpRecord, table) -> List[tuple]:
+    """[(event, duration_ns)] for components whose both stamps landed;
+    negative spans (cross-thread skew) clamp to 0."""
+    t = rec.t
+    out = []
+    for event, a, b in table:
+        ta, tb = t[a], t[b]
+        if ta and tb:
+            out.append((event, tb - ta if tb > ta else 0))
+    return out
+
+
+def op_finish(rec: Optional[OpRecord]) -> None:
+    """Finalize the arrive -> reply window: observe every component and
+    the totals, file the record in the flight ring, run the anomaly
+    checks. Loop thread, once per op (idempotent via rec.done)."""
+    if rec is None or rec.done:
+        return
+    rec.done = True
+    comps = _op_components(rec, OP_COMPONENTS)
+    queue_total = 0
+    service_total = 0
+    worst = ("", 0)
+    for event, d in comps:
+        observe(event, d)
+        if ".queue." in event:
+            queue_total += d
+        else:
+            service_total += d
+        if d > worst[1]:
+            worst = (event, d)
+    t = rec.t
+    perceived = t[OP_REPLY] - t[OP_ARRIVE] if t[OP_REPLY] and t[OP_ARRIVE] else 0
+    if perceived > 0:
+        # Totals only for full arrive -> reply records (a backup's
+        # journal-path commit has execute and store stamps only).
+        observe("op.queue.total", queue_total)
+        observe("op.service.total", service_total)
+    trip = None
+    with _lock:
+        now = time.perf_counter_ns()
+        if not _op_window[0]:
+            _op_window[0] = now
+        _op_window[1] = now
+        if len(_op_ring) >= _op_ring_size:
+            evicted = _op_ring.popleft()
+            # Recycle only records no thread can still stamp: released
+            # (op_store_done ran), no open peer window, WAL complete.
+            et = evicted.t
+            if (
+                evicted.released
+                and not evicted.peers_open
+                and (not et[OP_WAL_ENQUEUE] or et[OP_WAL_DURABLE])
+            ):
+                _op_pool.append(evicted)
+            else:
+                evicted.ring_evicted = True
+        _op_ring.append(rec)
+        if perceived > 0:
+            if _op_window[2] >= _flight["min_ops"]:
+                p99 = _hist_percentile(_op_hist, _op_window[2], 0.99)
+                if p99 > 0 and perceived > _flight["latency_mult"] * p99:
+                    trip = (
+                        f"latency: perceived {perceived / 1e6:.1f} ms > "
+                        f"{_flight['latency_mult']:g}x running p99 "
+                        f"{p99 / 1e6:.1f} ms (op {rec.op})"
+                    )
+            _op_hist[bucket_index(perceived)] += 1
+            _op_window[2] += 1
+        if trip is None and worst[1] > _flight["stall_ns"]:
+            trip = (
+                f"stall: {worst[0]} {worst[1] / 1e6:.1f} ms > "
+                f"{_flight['stall_ns'] / 1e6:.0f} ms threshold (op {rec.op})"
+            )
+    if perceived > 0:
+        observe("op.perceived", perceived)
+    if trip is not None:
+        flight_trip(trip)
+
+
+def op_store_done(rec: Optional[OpRecord]) -> None:
+    """Observe the trailing store components (store thread) and run the
+    stall check on them; the record's last touch."""
+    if rec is None:
+        return
+    worst = ("", 0)
+    for event, d in _op_components(rec, OP_STORE_COMPONENTS):
+        observe(event, d)
+        if d > worst[1]:
+            worst = (event, d)
+    with _lock:
+        stall_ns = _flight["stall_ns"]
+    if worst[1] > stall_ns:
+        flight_trip(
+            f"stall: {worst[0]} {worst[1] / 1e6:.1f} ms > "
+            f"{stall_ns / 1e6:.0f} ms threshold (op {rec.op})"
+        )
+    rec.released = True
+
+
+def op_peer_release(rec: Optional[OpRecord]) -> None:
+    """The peer tracker let go of a record: pool it now if the ring
+    already evicted it and every other holder is done."""
+    if rec is None:
+        return
+    rec.peers_open = False
+    if not rec.ring_evicted:
+        return
+    t = rec.t
+    if rec.released and (not t[OP_WAL_ENQUEUE] or t[OP_WAL_DURABLE]):
+        rec.ring_evicted = False
+        with _lock:
+            _op_pool.append(rec)
+
+
+def op_record_dict(rec: OpRecord) -> dict:
+    """JSON-ready view of one lifecycle record."""
+    t = rec.t
+    out = {
+        "op": rec.op, "client": rec.client, "request": rec.request,
+        "operation": rec.operation, "n_events": rec.n_events,
+        "stamps": {OP_STAMP_NAMES[i]: t[i] for i in range(OP_STAMPS) if t[i]},
+        "components": {
+            e: round(d / 1e6, 3)
+            for e, d in _op_components(rec, OP_COMPONENTS + OP_STORE_COMPONENTS)
+        },
+    }
+    if t[OP_REPLY] and t[OP_ARRIVE]:
+        out["perceived_ms"] = round((t[OP_REPLY] - t[OP_ARRIVE]) / 1e6, 3)
+    return out
+
+
+def perceived_p99_ms(state: Optional[dict] = None) -> Optional[float]:
+    """Perceived (arrive -> reply) p99 in ms from the running histogram.
+    With `state` (a caller-held dict, mutated in place) the percentile
+    covers only ops finalized since the previous call with that dict; an
+    empty window returns None ("no evidence": the caller holds its
+    previous decision)."""
+    with _lock:
+        cur = list(_op_hist)
+        total = _op_window[2]
+    if state is None:
+        return _hist_percentile(cur, total, 0.99) / 1e6 if total else 0.0
+    prev, prev_total = state.get("hist"), state.get("total", 0)
+    state["hist"] = cur
+    state["total"] = total
+    if prev is None or total <= prev_total:
+        return None
+    delta = [c - p for c, p in zip(cur, prev)]
+    return _hist_percentile(delta, total - prev_total, 0.99) / 1e6
+
+
+def flight_trip(reason: str) -> None:
+    """Record a flight dump: the completed-op ring, the open device
+    windows and the device memory ledger at the trip, kept in memory
+    (flight_dumps()). Rate limited: max_dumps a process, and a cooldown
+    between two."""
+    if not _enabled:
+        return
+    with _lock:
+        now = time.perf_counter_ns()
+        if _flight["dumps"] >= _flight["max_dumps"]:
+            return
+        if now - _flight["last_dump_ns"] < _flight["cooldown_ns"] and _flight["dumps"]:
+            return
+        _flight["dumps"] += 1
+        _flight["last_dump_ns"] = now
+        _flight_docs.append({
+            "reason": reason,
+            "tripped_ns": now,
+            "ops": [op_record_dict(r) for r in _op_ring],
+            "device": {
+                "inflight": {e: n for e, n in _device_inflight.items() if n},
+                "mem": dict(_device_mem),
+                "mem_high_water_bytes": _device_mem_hw[0],
+            },
+        })
+        _counters["mark.flight_dump"] = _counters.get("mark.flight_dump", 0) + 1
+
+
+def flight_exception(reason: str) -> None:
+    """Pipeline-exception trip (stage poison, fail-stop dispatch): dump
+    whatever the latency rules say, and count it apart from anomaly
+    trips, even when the dump itself was rate limited."""
+    with _lock:
+        _flight["exception_dumps"] += 1
+    flight_trip(f"exception: {reason}")
+
+
+def flight_exceptions() -> int:
+    """Pipeline-exception trips so far in this process."""
+    with _lock:
+        return _flight["exception_dumps"]
+
+
+def flight_dumps() -> List[dict]:
+    """The flight dumps recorded so far, oldest first."""
+    with _lock:
+        return list(_flight_docs)

@@ -1,0 +1,165 @@
+"""Per-peer replication telemetry on the primary (the cluster plane).
+
+The op lifecycle (tracer.op_*) decomposes a prepare per replica, but
+its `quorum` component is one opaque wait with no attribution to the
+peer that was slow. This module stamps the replication plane itself:
+
+  broadcast      `_primary_prepare` opens the window on the op's pooled
+                 OpRecord (`peer_bcast`) as the prepare leaves for the
+                 chain — allocation-free, same discipline as the
+                 lifecycle stamps.
+  per-peer ack   every prepare_ok arrival (and the primary's own
+                 WAL-durable self-ack) stamps `peer_t[replica]`,
+                 feeding `vsr.peer.<r>.prepare_ok` histograms and the
+                 aggregate `vsr.replication.lag` distribution (REMOTE
+                 acks only — the gated replication_lag_p99_ms).
+  quorum point   the q-th arrival stamps `quorum_t` and counts
+                 `vsr.peer.<r>.quorum_complete` for the peer that
+                 completed it; later arrivals count
+                 `vsr.peer.<r>.quorum_straggler` and observe their
+                 overhang past the quorum point into
+                 `vsr.quorum.straggler` (gated quorum_straggler_p99_ms).
+                 On a 3-replica cluster the single straggler's overhang
+                 IS the q-th→last-arrival distance; with more stragglers
+                 the histogram holds one sample per straggler and its
+                 tail is the last arrival.
+  lag gauges     `commit_sample()` re-publishes `vsr.peer.<r>.
+                 replication_lag_ops` (primary tip vs the peer's
+                 highest acked op) once per commit round.
+
+Ops are tracked past their pipeline pop (bounded by TRACK_MAX) so
+stragglers arriving AFTER quorum committed still attribute; `peers_open`
+on the record keeps the flight-ring eviction from recycling a record a
+late ack could still stamp. On view change `close_all()` drops every
+partial window — partial records are never fabricated into full ones.
+
+All methods run on the primary's loop thread (the same thread that owns
+the pipeline); the tracer registry is the only cross-thread surface.
+Everything here is observability: no replicated state is read or
+written, and the telemetry-on-vs-off determinism guard proves it.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List
+
+from tigerbeetle_tpu_torch import tracer
+
+# Ops tracked past quorum for straggler attribution. A peer that has
+# not acked within 256 ops of the tip is attributed as "never arrived"
+# (its window closes unstamped) — the lag gauges keep naming it.
+TRACK_MAX = 256
+
+# Preformatted per-peer event names: the ack path runs per prepare_ok
+# on the loop thread and must not pay an f-string per message.
+_OK_EVENT = tuple(
+    f"vsr.peer.{r}.prepare_ok" for r in range(tracer.OP_PEER_MAX)
+)
+_COMPLETE = tuple(
+    f"vsr.peer.{r}.quorum_complete" for r in range(tracer.OP_PEER_MAX)
+)
+_STRAGGLER = tuple(
+    f"vsr.peer.{r}.quorum_straggler" for r in range(tracer.OP_PEER_MAX)
+)
+_LAG_GAUGE = tuple(
+    f"vsr.peer.{r}.replication_lag_ops" for r in range(tracer.OP_PEER_MAX)
+)
+
+
+class PeerStats:
+    """Loop-thread-owned per-peer replication tracker (primary side)."""
+
+    def __init__(self, replica_index: int, replica_count: int) -> None:
+        self.me = replica_index
+        self.replica_count = min(replica_count, tracer.OP_PEER_MAX)
+        # op -> OpRecord with an open peer window, insertion order = op
+        # order (dict semantics), so eviction pops the oldest op.
+        self._track: Dict[int, object] = {}  # tidy: owner=loop
+        # Highest op each active replica has acked (self included via
+        # the WAL-durable self-ack).
+        self.acked_op: List[int] = [0] * self.replica_count  # tidy: owner=loop
+
+    # --- window lifecycle -----------------------------------------------
+
+    def broadcast(self, op: int, rec) -> None:
+        """The primary proposed `op`: open its peer window at broadcast
+        time. rec is the op's pooled lifecycle record (None when tracing
+        is disabled — the whole cluster plane then costs one None check
+        per prepare)."""
+        if rec is None:
+            return
+        rec.peer_bcast = time.perf_counter_ns()  # tidy: allow=wall-clock — peer telemetry only, never reaches replicated state
+        rec.peers_open = True
+        self._track[op] = rec
+        if len(self._track) > TRACK_MAX:
+            self._release(next(iter(self._track)))
+
+    def _release(self, op: int) -> None:
+        rec = self._track.pop(op, None)
+        if rec is not None:
+            # Clears peers_open, and re-offers the record to the pool
+            # if the flight ring already evicted it past us (a down
+            # peer keeps windows open for TRACK_MAX ops — the pool must
+            # not starve for the whole outage).
+            tracer.op_peer_release(rec)
+
+    def ack(self, op: int, replica: int, quorum: int) -> None:
+        """A prepare_ok from `replica` (or the local WAL-durable
+        self-ack) for `op`. Duplicates and untracked ops are no-ops;
+        quorum is the replication quorum size at this cluster size."""
+        if not 0 <= replica < self.replica_count:
+            return
+        if op > self.acked_op[replica]:
+            self.acked_op[replica] = op
+        rec = self._track.get(op)
+        if rec is None or rec.peer_t[replica]:
+            return
+        now = time.perf_counter_ns()  # tidy: allow=wall-clock — peer telemetry only, never reaches replicated state
+        rec.peer_t[replica] = now
+        if replica != self.me and rec.peer_bcast:
+            dt = now - rec.peer_bcast
+            tracer.observe(_OK_EVENT[replica], dt)
+            tracer.observe("vsr.replication.lag", dt)
+        if rec.quorum_t:
+            # Post-quorum straggler: name the peer and observe how far
+            # past the quorum point its ack landed. The attribution
+            # counter includes SELF (a slow local group-fsync arriving
+            # after both backups is a real diagnosis), but the gated
+            # overhang histogram is remote-only, matching the
+            # prepare_ok/replication-lag histograms — the
+            # quorum_straggler_p99_ms baseline must measure peer LINKS,
+            # not local fsync latency.
+            tracer.count(_STRAGGLER[replica])
+            if replica != self.me:
+                tracer.observe("vsr.quorum.straggler", now - rec.quorum_t)
+        elif self._acks(rec) >= quorum:
+            rec.quorum_t = now
+            rec.quorum_peer = replica
+            tracer.count(_COMPLETE[replica])
+        if self._acks(rec) >= self.replica_count:
+            self._release(op)  # every active replica answered
+
+    @staticmethod
+    def _acks(rec) -> int:
+        pt = rec.peer_t
+        return sum(1 for i in range(tracer.OP_PEER_MAX) if pt[i])
+
+    def commit_sample(self, op: int, commit_min: int) -> None:
+        """Per-commit replication-lag gauges: primary tip (`op`) vs each
+        peer's highest acked op. commit_min rides along in /cluster; the
+        gauge uses the tip, which is what a stalled peer lags behind."""
+        for r in range(self.replica_count):
+            if r != self.me:
+                tracer.gauge(_LAG_GAUGE[r], max(0, op - self.acked_op[r]))
+
+    def close_all(self) -> None:
+        """Leaving normal/primary status (view change): close every
+        partial window. The partial records keep whatever stamps landed
+        — never fabricated into full ones — and become recyclable."""
+        for rec in self._track.values():
+            tracer.op_peer_release(rec)
+        self._track.clear()
+
+    def tracked(self) -> int:
+        return len(self._track)

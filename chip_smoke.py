@@ -195,6 +195,33 @@ caught:
      counted apart, the materializing scan on the primary must launch
      the intersect and equal the query's answer. It prints the seconds
      and committed transfers/s.
+  11. The front door: three `python -m tigerbeetle_tpu_torch.cli format`
+     data files (PRODUCTION, sparse) and three `cli start --aof
+     --metrics-port` replica processes on the card (started together
+     through testing/chaos.py's _spawn_replica; they load the kernels
+     phase 1 built). Over TCP the Python Client sends phase 10's requests
+     at 64 uniform batches (10,000 accounts, 64 x 8190 transfers, 8
+     batches of config 3's mix with its serial batch, a lookup of 8190
+     ids, a query by account and code) on the wall clock; after the
+     uniform batches a backup is killed with SIGKILL (its /metrics read
+     first) and restarted with the same command, recovering from its
+     data file while the run goes on, and must catch up before the end.
+     The C client (native.tb_client(), built here) sends one batch of
+     8190 transfers and one lookup_accounts of 8190 ids to the primary
+     (equal to the Python client's), and the AsyncClient four batches
+     coalesced into one request. Every replica's AOF must merge to the
+     same committed prepares; their replay through aof.recover(...,
+     device="cpu") (the plain versions) must give every create's result
+     codes, all 10,000 accounts' lookup bytes and a seeded sample of
+     8190 transfers' lookup bytes, timestamps included. The kernel
+     launches are read from each replica's /metrics
+     (kernel.<entry>.launches): rows 1-5b, 7 and 9 must launch there,
+     compact_fold_kernel too where a compaction merge ran (the log says
+     whether one did), OFF_PATH none; this process launches nothing.
+     Then `cli benchmark --accounts 10000 --transfers 163800 --queries
+     10` runs once on the card and its BENCH_JSON line is printed. It
+     prints the phase's seconds, committed transfers/s over TCP, the
+     boot and the restart's catch-up seconds.
 
 With --mesh-cards N, phase 1 and then phase 9 alone run, on a mesh of
 the first N cards (make_mesh(N): N = 4 gives dp 2 x shard 2) against the
@@ -202,7 +229,8 @@ single-device machine on the first: the peer copies between cards.
 
 Kernel launch counts are reset to 0 just before each main-path run (each
 of phases 3-8, phase 7's storm, phase 9's two mesh runs and phase 10's card
-cluster) and read just after; each kernel of that path must have launched in it. merge_kernel is on no path (as in the
+cluster; phase 11's replica processes start from 0 and are read through
+their /metrics) and read just after; each kernel of that path must have launched in it. merge_kernel is on no path (as in the
 reference, whose only callers are its tests): its launches stay 0. Nor
 are query_index_keys (the sorted build computes its keys in its own
 launch) and the one-slice sharded_validate, one-shard sharded_apply and
@@ -217,8 +245,10 @@ beside it) the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2463,13 +2493,11 @@ def replica_config():
 
 def replica_requests(types, Operation, rng, n_accounts, n_batches, n_exact, batch):
     """Phase 10's requests, in order, as (operation, body); each yield
-    receives the reply (config 3's mix learns its open pendings from the
-    result codes): two create_accounts batches, `n_batches` uniform
+    receives the reply's result rows (config 3's mix learns its open
+    pendings from the result codes): two create_accounts batches, `n_batches` uniform
     batches, `n_exact` batches of config 3's mix (the fourth posts a
     pending of its own: the serial route), one lookup_accounts of `batch`
     ids and one query_transfers by debit account 1 and code 7."""
-    from tigerbeetle_tpu_torch.testing.cluster import parse_results
-
     half = n_accounts // 2
     for start in (1, 1 + half):
         ev = np.zeros(half, dtype=types.ACCOUNT_DTYPE)
@@ -2486,8 +2514,8 @@ def replica_requests(types, Operation, rng, n_accounts, n_batches, n_exact, batc
     traffic = Config3(rng, n_accounts, 1 << 46)
     for k in range(n_exact):
         ev = traffic.batch(types, own_post=k == 3, n=batch)
-        reply = yield Operation.CREATE_TRANSFERS, ev.tobytes()
-        traffic.feedback(ev, parse_results(reply))
+        results = yield Operation.CREATE_TRANSFERS, ev.tobytes()
+        traffic.feedback(ev, results)
     ids = np.zeros(min(batch, n_accounts), dtype=types.ID_DTYPE)
     ids["lo"] = np.arange(1, len(ids) + 1)
     yield Operation.LOOKUP_ACCOUNTS, ids.tobytes()
@@ -2505,7 +2533,7 @@ def drive_replica_cluster(cfg, device, requests, crash_at, restart_after, **pipe
     first checkpoint is crashed; it restarts `restart_after` requests
     later, recovering from that checkpoint and WAL replay, and catches up.
     Returns the cluster (stages drained) and a record of the run."""
-    from tigerbeetle_tpu_torch.testing.cluster import Cluster
+    from tigerbeetle_tpu_torch.testing.cluster import Cluster, parse_results
     from tigerbeetle_tpu_torch.vsr.clock import Clock, DeterministicTime
 
     cl = Cluster(replica_count=3, config=cfg, seed=10, device=device, **pipeline)
@@ -2520,7 +2548,7 @@ def drive_replica_cluster(cfg, device, requests, crash_at, restart_after, **pipe
     reply, i = None, 0
     while True:
         try:
-            op, body = requests.send(reply) if i else next(requests)
+            op, body = requests.send(parse_results(reply)) if i else next(requests)
         except StopIteration:
             break
         c.request(op, body)
@@ -2665,6 +2693,316 @@ def run_replica_phase(torch, rng, cfg=None, n_accounts=REPLICA_ACCOUNTS,
     return launches
 
 
+# --- phase 11: the front door -----------------------------------------------
+
+FRONT_BATCHES = 64  # uniform 8190-transfer batches over TCP (phase 10: 104)
+FRONT_WAIT_S = 600  # bound on a replica's boot, a request, and the catch-up
+
+
+def scrape_launches(http_get_text, mport):
+    """A replica's kernel launches (its /metrics counters
+    kernel.<entry>.launches) and its compaction merges (the count of
+    span lsm.compact.merge)."""
+    text = http_get_text(mport, "/metrics", timeout=60)
+    launches = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r'tbtpu_events_total\{event="kernel\.(\w+)\.launches"\} (\d+)', text)}
+    merges = re.search(r'tbtpu_span_seconds_count\{event="lsm\.compact\.merge"\} (\d+)', text)
+    return launches, int(merges.group(1)) if merges else 0
+
+
+def wait_for(what, pred, timeout=FRONT_WAIT_S, every=0.2):
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            raise SystemExit(f"frontdoor: timed out waiting for {what}")
+        time.sleep(every)
+    return time.perf_counter() - t0
+
+
+def run_front_door_phase(torch, rng, config="production", device="cuda",
+                         n_accounts=REPLICA_ACCOUNTS, n_batches=FRONT_BATCHES,
+                         n_exact=REPLICA_EXACT, batch=TX_BATCH, bench=True):
+    """Phase 11: three `cli start` replica processes on `device` behind
+    TCP, the Python, C and async clients, a backup killed and restarted,
+    the replay of the AOFs on the CPU, then `cli benchmark`. Returns the
+    replica processes' kernel launches."""
+    import asyncio
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tigerbeetle_tpu_torch import native, types
+    from tigerbeetle_tpu_torch.client import AsyncClient, Client
+    from tigerbeetle_tpu_torch.constants import config_by_name
+    from tigerbeetle_tpu_torch.net.scrape import http_get_json, http_get_text
+    from tigerbeetle_tpu_torch.ops import commit as C
+    from tigerbeetle_tpu_torch.testing.chaos import _spawn_replica, probe_free_port
+    from tigerbeetle_tpu_torch.vsr import aof
+    from tigerbeetle_tpu_torch.vsr.header import Operation
+
+    name = "frontdoor"
+    lib = native.tb_client()
+    if lib is None:
+        raise SystemExit(f"{name}: the C client (csrc/tb_client.c) did not build")
+    t_phase = time.perf_counter()
+    C.reset_launches()
+    tmp = tempfile.mkdtemp(prefix="tb-frontdoor-")
+    procs, restart = {}, {}
+    try:
+        ports = []
+        while len(ports) < 6:
+            p = probe_free_port()
+            if p not in ports:
+                ports.append(p)
+        ports, mports = ports[:3], ports[3:]
+        addresses = ",".join(f"127.0.0.1:{p}" for p in ports)
+        addrs = [("127.0.0.1", p) for p in ports]
+        paths = [os.path.join(tmp, f"r{i}.tigerbeetle") for i in range(3)]
+        cli = [sys.executable, "-m", "tigerbeetle_tpu_torch.cli"]
+        fmt = [subprocess.Popen(cli + ["format", path, f"--replica={i}", "--replica-count=3",
+                                       f"--config={config}"],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+               for i, path in enumerate(paths)]
+        for p in fmt:
+            out, _ = p.communicate(timeout=FRONT_WAIT_S)
+            if p.returncode:
+                raise SystemExit(f"{name}: cli format failed:\n{out}")
+
+        def spawn(i):
+            return _spawn_replica(paths[i], ports[i], mports[i], config, device,
+                                  extra_args=["--aof"], addresses=addresses, replica=i,
+                                  log_path=paths[i] + ".log")
+
+        def replica_log(i):
+            with open(paths[i] + ".log", "rb") as f:
+                return f.read()[-4000:].decode("utf-8", "replace")
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(3) as ex:
+            procs = dict(enumerate(ex.map(spawn, range(3))))
+        boot_s = time.perf_counter() - t0
+        for i, p in procs.items():
+            if p.poll() is not None:
+                raise SystemExit(f"{name}: replica {i} exited at boot:\n{replica_log(i)}")
+
+        client = Client(addrs)
+        client.REQUEST_TIMEOUT = FRONT_WAIT_S  # the serial batch takes seconds
+        requests = replica_requests(types, Operation, rng, n_accounts, n_batches, n_exact, batch)
+        codes = []  # every create's result bytes, in commit order
+        created = []  # every created transfer id
+        victim, pre_kill = None, {}
+        rows, i = None, 0
+        t_run = time.perf_counter()
+        while True:
+            try:
+                op, body = requests.send(rows) if i else next(requests)
+            except StopIteration:
+                break
+            if op == Operation.CREATE_ACCOUNTS:
+                rows = client.create_accounts(np.frombuffer(body, types.ACCOUNT_DTYPE))
+                codes.append(rows.tobytes())
+            elif op == Operation.CREATE_TRANSFERS:
+                ev = np.frombuffer(body, types.TRANSFER_DTYPE)
+                rows = client.create_transfers(ev)
+                codes.append(rows.tobytes())
+                created.append(ev["id_lo"])
+            elif op == Operation.LOOKUP_ACCOUNTS:
+                ids = np.frombuffer(body, types.ID_DTYPE)["lo"]
+                rows = client.lookup_accounts([int(x) for x in ids])
+            else:
+                rows = answer = client.query_transfers(debit_account_id=1, code=7, limit=batch)
+            if i == 1 + n_batches:
+                # After the uniform batches: SIGKILL a backup (its counts
+                # read first) and restart it with the same command; it
+                # recovers from its data file while the run goes on.
+                status = [http_get_json(m, "/cluster") for m in mports]
+                victim = next(k for k, st in enumerate(status) if not st["is_primary"])
+                pre_kill = scrape_launches(http_get_text, mports[victim])
+                procs[victim].send_signal(signal.SIGKILL)
+                procs[victim].wait()
+                restart["t0"] = time.perf_counter()
+                restart["thread"] = threading.Thread(
+                    target=lambda: restart.update(proc=spawn(victim)))
+                restart["thread"].start()
+            i += 1
+        run_s = time.perf_counter() - t_run
+        n_transfers = sum(len(c) for c in created)
+
+        # The C client, on the primary: one batch of transfers and a lookup.
+        status = [http_get_json(m, "/cluster") for k, m in enumerate(mports) if k != victim]
+        primary = next(st["replica"] for st in status if st["is_primary"])
+        h = lib.tbc_connect(b"127.0.0.1", ports[primary], 0, FRONT_WAIT_S * 1000)
+        if not h:
+            raise SystemExit(f"{name}: the C client did not connect to the primary")
+        u8 = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))  # noqa: E731
+        try:
+            dr, cr = distinct_pair(rng.integers(0, n_accounts, batch),
+                                   rng.integers(0, n_accounts, batch), n_accounts)
+            ev = transfer_batch(types, 1 << 47, dr + 1, cr + 1, rng.integers(1, 1 << 20, batch))
+            res = np.zeros(batch, dtype=types.EVENT_RESULT_DTYPE)
+            n = lib.tbc_create_transfers(h, u8(ev), batch, u8(res.view(np.uint8)), batch)
+            if n < 0:
+                raise SystemExit(f"{name}: the C client's create_transfers failed ({n})")
+            codes.append(res[:n].tobytes())
+            created.append(ev["id_lo"])
+            ids = np.zeros(min(batch, n_accounts), dtype=types.ID_DTYPE)
+            ids["lo"] = np.arange(1, len(ids) + 1)
+            acc = np.zeros(len(ids), dtype=types.ACCOUNT_DTYPE)
+            n = lib.tbc_lookup_accounts(h, u8(ids.view(np.uint8)), len(ids),
+                                        u8(acc.view(np.uint8)), len(ids))
+        finally:
+            lib.tbc_close(h)
+        if n != len(ids):
+            raise SystemExit(f"{name}: the C client's lookup_accounts returned {n}")
+        if client.lookup_accounts([int(x) for x in ids["lo"]]).tobytes() != acc.tobytes():
+            raise SystemExit(f"{name}: the C client's lookup differs from the Python client's")
+
+        # The AsyncClient: four batches coalesced into one request.
+        quarter = batch // 4
+        parts = []
+        for k in range(4):
+            dr, cr = distinct_pair(rng.integers(0, n_accounts, quarter),
+                                   rng.integers(0, n_accounts, quarter), n_accounts)
+            parts.append(transfer_batch(types, (1 << 48) + k * quarter, dr + 1, cr + 1,
+                                        rng.integers(1, 1 << 20, quarter)))
+        groups = AsyncClient.plan_coalesce(parts, batch_max=batch)
+        if len(groups) != 1:
+            raise SystemExit(f"{name}: the four batches did not coalesce into one request: {groups}")
+
+        async def coalesced():
+            async with AsyncClient(addrs, sessions=2) as ac:
+                ac.REQUEST_TIMEOUT = FRONT_WAIT_S
+                return await ac.submit_many(Operation.CREATE_TRANSFERS, parts)
+
+        demuxed = asyncio.run(coalesced())
+        joined = [d.copy() for d in demuxed]
+        for k, d in enumerate(joined):
+            d["index"] += np.uint32(k * quarter)
+        codes.append(b"".join(d.tobytes() for d in joined))
+        created += [e["id_lo"] for e in parts]
+
+        # Every account, and a seeded sample of the transfers, as the
+        # cluster holds them.
+        accounts = b"".join(
+            client.lookup_accounts(list(range(k, min(k + batch, n_accounts + 1)))).tobytes()
+            for k in range(1, n_accounts + 1, batch))
+        all_ids = np.concatenate(created)
+        sample = np.sort(rng.choice(all_ids, size=min(batch, len(all_ids)), replace=False))
+        transfers = client.lookup_transfers([int(x) for x in sample]).tobytes()
+        client.close()
+
+        # The restarted backup catches up before the run ends.
+        wait_for("the restarted backup's boot", lambda: "proc" in restart)
+        if restart["proc"].poll() is not None:
+            raise SystemExit(f"{name}: the restarted replica exited:\n{replica_log(victim)}")
+        procs[victim] = restart["proc"]
+        top = max(http_get_json(m, "/cluster")["commit_max"] for m in mports)
+        wait_for("the restarted backup's catch-up",
+                 lambda: http_get_json(mports[victim], "/cluster")["commit_min"] >= top)
+        catch_up_s = time.perf_counter() - restart["t0"]
+        lifecycle = http_get_json(mports[primary], "/lifecycle")
+
+        launches = dict.fromkeys(C.LAUNCHES, 0)
+        merges = pre_kill[1]
+        for k, m in enumerate(mports):
+            got, merged_jobs = scrape_launches(http_get_text, m)
+            merges += merged_jobs
+            for e, v in list(got.items()) + (list(pre_kill[0].items()) if k == victim else []):
+                launches[e] = launches.get(e, 0) + v
+        for p in procs.values():
+            p.terminate()
+        for p in procs.values():
+            p.wait(timeout=60)
+        cluster_s = time.perf_counter() - t0
+
+        # Hold the card to the CPU: every AOF merges to the same prepares,
+        # and their replay through the plain versions gives every reply.
+        aofs = [path + ".aof" for path in paths]
+        merged = [m.to_bytes() for m in aof.merge(aofs)]
+        for path in aofs:
+            if [m.to_bytes() for m in aof.merge([path])] != merged:
+                raise SystemExit(f"{name}: {os.path.basename(path)} differs from the merged AOF")
+        t1 = time.perf_counter()
+        replayed = []
+        sm, last_op = aof.recover(aofs, config=config_by_name(config), device="cpu",
+                                  on_result=lambda hdr_, r: replayed.append(r.tobytes()))
+        replay_s = time.perf_counter() - t1
+        if replayed != codes:
+            bad = next((k for k, (x, y) in enumerate(zip(replayed, codes)) if x != y),
+                       min(len(replayed), len(codes)))
+            raise SystemExit(f"{name}: create {bad}'s result codes differ from the replay's "
+                             f"({len(replayed)} replayed, {len(codes)} sent)")
+        ids = np.arange(1, n_accounts + 1, dtype=np.uint64)
+        expect_equal(np.frombuffer(accounts, np.uint8),
+                     sm.lookup_accounts(ids, np.zeros_like(ids)).view(np.uint8), f"{name} accounts")
+        expect_equal(np.frombuffer(transfers, np.uint8),
+                     sm.lookup_transfers(sample, np.zeros_like(sample)).view(np.uint8),
+                     f"{name} transfers")
+        if len(accounts) != n_accounts * types.ACCOUNT_DTYPE.itemsize or not len(answer):
+            raise SystemExit(f"{name}: the lookups or the query came back short")
+        if any(C.LAUNCHES.values()):
+            raise SystemExit(f"{name}: this process launched a kernel: {C.LAUNCHES}")
+        del sm
+
+        if device == "cuda":
+            if min(launches[k] for k in REPLICA_KERNELS) == 0:
+                raise SystemExit(f"{name}: a kernel of the front door did not launch: {launches}")
+            if merges and not launches["compact_fold_kernel"]:
+                raise SystemExit(f"{name}: compaction merges ran but compact_fold_kernel did not launch")
+        log(f"{name}: 3 `cli start` replicas on {device}, booted together in {boot_s:.1f} s; "
+            f"{len(codes)} creates ({n_transfers} transfers in {run_s:.1f} s over TCP: "
+            f"{n_transfers / run_s:.0f} committed transfers/s, the kill, the restart and one "
+            f"serial batch included) and lookups equal to the CPU replay of {len(merged)} "
+            f"prepares (op {last_op}) in {replay_s:.1f} s; backup {victim} SIGKILLed after "
+            f"request {1 + n_batches}, restarted and caught up to op {top} in {catch_up_s:.1f} s; "
+            f"C client and async client (groups {groups}) equal; cluster part {cluster_s:.1f} s; "
+            f"on {CARD[0]}")
+        log(f"{name}: primary's lifecycle: ops {lifecycle['ops']}, perceived p50/p99 "
+            f"{lifecycle['flat'].get('lifecycle_perceived_p50_ms')} / "
+            f"{lifecycle['flat'].get('lifecycle_perceived_p99_ms')} ms")
+        log(f"{name}: compaction merges {merges}, compact_fold_kernel launches "
+            f"{launches['compact_fold_kernel']}" + ("" if merges else
+            " (the run reached no compaction merge: row 10 not checked)"))
+        log(f"{name}: launches from the replica processes' /metrics " + json.dumps(
+            {k: launches[k] for k in REPLICA_KERNELS + ("compact_fold_kernel", "scan_intersect_mask")
+             + OFF_PATH}))
+
+        if bench:
+            port, mport = probe_free_port(), probe_free_port()
+            t1 = time.perf_counter()
+            # Its own session: a timeout kills the command and the replica
+            # it spawned together.
+            bench_proc = subprocess.Popen(
+                cli + ["benchmark", "--accounts", "10000", "--transfers", "163800",
+                       "--queries", "10", f"--port={port}", f"--metrics-port={mport}",
+                       f"--device={device}", f"--config={config}"],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, start_new_session=True)
+            try:
+                out, err = bench_proc.communicate(timeout=FRONT_WAIT_S)
+            finally:
+                if bench_proc.poll() is None:
+                    os.killpg(bench_proc.pid, signal.SIGKILL)
+                    bench_proc.wait()
+            line = next((x for x in out.splitlines() if x.startswith("BENCH_JSON ")), None)
+            if bench_proc.returncode or line is None:
+                raise SystemExit(f"{name}: cli benchmark failed:\n{out}\n{err[-4000:]}")
+            log(f"{name}: cli benchmark --accounts 10000 --transfers 163800 --queries 10 took "
+                f"{time.perf_counter() - t1:.1f} s on {CARD[0]}:")
+            log(line)
+        log(f"{name}: phase {time.perf_counter() - t_phase:.1f} s")
+        return launches
+    finally:
+        if "thread" in restart:  # a restart still booting is stopped too
+            restart["thread"].join(FRONT_WAIT_S)
+        for p in list(procs.values()) + [restart.get("proc")]:
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def gpu_name_power() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -2788,8 +3126,16 @@ def main() -> int:
     l10 = run_replica_phase(torch, np.random.default_rng(args.seed + 23))
     log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
+    log(f"phase 11: the front door, 3 `cli start` replica processes on the card over TCP, "
+        f"{FRONT_BATCHES} uniform and {REPLICA_EXACT} config-3 batches, a backup SIGKILLed and "
+        f"restarted, the C and async clients, against the CPU replay of the AOFs")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    l11 = run_front_door_phase(torch, np.random.default_rng(args.seed + 29))
+    log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
+
     phases = {"config1": l1, "config2": l2, "config3": l3, "config4": l4, "query": l7,
-              "query_storm": l7s, "compaction": l8, "mesh": l9, "replica": l10}
+              "query_storm": l7s, "compaction": l8, "mesh": l9, "replica": l10, "frontdoor": l11}
     for label, launches in phases.items():
         check_off_path(label, launches)
     for name, row in RESULTS.items():

@@ -1287,3 +1287,43 @@ def test_replica_cluster_on_the_card_matches_the_cpu_port(dev):
     cpu = drive_pipeline(PORT, ops=40, **PORT_HOST)
     card = drive_pipeline(PORT, ops=40, overlap=True, store_async=True, device=dev)
     check_runs_identical(42, cpu, card)
+
+
+@pytest.mark.cuda
+def test_replica_server_on_the_card_answers_over_tcp(dev, tmp_path):
+    """One replica of the port serving TCP with the production pipeline
+    (WAL writer, commit executor, store stage, all posting back to the
+    asyncio loop) and its state machine on the card: creates and a
+    lookup over the Python client, byte-equal to the same stream through
+    a CPU server (frozen time), the kernels launched from the server's
+    threads."""
+    import frontdoor_servers as F
+
+    from tigerbeetle_tpu_torch.client import Client
+
+    out = {}
+    for name, placement in (("card", dict(device=dev)), ("cpu", dict(device="cpu"))):
+        port = F.free_port()
+        s = F.ServerThread(F.PORT, str(tmp_path / f"{name}.tb"), [("127.0.0.1", port)],
+                           frozen=True, placement=placement)
+        before = dict(C.LAUNCHES)
+        try:
+            client = Client([("127.0.0.1", port)], client_id=0xCA4D)
+            # A clean batch takes the fast kernel; the seeded one, with
+            # its failing events, whatever route they need.
+            clean = [dict(id=50 + k, debit_account_id=1 + k % 8, credit_account_id=1 + (k + 3) % 8,
+                          amount=1 + k, ledger=1, code=1) for k in range(40)]
+            res = [client.create_accounts(F.account_records(F.PORT, range(1, 9))).tobytes(),
+                   client.create_transfers(F.transfer_records(F.PORT, clean)).tobytes(),
+                   client.create_transfers(F.transfer_records(F.PORT, F.seeded_transfers(
+                       np.random.default_rng(3), 100, 40, 8))).tobytes(),
+                   client.lookup_accounts(list(range(1, 10))).tobytes()]
+            client.close()
+        finally:
+            s.stop()
+        out[name] = (res, {k: C.LAUNCHES[k] - before[k] for k in before})
+    assert out["card"][0] == out["cpu"][0]
+    launched = out["card"][1]
+    assert launched["register_accounts"] and launched["read_balances"], launched
+    assert launched["create_transfers_fast"], launched
+    assert not any(out["cpu"][1].values())

@@ -152,3 +152,55 @@ def test_cluster_and_replica_without_device_raise_without_cuda():
     )
     assert out.returncode == 0, out.stderr + out.stdout
     assert out.stdout.split() == ["raised", "raised"]
+
+
+def test_front_door_runs_without_jax_or_reference():
+    """The bus, the clients, the CLI, the AOF, the load harness, the
+    scrape surface and the environment profile import with jax blocked,
+    and a one-replica server on the CPU answers the Python client over
+    TCP without loading any module of the reference package."""
+    out = _run(
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import tigerbeetle_tpu_torch.net.bus, tigerbeetle_tpu_torch.net.scrape\n"
+        "import tigerbeetle_tpu_torch.client, tigerbeetle_tpu_torch.cli\n"
+        "import tigerbeetle_tpu_torch.vsr.aof, tigerbeetle_tpu_torch.envprofile\n"
+        "import tigerbeetle_tpu_torch.testing.loadgen, tigerbeetle_tpu_torch.testing.chaos\n"
+        "import tigerbeetle_tpu_torch.vsr.peerstats\n"
+        "import asyncio, threading, time\n"
+        "from tigerbeetle_tpu_torch import envprofile, native, tracer, types\n"
+        "from tigerbeetle_tpu_torch.client import Client\n"
+        "from tigerbeetle_tpu_torch.constants import TEST_MIN as C\n"
+        "from tigerbeetle_tpu_torch.io.storage import MemStorage, Zone\n"
+        "from tigerbeetle_tpu_torch.net.bus import ReplicaServer\n"
+        "from tigerbeetle_tpu_torch.testing.chaos import probe_free_port\n"
+        "from tigerbeetle_tpu_torch.vsr.replica import Replica\n"
+        "native.tb_client()\n"
+        "assert envprofile.fingerprint()['accel_backend'] == 'none'\n"
+        "zone = Zone.for_config(C.journal_slot_count, C.message_size_max,\n"
+        "    grid_block_count=C.grid_block_count, grid_block_size=C.lsm_block_size)\n"
+        "st = MemStorage(zone.total_size)\n"
+        "Replica.format(st, zone, 0, 0, 1)\n"
+        "r = Replica(cluster=0, replica_index=0, replica_count=1, storage=st, zone=zone,\n"
+        "    config=C, bus=None, device='cpu')\n"
+        "port = probe_free_port()\n"
+        "server = ReplicaServer(r, [('127.0.0.1', port)])\n"
+        "r.open()\n"
+        "loop = asyncio.new_event_loop()\n"
+        "t = threading.Thread(target=loop.run_until_complete, args=(server.serve_forever(),),\n"
+        "    daemon=True)\n"
+        "t.start()\n"
+        "time.sleep(0.2)\n"
+        "c = Client([('127.0.0.1', port)])\n"
+        "assert len(c.create_accounts(types.batch([types.account(id=5, ledger=1, code=1)],\n"
+        "    types.ACCOUNT_DTYPE))) == 0\n"
+        "assert len(c.lookup_accounts([5])) == 1\n"
+        "tracer.prometheus_text(), tracer.lifecycle_summary(), tracer.export_trace()\n"
+        "loop.call_soon_threadsafe(server.stop)\n"
+        "t.join(10)\n"
+        "bad = [m for m in sys.modules if m == 'tigerbeetle_tpu'"
+        " or m.startswith('tigerbeetle_tpu.')]\n"
+        "print('reference modules:', bad)\n"
+        "assert not bad\n"
+    )
+    assert out.returncode == 0, out.stderr + out.stdout

@@ -4,8 +4,9 @@ The host runtime around the device kernels uses the repository's C
 sources where the reference does: AEGIS-128L checksums (csrc/aegis128l.c,
 one AES round per 16 bytes on AES-NI hardware) seal grid blocks, and the
 batch host primitives (csrc/hostops.c: u128 hash map, radix argsort,
-bloom, the create_transfers staging pass) stage every batch, and the
-framed-message codec (csrc/busio.c) encodes replies and frames.
+bloom, the create_transfers staging pass) stage every batch, the
+framed-message codec (csrc/busio.c) encodes replies and frames, and the
+C client (csrc/tb_client.c, tb_client.h) is the C ABI client library.
 
 Each shim is compiled with the system C compiler on first use into this
 package's own build directory (tigerbeetle_tpu_torch/build/, listed in
@@ -299,6 +300,55 @@ def busio() -> Optional[ctypes.CDLL]:
     lib.busio_pwritev.restype = ctypes.c_int64
     _busio = lib
     return _busio
+
+_tbclient: Optional[ctypes.CDLL] = None
+_tbclient_tried = False
+
+
+def tb_client() -> Optional[ctypes.CDLL]:
+    """The C ABI client library (csrc/tb_client.c + tb_client.h, the role
+    of upstream's clients/c/tb_client.zig), built into this package's
+    build directory and loaded via ctypes; embedders link it directly.
+    Requires AES-NI (the cluster checksum); None where it cannot build."""
+    global _tbclient, _tbclient_tried
+    if _tbclient_tried:
+        return _tbclient
+    _tbclient_tried = True
+    if not _cpu_has_aes():
+        return None
+    src = os.path.join(_CSRC, "tb_client.c")
+    if not os.path.exists(src):
+        return None
+    lib_path = _build_lib(src, "tbclient", extra_flags=("-maes", "-mssse3"))
+    if lib_path is None:
+        return None
+    try:
+        lib = ctypes.CDLL(lib_path)
+    except OSError:
+        return None
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    lib.tbc_connect.argtypes = [
+        ctypes.c_char_p, ctypes.c_uint16, ctypes.c_uint64, ctypes.c_uint32,
+    ]
+    lib.tbc_connect.restype = ctypes.c_void_p
+    lib.tbc_close.argtypes = [ctypes.c_void_p]
+    lib.tbc_close.restype = None
+    for fn in (
+        lib.tbc_create_accounts, lib.tbc_create_transfers,
+        lib.tbc_lookup_accounts, lib.tbc_lookup_transfers,
+    ):
+        fn.argtypes = [
+            ctypes.c_void_p, u8p, ctypes.c_uint32, u8p, ctypes.c_uint32,
+        ]
+        fn.restype = ctypes.c_int64
+    lib.tbc_demux_results.argtypes = [
+        u8p, ctypes.c_uint32, u32p, ctypes.c_uint32, u32p, u32p,
+    ]
+    lib.tbc_demux_results.restype = ctypes.c_int
+    _tbclient = lib
+    return _tbclient
+
 
 def aegis128l_mac_ptr() -> Optional[Callable[[int, int], bytes]]:
     """(address, nbytes) -> 16-byte tag over raw memory — the zero-copy

@@ -17,7 +17,8 @@ raises.
 Wrappers check their arguments with `check`, launch with `launch` (on
 the device's current stream; a nonzero cudaError_t raises) and so count
 every launch in `LAUNCHES`, which chip_smoke.py resets before a main-path
-run and reads after it.
+run and reads after it, and in the tracer's counter
+`kernel.<entry>.launches`, which a replica process's /metrics serves.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import Dict, List
 
 import torch
 
+from tigerbeetle_tpu_torch import tracer
 from tigerbeetle_tpu_torch.native import BUILD_DIR
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
@@ -80,6 +82,8 @@ SOURCES = {"register_accounts_sharded": "register_accounts",
 
 # Kernel launches per entry (plain-version calls do not count).
 LAUNCHES: Dict[str, int] = dict.fromkeys(SIGNATURES, 0)
+# The tracer's counter for each entry, named once (a scrape reads them).
+_COUNTER = {name: f"kernel.{name}.launches" for name in SIGNATURES}
 _count_lock = threading.Lock()
 
 
@@ -191,6 +195,7 @@ def launch(name: str, device, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     with _count_lock:  # the replica's stage threads launch concurrently
         LAUNCHES[name] += 1
+    tracer.count(_COUNTER[name])
 
 
 def check(t: torch.Tensor, name: str, dtype, shape, device) -> None:

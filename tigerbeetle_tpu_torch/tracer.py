@@ -21,6 +21,13 @@ the LSM and the replica make).
   - `flight_trip` / `flight_exception`: keep the last completed op
     records (and the device windows and memory ledger) for post-hoc
     inspection of a tail anomaly or a pipeline exception.
+  - The scrape surface: `snapshot()` (p50/p95/p99 from a log-bucketed
+    histogram per event), `lifecycle_summary()`, `emit_json()`,
+    `trace_events()` / `export_trace()` (Chrome trace-event JSON from a
+    bounded ring of span records and the closed device windows),
+    `prometheus_text()`, and `serve_metrics(port)`, which serves
+    `/metrics`, `/trace` and `/lifecycle` (plus caller routes)
+    from the replica's own asyncio loop.
 
 Off until `enable()`; disabled, every call returns after one
 module-global check and allocates nothing.
@@ -28,6 +35,8 @@ module-global check and allocates nothing.
 
 from __future__ import annotations
 
+import json
+import os
 import threading
 import time
 from array import array
@@ -38,6 +47,13 @@ _enabled = False
 
 _lock = threading.Lock()
 _agg: Dict[str, list] = {}  # event -> [count, total_ns, max_ns]
+_hist: Dict[str, array] = {}  # event -> log-bucketed duration histogram
+# The last RING_DEFAULT span records (event, thread name, thread id,
+# t0_ns, t1_ns) for the timeline export, and the last closed device
+# windows (entry, t0_ns, t1_ns, h2d bytes, d2h bytes).
+RING_DEFAULT = 1 << 15
+_ring: deque = deque(maxlen=RING_DEFAULT)
+_device_pairs: deque = deque(maxlen=4096)
 _counters: Dict[str, int] = {}
 _gauges: Dict[str, float] = {}
 _device_mem: Dict[str, int] = {}
@@ -76,6 +92,9 @@ def enabled() -> bool:
 def reset() -> None:
     with _lock:
         _agg.clear()
+        _hist.clear()
+        _ring.clear()
+        _device_pairs.clear()
         _counters.clear()
         _gauges.clear()
         _device_mem.clear()
@@ -91,17 +110,28 @@ def reset() -> None:
         _flight_docs.clear()
 
 
-def observe(event: str, duration_ns: int) -> None:
-    if not _enabled:
-        return
+def _record(event: str, t0: int, t1: int) -> None:
+    dt = t1 - t0
+    t = threading.current_thread()
     with _lock:
         agg = _agg.get(event)
         if agg is None:
             agg = _agg[event] = [0, 0, 0]
+            _hist[event] = array("q", _HIST_ZEROS)
         agg[0] += 1
-        agg[1] += duration_ns
-        if duration_ns > agg[2]:
-            agg[2] = duration_ns
+        agg[1] += dt
+        if dt > agg[2]:
+            agg[2] = dt
+        _hist[event][bucket_index(dt if dt > 0 else 0)] += 1
+        _ring.append((event, t.name, t.ident or 0, t0, t1))
+
+
+def observe(event: str, duration_ns: int) -> None:
+    """Record a duration measured by the caller, ending now."""
+    if not _enabled:
+        return
+    t1 = time.perf_counter_ns()
+    _record(event, t1 - duration_ns, t1)
 
 
 class _Span:
@@ -115,7 +145,7 @@ class _Span:
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
-        observe(self.event, time.perf_counter_ns() - self.t0)
+        _record(self.event, self.t0, time.perf_counter_ns())
         return False
 
 
@@ -174,6 +204,27 @@ def remove_gauges_prefix(prefix: str) -> None:
     with _lock:
         for name in [n for n in _gauges if n.startswith(prefix)]:
             del _gauges[name]
+
+
+def gauges() -> Dict[str, float]:
+    with _lock:
+        return dict(_gauges)
+
+
+def device_mem_totals() -> dict:
+    """Ledger snapshot: per-owner live bytes, the live total and the
+    process high-water total."""
+    with _lock:
+        owners = dict(_device_mem)
+        hw = _device_mem_hw[0]
+    return {"owners": owners, "total_bytes": sum(owners.values()), "high_water_bytes": hw}
+
+
+def device_inflight() -> dict:
+    """Open dispatch windows: per-entry count and the total depth."""
+    with _lock:
+        per = {e: n for e, n in _device_inflight.items() if n}
+    return {"entries": per, "window_depth": sum(per.values())}
 
 
 def device_mem_set(owner: str, nbytes: int) -> None:
@@ -272,6 +323,8 @@ def device_finish(entry: str, token, d2h_bytes: int = 0) -> None:
         observe(f"device.step.{entry}", int(token.event.elapsed_time(end) * 1e6))
     else:
         observe(f"device.step.{entry}", time.perf_counter_ns() - token.t0)
+    with _lock:
+        _device_pairs.append((entry, token.t0, time.perf_counter_ns(), 0, d2h_bytes))
 
 
 def device_bytes(h2d: int = 0, d2h: int = 0) -> None:
@@ -284,20 +337,31 @@ def device_bytes(h2d: int = 0, d2h: int = 0) -> None:
         count("device.d2h_bytes", d2h)
 
 
-def snapshot() -> Dict[str, dict]:
-    """event → {count, total_ms, avg_us, max_us} for spans; counters
-    appear with total_ms 0."""
+def _merged():
+    """(agg, hists, counters): copies of the registry, taken under the
+    lock."""
     with _lock:
-        agg = {k: list(v) for k, v in _agg.items()}
-        counters = dict(_counters)
+        return ({k: list(v) for k, v in _agg.items()},
+                {k: list(v) for k, v in _hist.items()}, dict(_counters))
+
+
+def snapshot() -> Dict[str, dict]:
+    """event → {count, total_ms, avg_us, max_us, p50_us, p95_us, p99_us}
+    for spans; counters appear with total_ms 0 and no percentiles."""
+    agg, hists, counters = _merged()
     out: Dict[str, dict] = {}
     for event in sorted(agg):
         n, total, mx = agg[event]
+        h = hists[event]
+        hn = sum(h)
         out[event] = {
             "count": n,
             "total_ms": total / 1e6,
             "avg_us": total / n / 1e3 if n else 0.0,
             "max_us": mx / 1e3,
+            "p50_us": _hist_percentile(h, hn, 0.50) / 1e3,
+            "p95_us": _hist_percentile(h, hn, 0.95) / 1e3,
+            "p99_us": _hist_percentile(h, hn, 0.99) / 1e3,
         }
     for event in sorted(counters):
         rec = out.setdefault(
@@ -720,3 +784,282 @@ def flight_dumps() -> List[dict]:
     """The flight dumps recorded so far, oldest first."""
     with _lock:
         return list(_flight_docs)
+
+
+# --- the scrape surface -----------------------------------------------------
+
+_OCCUPANCY_STAGES = {
+    "wal": ("op.queue.wal", "op.service.wal"),
+    "execute": ("op.queue.commit", "op.service.execute"),
+    "store": ("op.queue.store", "op.service.store"),
+    "total": ("op.perceived",),
+}
+
+
+def _op_window_ns() -> int:
+    with _lock:
+        return max(0, _op_window[1] - _op_window[0])
+
+
+def _stage_occupancy(total_ms_of, window_ns: int) -> Dict[str, float]:
+    """Little's-law occupancy (mean prepares resident a stage) from each
+    event's total milliseconds over the summary window."""
+    if window_ns <= 0:
+        return {}
+    return {
+        stage: round(sum(total_ms_of(e) for e in events) * 1e6 / window_ns, 3)
+        for stage, events in _OCCUPANCY_STAGES.items()
+    }
+
+
+def lifecycle_summary() -> dict:
+    """The per-op decomposition: per-component count / mean / p50 / p99
+    (ms), the perceived window, Little's-law occupancy and the flight
+    recorder's status. `flat` holds the benchmark-facing keys
+    (queue_wait_* / service_* / occupancy_* and the store, query,
+    replication and commit-window rows)."""
+    agg, hists, _counters = _merged()
+    with _lock:
+        first, last, _n = _op_window
+        flight = {
+            "dumps": _flight["dumps"],
+            "exception_dumps": _flight["exception_dumps"],
+            "ring": len(_op_ring),
+            "latency_mult": _flight["latency_mult"],
+            "stall_ms": round(_flight["stall_ns"] / 1e6, 1),
+        }
+        depth_cfg = _gauges.get("pipeline.commit.depth_config")
+        device_hw = _device_mem_hw[0]
+    window_ns = max(0, last - first)
+    components: Dict[str, dict] = {}
+    flat: Dict[str, float] = {}
+    occupancy: Dict[str, float] = {}
+
+    def stats(event):
+        rec = agg.get(event)
+        if rec is None:
+            return None
+        n, total, _mx = rec
+        h = hists.get(event)
+        hn = sum(h) if h else 0
+        return {
+            "count": n,
+            "mean_ms": round(total / n / 1e6, 4) if n else 0.0,
+            "total_ms": round(total / 1e6, 3),
+            "p50_ms": round(_hist_percentile(h, hn, 0.50) / 1e6, 4) if h else 0.0,
+            "p99_ms": round(_hist_percentile(h, hn, 0.99) / 1e6, 4) if h else 0.0,
+        }
+
+    for event, _a, _b in OP_COMPONENTS + OP_STORE_COMPONENTS:
+        s = stats(event)
+        if s is None:
+            continue
+        short = event[len("op."):]
+        components[short] = s
+        key = short.replace("queue.", "queue_wait_").replace("service.", "service_")
+        flat[f"{key}_ms"] = s["mean_ms"]
+        flat[f"{key}_p50_ms"] = s["p50_ms"]
+        flat[f"{key}_p99_ms"] = s["p99_ms"]
+        if window_ns > 0:
+            occupancy[short] = round(s["total_ms"] * 1e6 / window_ns, 3)
+    for event, key in (
+        ("op.queue.total", "queue_wait_total"),
+        ("op.service.total", "service_total"),
+        ("op.perceived", "lifecycle_perceived"),
+        ("vsr.replication.lag", "replication_lag"),
+        ("vsr.quorum.straggler", "quorum_straggler"),
+    ):
+        s = stats(event)
+        if s is None:
+            continue
+        flat[f"{key}_ms"] = s["mean_ms"]
+        flat[f"{key}_p50_ms"] = s["p50_ms"]
+        flat[f"{key}_p99_ms"] = s["p99_ms"]
+    for event, key in (
+        ("sm.store.query", "store_query_ms_per_batch"),
+        ("pipeline.store.stall", "store_stall_ms_per_wait"),
+    ):
+        s = stats(event)
+        if s is None:
+            continue
+        flat[key] = s["mean_ms"]
+        flat[f"{key}_p50"] = s["p50_ms"]
+        flat[f"{key}_p99"] = s["p99_ms"]
+    s = stats("sm.query")
+    if s is not None:
+        flat["query_ms"] = s["mean_ms"]
+        flat["query_p50_ms"] = s["p50_ms"]
+        flat["query_p99_ms"] = s["p99_ms"]
+    inflight = agg.get("pipeline.commit.inflight_depth")
+    if inflight is not None and inflight[0]:
+        n_if, total_if, max_if = inflight
+        flat["commit_inflight_mean"] = round(total_if / n_if, 3)
+        flat["commit_inflight_max"] = int(max_if)
+        h_if = hists.get("pipeline.commit.inflight_depth")
+        if h_if:
+            flat["commit_inflight_p99"] = float(_hist_percentile(h_if, sum(h_if), 0.99))
+    if depth_cfg is not None:
+        flat["commit_depth"] = float(depth_cfg)
+    if device_hw > 0:
+        flat["device_mem_high_water_bytes"] = float(device_hw)
+    occupancy.update(_stage_occupancy(
+        lambda e: agg[e][1] / 1e6 if e in agg else 0.0, window_ns
+    ))
+    for k in ("wal", "execute", "store", "total"):
+        if k in occupancy:
+            flat[f"occupancy_{k}"] = occupancy[k]
+    perceived = stats("op.perceived") or {"count": 0}
+    return {
+        "ops": perceived["count"],
+        "window_s": round(window_ns / 1e9, 3),
+        "components": components,
+        "perceived": perceived,
+        "occupancy": occupancy,
+        "flight": flight,
+        "flat": flat,
+    }
+
+
+def emit_json() -> str:
+    return json.dumps(snapshot())
+
+
+def trace_events() -> List[tuple]:
+    """[(event, thread_name, tid, t0_ns, t1_ns)] of the span ring, sorted
+    by start time (the last RING_DEFAULT records)."""
+    with _lock:
+        out = list(_ring)
+    out.sort(key=lambda r: r[3])
+    return out
+
+
+def export_trace() -> dict:
+    """Chrome trace-event JSON (ui.perfetto.dev, chrome://tracing): one
+    complete event ('X') per span record with thread-name metadata, one
+    async pair ('b' / 'e') per closed device window, and a timebase
+    anchor pairing the process-local perf_counter with the wall clock so
+    traces of separate replica processes can be merged."""
+    pid = os.getpid()
+    evs: List[dict] = []
+    named: set = set()
+    for event, name, tid, t0, t1 in trace_events():
+        if tid not in named:
+            named.add(tid)
+            evs.append({"name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
+                        "args": {"name": name}})
+        evs.append({"name": event, "cat": "tbtpu", "ph": "X", "pid": pid,
+                    "tid": tid, "ts": t0 / 1e3, "dur": (t1 - t0) / 1e3})
+    with _lock:
+        pairs = list(_device_pairs)
+    for i, (entry, t0, t1, h2d, d2h) in enumerate(pairs):
+        common = {"name": entry, "cat": "device", "pid": pid, "tid": 0, "id": i}
+        evs.append({**common, "ph": "b", "ts": t0 / 1e3,
+                    "args": {"h2d_bytes": h2d, "d2h_bytes": d2h}})
+        evs.append({**common, "ph": "e", "ts": t1 / 1e3})
+    return {
+        "traceEvents": evs,
+        "displayTimeUnit": "ms",
+        "timebase": {"perf_ns": time.perf_counter_ns(), "unix_ns": time.time_ns(), "pid": pid},
+    }
+
+
+def _label_escape(s: str) -> str:
+    return s.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def prometheus_text() -> str:
+    """The registry in Prometheus text exposition format: spans as
+    summaries (quantiles, _sum, _count), counters and gauges as
+    label-keyed families (event names carry dots, so they ride in
+    labels). The kernel launches are the counters `kernel.<entry>.launches`."""
+    snap = snapshot()
+    spans = {e: r for e, r in snap.items() if "p50_us" in r}
+    counters = {e: r for e, r in snap.items() if "p50_us" not in r}
+    lines = [
+        "# HELP tbtpu_span_seconds Traced span latency by event.",
+        "# TYPE tbtpu_span_seconds summary",
+    ]
+    for e, r in spans.items():
+        lab = f'event="{_label_escape(e)}"'
+        for q, key in (("0.5", "p50_us"), ("0.95", "p95_us"), ("0.99", "p99_us")):
+            lines.append(f'tbtpu_span_seconds{{{lab},quantile="{q}"}} {r[key] / 1e6:.9g}')
+        lines.append(f"tbtpu_span_seconds_sum{{{lab}}} {r['total_ms'] / 1e3:.9g}")
+        lines.append(f"tbtpu_span_seconds_count{{{lab}}} {r['count']}")
+    lines += [
+        "# HELP tbtpu_span_max_seconds Maximum observed span latency.",
+        "# TYPE tbtpu_span_max_seconds gauge",
+    ]
+    for e, r in spans.items():
+        lines.append(f'tbtpu_span_max_seconds{{event="{_label_escape(e)}"}} {r["max_us"] / 1e6:.9g}')
+    lines += [
+        "# HELP tbtpu_events_total Counter registry (VSR, LSM, bus, kernel launches).",
+        "# TYPE tbtpu_events_total counter",
+    ]
+    for e, r in counters.items():
+        lines.append(f'tbtpu_events_total{{event="{_label_escape(e)}"}} {r["count"]}')
+    lines += [
+        "# HELP tbtpu_gauge Gauge registry (queue depths, table counts, device memory).",
+        "# TYPE tbtpu_gauge gauge",
+    ]
+    g = gauges()
+    occ = _stage_occupancy(lambda e: snap.get(e, {}).get("total_ms", 0.0), _op_window_ns())
+    for stage, v in occ.items():
+        g[f"op.occupancy.{stage}"] = v
+    for name in sorted(g):
+        lines.append(f'tbtpu_gauge{{name="{_label_escape(name)}"}} {g[name]:.9g}')
+    return "\n".join(lines) + "\n"
+
+
+async def serve_metrics(port: int, host: str = "127.0.0.1", extra=None):
+    """Serve GET /metrics (Prometheus text), /trace (trace-event JSON),
+    and /lifecycle (lifecycle_summary) on the running asyncio loop, and return the asyncio.Server. `extra` adds
+    caller routes: {path_prefix: callable() -> (body bytes, content
+    type)} (`cli start` mounts /cluster there)."""
+    import asyncio
+
+    async def _handle(reader, writer) -> None:
+        try:
+            async def _headers():
+                req = await reader.readline()
+                while True:
+                    line = await reader.readline()
+                    if not line or line in (b"\r\n", b"\n"):
+                        return req
+
+            # Bounded: a probe that never sends must not pin a coroutine.
+            req = await asyncio.wait_for(_headers(), timeout=10)
+            parts = req.split()
+            path = parts[1].decode("latin-1") if len(parts) >= 2 else "/"
+            status = "200 OK"
+            if path.startswith("/metrics"):
+                body = prometheus_text().encode()
+                ctype = "text/plain; version=0.0.4; charset=utf-8"
+            elif path.startswith("/trace"):
+                body = json.dumps(export_trace()).encode()
+                ctype = "application/json"
+            elif path.startswith("/lifecycle"):
+                body = json.dumps(lifecycle_summary()).encode()
+                ctype = "application/json"
+            elif extra is not None and any(path.startswith(p) for p in extra):
+                fn = next(extra[p] for p in extra if path.startswith(p))
+                body, ctype = fn()
+            else:
+                routes = "/metrics /trace /lifecycle" + (
+                    " " + " ".join(sorted(extra)) if extra else "")
+                body = f"tigerbeetle_tpu_torch observability: {routes}\n".encode()
+                ctype = "text/plain; charset=utf-8"
+                status = "404 Not Found" if path != "/" else "200 OK"
+            writer.write((
+                f"HTTP/1.1 {status}\r\nContent-Type: {ctype}\r\n"
+                f"Content-Length: {len(body)}\r\nConnection: close\r\n\r\n"
+            ).encode() + body)
+            await writer.drain()
+        except (ConnectionError, asyncio.IncompleteReadError, asyncio.TimeoutError):
+            pass
+        finally:
+            try:
+                writer.close()
+            except Exception:  # noqa: BLE001 — scrape teardown is best-effort
+                pass
+
+    return await asyncio.start_server(_handle, host, port)

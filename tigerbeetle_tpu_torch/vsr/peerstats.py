@@ -163,3 +163,78 @@ class PeerStats:
 
     def tracked(self) -> int:
         return len(self._track)
+
+
+def cluster_status(replica, server=None) -> dict:
+    """The /cluster endpoint body: this replica's view/commit position
+    plus per-peer health — replication lag, prepare_ok latency
+    percentiles, quorum attribution counters, clock offset/RTT, bus
+    byte counters, connectivity — in one JSON table. The clock estimates
+    and the timebase let per-replica traces be merged onto one timeline."""
+    snap = tracer.snapshot()
+    ps = getattr(replica, "peer_stats", None)
+    cs = getattr(replica, "clocksync", None)
+    clock_est = cs.estimate() if cs is not None else {}
+    peers: Dict[str, dict] = {}
+    for r in range(replica.replica_count):
+        if r == replica.replica:
+            continue
+        p: dict = {}
+        if ps is not None and r < len(ps.acked_op) and replica.is_primary:
+            # Ack tracking is primary-side state: a backup never receives
+            # prepare_oks, so publishing its (stale-zero) acked_op would
+            # read as every peer lagging the whole log.
+            p["acked_op"] = ps.acked_op[r]
+            p["lag_ops"] = max(0, replica.op - ps.acked_op[r])
+        ok = snap.get(_OK_EVENT[r]) if r < tracer.OP_PEER_MAX else None
+        if ok is not None:
+            p["prepare_ok_count"] = ok.get("count", 0)
+            p["prepare_ok_p50_ms"] = round(ok.get("p50_us", 0.0) / 1e3, 3)
+            p["prepare_ok_p99_ms"] = round(ok.get("p99_us", 0.0) / 1e3, 3)
+        for label, events in (
+            ("quorum_complete", _COMPLETE), ("quorum_straggler", _STRAGGLER),
+        ):
+            if r < tracer.OP_PEER_MAX:
+                p[label] = snap.get(events[r], {}).get("count", 0)
+        p.update(clock_est.get(r, {}))
+        for key in ("tx_messages", "tx_bytes", "rx_messages", "rx_bytes"):
+            row = snap.get(f"bus.peer.{r}.{key}")
+            if row is not None:
+                p[key] = row.get("count", 0)
+        if server is not None:
+            p["connected"] = int(r in server.peer_conns)
+        peers[str(r)] = p
+    out = {
+        "replica": replica.replica,
+        "replica_count": replica.replica_count,
+        "view": replica.view,
+        "status": replica.status,
+        "is_primary": int(replica.is_primary),
+        "op": replica.op,
+        "commit_min": replica.commit_min,
+        "commit_max": replica.commit_max,
+        "peers": peers,
+        # Same anchor pair as export_trace(): lets the merged-trace tool
+        # map this process's perf_counter timestamps onto wall time.
+        "timebase": {
+            "perf_ns": time.perf_counter_ns(),
+            "unix_ns": time.time_ns(),
+        },
+    }
+    if cs is not None and cs.skew_bound_ns is not None:
+        out["clock"] = {
+            "skew_bound_ms": round(cs.skew_bound_ns / 1e6, 3),
+            "sources": cs.sources,
+        }
+    # Device-plane summary (tracer-side ledgers only — no devicestats
+    # import, so the scrape reads no device):
+    # cluster_top renders these as optional columns, n/a when absent.
+    mem = tracer.device_mem_totals()
+    inflight = tracer.device_inflight()
+    if mem["owners"] or inflight["window_depth"]:
+        out["device"] = {
+            "mem_high_water_bytes": mem["high_water_bytes"],
+            "mem_total_bytes": mem["total_bytes"],
+            "inflight_depth": inflight["window_depth"],
+        }
+    return out

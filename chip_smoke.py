@@ -178,8 +178,8 @@ caught:
      overlap=True, store_async=True) at the default commit depth (the
      commit executor and the async store stage), the three replicas'
      state machines sharing the card, at PRODUCTION's widths cut in depth
-     (64 journal slots, so a checkpoint every 52 ops; 2^12 grid blocks):
-     10,000 accounts in two create_accounts batches, 104 batches of 8190
+     (48 journal slots, so a checkpoint every 36 ops; 2^12 grid blocks):
+     10,000 accounts in two create_accounts batches, 64 batches of 8190
      uniform transfers (BASELINE config 1), 8 batches of config 3's mix,
      one lookup_accounts of 8190 ids and one query_transfers by account
      and code, every replica on frozen time. After the first checkpoint a
@@ -222,15 +222,39 @@ caught:
      10` runs once on the card and its BENCH_JSON line is printed. It
      prints the phase's seconds, committed transfers/s over TCP, the
      boot and the restart's catch-up seconds.
+  12. The VOPR and chaos on the card (tigerbeetle_tpu_torch/simulator.py,
+     testing/chaos.py, tidy/protomodel.py). (a) The smoke seeds (0, 1,
+     2, 5, 9), the model checker's adversarial replay (with a
+     ConformanceChecker attached) and big-batch seeds 7 and 15, each
+     at 30 requests as Simulator(seed, device="cuda") and as
+     Simulator(seed, device="cpu"): both must exit EXIT_PASS with equal
+     fault logs, audited ops and every live replica's commit checksums;
+     the card's device memory once a seed's simulator is closed must
+     be back at its value before the seed, within that seed's tables.
+     Rows 1, 2, 3, 5a, 5b, 7 and 9 must launch in the card runs;
+     write_balances, compact_fold_kernel and scan_intersect_mask are
+     logged. (b) Seeds 0-31 on the card (run_seed, as `simulator
+     --sweep 32` runs them): each must exit 0; the coverage marks and
+     the seconds per seed are printed. (c) The seven in-process chaos
+     scenarios with ChaosHarness(device="cuda") at the sizes of the
+     reference package's tests: each ends in its determinism epilogue
+     (auditor, state and storage convergence); recovery_time_s and
+     degraded_throughput_pct are printed. (d) scenario_primary_kill_process
+     (three `cli start --device=cuda` processes over TCP, the primary
+     SIGKILLed, a view change across card processes) and
+     scenario_kill_restart_process with --commit-depth=8; their
+     children load the kernels phase 1 built, and their launches are
+     not read. It prints the phase's seconds.
 
 With --mesh-cards N, phase 1 and then phase 9 alone run, on a mesh of
 the first N cards (make_mesh(N): N = 4 gives dp 2 x shard 2) against the
 single-device machine on the first: the peer copies between cards.
 
 Kernel launch counts are reset to 0 just before each main-path run (each
-of phases 3-8, phase 7's storm, phase 9's two mesh runs and phase 10's card
-cluster; phase 11's replica processes start from 0 and are read through
-their /metrics) and read just after; each kernel of that path must have launched in it. merge_kernel is on no path (as in the
+of phases 3-8, phase 7's storm, phase 9's two mesh runs, phase 10's card
+cluster, and each card run of phase 12's (a)-(c); phase 11's replica
+processes start from 0 and are read through their /metrics) and read
+just after; each kernel of that path must have launched in it. merge_kernel is on no path (as in the
 reference, whose only callers are its tests): its launches stay 0. Nor
 are query_index_keys (the sorted build computes its keys in its own
 launch) and the one-slice sharded_validate, one-shard sharded_apply and
@@ -2463,7 +2487,7 @@ def phase_mesh(torch, rng, zipf, mesh, n2=1_000_000, n3=10_000, n_batches=16):
 # --- phase 10: the replica cluster on the card ----------------------------
 
 REPLICA_ACCOUNTS = 10_000  # BASELINE config 1's accounts, in two create_accounts batches
-REPLICA_BATCHES = 104  # of 8190 uniform transfers: 851,760 (upstream 10M: cut for time)
+REPLICA_BATCHES = 64  # of 8190 uniform transfers: 524,160 (upstream 10M: cut for time)
 REPLICA_EXACT = 8  # batches of config 3's mix
 # Rows 1-5b, 7 and 9 of PERF.md's table: each launches in phase 10's
 # cluster run. Row 11 (scan_intersect_mask) does not: query_transfers
@@ -2476,15 +2500,15 @@ REPLICA_KERNELS = ("create_transfers_fast", "register_accounts", "read_balances"
 
 def replica_config():
     """PRODUCTION at its published widths (accounts_max 2^20, batch_max
-    8190, 1 MiB messages, pipeline_max 8), cut in depth: 64 journal slots,
-    so a checkpoint every 52 ops by constants.py's formula and the run
+    8190, 1 MiB messages, pipeline_max 8), cut in depth: 48 journal slots,
+    so a checkpoint every 36 ops by constants.py's formula and the run
     crosses two, and 2^12 grid blocks of 256 KiB (1 GiB of MemStorage a
     replica, from 8 GiB)."""
     import dataclasses
 
     from tigerbeetle_tpu_torch import constants as K
 
-    slots = 64
+    slots = 48
     interval = (slots - K.LSM_BATCH_MULTIPLE - K.LSM_BATCH_MULTIPLE
                 * -(-K.PIPELINE_PREPARE_QUEUE_MAX // K.LSM_BATCH_MULTIPLE))
     return dataclasses.replace(K.PRODUCTION, name="replica_smoke", journal_slot_count=slots,
@@ -2695,7 +2719,7 @@ def run_replica_phase(torch, rng, cfg=None, n_accounts=REPLICA_ACCOUNTS,
 
 # --- phase 11: the front door -----------------------------------------------
 
-FRONT_BATCHES = 64  # uniform 8190-transfer batches over TCP (phase 10: 104)
+FRONT_BATCHES = 64  # uniform 8190-transfer batches over TCP, as in phase 10
 FRONT_WAIT_S = 600  # bound on a replica's boot, a request, and the catch-up
 
 
@@ -3003,6 +3027,278 @@ def run_front_door_phase(torch, rng, config="production", device="cuda",
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --- phase 12: the VOPR and chaos on the card -------------------------------
+
+VOPR_BIG_SEEDS = (7, 15)  # big-batch seeds (seed % 8 == 7): 8190-event batches
+SWEEP_SEEDS = 32  # seeds 0-31 of `simulator --sweep`: four big-batch seeds
+# Rows 1, 2, 3, 5a, 5b, 7 and 9 of PERF.md's table: each launches in
+# part (a)'s card runs. write_balances, compact_fold_kernel and
+# scan_intersect_mask are logged: whether a seed reaches the serial
+# writeback, a level-0 compaction job or a device intersect depends on
+# its schedule.
+VOPR_KERNELS = ("create_transfers_fast", "register_accounts", "read_balances",
+                "create_transfers_exact", "exact_sort_plan", "query_index_keys_sorted",
+                "merge_kernel_tiled")
+VOPR_LOGGED = ("write_balances", "compact_fold_kernel", "scan_intersect_mask")
+# Device bytes a closed seed, or the whole sweep, may leave allocated: a
+# one-time allocation of the process (512 bytes were seen once), never a
+# replica's tables.
+VOPR_MEM_SLACK = 4096
+# Part (d)'s replica processes: before the kill each must have launched
+# the registration and a transfer batch's kernels (the fast route, or
+# the exact route's pair); the restarted replica must launch them again.
+PROCESS_TRANSFER_KERNELS = (("create_transfers_fast",),
+                            ("create_transfers_exact", "exact_sort_plan"))
+# The in-process scenarios at the sizes of the reference package's tests.
+CHAOS_SIZES = {
+    "kill_restart": dict(base_s=0.4, down_s=0.3),
+    "state_sync": dict(base_s=0.4),
+    "grid_storm": dict(base_s=0.4),
+    "torn_checkpoint": dict(base_s=0.4),
+    "primary_kill": dict(base_s=0.4),
+    "primary_flap": dict(cycles=2, base_s=0.4),
+    "partition_primary": dict(base_s=0.4),
+}
+
+
+def vopr_outcome(sim, rc):
+    """What a card run and its CPU twin must agree on: the exit code,
+    the fault log, the audited ops and every live replica's commit
+    checksums."""
+    return {
+        "rc": rc,
+        "faults": list(sim.log),
+        "requests": sim.workload.requests_done,
+        "checked_ops": sim.workload.auditor.checked_ops,
+        "largest_batch": sim.workload.largest_batch,
+        "checksums": {i: dict(r.commit_checksums)
+                      for i, r in enumerate(sim.cluster.replicas) if r is not None},
+    }
+
+
+def vopr_card_run(torch, make, what, checker=None):
+    """One VOPR run on the card: (outcome, seconds, launches, leaked
+    bytes, one seed's table bytes). The device memory allocated once the
+    simulator is closed must return to its value before the seed, within
+    VOPR_MEM_SLACK bytes: a crashed replica's tensors must not pile up.
+    The seed's tables (the memory its cluster holds right after it is
+    built) are logged beside it."""
+    import gc
+
+    from tigerbeetle_tpu_torch.ops import commit as C
+    from tigerbeetle_tpu_torch.simulator import EXIT_PASS
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    C.reset_launches()
+    t0 = time.perf_counter()
+    sim = make()
+    tables = torch.cuda.memory_allocated() - mem0
+    conform = checker().attach(sim.cluster) if checker is not None else None
+    rc = sim.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(C.LAUNCHES)
+    out = vopr_outcome(sim, rc)
+    conformance = None
+    if conform is not None:
+        # The checker holds the cluster: read it, then let both go.
+        conformance = (conform.ok, conform.observed_steps, bool(conform._ledger),
+                   conform.violations[:5])
+    del sim, conform
+    gc.collect()
+    torch.cuda.synchronize()
+    leaked = torch.cuda.memory_allocated() - mem0
+    if rc != EXIT_PASS:
+        raise SystemExit(f"vopr: {what} on the card exited {rc}, not EXIT_PASS")
+    if leaked > VOPR_MEM_SLACK:
+        raise SystemExit(f"vopr: {what} left {leaked} bytes on the card after close, over "
+                         f"{VOPR_MEM_SLACK} (its tables: {tables} bytes)")
+    if conformance is not None:
+        ok, steps, ledger, violations = conformance
+        if not ok or steps <= 100 or not ledger:
+            raise SystemExit(f"vopr: {what}: conformance {violations} after {steps} steps")
+    return out, seconds, launches, leaked, tables
+
+
+def add_launches(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def require_process_launches(what, launches, also=()):
+    """A replica process's scraped launches hold every kernel of `also`
+    and one of PROCESS_TRANSFER_KERNELS' sets."""
+    missing = [k for k in also if not launches.get(k)]
+    if missing or not any(all(launches.get(k) for k in ks) for ks in PROCESS_TRANSFER_KERNELS):
+        raise SystemExit(f"{what}: no launch of {missing or PROCESS_TRANSFER_KERNELS}: "
+                         f"{json.dumps(launches)}")
+
+
+def run_vopr_phase(torch, card="cuda"):
+    """Phase 12: the VOPR and chaos on `card`. (a) the smoke seeds, the
+    adversarial replay and the big-batch seeds on the card against their
+    CPU runs; (b) a sweep of seeds 0-31 on the card; (c) the seven
+    in-process chaos scenarios on the card; (d) the two process
+    scenarios over `cli start --device=cuda`. Returns the launches of
+    (a), (b) and (c), and (d)'s off its replicas' /metrics."""
+    import gc
+
+    from tigerbeetle_tpu_torch import simulator as S
+    from tigerbeetle_tpu_torch import tracer
+    from tigerbeetle_tpu_torch.ops import commit as C
+    from tigerbeetle_tpu_torch.testing import chaos
+    from tigerbeetle_tpu_torch.tidy import protomodel
+
+    name = "vopr"
+    t_phase = time.perf_counter()
+    total = {}
+    # (a) card against CPU, seed for seed.
+    # At the VOPR's default 30 requests (big-batch seeds cap at 12): at
+    # the smoke's 12 the adversarial schedule's first fault (tick 260)
+    # comes after the run's end, and seeds 1 and 2 fire none.
+    runs = [(f"seed {s}", lambda s=s, d=card: S.Simulator(s, device=d),
+             lambda s=s: S.Simulator(s, device="cpu"), None)
+            for s in S.SMOKE_SEEDS]
+    runs.append(("adversarial replay", lambda d=card: S.adversarial_simulator(30, device=d),
+                 lambda: S.adversarial_simulator(30, device="cpu"), protomodel.ConformanceChecker))
+    runs += [(f"big-batch seed {s}", lambda s=s, d=card: S.Simulator(s, device=d),
+              lambda s=s: S.Simulator(s, device="cpu"), None)
+             for s in VOPR_BIG_SEEDS]
+    part_a = {}
+    for what, make_card, make_cpu, checker in runs:
+        out, seconds, launches, leaked, tables = vopr_card_run(torch, make_card, what, checker)
+        add_launches(part_a, launches)
+        twin = make_cpu()
+        t0 = time.perf_counter()
+        twin_out = vopr_outcome(twin, twin.run())
+        cpu_s = time.perf_counter() - t0
+        del twin
+        if checker is not None and not out["faults"]:
+            raise SystemExit(f"{name}: {what}: no fault of the schedule fired")
+        if twin_out != out:
+            diff = [k for k in out if out[k] != twin_out[k]]
+            raise SystemExit(f"{name}: {what}: the card run differs from the CPU run in {diff}")
+        log(f"{name} (a): {what}: EXIT_PASS on the card and on the CPU, {len(out['faults'])} "
+            f"faults {out['faults']}, {out['checked_ops']} audited ops, commit checksums of "
+            f"{len(out['checksums'])} replicas equal; card {seconds:.2f} s, CPU {cpu_s:.2f} s; "
+            f"device memory after close {leaked:+d} bytes (tables {tables} bytes)"
+            + ("; ConformanceChecker clean" if checker else ""))
+    missing = [k for k in VOPR_KERNELS if not part_a[k]]
+    if missing:
+        raise SystemExit(f"{name}: a kernel of the VOPR's path did not launch: {missing} "
+                         f"{json.dumps(part_a)}")
+    check_off_path(f"{name} (a)", part_a)
+    log(f"{name} (a) launches " + json.dumps({k: part_a[k] for k in VOPR_KERNELS + VOPR_LOGGED
+                                              + OFF_PATH}))
+    add_launches(total, part_a)
+
+    # (b) the sweep, on the card only.
+    tracer.enable()
+    tracer.reset()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    C.reset_launches()
+    per_seed = []
+    t0 = time.perf_counter()
+    for seed in range(SWEEP_SEEDS):
+        t = time.perf_counter()
+        rc = S.run_seed(seed, 30, False, device=card)
+        per_seed.append(round(time.perf_counter() - t, 2))
+        if rc != S.EXIT_PASS:
+            raise SystemExit(f"{name} (b): seed {seed} exited {rc} on the card")
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    part_b = dict(C.LAUNCHES)
+    marks = {k: v["count"] for k, v in tracer.snapshot().items() if k.startswith("mark.")}
+    tracer.disable()
+    gc.collect()
+    grown = torch.cuda.memory_allocated() - mem0
+    if grown > VOPR_MEM_SLACK:
+        raise SystemExit(f"{name} (b): the sweep left {grown} bytes on the card, over "
+                         f"{VOPR_MEM_SLACK}")
+    check_off_path(f"{name} (b)", part_b)
+    log(f"{name} (b): seeds 0-{SWEEP_SEEDS - 1} on the card: all EXIT_PASS in {sweep_s:.1f} s; "
+        f"seconds per seed {per_seed}; device memory after the sweep {grown:+d} bytes")
+    log(f"{name} (b): marks {json.dumps(marks)}")
+    log(f"{name} (b) launches " + json.dumps({k: part_b[k] for k in VOPR_KERNELS + VOPR_LOGGED}))
+    add_launches(total, part_b)
+
+    # (c) in-process chaos on the card.
+    C.reset_launches()
+    for scen, kw in CHAOS_SIZES.items():
+        t = time.perf_counter()
+        res = chaos.SCENARIOS[scen](device=card, **kw)
+        d = res.to_dict()
+        det = d["determinism"]
+        if not (det["state_ops"] > 0 and det["storage_checkpoint"] > 0 and det["ops_checked"] > 0):
+            raise SystemExit(f"{name} (c): {scen}: determinism epilogue compared nothing: {det}")
+        log(f"{name} (c): {scen} on the card: recovery_time_s {d['recovery_time_s']}, "
+            f"degraded_throughput_pct {d['degraded_throughput_pct']}, baseline ops/s "
+            f"{d['baseline_ops_per_s']}, epilogue {det} ({time.perf_counter() - t:.1f} s)")
+    part_c = dict(C.LAUNCHES)
+    check_off_path(f"{name} (c)", part_c)
+    log(f"{name} (c) launches " + json.dumps({k: part_c[k] for k in VOPR_KERNELS + VOPR_LOGGED}))
+    add_launches(total, part_c)
+
+    # (d) real `cli start --device=cuda` processes (they load the kernels
+    # phase 1 built); each replica's launches come off its /metrics.
+    part_d = {}
+    t = time.perf_counter()
+    d = chaos.scenario_primary_kill_process(duration_s=10.0, device=card).to_dict()
+    if d["sessions_failed"] or not d["failover_count"] or not d["acked_checked"]:
+        raise SystemExit(f"{name} (d): primary_kill_process: {d}")
+    killed, elected = int(d["killed_replica"]), int(d["elected_replica"])
+    before, after = d["launches_before_kill"], d["launches_after"]
+    for i, l in before.items():
+        require_process_launches(f"{name} (d): primary_kill_process replica {i} before the kill",
+                                 l, ("register_accounts",))
+    require_process_launches(f"{name} (d): primary_kill_process restarted replica {killed}",
+                             after[killed])
+    grew = {k: after[elected].get(k, 0) - before[elected].get(k, 0)
+            for k in ("create_transfers_fast", "create_transfers_exact")}
+    if not any(grew.values()):
+        raise SystemExit(f"{name} (d): the new primary {elected} launched no transfer kernel "
+                         f"after the kill: {before[elected]} then {after[elected]}")
+    add_launches(part_d, before[killed])
+    for l in after.values():
+        add_launches(part_d, l)
+    log(f"{name} (d): primary_kill_process on the card: view_change_time_s "
+        f"{d['view_change_time_s']}, recovery_time_s {d['recovery_time_s']}, "
+        f"degraded_throughput_pct {d['degraded_throughput_pct']}, failovers "
+        f"{d['failover_count']}, blackout p99 {d['blackout_p99_ms']} ms, "
+        f"{d['acked_checked']:.0f} acked transfers read back ({time.perf_counter() - t:.1f} s); "
+        f"launches before the kill {json.dumps(before)}, at the end {json.dumps(after)} "
+        f"(killed {killed}, elected {elected})")
+    t = time.perf_counter()
+    d = chaos.scenario_kill_restart_process(batches_before=12, batches_after=8, device=card,
+                                            server_args=("--commit-depth=8",)).to_dict()
+    if not d["wal_replay_ops"] or not d["acked_tx_before_kill"]:
+        raise SystemExit(f"{name} (d): kill_restart_process at depth 8: {d}")
+    what = f"{name} (d): kill_restart_process at depth 8"
+    require_process_launches(f"{what} before the kill", d["launches_before_kill"],
+                             ("register_accounts",))
+    require_process_launches(f"{what}, the WAL replay", d["launches_replay"],
+                             ("register_accounts",))
+    require_process_launches(f"{what} after the restart", d["launches_after_restart"])
+    add_launches(part_d, d["launches_before_kill"])
+    add_launches(part_d, d["launches_after_restart"])
+    log(f"{name} (d): kill_restart_process --commit-depth=8 on the card: recovery_time_s "
+        f"{d['recovery_time_s']}, degraded_throughput_pct {d['degraded_throughput_pct']}, "
+        f"WAL replay {d['wal_replay_ops']:.0f} ops in {d['wal_replay_s']} s, "
+        f"{d['acked_tx_before_kill']:.0f} transfers acked before the kill "
+        f"({time.perf_counter() - t:.1f} s); launches before the kill "
+        f"{json.dumps(d['launches_before_kill'])}, in the replay "
+        f"{json.dumps(d['launches_replay'])}, after the restart "
+        f"{json.dumps(d['launches_after_restart'])}")
+    part_d = {k: part_d.get(k, 0) for k in C.LAUNCHES}
+    check_off_path(f"{name} (d)", part_d)
+    log(f"{name} (d) launches " + json.dumps({k: part_d[k] for k in VOPR_KERNELS + VOPR_LOGGED}))
+    add_launches(total, part_d)
+    log(f"{name}: phase {time.perf_counter() - t_phase:.1f} s on {CARD[0]}")
+    return total
+
+
 def gpu_name_power() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -3134,8 +3430,17 @@ def main() -> int:
     l11 = run_front_door_phase(torch, np.random.default_rng(args.seed + 29))
     log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
 
+    log(f"phase 12: the VOPR and chaos on the card: smoke seeds, the adversarial replay and "
+        f"big-batch seeds against their CPU runs, a sweep of {SWEEP_SEEDS} seeds, seven "
+        f"in-process and two process chaos scenarios")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    l12 = run_vopr_phase(torch)
+    log(f"phase 12 took {time.perf_counter() - t0:.1f} s")
+
     phases = {"config1": l1, "config2": l2, "config3": l3, "config4": l4, "query": l7,
-              "query_storm": l7s, "compaction": l8, "mesh": l9, "replica": l10, "frontdoor": l11}
+              "query_storm": l7s, "compaction": l8, "mesh": l9, "replica": l10, "frontdoor": l11,
+              "vopr": l12}
     for label, launches in phases.items():
         check_off_path(label, launches)
     for name, row in RESULTS.items():

@@ -1290,6 +1290,36 @@ def test_replica_cluster_on_the_card_matches_the_cpu_port(dev):
 
 
 @pytest.mark.cuda
+def test_vopr_big_batch_seed_on_the_card_matches_the_cpu_run(dev):
+    """The VOPR's seed 15 (8190-event batches through VSR, crashes with
+    torn writes) on the card against its CPU run: both pass, with the
+    same fault log, audited ops and every live replica's commit
+    checksums. Its 8190-event batches carry linked, pending and
+    post/void flags, so the card run launches the exact route's two
+    kernels."""
+    from tigerbeetle_tpu_torch.simulator import EXIT_PASS, Simulator
+
+    runs, launched = {}, {}
+    for name, device in (("card", "cuda"), ("cpu", "cpu")):
+        before = dict(C.LAUNCHES)
+        sim = Simulator(15, requests=8, device=device)
+        rc = sim.run()
+        runs[name] = (
+            rc, list(sim.log), sim.workload.auditor.checked_ops,
+            sim.workload.largest_batch,
+            {i: dict(r.commit_checksums)
+             for i, r in enumerate(sim.cluster.replicas) if r is not None},
+        )
+        launched[name] = {k: C.LAUNCHES[k] - before[k] for k in before}
+    assert runs["card"][0] == EXIT_PASS
+    assert runs["card"][3] == 8190
+    assert runs["card"] == runs["cpu"]
+    assert launched["card"]["create_transfers_exact"], launched["card"]
+    assert launched["card"]["exact_sort_plan"], launched["card"]
+    assert not any(launched["cpu"].values())
+
+
+@pytest.mark.cuda
 def test_replica_server_on_the_card_answers_over_tcp(dev, tmp_path):
     """One replica of the port serving TCP with the production pipeline
     (WAL writer, commit executor, store stage, all posting back to the

@@ -29,6 +29,9 @@ def test_port_imports_without_jax_or_reference():
         "import tigerbeetle_tpu_torch.ops.qindex, tigerbeetle_tpu_torch.ops.merge\n"
         "import tigerbeetle_tpu_torch.ops.scanops, tigerbeetle_tpu_torch.lsm.tree\n"
         "import tigerbeetle_tpu_torch.parallel, tigerbeetle_tpu_torch.parallel.sharded_ops\n"
+        "import tigerbeetle_tpu_torch.simulator, tigerbeetle_tpu_torch.fuzz\n"
+        "import tigerbeetle_tpu_torch.testing.chaos, tigerbeetle_tpu_torch.tidy.protomodel\n"
+        "import tigerbeetle_tpu_torch.tidy.findings\n"
         # A storm through the tree's device fold (the plain versions on the
         # CPU) loads the compaction path's modules too.
         "import numpy as np, torch\n"

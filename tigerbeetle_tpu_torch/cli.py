@@ -94,11 +94,12 @@ def cmd_start(args) -> int:
         aof=aof,
     )
     # The overlapped commit pipeline (WAL writer + commit-executor stage,
-    # wired by ReplicaServer.start) at the state machine's device-aware
-    # commit depth. The overlapped stage needs a core to run on: with
-    # fewer than 3 CPUs the executor thread just time-slices against the
-    # event loop (and a co-located bench client), paying GIL handoffs for
-    # no parallelism, so commits stay inline on the loop there.
+    # wired by ReplicaServer.start) at --commit-depth, or at the state
+    # machine's device-aware commit depth when that is 0. The overlapped
+    # stage needs a core to run on: with fewer than 3 CPUs the executor
+    # thread just time-slices against the event loop (and a co-located
+    # bench client), paying GIL handoffs for no parallelism, so commits
+    # stay inline on the loop there.
     def stage_enabled(min_cpus: int) -> bool:
         """Adaptive per-stage default: ON when the host has at least
         min_cpus."""
@@ -113,6 +114,7 @@ def cmd_start(args) -> int:
     store_async = stage_enabled(2)
     server = ReplicaServer(
         replica, addresses, overlap=overlap, store_async=store_async,
+        commit_depth=args.commit_depth,
     )
 
     from tigerbeetle_tpu_torch import tracer
@@ -637,6 +639,12 @@ def main(argv=None) -> int:
                    help="where the state machine runs: the CUDA card "
                         "(raises without one) or the CPU (every kernel's "
                         "plain PyTorch version)")
+    s.add_argument("--commit-depth", type=int, default=0,
+                   help="cross-batch commit pipelining: max batches in "
+                        "flight through the commit stage (1 = no "
+                        "dispatch-ahead, up to pipeline_max=8; 0 = "
+                        "adaptive: min(pipeline_max, 4) on the card, 1 "
+                        "on the CPU)")
     s.add_argument("--aof", action="store_true",
                    help="append committed prepares to <path>.aof")
     s.add_argument("--metrics-port", type=int, default=0,

@@ -236,13 +236,23 @@ class MemStorage:
 class FileStorage:
     """File-backed storage: buffered writes + fdatasync, plus an O_DIRECT
     second fd for sector-aligned durable-at-return writes (the WAL body
-    path — see module docstring). It injects no faults: that is
-    MemStorage's."""
+    path — see module docstring).
+
+    Fault injection (chaos parity with MemStorage, gated by the
+    `fault_injection` ctor arg):
+    `crash(torn_write_probability)` models a power-cut by REVERTING
+    buffered writes since the last sync to their pre-images (lost
+    entirely with the given probability, else possibly torn at a sector
+    boundary — write_durable is never pending, exactly the MemStorage
+    crash model); `corrupt_sector`/`repair_sector` XOR-corrupt reads of
+    marked sectors. When the gate is off every fault path is a no-op and
+    the hot read/write paths pay one boolean check."""
 
     DIRECT_ALIGN = 4096  # ≥ any real logical block size; = SECTOR_SIZE
 
     def __init__(
         self, path: str, size: int | None = None, create: bool = False,
+        fault_injection: bool = False,
     ) -> None:
         self.path = path
         flags = os.O_RDWR | (os.O_CREAT if create else 0)
@@ -250,6 +260,17 @@ class FileStorage:
         if create and size is not None:
             os.ftruncate(self._fd, size)
         self.size = os.fstat(self._fd).st_size
+        # Fault injection (off in production: one `if` per read/write).
+        self._fi = bool(fault_injection)
+        # offset -> pre-image bytes of buffered writes since the last
+        # sync (what crash() reverts to); the WAL-writer and store
+        # threads write concurrently with the loop, hence the lock.
+        self._fi_preimage: dict[int, bytes] = {}  # tidy: guarded-by=_fi_lock
+        self._fi_faulty: set[int] = set()  # tidy: guarded-by=_fi_lock
+        self._fi_lock = threading.Lock()
+        import random
+
+        self._fi_rng = random.Random(0xFA_017)
         # O_DIRECT|O_DSYNC fd: durable DMA writes that never touch the page
         # cache. Unavailable on some filesystems (tmpfs) — fall back to
         # buffered+fdatasync in write_durable.
@@ -268,16 +289,34 @@ class FileStorage:
         return self._dfd is not None
 
     def read(self, offset: int, size: int) -> bytes:
-        return os.pread(self._fd, size, offset)
+        data = os.pread(self._fd, size, offset)
+        if self._fi:
+            data = self._fi_corrupt_read(offset, data)
+        return data
 
     def write(self, offset: int, data: bytes) -> None:
+        if self._fi:
+            # Record + write under one lock: a concurrent sync() must not
+            # clear the pre-image after capture but before the write
+            # lands (crash() would then treat the unsynced write as
+            # durable).
+            with self._fi_lock:
+                self._fi_record_preimage_locked(offset, len(data))
+                os.pwrite(self._fd, data, offset)
+            return
         os.pwrite(self._fd, data, offset)
 
     def write_batch(self, segments) -> None:
         """Buffered positioned writes of [(offset, data), ...] in ONE
         GIL-releasing native call when the busio shim is available
         (csrc/busio.c busio_pwritev — the WAL writer thread's header-ring
-        + body segments, docs/NATIVE_DATAPATH.md), else a pwrite loop."""
+        + body segments, docs/NATIVE_DATAPATH.md), else a pwrite loop.
+        Fault injection always takes the per-write path: pre-image
+        capture must stay atomic with each write."""
+        if self._fi:
+            for offset, data in segments:
+                self.write(offset, data)
+            return
         from tigerbeetle_tpu_torch.net import codec
 
         if codec.enabled():  # the codec's one switch
@@ -297,11 +336,28 @@ class FileStorage:
         total = sum(len(c) for c in chunks)
         align = self.DIRECT_ALIGN
         if self._dfd is None or offset % align:
+            if self._fi:
+                # Whole sequence under the lock: the whole-file fdatasync
+                # makes EVERY buffered write durable, and no concurrent
+                # write() may slip its pwrite between the fdatasync and
+                # the pre-image clear.
+                with self._fi_lock:
+                    for c in chunks:
+                        os.pwrite(self._fd, c, offset)
+                        offset += len(c)
+                    os.fdatasync(self._fd)
+                    self._fi_preimage = {}
+                return
             for c in chunks:
                 os.pwrite(self._fd, c, offset)
                 offset += len(c)
             os.fdatasync(self._fd)
             return
+        if self._fi:
+            # Durable-at-return: never pending in the crash model — and a
+            # stale pre-image recorded for an earlier buffered write at an
+            # overlapping range must not revert these bytes on crash().
+            self._fi_discard_preimages(offset, total)
         padded = -(-total // align) * align
         with self._dlock:
             if self._dbuf is None or len(self._dbuf) < padded:
@@ -333,6 +389,11 @@ class FileStorage:
         # fdatasync suffices: the file's size is fixed at format time, so
         # the only metadata updates are timestamps, which durability of the
         # data file's contents does not depend on.
+        if self._fi:
+            with self._fi_lock:
+                os.fdatasync(self._fd)
+                self._fi_preimage = {}
+            return
         os.fdatasync(self._fd)
 
     def close(self) -> None:
@@ -340,3 +401,105 @@ class FileStorage:
         if self._dfd is not None:
             os.close(self._dfd)
             self._dfd = None
+
+    # --- fault injection (MemStorage parity; the `fault_injection` gate)
+
+    def _fi_record_preimage_locked(self, offset: int, size: int) -> None:  # tidy: holds=_fi_lock
+        """Capture the pre-write bytes of a buffered write. Pre-images
+        are DISJOINT intervals of last-synced content: only the
+        sub-ranges of [offset, offset+size) not already covered are read
+        from disk — a range under an existing pre-image was overwritten
+        since the last sync, so the file holds unsynced bytes there, and
+        reading them would make crash() restore never-synced data (the
+        overlapping-write / size-growing-rewrite hazard). Caller holds
+        _fi_lock."""
+        uncovered = [(offset, offset + size)]
+        for o, pre in self._fi_preimage.items():
+            lo, hi = o, o + len(pre)
+            nxt = []
+            for a, b in uncovered:
+                if b <= lo or hi <= a:
+                    nxt.append((a, b))
+                    continue
+                if a < lo:
+                    nxt.append((a, lo))
+                if hi < b:
+                    nxt.append((hi, b))
+            uncovered = nxt
+            if not uncovered:
+                return
+        for a, b in uncovered:
+            self._fi_preimage[a] = os.pread(self._fd, b - a, a)
+
+    def _fi_discard_preimages(self, offset: int, size: int) -> None:
+        """Trim pre-images overlapping [offset, offset+size): the range
+        is durable now, so crash() must never revert it. Parts of a
+        pre-image outside the durable range stay revertible (disjointness
+        is preserved)."""
+        lo, hi = offset, offset + size
+        with self._fi_lock:
+            hits = [
+                (o, pre) for o, pre in self._fi_preimage.items()
+                if o < hi and lo < o + len(pre)
+            ]
+            for o, pre in hits:
+                del self._fi_preimage[o]
+                if o < lo:
+                    self._fi_preimage[o] = pre[: lo - o]
+                if hi < o + len(pre):
+                    self._fi_preimage[hi] = pre[hi - o :]
+
+    def _fi_corrupt_read(self, offset: int, data: bytes) -> bytes:
+        with self._fi_lock:
+            if not self._fi_faulty:
+                return data
+            first = offset // SECTOR_SIZE
+            last = (offset + len(data) - 1) // SECTOR_SIZE if data else first
+            hit = [s for s in range(first, last + 1) if s in self._fi_faulty]
+        if not hit:
+            return data
+        out = bytearray(data)
+        for s in hit:
+            lo = max(offset, s * SECTOR_SIZE)
+            hi = min(offset + len(data), (s + 1) * SECTOR_SIZE)
+            out[lo - offset : hi - offset] = bytes(
+                b ^ 0xA5 for b in out[lo - offset : hi - offset]
+            )
+        return bytes(out)
+
+    def crash(self, torn_write_probability: float = 0.5) -> None:
+        """Model a power-cut/process-kill (MemStorage.crash parity):
+        buffered writes since the last sync are REVERTED to their
+        pre-images with `torn_write_probability` (write lost entirely),
+        else they may tear at a sector boundary (the tail reverts).
+        write_durable bytes are never touched. No-op when fault
+        injection is disabled."""
+        if not self._fi:
+            return
+        with self._fi_lock:
+            pre, self._fi_preimage = self._fi_preimage, {}
+        for offset, old in pre.items():
+            r = self._fi_rng.random()
+            if r < torn_write_probability:
+                os.pwrite(self._fd, old, offset)  # write lost entirely
+                continue
+            # Write applied, possibly torn at a sector boundary: the tail
+            # beyond the keep point reverts to the pre-image.
+            if self._fi_rng.random() < 0.5 and len(old) > SECTOR_SIZE:
+                sectors = len(old) // SECTOR_SIZE
+                keep = self._fi_rng.randrange(1, sectors + 1) * SECTOR_SIZE
+                if keep < len(old):
+                    os.pwrite(self._fd, old[keep:], offset + keep)
+        os.fdatasync(self._fd)
+
+    def corrupt_sector(self, sector: int) -> None:
+        if not self._fi:
+            return
+        with self._fi_lock:
+            self._fi_faulty.add(sector)
+
+    def repair_sector(self, sector: int) -> None:
+        if not self._fi:
+            return
+        with self._fi_lock:
+            self._fi_faulty.discard(sector)

@@ -412,10 +412,13 @@ class ReplicaServer:
 
     def __init__(
         self, replica, addresses: List[Tuple[str, int]], overlap: bool = True,
-        store_async: bool = True,
+        store_async: bool = True, commit_depth: int = 0,
     ) -> None:
         self.replica = replica
         self.addresses = addresses
+        # Cross-batch commit-window depth for the overlapped stage: 0 =
+        # the state machine's device-aware default.
+        self.commit_depth = commit_depth
         # Boot index: which address we LISTEN on (static). Protocol
         # identity is read from the replica dynamically — a promoted
         # standby keeps its listener but speaks (and self-routes) as its
@@ -616,8 +619,7 @@ class ReplicaServer:
             self.replica.wal_writer = WalWriter(self.replica.storage, post)
             self.replica.journal.writer = self.replica.wal_writer
         if self.overlap and self.replica.executor is None:
-            # At the state machine's device-aware commit depth.
-            self.replica.attach_executor(post)
+            self.replica.attach_executor(post, commit_depth=self.commit_depth)
         elif not self.overlap:
             # Serial inline commits are depth 1 by definition: publish it
             # so the benchmark's commit_depth field never reads a stale

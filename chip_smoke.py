@@ -3030,6 +3030,10 @@ def run_front_door_phase(torch, rng, config="production", device="cuda",
 # --- phase 12: the VOPR and chaos on the card -------------------------------
 
 VOPR_BIG_SEEDS = (7, 15)  # big-batch seeds (seed % 8 == 7): 8190-event batches
+# Seeds whose view-change ballots once deadlocked the port's VSR (a backup
+# voting view + 1 while its peers voted view + 2); the JAX package keeps
+# the fault, so the card run is held to the port's own CPU run.
+VOPR_LIVENESS_SEEDS = (101,)
 SWEEP_SEEDS = 32  # seeds 0-31 of `simulator --sweep`: four big-batch seeds
 # Rows 1, 2, 3, 5a, 5b, 7 and 9 of PERF.md's table: each launches in
 # part (a)'s card runs. write_balances, compact_fold_kernel and
@@ -3137,9 +3141,9 @@ def require_process_launches(what, launches, also=()):
 
 def run_vopr_phase(torch, card="cuda"):
     """Phase 12: the VOPR and chaos on `card`. (a) the smoke seeds, the
-    adversarial replay and the big-batch seeds on the card against their
-    CPU runs; (b) a sweep of seeds 0-31 on the card; (c) the seven
-    in-process chaos scenarios on the card; (d) the two process
+    adversarial replay, the big-batch seeds and the liveness seed on the
+    card against their CPU runs; (b) a sweep of seeds 0-31 on the card;
+    (c) the seven in-process chaos scenarios on the card; (d) the two process
     scenarios over `cli start --device=cuda`. Returns the launches of
     (a), (b) and (c), and (d)'s off its replicas' /metrics."""
     import gc
@@ -3165,6 +3169,9 @@ def run_vopr_phase(torch, card="cuda"):
     runs += [(f"big-batch seed {s}", lambda s=s, d=card: S.Simulator(s, device=d),
               lambda s=s: S.Simulator(s, device="cpu"), None)
              for s in VOPR_BIG_SEEDS]
+    runs += [(f"liveness seed {s}", lambda s=s, d=card: S.Simulator(s, device=d),
+              lambda s=s: S.Simulator(s, device="cpu"), None)
+             for s in VOPR_LIVENESS_SEEDS]
     part_a = {}
     for what, make_card, make_cpu, checker in runs:
         out, seconds, launches, leaked, tables = vopr_card_run(torch, make_card, what, checker)
@@ -3430,9 +3437,9 @@ def main() -> int:
     l11 = run_front_door_phase(torch, np.random.default_rng(args.seed + 29))
     log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
 
-    log(f"phase 12: the VOPR and chaos on the card: smoke seeds, the adversarial replay and "
-        f"big-batch seeds against their CPU runs, a sweep of {SWEEP_SEEDS} seeds, seven "
-        f"in-process and two process chaos scenarios")
+    log(f"phase 12: the VOPR and chaos on the card: smoke seeds, the adversarial replay, "
+        f"big-batch and liveness seeds against their CPU runs, a sweep of {SWEEP_SEEDS} seeds, "
+        f"seven in-process and two process chaos scenarios")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     l12 = run_vopr_phase(torch)

@@ -54,6 +54,27 @@ def test_port_imports_without_jax_or_reference():
     assert out.returncode == 0, out.stderr + out.stdout
 
 
+def test_tidy_modules_import_and_run_without_jax_or_reference():
+    """Every module of the port's static-analysis gate imports with jax
+    blocked, and its passes (the native layout pass imports the port's
+    dtypes lazily) run without loading the reference package."""
+    out = _run(
+        "import sys, pathlib\n"
+        "sys.modules['jax'] = None\n"
+        "from tigerbeetle_tpu_torch import tidy\n"
+        "from tigerbeetle_tpu_torch.tidy import (annotations, cparse, determinism,\n"
+        "    findings, manifest, markers, nativecheck, ownership, protomodel,\n"
+        "    runtime, synclint, vsrlint)\n"
+        "import tigerbeetle_tpu_torch.tidy.__main__\n"
+        "fs = tidy.run_passes(pathlib.Path('.'), ['native-layout', 'host-sync', 'quorum'])\n"
+        "assert fs == [], fs\n"
+        "bad = [m for m in sys.modules if m == 'tigerbeetle_tpu'"
+        " or m.startswith('tigerbeetle_tpu.')]\n"
+        "assert not bad, bad\n"
+    )
+    assert out.returncode == 0, out.stderr + out.stdout
+
+
 def test_no_port_module_imports_the_reference_package():
     """No source of the port (nor chip_smoke.py) names the reference
     package in an import statement."""

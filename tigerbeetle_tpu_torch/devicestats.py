@@ -18,7 +18,7 @@ from typing import Dict, Optional
 from tigerbeetle_tpu_torch import tracer
 
 _lock = threading.Lock()
-_shapes: Dict[str, Dict[str, Optional[int]]] = {}
+_shapes: Dict[str, Dict[str, Optional[int]]] = {}  # tidy: guarded-by=_lock
 _SHAPES_PER_ENTRY_MAX = 16  # bucket shapes are power-of-two padded: few
 
 
@@ -81,7 +81,7 @@ def _log2(n: int) -> int:
 # entry -> (its call's arguments -> (bytes, integer operations)): the
 # bytes the function must move (each input read once, each output written
 # once) and a count of its integer operations, from the shapes alone.
-COSTS = {
+COSTS = {  # tidy: atomic — immutable constant table, never written after import
     # cols, ts, rows, pad in; keys and payload (5 n, 3) u32 out; ~40
     # operations a record.
     "query_index_keys": lambda cols, ts, rows, pad: (

@@ -324,7 +324,7 @@ class StateMachine:
         # The replica's async store stage (vsr/pipeline.StoreExecutor),
         # when attached: store jobs then run on its thread, and reads
         # drain it first (store_barrier).
-        self._store_stage = None  # tidy: owner=loop
+        self._store_stage = None  # tidy: owner=commit|loop — written at attach (stage quiescent), read on the commit path
         # Resume point within compact_beat's stage list after a
         # GridReadFault was repaired (see compact_beat).
         self._beat_stage = 0  # tidy: owner=commit|store
@@ -713,7 +713,7 @@ class StateMachine:
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
 
-    def release(self) -> None:  # tidy: thread=loop
+    def release(self) -> None:  # tidy: thread=commit — the loop calls it only at a state-sync install, with the commit stage quiesced
         """Let go of this machine's device state: a state-sync install
         replaced it with another machine. Closes the open dispatch
         windows, returns the lazy query runs' and a pending compaction

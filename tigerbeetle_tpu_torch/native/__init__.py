@@ -282,8 +282,7 @@ def busio() -> Optional[ctypes.CDLL]:
         ctypes.c_char_p, ctypes.c_uint64, u64p, ctypes.c_int64, u64p,
     ]
     lib.busio_scan.restype = ctypes.c_int64
-    # arg 3 (const uint64_t *p) takes codec._ENC_PARAMS.pack's 14-word
-    # bytes block: c_char_p marshals it in one conversion.
+    # tidy: allow=abi-type — arg 3 (const uint64_t *p) takes codec._ENC_PARAMS.pack's 14-word bytes block; c_char_p marshals it in one conversion
     lib.busio_encode_frame.argtypes = [
         u8p, ctypes.c_char_p, ctypes.c_uint64, ctypes.c_char_p,
     ]

@@ -46,7 +46,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int64
 
 # entry symbol and argtypes of each source's C interface.
-SIGNATURES = {
+SIGNATURES = {  # tidy: atomic — immutable constant table, never written after import
     "create_transfers_fast": ("tb_create_transfers_fast", [_P] * 22 + [_I, _I, _P]),
     "register_accounts": ("tb_register_accounts", [_P] * 6 + [_I, _I, _P]),
     "read_balances": ("tb_read_balances", [_P] * 6 + [_I, _I, _P]),
@@ -74,34 +74,37 @@ SIGNATURES = {
 }
 
 # The source of each entry that is not csrc/<entry>.cu.
-SOURCES = {"register_accounts_sharded": "register_accounts",
+SOURCES = {  # tidy: atomic — immutable constant table, never written after import
+           "register_accounts_sharded": "register_accounts",
            "write_balances_sharded": "write_balances",
            "sharded_apply_grouped": "sharded_apply",
            "sharded_validate_grouped": "sharded_validate",
            "sharded_read_grouped": "sharded_read"}
 
 # Kernel launches per entry (plain-version calls do not count).
-LAUNCHES: Dict[str, int] = dict.fromkeys(SIGNATURES, 0)
+LAUNCHES: Dict[str, int] = dict.fromkeys(SIGNATURES, 0)  # tidy: guarded-by=_count_lock
 # The tracer's counter for each entry, named once (a scrape reads them).
-_COUNTER = {name: f"kernel.{name}.launches" for name in SIGNATURES}
+_COUNTER = {name: f"kernel.{name}.launches" for name in SIGNATURES}  # tidy: atomic — immutable constant table, never written after import
 _count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[str, ctypes.CDLL] = {}  # tidy: guarded-by=_lock
+# tidy: atomic — GIL-atomic dict get and store; two threads that bind one entry at once store the same function with the same argtypes
 _loaded: Dict[str, ctypes._CFuncPtr] = {}
-BUILD_LOG: Dict[str, str] = {}  # kernel -> nvcc's output (-Xptxas -v)
+BUILD_LOG: Dict[str, str] = {}  # tidy: atomic — GIL-atomic stores of whole strings, one per source, read after the build — kernel -> nvcc's output (-Xptxas -v)
 
 
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")  # tidy: allow=env-read — locates nvcc for the build; what it builds is fixed by the sources' hash, never by replicated state
     path = os.path.join(home, "bin", "nvcc")
     if not os.path.exists(path):
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")

@@ -23,6 +23,7 @@ import argparse
 import dataclasses
 import random
 import sys
+import time
 
 from tigerbeetle_tpu_torch.constants import MESSAGE_SIZE_MAX, TEST_MIN
 from tigerbeetle_tpu_torch.testing.cluster import Cluster
@@ -507,6 +508,7 @@ def main(argv=None) -> int:
         tracer.enable()
         tracer.reset()
         failures = []
+        t0 = time.perf_counter()
         for seed in range(args.sweep):
             rc = run_seed(seed, args.requests, args.verbose, device=device)
             if rc != EXIT_PASS:
@@ -539,7 +541,7 @@ def main(argv=None) -> int:
             f"sweep {args.sweep} seeds: {args.sweep - len(failures)} pass, "
             f"{len(failures)} fail "
             f"{[(s, taxonomy[rc]) for s, rc in failures] if failures else ''}"
-            f" marks={marks}"
+            f" in {time.perf_counter() - t0:.1f} s marks={marks}"
         )
         if not failures:
             return EXIT_PASS

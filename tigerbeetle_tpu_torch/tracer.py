@@ -46,19 +46,19 @@ from typing import Dict, List, Optional
 _enabled = False
 
 _lock = threading.Lock()
-_agg: Dict[str, list] = {}  # event -> [count, total_ns, max_ns]
-_hist: Dict[str, array] = {}  # event -> log-bucketed duration histogram
+_agg: Dict[str, list] = {}  # tidy: guarded-by=_lock — event -> [count, total_ns, max_ns]
+_hist: Dict[str, array] = {}  # tidy: guarded-by=_lock — event -> log-bucketed duration histogram
 # The last RING_DEFAULT span records (event, thread name, thread id,
 # t0_ns, t1_ns) for the timeline export, and the last closed device
 # windows (entry, t0_ns, t1_ns, h2d bytes, d2h bytes).
 RING_DEFAULT = 1 << 15
-_ring: deque = deque(maxlen=RING_DEFAULT)
-_device_pairs: deque = deque(maxlen=4096)
-_counters: Dict[str, int] = {}
-_gauges: Dict[str, float] = {}
-_device_mem: Dict[str, int] = {}
-_device_mem_hw = [0]
-_device_inflight: Dict[str, int] = {}  # entry -> open dispatch windows
+_ring: deque = deque(maxlen=RING_DEFAULT)  # tidy: guarded-by=_lock
+_device_pairs: deque = deque(maxlen=4096)  # tidy: guarded-by=_lock
+_counters: Dict[str, int] = {}  # tidy: guarded-by=_lock
+_gauges: Dict[str, float] = {}  # tidy: guarded-by=_lock
+_device_mem: Dict[str, int] = {}  # tidy: guarded-by=_lock
+_device_mem_hw = [0]  # tidy: guarded-by=_lock
+_device_inflight: Dict[str, int] = {}  # tidy: guarded-by=_lock — entry -> open dispatch windows
 
 # The kernel entries whose device windows the state machine opens.
 DEVICE_ENTRIES = frozenset({
@@ -510,19 +510,19 @@ class OpRecord:
 OP_RING_DEFAULT = 128  # completed records retained for the flight dump
 
 _op_ring_size = OP_RING_DEFAULT
-_op_ring: deque = deque()
-_op_pool: List[OpRecord] = []
+_op_ring: deque = deque()  # tidy: guarded-by=_lock
+_op_pool: List[OpRecord] = []  # tidy: guarded-by=_lock
 # Running histogram of the perceived latency (arrive -> reply): the
 # anomaly rule's running p99 and the admission control's source.
-_op_hist = array("q", _HIST_ZEROS)
+_op_hist = array("q", _HIST_ZEROS)  # tidy: guarded-by=_lock
 # [first_finalize_ns, last_finalize_ns, perceived_count]
-_op_window = [0, 0, 0]
+_op_window = [0, 0, 0]  # tidy: guarded-by=_lock
 
 # Flight-recorder policy. latency_mult: trip when the perceived latency
 # exceeds mult x the running p99; stall_ns: trip when one component
 # exceeds it; min_ops: samples before the latency rule arms. Dumps are
 # kept in memory (flight_dumps()).
-_flight = {
+_flight = {  # tidy: guarded-by=_lock
     "latency_mult": 8.0,
     "stall_ns": 2_000_000_000,
     "min_ops": 64,
@@ -534,7 +534,7 @@ _flight = {
     "exception_dumps": 0,
     "last_dump_ns": 0,
 }
-_flight_docs: List[dict] = []
+_flight_docs: List[dict] = []  # tidy: guarded-by=_lock
 
 
 def op_begin() -> Optional[OpRecord]:
@@ -788,7 +788,7 @@ def flight_dumps() -> List[dict]:
 
 # --- the scrape surface -----------------------------------------------------
 
-_OCCUPANCY_STAGES = {
+_OCCUPANCY_STAGES = {  # tidy: atomic — immutable constant table, never written after import
     "wal": ("op.queue.wal", "op.service.wal"),
     "execute": ("op.queue.commit", "op.service.execute"),
     "store": ("op.queue.store", "op.service.store"),
@@ -818,7 +818,7 @@ def lifecycle_summary() -> dict:
     recorder's status. `flat` holds the benchmark-facing keys
     (queue_wait_* / service_* / occupancy_* and the store, query,
     replication and commit-window rows)."""
-    agg, hists, _counters = _merged()
+    agg, hists, _ = _merged()
     with _lock:
         first, last, _n = _op_window
         flight = {

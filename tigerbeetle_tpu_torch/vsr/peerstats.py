@@ -217,8 +217,8 @@ def cluster_status(replica, server=None) -> dict:
         # Same anchor pair as export_trace(): lets the merged-trace tool
         # map this process's perf_counter timestamps onto wall time.
         "timebase": {
-            "perf_ns": time.perf_counter_ns(),
-            "unix_ns": time.time_ns(),
+            "perf_ns": time.perf_counter_ns(),  # tidy: allow=wall-clock — scrape-surface timebase anchor, observability only
+            "unix_ns": time.time_ns(),  # tidy: allow=wall-clock — scrape-surface timebase anchor, observability only
         },
     }
     if cs is not None and cs.skew_bound_ns is not None:

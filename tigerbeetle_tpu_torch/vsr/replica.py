@@ -676,7 +676,7 @@ class Replica:
                         )
             else:
                 if self.tick_count - self.last_heartbeat_tick >= NORMAL_HEARTBEAT_TIMEOUT:
-                    self._vote_view_change(self.view + 1)
+                    self._vote_view_change(self._normal_timeout_view())
                 self._repair_gaps()
         elif self.status == STATUS_VIEW_CHANGE:
             if self.tick_count - self.last_heartbeat_tick >= VIEW_CHANGE_TIMEOUT:
@@ -2734,6 +2734,26 @@ class Replica:
                 self.bus.send_to_replica(r, m)
         self.start_view_change_from.setdefault(new_view, set()).add(self.replica)
         self._maybe_enter_view_change(new_view)
+
+    def _normal_timeout_view(self) -> int:
+        """The view a backup in normal status votes for when the primary
+        has gone quiet: view + 1, unless it has already voted for view + 1
+        and other replicas have moved on to a higher ballot. Then it joins
+        the highest such ballot. Without this, a backup that missed a
+        view change its peers completed among themselves votes view + 1
+        forever while they, stuck in view_change at view + 1, vote view +
+        2: neither ballot reaches a quorum (VOPR seed 101). The quorum
+        gate of _maybe_enter_view_change stays: the vote joins ballots
+        other replicas actually cast, so an isolated replica's view
+        cannot run away (the seed-142 rule)."""
+        nxt = self.view + 1
+        if self.replica not in self.start_view_change_from.get(nxt, ()):
+            return nxt
+        ahead = [
+            v for v, voters in self.start_view_change_from.items()
+            if v > nxt and voters - {self.replica}
+        ]
+        return max(ahead, default=nxt)
 
     def _maybe_enter_view_change(self, v: int) -> None:
         """Enter view_change status for view v once a full quorum of

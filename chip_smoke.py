@@ -32,8 +32,9 @@ caught:
      group, negative groups), timed beside torch.sort of the record keys
      and of the event keys, and the exact wrapper runs once under
      sync-debug mode "error". Per kernel:
-     median time by CUDA events, the bound (bytes the function must move
-     over 3.35 TB/s; integer operations over 67 TOP/s never dominate), the
+     median time by CUDA events, the bound (devicestats.cost: bytes the
+     function must move over 3.35 TB/s; integer operations over 67 TOP/s
+     never dominate), the
      plain version's time and, where one exists, the PyTorch call
      computing the same function. The store stage's and the query path's
      kernels at their main-path shapes: both key builds at n = 8190, each
@@ -245,6 +246,40 @@ caught:
      scenario_kill_restart_process with --commit-depth=8; their
      children load the kernels phase 1 built, and their launches are
      not read. It prints the phase's seconds.
+  13. What the first benchmark drives, each part at full width
+     (PRODUCTION, A = 2^20) on the card. (a) The merge route A/B in
+     process: config 1's first 8 batches and 8 of phase 7's query-mix
+     batches (a beat after each), a storm drained beat by beat, a lookup
+     of all 10,000 accounts, 32 queries and 8 materializing scans,
+     through StateMachine(PRODUCTION) on the card (the device route),
+     the same with device_query_index=False (the host route) and the
+     port's CPU run, one after the other: every answer equal; rows 7, 9,
+     10 and 11 launch on the device route and never on the host route;
+     the spans qindex.build.stage / .dispatch and lsm.compact.bloom of
+     both routes are logged. (b) The stage A/B: one `cli start` replica
+     on the card, 10,000 accounts, 16 uniform batches of 8190 and a
+     lookup of every account, by default and with --serial-commit
+     --serial-store --commit-depth=1: byte-equal replies and accounts
+     (the accounts' timestamps, stamped by each run's wall clock,
+     aside); then one `cli benchmark --untraced --serial-commit
+     --serial-store` BENCH_JSON line. (e) On (b)'s default run after its
+     16 batches (outside the timed stream, so both runs are timed
+     alike), its /device: a cost row for every entry its /metrics
+     counts as launched, the commit kernels' rows equal to a hand count
+     of their bytes at their logged shapes (create_transfers_fast at
+     A = 2^20 and n = 8192 among them: 128 A + 96 n + 1 bytes, PERF.md's
+     135.0 MB), no row above 3.35 TB/s x 1.05, the allocator's report
+     from torch.cuda.memory_stats, and tools/torch_device_top.py renders
+     it. (c) testing/loadgen.run_overload_bench at its defaults
+     (192 sessions, 2000 churn sessions, 10,000 accounts, batch 512):
+     the churn audit ok, kernels 1 and 2 launched in the server; its
+     1x accepted tx/s and p99 and 5x-over-1x share are printed. (d)
+     testing/chaos.run_cluster_plane_bench at its defaults (three `cli
+     start` processes, a backup delayed 30 ms towards the primary by
+     TIGERBEETLE_TPU_NET_FAULT): the reference test's assertions and
+     three lanes in tools/torch_cluster_trace.py's merge. The launches
+     of (a)'s card machines and of every replica process ((b)-(d), off
+     their /metrics) make the `launches_bench` column.
 
 With --mesh-cards N, phase 1 and then phase 9 alone run, on a mesh of
 the first N cards (make_mesh(N): N = 4 gives dp 2 x shard 2) against the
@@ -252,8 +287,9 @@ single-device machine on the first: the peer copies between cards.
 
 Kernel launch counts are reset to 0 just before each main-path run (each
 of phases 3-8, phase 7's storm, phase 9's two mesh runs, phase 10's card
-cluster, and each card run of phase 12's (a)-(c); phase 11's replica
-processes start from 0 and are read through their /metrics) and read
+cluster, and each card run of phase 12's (a)-(c) and phase 13's (a);
+the replica processes of phases 11 and 13 start from 0 and are read
+through their /metrics) and read
 just after; each kernel of that path must have launched in it. merge_kernel is on no path (as in the
 reference, whose only callers are its tests): its launches stay 0. Nor
 are query_index_keys (the sorted build computes its keys in its own
@@ -286,6 +322,7 @@ A_MAX = 1 << 20  # PRODUCTION accounts_max
 N = 8192  # 8190-event batches padded to the 8192 bucket
 TX_BATCH = 8190
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 RESULTS = {}  # kernel name -> its JSON row
 CARD = ["not read yet"]  # the card's name and power limit (nvidia-smi), for every timed line
 
@@ -415,10 +452,11 @@ def set_row(torch, table, slot, limbs):
 
 
 def phase_kernels(torch, C, rng, dev):
+    from tigerbeetle_tpu_torch import devicestats
+
     a = A_MAX
     st_np = kernel_state(rng, C)
     state = C.state_from_reference(st_np, dev)
-    table_bytes = 4 * a * 16
 
     # create_transfers_fast: the ladder batch (bail), the post batch, and
     # the post batch over two states whose only overflow is pending +
@@ -465,13 +503,11 @@ def phase_kernels(torch, C, rng, dev):
         if not bail:
             raise SystemExit(f"{kind} batch did not bail")
         del st
-    batch_bytes = sum(t.numel() * t.element_size() for t in b) + 4 * N
-    ctf_bytes = 2 * table_bytes + batch_bytes + 2 * N * 4 + 4 * N + 1
-    ctf_ops = 24 * a + 120 * N
+    nbytes, ops = devicestats.cost("create_transfers_fast", (state, b, host))
     record(torch, "create_transfers_fast", "create_transfers_fast.cu", "tigerbeetle_tpu/ops/commit.py:313",
            lambda: C.create_transfers_fast(state, b, host),
            lambda: C.create_transfers_fast_plain(state, b, host),
-           None, ctf_bytes, ctf_ops, err, n_ok=n_ok)
+           None, nbytes, ops, err, n_ok=n_ok)
 
     # register_accounts: one create_accounts batch (k = 8192), 10% masked
     # out. In place: each side gets its own copy of the state. Timed calls
@@ -489,10 +525,11 @@ def phase_kernels(torch, C, rng, dev):
     m_ledger, m_flags = ledger.view(torch.int32)[mask], flags.view(torch.int32)[mask]
     lib = lambda: (state.ledger.view(torch.int32).index_copy_(0, m_slots, m_ledger),
                    state.flags.view(torch.int32).index_copy_(0, m_slots, m_flags))
+    nbytes, ops = devicestats.cost("register_accounts", (state, slots, ledger, flags, mask), k_in=k_in)
     record(torch, "register_accounts", "register_accounts.cu", "tigerbeetle_tpu/ops/commit.py:316",
            lambda: C.register_accounts(state, slots, ledger, flags, mask),
            lambda: C.register_accounts_plain(state, slots, ledger, flags, mask),
-           lib, k * 13 + k_in * 8, 4 * k, err)
+           lib, nbytes, ops, err)
 
     # read_balances: one lookup / serial prefetch (k = 16384), into a
     # device block and, as the state machine reads, into a pinned host
@@ -506,11 +543,12 @@ def phase_kernels(torch, C, rng, dev):
                                C.read_balances(state, slots, out=pinned),
                                tuple(t.cpu() for t in C.read_balances_plain(state, slots))))
     tables = [getattr(state, f).view(torch.int32) for f in C.BALANCE_FIELDS]
+    nbytes, ops = devicestats.cost("read_balances", (state, slots))
     record(torch, "read_balances", "read_balances.cu", "tigerbeetle_tpu/ops/commit.py:353",
            lambda: C.read_balances(state, slots),
            lambda: C.read_balances_plain(state, slots),
            lambda: [torch.index_select(t, 0, slots) for t in tables],
-           k * 4 + 2 * 4 * k * 16, 8 * k, err,
+           nbytes, ops, err,
            ms_into_pinned_host=cuda_ms(torch, lambda: C.read_balances(state, slots, out=pinned), 10))
 
     # write_balances: one serial writeback (k = 16384 distinct slots), in
@@ -524,10 +562,11 @@ def phase_kernels(torch, C, rng, dev):
     s_long = slots.long()
     rows32 = [r.view(torch.int32) for r in rows]
     lib = lambda: [t.index_copy_(0, s_long, r) for t, r in zip(tables, rows32)]
+    nbytes, ops = devicestats.cost("write_balances", (state, slots, *rows))
     record(torch, "write_balances", "write_balances.cu", "tigerbeetle_tpu/ops/commit.py:334",
            lambda: C.write_balances(state, slots, *rows),
            lambda: C.write_balances_plain(state, slots, *rows),
-           lib, k * (4 + 64 + 64), 8 * k, err)
+           lib, nbytes, ops, err)
 
 
 def record(torch, name, source, replaces, kernel, plain, library, nbytes, ops, err, **extra):
@@ -588,6 +627,7 @@ def sweeps_of(torch, E, dev, fn):
 
 
 def phase_exact(torch, C, dev):
+    from tigerbeetle_tpu_torch import devicestats
     from tigerbeetle_tpu_torch.ops import commit_exact as E
 
     err = 0
@@ -641,17 +681,6 @@ def phase_exact(torch, C, dev):
     log("create_transfers_exact: dispatched under sync-debug mode 'error'")
 
     n = N
-    table_bytes = 4 * A_MAX * 16
-
-    def io_bytes(staged, with_plan):
-        state, b, host, p, chain, plan = staged
-        inputs = sum(t.numel() * t.element_size() for t in (*b, host, *p, chain))
-        if with_plan:
-            inputs += sum(t.numel() * t.element_size() for t in plan)
-        gathers = 2 * 2 * n * 4  # ledger and flags rows of both slots
-        outputs = n * (4 + 16 + 2 * 64) + 1
-        return 2 * table_bytes + inputs + gathers + outputs
-
     timed = {}
     for label, st in (("config3", c3), ("config4", c4)):
         got, sw = sweeps_of(torch, E, dev, lambda: E.create_transfers_exact(*st))
@@ -665,18 +694,15 @@ def phase_exact(torch, C, dev):
             "plain_ms": cuda_ms(torch, lambda: E.create_transfers_exact_plain(*st), 2),
         }
         log(f"create_transfers_exact {label}: {timed[label]}")
-    # integer operations of the function, whatever the design: the table
-    # copy and check, then per sweep the reference's segmented sums (~10
-    # per lane of its 52 u64 lanes over 2n records) plus ~200 per event of
-    # ladder
-    ops = 8 * A_MAX + timed["config3"]["sweeps"] * (2 * n * 52 * 10 + n * 200)
+    # the timed batches' sweeps (devicestats.COSTS counts each sweep's work)
+    nbytes, ops = devicestats.cost("create_transfers_exact", c3, sweeps=timed["config3"]["sweeps"])
     record(torch, "create_transfers_exact", "create_transfers_exact.cu",
            "tigerbeetle_tpu/ops/commit_exact.py:902",
            lambda: E.create_transfers_exact(*c3), lambda: E.create_transfers_exact_plain(*c3),
-           None, io_bytes(c3, True), ops, err,
+           None, nbytes, ops, err,
            sweeps_config3=timed["config3"]["sweeps"], sweeps_config4=timed["config4"]["sweeps"],
            ms_config4=timed["config4"]["ms"], plain_ms_config4=timed["config4"]["plain_ms"],
-           bound_bytes_config4=io_bytes(c4, True))
+           bound_bytes_config4=devicestats.cost("create_transfers_exact", c4)[0])
 
     state, b, host, p, chain, plan = c3
     plain = lambda: E.sort_plan_plain(b, p, chain, A_MAX)
@@ -692,22 +718,22 @@ def phase_exact(torch, C, dev):
     sort_ms = cuda_ms(torch, lambda: torch.sort(key, stable=True), 10)
     f_sort_ms = cuda_ms(torch, lambda: torch.sort(f_key, stable=True), 10)
     both_ms = cuda_ms(torch, lambda: (torch.sort(key, stable=True), torch.sort(f_key, stable=True)), 10)
-    plan_bytes = 7 * 4 * n + 4 * (2 * n * 4 + n * 4)
-    # ~40 operations an element for each 8-bit digit pass over the bits
-    # this batch's keys span (the slot of a record, with its chain where
-    # chain_id decreases somewhere; the group of an event), and ~20 for
-    # its heads
+    # the 8-bit digit passes over the bits this batch's keys span (the
+    # slot of a record, with its chain where chain_id decreases somewhere;
+    # the group of an event): devicestats.COSTS counts ~40 operations an
+    # element a pass
     span_bits = lambda x: int(x.max() - x.min()).bit_length()
     rec_hi = key >> 32
     if not bool((chain[1:] >= chain[:-1]).all()):
         rec_hi = (rec_hi << (n - 1).bit_length()) | ((key >> 16) & 0xFFFF)
     rec_passes = -(-span_bits(rec_hi) // 8)
     ev_passes = -(-span_bits(f_key) // 8)
-    plan_ops = (rec_passes * 2 * n + ev_passes * n) * 40 + 3 * n * 20
+    nbytes, ops = devicestats.cost("exact_sort_plan", (b, p, chain, A_MAX),
+                                   passes=(rec_passes, ev_passes))
     record(torch, "exact_sort_plan", "exact_sort_plan.cu",
            "tigerbeetle_tpu/ops/commit_exact.py:474",
            lambda: E.sort_plan(b, p, chain, A_MAX), plain,
-           None, plan_bytes, plan_ops, err, torch_sort_records_ms=sort_ms,
+           None, nbytes, ops, err, torch_sort_records_ms=sort_ms,
            radix_passes_records=rec_passes, radix_passes_events=ev_passes,
            torch_sort_events_ms=f_sort_ms, torch_sort_both_ms=both_ms,
            library_is="none: the two torch.sort calls of the record and the event keys "
@@ -992,11 +1018,12 @@ def phase_sharded(torch, C, rng, dev):
     cols = [reg[1].view(torch.int32)[keep], reg[2].view(torch.int32)[keep]]
     lib = lambda: [t.view(torch.int32).index_copy_(0, at, c) for st in tables
                    for t, c in zip((st.ledger, st.flags), cols)]
+    nbytes, ops = devicestats.cost("register_accounts_sharded", (tables, *reg), k_in=k_in)
     record(torch, "register_accounts_sharded", "register_accounts.cu",
            "tigerbeetle_tpu/parallel/sharding.py:295",
            lambda: S.register_accounts_grouped(tables, *reg),
            lambda: S.register_accounts_grouped_plain(tables, *reg),
-           lib, k * 13 + k_in * 8 * len(tables), 4 * k + 2 * k_in * len(tables), err,
+           lib, nbytes, ops, err,
            tables=len(tables), library_is="16 index_copy_ (ledger and flags of each table)",
            ms_8x_register_accounts=cuda_ms(
                torch, lambda: [C.register_accounts(st, *reg) for st in tables], 10))
@@ -1027,7 +1054,12 @@ def phase_sharded(torch, C, rng, dev):
     glob = slots.long()
     glob = torch.where(glob < 0, glob + A_MAX, glob)
     local = [torch.where((glob >= b) & (glob < b + ROWS), glob - b, ROWS).int() for b in bases]
-    nbytes, ops = devicestats.cost("write_balances_sharded", (tables, bases, slots, *rows, A_MAX))
+    # the (row, table) pairs that store a row: a slot normalized as the
+    # kernel does (negative from the end, dropped outside [0, A)) lands in
+    # each table whose rows hold it
+    landed = sum(int(((glob >= b) & (glob < b + ROWS)).sum()) for b in bases)
+    nbytes, ops = devicestats.cost("write_balances_sharded", (tables, bases, slots, *rows, A_MAX),
+                                   landed=landed)
     record(torch, "write_balances_sharded", "write_balances.cu", "tigerbeetle_tpu/ops/commit.py:334",
            lambda: S.write_balances_grouped(tables, bases, slots, *rows, A_MAX),
            lambda: S.write_balances_grouped_plain(tables, bases, slots, *rows, A_MAX),
@@ -3306,6 +3338,466 @@ def run_vopr_phase(torch, card="cuda"):
     return total
 
 
+# --- phase 13: what the first benchmark drives ------------------------------
+
+BENCH_ACCOUNTS = 10_000  # BASELINE config 1's accounts
+BENCH_UNIFORM = 8  # config 1's first batches in (a)
+BENCH_QUERY_BATCHES = 8  # phase 7's query mix after them in (a)
+BENCH_QUERIES = 32
+BENCH_SCANS = 8
+STAGE_BATCHES = 16  # full uniform batches of each `cli start` run in (b)
+# Rows 7, 9, 10 and 11: the device query-index route's kernels. The host
+# route (device_query_index=False) launches none of them.
+ROUTE_KERNELS = ("query_index_keys_sorted", "merge_kernel_tiled", "compact_fold_kernel",
+                 "scan_intersect_mask")
+ROUTE_SPANS = ("qindex.build.stage", "qindex.build.dispatch", "lsm.compact.bloom")
+# The switches of (b)'s serial run.
+SERIAL_STAGES = ("--serial-commit", "--serial-store", "--commit-depth=1")
+
+
+def uniform_batch(types, rng, first_id, n_accounts=BENCH_ACCOUNTS, n=TX_BATCH):
+    """n uniform simple transfers over accounts 1..n_accounts (BASELINE
+    config 1)."""
+    dr, cr = distinct_pair(rng.integers(0, n_accounts, n), rng.integers(0, n_accounts, n),
+                           n_accounts)
+    return transfer_batch(types, first_id, dr + 1, cr + 1, rng.integers(1, 1 << 20, n))
+
+
+def bench_route_run(torch, route, card, stream, windows):
+    """One machine through (a)'s stream: the creates with a beat after
+    each, a storm drained beat by beat, every account's lookup, the
+    queries and the materializing scans. Returns (answers, launches,
+    span totals, compaction merges, storm beats)."""
+    from tigerbeetle_tpu_torch import tracer, types
+    from tigerbeetle_tpu_torch.constants import PRODUCTION
+    from tigerbeetle_tpu_torch.lsm import scan
+    from tigerbeetle_tpu_torch.models.state_machine import StateMachine
+    from tigerbeetle_tpu_torch.ops import commit as C
+
+    # The CPU run takes the route policy's choice there (the host route).
+    flag = {"device": True, "host": False, "cpu": None}[route]
+    sm = StateMachine(PRODUCTION, device="cpu" if route == "cpu" else card,
+                      device_query_index=flag)
+    C.reset_launches()
+    tracer.reset()
+    tracer.enable()
+    out = []
+    for ev in account_batches(types, BENCH_ACCOUNTS):
+        out.append(sm.create_accounts(ev).tobytes())
+    for ev in stream:
+        out.append(sm.create_transfers(ev).tobytes())
+        sm.compact_beat()
+    if int(sm.commit_timestamp) != BENCH_ACCOUNTS + len(stream) * TX_BATCH:
+        raise SystemExit(f"bench routes: the {route} machine stamped {sm.commit_timestamp}, "
+                         f"not one timestamp an event: the query windows miss")
+    sm.request_major_compaction()
+    beats = 0
+    while sm.compaction_storm_active():
+        sm.compact_beat()
+        beats += 1
+        if beats > 10_000:
+            raise SystemExit(f"bench routes: the {route} machine's storm did not drain")
+    ids = np.arange(1, BENCH_ACCOUNTS + 1, dtype=np.uint64)
+    for k in range(0, BENCH_ACCOUNTS, TX_BATCH):
+        part = ids[k:k + TX_BATCH]
+        out.append(sm.lookup_accounts(part, np.zeros_like(part)).tobytes())
+    for acct, code, w0, w1 in windows:
+        out.append(sm.query_transfers(query_filter(types, acct, code, w0, w1)).tobytes())
+    sm.flush_deferred()
+    for acct, code, w0, w1 in windows[:BENCH_SCANS]:
+        b = sm.scan_builder(w0, w1)
+        b.where_account(acct, 0)
+        b.where_field(scan.TAG_CODE, code)
+        b.where_field(scan.TAG_LEDGER, 1)
+        out.append(b.execute("materialize").tobytes())
+    if route != "cpu":
+        torch.cuda.synchronize()
+    tracer.disable()
+    snap = tracer.snapshot()
+    launches = dict(C.LAUNCHES)
+    spans = {k: round(snap[k]["total_ms"], 3) if k in snap else 0.0 for k in ROUTE_SPANS}
+    merges = snap.get("lsm.compact.merge", {}).get("count", 0)
+    del sm
+    return out, launches, spans, merges, beats
+
+
+def bench_routes(torch, rng, card="cuda"):
+    """(a) The device query-index route against the host route, in
+    process: config 1's first batches and phase 7's query mix through
+    StateMachine(PRODUCTION) on the card (the device route) and the same
+    with device_query_index=False (the host route), and the port's CPU
+    run; equal answers, rows 7, 9, 10 and 11 launched on the device route
+    only."""
+    from tigerbeetle_tpu_torch import types
+
+    name = "bench routes"
+    t0 = time.perf_counter()
+    stream, next_id = [], 1
+    for _ in range(BENCH_UNIFORM):
+        stream.append(uniform_batch(types, rng, next_id))
+        next_id += TX_BATCH
+    # Phase 7's mix: Zipf(1.1) accounts, so the queries' hot accounts
+    # hold rows in their windows.
+    cdf = np.cumsum(np.arange(1, N_ACC_QUERY + 1, dtype=np.float64) ** -1.1)
+    cdf /= cdf[-1]
+
+    def draw(r, k):
+        return (np.searchsorted(cdf, r.random(k)) + 1).clip(1, N_ACC_QUERY).astype(np.uint64)
+
+    pool = rng.integers(1, 1 << 62, 1024, dtype=np.uint64)
+    for _ in range(BENCH_QUERY_BATCHES):
+        stream.append(query_mix(rng, TX_BATCH, pool, next_id, draw))
+        next_id += TX_BATCH
+    # Query windows over the query-mix batches' timestamps (each machine
+    # stamps the same batches alike): 2 account batches, then the
+    # uniform batches, then the query mix.
+    ts_lo = BENCH_ACCOUNTS + BENCH_UNIFORM * TX_BATCH + 1
+    ts_hi = ts_lo + BENCH_QUERY_BATCHES * TX_BATCH
+    span = (ts_hi - ts_lo) // 4
+    windows = []
+    for _ in range(BENCH_QUERIES):
+        w0 = int(rng.integers(ts_lo, ts_hi - span))
+        windows.append((int(draw(rng, 1)[0]), int(rng.integers(1, 17)), w0, w0 + span))
+    runs = {}
+    for route in ("device", "host", "cpu"):
+        t1 = time.perf_counter()
+        runs[route] = bench_route_run(torch, route, card, stream, windows)
+        log(f"{name}: {route} route {time.perf_counter() - t1:.1f} s, storm {runs[route][4]} "
+            f"beats, compaction merges {runs[route][3]}, spans {json.dumps(runs[route][2])}")
+    answers = {k: v[0] for k, v in runs.items()}
+    for route in ("host", "cpu"):
+        if answers[route] != answers["device"]:
+            bad = next(k for k, (x, y) in enumerate(zip(answers[route], answers["device"])) if x != y)
+            raise SystemExit(f"{name}: the {route} run's answer {bad} differs from the device route's")
+    dev_l, host_l = runs["device"][1], runs["host"][1]
+    if card == "cuda":
+        if any(host_l[k] for k in ROUTE_KERNELS):
+            raise SystemExit(f"{name}: the host route launched a device-route kernel: "
+                             + json.dumps({k: host_l[k] for k in ROUTE_KERNELS}))
+        if min(dev_l[k] for k in ROUTE_KERNELS) == 0:
+            raise SystemExit(f"{name}: a device-route kernel did not launch: "
+                             + json.dumps({k: dev_l[k] for k in ROUTE_KERNELS}))
+        for label, l in (("device", dev_l), ("host", host_l)):
+            if not (l["create_transfers_fast"] and l["register_accounts"] and l["read_balances"]):
+                raise SystemExit(f"{name}: the {label} route's commit kernels did not launch: {l}")
+    tail = answers["device"][-BENCH_SCANS - BENCH_QUERIES:]
+    q_rows = sum(len(a) for a in tail[:BENCH_QUERIES]) // 128  # transfer records
+    s_rows = sum(len(a) for a in tail[BENCH_QUERIES:]) // 4  # u32 object-log rows
+    if not (q_rows and s_rows):
+        raise SystemExit(f"{name}: the queries ({q_rows} rows) or the scans ({s_rows}) came back empty")
+    log(f"{name}: {len(stream)} batches ({BENCH_UNIFORM} uniform, {BENCH_QUERY_BATCHES} query "
+        f"mix), a storm, {BENCH_ACCOUNTS} lookups, {BENCH_QUERIES} queries and {BENCH_SCANS} "
+        f"scans ({q_rows} and {s_rows} rows) equal on the device route, the host route and the CPU; "
+        f"launches device " + json.dumps({k: dev_l[k] for k in ROUTE_KERNELS})
+        + " host " + json.dumps({k: host_l[k] for k in ROUTE_KERNELS})
+        + f"; {time.perf_counter() - t0:.1f} s on {CARD[0]}")
+    return {k: dev_l.get(k, 0) + host_l.get(k, 0) for k in set(dev_l) | set(host_l)}
+
+
+# The commit kernels' least bytes, counted by hand from PERF.md's table
+# (rows 1-4) over A accounts and n events or k slots; /device's rows
+# come from devicestats.COSTS, which these hold. create_transfers_fast:
+# the four (A, 4) u32 tables in and out, 80 bytes an event in, its host
+# code, ledger and flags of both slots, its result code, the bail word.
+# register_accounts: slots, ledger, flags and mask in (13 bytes a slot),
+# a ledger and a flags word out for each (no count of the installed
+# ones is recorded on the main path). read_balances and write_balances:
+# the slots and four 16-byte rows a slot each way.
+HAND_BYTES = {
+    "create_transfers_fast": lambda a, n: 128 * a + 96 * n + 1,
+    "register_accounts": lambda a, k: 21 * k,
+    "read_balances": lambda a, k: 132 * k,
+    "write_balances": lambda a, k: 132 * k,
+}
+
+
+def hand_bytes(entry, spec):
+    """HAND_BYTES of one /device row, its A and n (or k) read off the
+    logged shapes: the state's first table, then the batch's dr_slot
+    column or the slots."""
+    a = spec["s"][0]["s"][0]["t"][0]
+    arg = spec["s"][1]
+    n = (arg["s"][1] if "s" in arg else arg)["t"][0]
+    return HAND_BYTES[entry](a, n), a, n
+
+
+def check_device_plane(mport, launched, card, config="production"):
+    """(e) A `cli start` replica's /device: a cost row for every entry
+    its /metrics counts as launched, the commit kernels' bytes equal to
+    HAND_BYTES at their logged shapes (create_transfers_fast at A = 2^20
+    and n = 8192 required at PRODUCTION), no row above the card's memory
+    rate, the allocator's report, and the reader renders it. The other
+    rows' bytes are logged as /device gives them."""
+    from tigerbeetle_tpu_torch.net.scrape import http_get_json
+
+    name = "bench /device"
+    doc = http_get_json(mport, "/device", timeout=60)
+    rows = doc["entries"]
+    entries = {r["entry"] for r in rows}
+    missing = sorted(k for k, v in launched.items() if v and k not in entries)
+    if missing:
+        raise SystemExit(f"{name}: launched entries without a cost row: {missing}")
+    top_gbps = HBM_BYTES_PER_S / 1e9 * 1.05
+    held = []
+    for r in rows:
+        if r["entry"] in HAND_BYTES and not r["kwspec"]:
+            want, a, n = hand_bytes(r["entry"], r["spec"])
+            if r["bytes"] != want:
+                raise SystemExit(f"{name}: {r['entry']} at A={a}, n={n}: {r['bytes']} bytes, "
+                                 f"the hand count is {want}")
+            held.append((r["entry"], a, n, want))
+        if r["achieved_gbps"] is not None and r["achieved_gbps"] > top_gbps:
+            raise SystemExit(f"{name}: {r['entry']} reads {r['achieved_gbps']} GB/s, over "
+                             f"the card's {HBM_BYTES_PER_S / 1e9:.0f} GB/s")
+    if not any(h[0] == "create_transfers_fast" for h in held) or (
+            config == "production"
+            and ("create_transfers_fast", A_MAX, 8192, 135_004_161) not in held):
+        raise SystemExit(f"{name}: no create_transfers_fast row at A=2^20, n=8192 of "
+                         f"135,004,161 bytes (held {held})")
+    mem = doc["mem"].get("backend_reported")
+    if card == "cuda" and (not mem or mem.get("source") != "torch.cuda.memory_stats"
+                           or mem["bytes_in_use"] <= 0):
+        raise SystemExit(f"{name}: no allocator report from torch.cuda.memory_stats: {doc['mem']}")
+    top = subprocess.run([sys.executable, os.path.join(REPO, "tools", "torch_device_top.py"),
+                          f"--ports={mport}"], capture_output=True, text=True, timeout=120)
+    if top.returncode or f"backend={card}" not in top.stdout or any(
+            e not in top.stdout for e in entries):
+        raise SystemExit(f"{name}: tools/torch_device_top.py did not render it:\n"
+                         f"{top.stdout}\n{top.stderr[-2000:]}")
+    for r in rows:
+        log(f"{name}: {r['entry']} {r['shape'][:60]} calls={r['calls']} "
+            f"ms_per_call={r['ms_per_call']} bytes={r['bytes']} achieved_gbps={r['achieved_gbps']} "
+            f"bound_ms={r['bound_ms']} bound_share={r['bound_share']} bound={r['bound']}")
+    log(f"{name}: bytes equal to the hand count (entry, A, n, bytes): {held}")
+    log(f"{name}: {len(rows)} rows for launched {sorted(k for k, v in launched.items() if v)}; "
+        f"memory {json.dumps(doc['mem'].get('backend_reported'))}, ledger total "
+        f"{doc['mem']['total_bytes']}; xfer {json.dumps(doc['xfer'])}; on {CARD[0]}")
+    log(f"{name}: tools/torch_device_top.py:\n{top.stdout.rstrip()}")
+
+
+def bench_stage_run(rng_seed, serial, card, config, tmp):
+    """One single-replica `cli start` on `card` through (b)'s stream:
+    10,000 accounts, STAGE_BATCHES uniform batches of 8190, a lookup of
+    every account. Returns (create replies, the lookups, launches off
+    its /metrics, seconds of the stream)."""
+    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch.client import Client
+    from tigerbeetle_tpu_torch.testing.chaos import (
+        _spawn_replica, probe_free_port, scrape_launches,
+    )
+
+    label = "serial" if serial else "default"
+    path = os.path.join(tmp, f"{label}.tigerbeetle")
+    fmt = subprocess.run([sys.executable, "-m", "tigerbeetle_tpu_torch.cli", "format", path,
+                          "--replica=0", f"--config={config}"],
+                         capture_output=True, text=True, timeout=FRONT_WAIT_S)
+    if fmt.returncode:
+        raise SystemExit(f"bench stages: cli format failed:\n{fmt.stdout}{fmt.stderr}")
+    port = probe_free_port()
+    mport = probe_free_port(port + 1)
+    t0 = time.perf_counter()
+    proc = _spawn_replica(path, port, mport, config, card,
+                          extra_args=list(SERIAL_STAGES) if serial else [],
+                          log_path=path + ".log")
+    try:
+        if proc.poll() is not None:
+            with open(path + ".log", "rb") as f:
+                raise SystemExit(f"bench stages: the {label} replica exited at boot:\n"
+                                 + f.read()[-4000:].decode("utf-8", "replace"))
+        boot_s = time.perf_counter() - t0
+        rng = np.random.default_rng(rng_seed)  # the same stream on both runs
+        client = Client([("127.0.0.1", port)])
+        client.REQUEST_TIMEOUT = FRONT_WAIT_S
+        replies = [client.create_accounts(ev).tobytes() for ev in account_batches(types, BENCH_ACCOUNTS)]
+        t1 = time.perf_counter()
+        next_id = 1
+        for _ in range(STAGE_BATCHES):
+            replies.append(client.create_transfers(uniform_batch(types, rng, next_id)).tobytes())
+            next_id += TX_BATCH
+        stream_s = time.perf_counter() - t1
+        if not serial:
+            check_device_plane(mport, scrape_launches(mport), card, config)
+        lookups = []
+        for k in range(1, BENCH_ACCOUNTS + 1, TX_BATCH):
+            rows = client.lookup_accounts(list(range(k, min(k + TX_BATCH, BENCH_ACCOUNTS + 1))))
+            lookups.append(rows)
+        client.close()
+        launches = scrape_launches(mport)
+        log(f"bench stages: {label} `cli start` ({' '.join(SERIAL_STAGES) if serial else 'defaults'})"
+            f" booted in {boot_s:.1f} s; {STAGE_BATCHES} batches in {stream_s:.2f} s "
+            f"({STAGE_BATCHES * TX_BATCH / stream_s:.0f} transfers/s over TCP)")
+        return replies, np.concatenate(lookups), launches, stream_s
+    finally:
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
+def bench_stages(rng, card="cuda", config="production"):
+    """(b) The stage A/B: the same seeded stream through a one-replica
+    `cli start` by default and with --serial-commit --serial-store
+    --commit-depth 1: byte-equal replies and lookups (the accounts'
+    timestamps, stamped by each run's wall clock, aside); (e) on the
+    default run after its timed stream; then one `cli benchmark
+    --untraced --serial-commit --serial-store`."""
+    import shutil
+    import signal
+    import tempfile
+
+    from tigerbeetle_tpu_torch.testing.chaos import probe_free_port
+
+    name = "bench stages"
+    seed = int(rng.integers(1 << 31))
+    tmp = tempfile.mkdtemp(prefix="tb-stages-")
+    try:
+        default = bench_stage_run(seed, False, card, config, tmp)
+        serial = bench_stage_run(seed, True, card, config, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if default[0] != serial[0]:
+        bad = next(k for k, (x, y) in enumerate(zip(default[0], serial[0])) if x != y)
+        raise SystemExit(f"{name}: reply {bad} differs between the default and the serial run")
+    got, want = default[1].copy(), serial[1].copy()
+    if len(got) != BENCH_ACCOUNTS:
+        raise SystemExit(f"{name}: the lookup returned {len(got)} accounts")
+    got["timestamp"], want["timestamp"] = 0, 0
+    if got.tobytes() != want.tobytes():
+        raise SystemExit(f"{name}: the accounts differ between the default and the serial run")
+    if card == "cuda":
+        for label, l in (("default", default[2]), ("serial", serial[2])):
+            if not (l.get("create_transfers_fast") and l.get("register_accounts")
+                    and l.get("read_balances")):
+                raise SystemExit(f"{name}: the {label} run's commit kernels did not launch: {l}")
+    log(f"{name}: {len(default[0])} replies and {BENCH_ACCOUNTS} accounts byte-equal (timestamps "
+        f"aside); default {STAGE_BATCHES * TX_BATCH / default[3]:.0f}, serial "
+        f"{STAGE_BATCHES * TX_BATCH / serial[3]:.0f} transfers/s over TCP on {CARD[0]}")
+    port = probe_free_port()
+    t1 = time.perf_counter()
+    bench_proc = subprocess.Popen(
+        [sys.executable, "-m", "tigerbeetle_tpu_torch.cli", "benchmark", "--accounts",
+         str(BENCH_ACCOUNTS), "--transfers", str(10 * TX_BATCH), "--queries", "10",
+         f"--port={port}", f"--device={card}", f"--config={config}", "--untraced",
+         "--serial-commit", "--serial-store"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = bench_proc.communicate(timeout=FRONT_WAIT_S)
+    finally:
+        if bench_proc.poll() is None:
+            os.killpg(bench_proc.pid, signal.SIGKILL)
+            bench_proc.wait()
+    line = next((x for x in out.splitlines() if x.startswith("BENCH_JSON ")), None)
+    if bench_proc.returncode or line is None:
+        raise SystemExit(f"{name}: cli benchmark failed:\n{out}\n{err[-4000:]}")
+    log(f"{name}: cli benchmark --untraced --serial-commit --serial-store ({10 * TX_BATCH} "
+        f"transfers) took {time.perf_counter() - t1:.1f} s on {CARD[0]}:")
+    log(line)
+    return {k: default[2].get(k, 0) + serial[2].get(k, 0)
+            for k in set(default[2]) | set(serial[2])}
+
+
+def bench_overload(card="cuda", **sizes):
+    """(c) testing/loadgen.run_overload_bench on `card`, at its defaults
+    unless `sizes` cut them."""
+    from tigerbeetle_tpu_torch.testing import loadgen
+
+    name = "bench overload"
+    out = loadgen.run_overload_bench(device=card, collect_launches=True, **sizes)
+    launches = out.pop("_launches")
+    if out["churn_audit_ok"] != 1:
+        raise SystemExit(f"{name}: the churn audit failed: {json.dumps(out['churn']['audit'])}")
+    if card == "cuda" and not (launches.get("create_transfers_fast") and launches.get("register_accounts")):
+        raise SystemExit(f"{name}: the server's commit kernels did not launch: {launches}")
+    log(f"{name}: accepted_tx_per_s_at_1x={out['accepted_tx_per_s_at_1x']} "
+        f"perceived_p99_ms_at_1x={out['perceived_p99_ms_at_1x']} "
+        f"accepted_5x_over_1x_pct={out['accepted_5x_over_1x_pct']} "
+        f"saturation_probe_tx_per_s={out['saturation_probe']['accepted_tx_per_s']} "
+        f"churn_sessions={out['churn_sessions']} churn_audit={json.dumps(out['churn']['audit'])} "
+        f"overload_wall_s={out['overload_wall_s']} launches={json.dumps(launches)} on {CARD[0]}")
+    for k in ("at_1x", "at_2x", "at_5x"):
+        p = out[k]
+        log(f"{name}: {k} offered {p['offered_tx_per_s']} accepted {p['accepted_tx_per_s']} tx/s, "
+            f"perceived p50/p99 {p['perceived_p50_ms']} / {p['perceived_p99_ms']} ms, "
+            f"sheds {p['sheds']}")
+    return launches
+
+
+def bench_cluster_plane(card="cuda", **sizes):
+    """(d) testing/chaos.run_cluster_plane_bench on `card`, held to the
+    reference test's assertions; the replicas' traces merge through
+    tools/torch_cluster_trace.py into one lane each."""
+    import importlib.util
+
+    from tigerbeetle_tpu_torch.testing import chaos
+
+    name = "bench cluster plane"
+    out = chaos.run_cluster_plane_bench(device=card, collect_traces=True,
+                                        collect_launches=True, **sizes)
+    traces, statuses, launches = out.pop("_traces"), out.pop("_statuses"), out.pop("_launches")
+    delayed, peers = out["delayed_replica"], out["peer_table"]
+    checks = {
+        "gated keys": out["replication_lag_p99_ms"] is not None
+        and out["quorum_straggler_p99_ms"] is not None,
+        "straggler p99 > 10 ms": (out["quorum_straggler_p99_ms"] or 0) > 10.0,
+        "delayed peer p99 > 2x healthy": out["delayed_peer_ok_p99_ms"] is not None
+        and out["healthy_peer_ok_p99_ms"] is not None
+        and out["delayed_peer_ok_p99_ms"] > 2 * out["healthy_peer_ok_p99_ms"],
+        "slow_peer names the delayed replica": out["slow_peer"] == delayed,
+        "straggler attribution": peers[str(delayed)]["quorum_straggler"] > 0 and all(
+            p["quorum_straggler"] <= peers[str(delayed)]["quorum_straggler"]
+            for rid, p in peers.items() if int(rid) != delayed),
+        "per-peer bus counters": peers[str(delayed)]["rx_messages"] > 0,
+    }
+    spec = importlib.util.spec_from_file_location(
+        "torch_cluster_trace", os.path.join(REPO, "tools", "torch_cluster_trace.py"))
+    ct = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ct)
+    merged = ct.merge_traces(traces, statuses)
+    lanes = {e["pid"] for e in merged["traceEvents"] if e.get("ph") == "X"}
+    checks["three process lanes"] = lanes == {0, 1, 2} and "clusterAlignment" in merged
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"{name}: {failed}: " + json.dumps(
+            {k: v for k, v in out.items() if k != "peer_table"}))
+    total = {}
+    for l in launches:
+        for k, v in l.items():
+            total[k] = total.get(k, 0) + v
+    if card == "cuda" and not (total.get("create_transfers_fast") and total.get("register_accounts")):
+        raise SystemExit(f"{name}: the replicas' commit kernels did not launch: {launches}")
+    log(f"{name}: " + json.dumps({k: v for k, v in out.items() if k != "peer_table"})
+        + f" merged lanes {sorted(lanes)} launches {json.dumps(total)} on {CARD[0]}")
+    return total
+
+
+def run_bench_phase(torch, rng, card="cuda", overload=None, cluster_plane=None):
+    """Phase 13: (a) the merge route A/B in process, (b) the stage A/B over
+    `cli start` with (e) the device plane on its default run, (c) the
+    overload harness, (d) the cluster-plane harness, each on `card`.
+    Returns the launches of (a)'s two card machines and of every replica
+    process ((b), (c), (d)) off its /metrics."""
+    from tigerbeetle_tpu_torch.ops import commit as C
+
+    t_phase = time.perf_counter()
+    parts = []
+    for label, fn in (("(a)", lambda: bench_routes(torch, rng, card)),
+                      ("(b)+(e)", lambda: bench_stages(rng, card)),
+                      ("(c)", lambda: bench_overload(card, **(overload or {}))),
+                      ("(d)", lambda: bench_cluster_plane(card, **(cluster_plane or {})))):
+        t0 = time.perf_counter()
+        parts.append(fn())
+        log(f"phase 13 {label} took {time.perf_counter() - t0:.1f} s")
+    total = dict.fromkeys(C.LAUNCHES, 0)
+    for l in parts:
+        for k, v in l.items():
+            total[k] = total.get(k, 0) + v
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s; launches " + json.dumps(total))
+    return total
+
+
 def gpu_name_power() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -3321,6 +3813,7 @@ def main() -> int:
                     help="run phase 9 alone, on a mesh of the first N cards (make_mesh(N)) "
                          "against the single-device machine on the first")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -3445,9 +3938,15 @@ def main() -> int:
     l12 = run_vopr_phase(torch)
     log(f"phase 12 took {time.perf_counter() - t0:.1f} s")
 
+    log("phase 13: what the first benchmark drives: the merge route A/B, the stage A/B over "
+        "`cli start` with its /device, the overload and the cluster-plane harnesses")
+    torch.cuda.empty_cache()
+    l13 = run_bench_phase(torch, np.random.default_rng(args.seed + 31))
+    log(f"chip_smoke: phases 1-13 took {time.perf_counter() - t_start:.1f} s")
+
     phases = {"config1": l1, "config2": l2, "config3": l3, "config4": l4, "query": l7,
               "query_storm": l7s, "compaction": l8, "mesh": l9, "replica": l10, "frontdoor": l11,
-              "vopr": l12}
+              "vopr": l12, "bench": l13}
     for label, launches in phases.items():
         check_off_path(label, launches)
     for name, row in RESULTS.items():

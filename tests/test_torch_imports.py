@@ -76,12 +76,14 @@ def test_tidy_modules_import_and_run_without_jax_or_reference():
 
 
 def test_no_port_module_imports_the_reference_package():
-    """No source of the port (nor chip_smoke.py) names the reference
-    package in an import statement."""
+    """No source of the port (nor chip_smoke.py, nor the port's tools)
+    names the reference package in an import statement."""
     import re
 
     pat = re.compile(r"^\s*(from|import)\s+tigerbeetle_tpu(\.|\s|$)", re.M)
     files = [os.path.join(REPO, "chip_smoke.py")]
+    files += [os.path.join(REPO, "tools", n) for n in sorted(os.listdir(os.path.join(REPO, "tools")))
+              if n.startswith("torch_") and n.endswith(".py")]
     for root, _dirs, names in os.walk(os.path.join(REPO, "tigerbeetle_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     bad = []
@@ -90,6 +92,52 @@ def test_no_port_module_imports_the_reference_package():
             if pat.search(fh.read()):
                 bad.append(os.path.relpath(f, REPO))
     assert len(files) > 20 and not bad, bad
+
+
+def test_device_plane_tools_and_harnesses_run_without_jax_or_reference():
+    """The port's readers of /device, /cluster and /trace
+    (tools/torch_device_top.py, torch_cluster_top.py,
+    torch_cluster_trace.py, torch_cluster_plane_runs.py) and the harness code (the overload and
+    cluster-plane benches, the device plane) import with jax blocked,
+    render a CPU machine's /device payload and merge a trace, and load no
+    module of the reference package."""
+    out = _run(
+        "import sys, importlib.util\n"
+        "sys.modules['jax'] = None\n"
+        "from tigerbeetle_tpu_torch import devicestats, tracer\n"
+        "from tigerbeetle_tpu_torch.testing import chaos, loadgen\n"
+        "from tigerbeetle_tpu_torch.testing.chaos import run_cluster_plane_bench\n"
+        "from tigerbeetle_tpu_torch.testing.loadgen import run_overload_bench\n"
+        "from tigerbeetle_tpu_torch.net.bus import NetFault\n"
+        "from tigerbeetle_tpu_torch.ops.merge import device_merge_pays\n"
+        "tools = {}\n"
+        "for name in ('torch_device_top', 'torch_cluster_top', 'torch_cluster_trace',\n"
+        "             'torch_cluster_plane_runs'):\n"
+        "    spec = importlib.util.spec_from_file_location(name, f'tools/{name}.py')\n"
+        "    tools[name] = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(tools[name])\n"
+        "import numpy as np\n"
+        "from tigerbeetle_tpu_torch.constants import TEST_MIN\n"
+        "from tigerbeetle_tpu_torch.models.state_machine import StateMachine\n"
+        "from tigerbeetle_tpu_torch import types\n"
+        "tracer.enable()\n"
+        "sm = StateMachine(TEST_MIN, device='cpu')\n"
+        "acc = np.zeros(4, dtype=types.ACCOUNT_DTYPE)\n"
+        "acc['id_lo'] = np.arange(1, 5); acc['ledger'] = 1; acc['code'] = 1\n"
+        "assert len(sm.create_accounts(acc)) == 0\n"
+        "class R: state_machine = sm; commit_depth = 1\n"
+        "st = devicestats.device_status(R())\n"
+        "assert st['backend'] == 'cpu' and st['entries'], st\n"
+        "assert 'register_accounts' in tools['torch_device_top'].render([st], [1])\n"
+        "merged = tools['torch_cluster_trace'].merge_traces([tracer.export_trace()])\n"
+        "assert merged['traceEvents']\n"
+        "assert tools['torch_cluster_top'].render([None], [1])\n"
+        "assert tools['torch_cluster_plane_runs'].largest_ack(tracer.export_trace(), 1) == {'acks': 0}\n"
+        "bad = [m for m in sys.modules if m == 'tigerbeetle_tpu'"
+        " or m.startswith('tigerbeetle_tpu.')]\n"
+        "assert not bad, bad\n"
+    )
+    assert out.returncode == 0, out.stderr + out.stdout
 
 
 def test_state_machine_without_device_raises_without_cuda():

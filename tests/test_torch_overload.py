@@ -1,0 +1,48 @@
+"""The port's overload harness (testing/loadgen.py run_overload_bench)
+on the CPU: a seconds-bounded twin at the sizes of the reference's
+tier-1 loadgen smoke (tests/test_front_door.py: a few hundred sessions,
+500 accounts, 64-event batches, the development preset). The churn
+run's audit (every sampled acknowledged transfer read back, the replica
+alive, no pipeline exception) must report ok == 1, and the result must
+carry the reference harness's keys; the reference runs the same sizes
+in a process of its own beside it (its own ports: both harnesses pick a
+port from their process id)."""
+
+import json
+import os
+import subprocess
+import sys
+
+from tigerbeetle_tpu_torch.testing import loadgen
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SIZES = dict(sessions=48, churn_sessions=150, accounts=500, batch=64,
+             probe_s=1.0, point_s=1.0, churn_s=2.0, config="development")
+
+
+def test_overload_twin_audits_and_matches_the_reference_keys():
+    code = (
+        "import json, sys\n"
+        "from tigerbeetle_tpu.testing import loadgen\n"
+        f"out = loadgen.run_overload_bench(**{SIZES!r}, backend='numpy')\n"
+        "print('KEYS ' + json.dumps([sorted(out), sorted(out['churn']), out['churn_audit_ok']]))\n"
+    )
+    ref_proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO, text=True,
+                                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL)
+    try:
+        out = loadgen.run_overload_bench(**SIZES, device="cpu")
+    finally:
+        ref_out, _ = ref_proc.communicate(timeout=300)
+    line = next(x for x in ref_out.splitlines() if x.startswith("KEYS "))
+    ref_keys, ref_churn_keys, ref_ok = json.loads(line[5:])
+    assert out["churn_audit_ok"] == 1, out["churn"]["audit"]
+    assert out["churn"]["audit"]["acked_found"] == out["churn"]["audit"]["acked_checked"] > 0
+    assert out["churn_sessions"] == 150
+    assert out["saturation_probe"]["accepted_tx"] > 0
+    for mult in (1, 2, 5):
+        point = out[f"at_{mult}x"]
+        assert point["sessions_failed"] == 0 and point["offered_tx_per_s"] > 0
+    assert sorted(out) == ref_keys
+    assert sorted(out["churn"]) == ref_churn_keys
+    assert ref_ok == 1

@@ -261,6 +261,16 @@ def test_sync_fixture_exact_findings():
     assert {f.pass_name for f in only} == {"reduction"} and len(only) == 4
 
 
+def test_a_value_reading_cost_row_is_flagged():
+    """devicestats.py is in the hot set: a COSTS row that counts from the
+    values of its tensors (a sync beside every launch) is flagged; the
+    row that counts from shapes alone and the hot caller are not."""
+    assert "tigerbeetle_tpu_torch/devicestats.py" in manifest.SYNCLINT_MODULES
+    fs = synclint.analyze_file(OWN / "costs_bad.py", REPO)
+    assert [(f.pass_name, f.code, f.line, f.scope, f.subject) for f in fs] == [
+        ("host-sync", "host-sync", 9, "_landed", ".item()")]
+
+
 def test_every_seam_holds_a_sync_and_the_rest_holds_none():
     """Each seam and host-only entry names a function that does wait on
     the card (else it would be a declaration with nothing to declare),

@@ -50,9 +50,16 @@ def cmd_format(args) -> int:
     return 0
 
 
-def cmd_start(args) -> int:
-    import os as _os
+def stage_enabled(min_cpus: int, disabled: bool) -> bool:
+    """Adaptive per-stage default of `start`: on where the host has at
+    least `min_cpus` CPUs; the CLI flag (`disabled`) turns it off
+    outright."""
+    import os
 
+    return (os.cpu_count() or 1) >= min_cpus and not disabled
+
+
+def cmd_start(args) -> int:
     from tigerbeetle_tpu_torch.constants import config_by_name
     from tigerbeetle_tpu_torch.io.storage import FileStorage, Zone
     from tigerbeetle_tpu_torch.net.bus import ReplicaServer
@@ -60,13 +67,21 @@ def cmd_start(args) -> int:
 
     config = config_by_name(args.config)
     # Front-door sizing: --clients-max=10000 turns the preset's 32-client
-    # session table into the ten-thousand-session front door. The session
-    # table is RAM sizing, so overriding it never touches the data-file
-    # layout.
-    if args.clients_max:
-        import dataclasses as _dc
+    # session table into the ten-thousand-session front door, and
+    # --request-queue-max / --admission-p99-ms set the admission policy.
+    # Session and admission fields are RAM sizing, so overriding them
+    # never touches the data-file layout.
+    import dataclasses as _dc
 
-        config = _dc.replace(config, clients_max=args.clients_max)
+    overrides = {}
+    if args.clients_max:
+        overrides["clients_max"] = args.clients_max
+    if args.request_queue_max:
+        overrides["request_queue_max"] = args.request_queue_max
+    if args.admission_p99_ms:
+        overrides["admission_p99_ms"] = args.admission_p99_ms
+    if overrides:
+        config = _dc.replace(config, **overrides)
     zone = Zone.for_config(
         config.journal_slot_count, config.message_size_max,
         grid_block_count=config.grid_block_count,
@@ -95,23 +110,20 @@ def cmd_start(args) -> int:
     )
     # The overlapped commit pipeline (WAL writer + commit-executor stage,
     # wired by ReplicaServer.start) at --commit-depth, or at the state
-    # machine's device-aware commit depth when that is 0. The overlapped
+    # machine's device-aware commit depth when that is 0. --serial-commit keeps
+    # commits inline on the event loop (the A/B switch). The overlapped
     # stage needs a core to run on: with fewer than 3 CPUs the executor
     # thread just time-slices against the event loop (and a co-located
     # bench client), paying GIL handoffs for no parallelism, so commits
     # stay inline on the loop there.
-    def stage_enabled(min_cpus: int) -> bool:
-        """Adaptive per-stage default: ON when the host has at least
-        min_cpus."""
-        return (_os.cpu_count() or 1) >= min_cpus
-
-    overlap = stage_enabled(3)
+    overlap = stage_enabled(3, args.serial_commit)
     # Async LSM store stage (StoreExecutor): groove/index writes +
     # compaction beats run off the commit path on a dedicated thread.
     # Unlike the commit executor, the store thread's heavy work releases
     # the GIL (sorts, copies, kernel launches), so it overlaps usefully
     # even on 2 CPUs; a 1-CPU box would only pay thread handoffs.
-    store_async = stage_enabled(2)
+    # --serial-store runs it inline.
+    store_async = stage_enabled(2, args.serial_store)
     server = ReplicaServer(
         replica, addresses, overlap=overlap, store_async=store_async,
         commit_depth=args.commit_depth,
@@ -125,6 +137,11 @@ def cmd_start(args) -> int:
         # BEFORE open() so the boot-time recovery stamps (WAL-replay
         # gauges, vsr.recovery_state) land in the registry a harness
         # scrapes after a restart.
+        tracer.enable()
+    if config.admission_p99_ms > 0 and not tracer.enabled():
+        # The latency-based admission bound reads the lifecycle
+        # histogram: without the tracer it would do nothing, and an
+        # operator who configured a 50 ms bound would get none.
         tracer.enable()
     replica.open()
     host, port = addresses[args.replica]
@@ -141,9 +158,15 @@ def cmd_start(args) -> int:
             # server's lifetime (a dropped asyncio.Server may be GC'd).
             # /cluster adds this replica's cluster-plane status table
             # (view/commit position + per-peer lag/latency/clock-offset
-            # health).
+            # health) for tools/torch_cluster_top.py and
+            # tools/torch_cluster_trace.py. /device adds the device plane
+            # (per-kernel cost and roofline rows, the memory ledger and
+            # the card's allocator, transfer bandwidth, open dispatch
+            # windows) for tools/torch_device_top.py; it reads no device
+            # value, so a scrape never waits on the card.
             import json as _json
 
+            from tigerbeetle_tpu_torch import devicestats
             from tigerbeetle_tpu_torch.vsr import peerstats
 
             routes = {
@@ -153,12 +176,19 @@ def cmd_start(args) -> int:
                     ).encode(),
                     "application/json",
                 ),
+                "/device": lambda: (
+                    _json.dumps(
+                        devicestats.device_status(replica)
+                    ).encode(),
+                    "application/json",
+                ),
             }
             metrics_server = await tracer.serve_metrics(
                 args.metrics_port, extra=routes
             )
             print(f"metrics on http://127.0.0.1:{args.metrics_port}/metrics "
-                  f"(trace: /trace, lifecycle: /lifecycle, cluster: /cluster)",
+                  f"(trace: /trace, lifecycle: /lifecycle, cluster: /cluster, "
+                  f"device: /device)",
                   flush=True)
         print(f"replica {args.replica}/{len(addresses)} listening on {host}:{port} "
               f"(device={replica.state_machine.device}, status={replica.status})",
@@ -332,8 +362,11 @@ def cmd_benchmark(args) -> int:
 
     port = args.port
     # The metrics endpoint implies tracing in the server: the lifecycle
-    # decomposition exists only there.
-    mport = args.metrics_port if args.metrics_port else port + 1
+    # decomposition exists only there. --untraced runs the server without
+    # it, for an overhead A/B.
+    mport = 0 if args.untraced else (
+        args.metrics_port if args.metrics_port else port + 1
+    )
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "bench.tigerbeetle")
         rc = cmd_format(argparse.Namespace(
@@ -344,14 +377,20 @@ def cmd_benchmark(args) -> int:
             sys.executable, "-m", "tigerbeetle_tpu_torch.cli", "start",
             f"--addresses=127.0.0.1:{port}", "--replica=0",
             f"--config={args.config}", f"--device={args.device}",
-            f"--metrics-port={mport}",
         ]
+        if mport:
+            server_args.append(f"--metrics-port={mport}")
         if args.open_loop:
             # The open-loop harness runs one session per connection: the
             # server's session table must hold the whole pool.
             server_args.append(
                 f"--clients-max={max(1024, 2 * args.sessions)}"
             )
+        # The stage A/B switches, forwarded to the server.
+        if args.serial_commit:
+            server_args.append("--serial-commit")
+        if args.serial_store:
+            server_args.append("--serial-store")
         proc = subprocess.Popen(
             server_args + [path],
             stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
@@ -416,12 +455,13 @@ def cmd_benchmark(args) -> int:
                 print(f"client-perceived p99 = {ol['perceived_p99_ms']:.2f} ms")
                 print(f"sheds = {ol['sheds']}  evictions = {ol['evictions']}  "
                       f"dropped = {ol['dropped']}")
-                try:
-                    lc = http_get_json(mport, "/lifecycle")
-                    result.update(lc.get("flat", {}))
-                    result["lifecycle_ops"] = lc.get("ops", 0)
-                except (OSError, ValueError) as e:
-                    print(f"lifecycle scrape failed: {e}", file=sys.stderr)
+                if mport:
+                    try:
+                        lc = http_get_json(mport, "/lifecycle")
+                        result.update(lc.get("flat", {}))
+                        result["lifecycle_ops"] = lc.get("ops", 0)
+                    except (OSError, ValueError) as e:
+                        print(f"lifecycle scrape failed: {e}", file=sys.stderr)
                 _emit_bench_json(result, args)
                 return 0
 
@@ -537,13 +577,14 @@ def cmd_benchmark(args) -> int:
             # Server-side lifecycle decomposition: per-stage queue-wait
             # vs service p50/p99 and pipeline occupancy, scraped BEFORE
             # the query phase so it covers exactly the transfer load.
-            try:
-                lc = http_get_json(mport, "/lifecycle")
-                result.update(lc.get("flat", {}))
-                result["lifecycle_ops"] = lc.get("ops", 0)
-                result["flight_dumps"] = lc.get("flight", {}).get("dumps", 0)
-            except (OSError, ValueError) as e:
-                print(f"lifecycle scrape failed: {e}", file=sys.stderr)
+            if mport:
+                try:
+                    lc = http_get_json(mport, "/lifecycle")
+                    result.update(lc.get("flat", {}))
+                    result["lifecycle_ops"] = lc.get("ops", 0)
+                    result["flight_dumps"] = lc.get("flight", {}).get("dumps", 0)
+                except (OSError, ValueError) as e:
+                    print(f"lifecycle scrape failed: {e}", file=sys.stderr)
             if "commit_inflight_mean" in result:
                 # Cross-batch commit pipelining occupancy (BENCH_JSON
                 # carries the same keys machine-readably).
@@ -645,15 +686,29 @@ def main(argv=None) -> int:
                         "dispatch-ahead, up to pipeline_max=8; 0 = "
                         "adaptive: min(pipeline_max, 4) on the card, 1 "
                         "on the CPU)")
+    s.add_argument("--serial-commit", action="store_true",
+                   help="disable the overlapped commit stage (execute "
+                        "inline on the event loop)")
+    s.add_argument("--serial-store", action="store_true",
+                   help="disable the async LSM store stage (groove/index "
+                        "writes + compaction beats inline after each op)")
     s.add_argument("--aof", action="store_true",
                    help="append committed prepares to <path>.aof")
     s.add_argument("--metrics-port", type=int, default=0,
                    help="serve /metrics (Prometheus text), /trace, "
-                        "/lifecycle and /cluster on this port from the "
-                        "replica's event loop; implies tracing on")
+                        "/lifecycle, /cluster and /device on this port "
+                        "from the replica's event loop; implies tracing on")
     s.add_argument("--clients-max", type=int, default=0,
                    help="session-table capacity override (front door: "
                         "10000+); 0 keeps the config preset's value")
+    s.add_argument("--request-queue-max", type=int, default=0,
+                   help="admission bound on queued requests: beyond it "
+                        "the primary sheds with a retryable BUSY; 0 keeps "
+                        "the preset's value")
+    s.add_argument("--admission-p99-ms", type=float, default=0.0,
+                   help="also shed while the windowed perceived p99 "
+                        "exceeds this many ms (0 = queue-depth bound only; "
+                        "a positive bound turns the tracer on)")
     s.set_defaults(fn=cmd_start)
 
     a = sub.add_parser("aof", help="AOF debug/merge/recover tooling")
@@ -709,6 +764,15 @@ def main(argv=None) -> int:
     b.add_argument("--metrics-port", type=int, default=0,
                    help="server observability port for the lifecycle "
                         "scrape (default: --port + 1)")
+    b.add_argument("--untraced", action="store_true",
+                   help="run the server without tracing/metrics (no "
+                        "lifecycle decomposition): the overhead A/B")
+    b.add_argument("--serial-commit", action="store_true",
+                   help="run the server with the overlapped commit stage "
+                        "disabled (A/B comparison)")
+    b.add_argument("--serial-store", action="store_true",
+                   help="run the server with the async store stage "
+                        "disabled (A/B comparison)")
     b.set_defaults(fn=cmd_benchmark)
 
     args = p.parse_args(argv)

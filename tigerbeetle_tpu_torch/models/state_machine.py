@@ -25,9 +25,11 @@ re-expresses upstream's StateMachine (src/state_machine.zig:34):
     sorted on the device (ops/qindex.build_run) and handed to the query
     tree as a lazy run, and memtable flushes fold those runs on the
     device (lsm/tree.py, ops/merge.merge_kernel_tiled); the query path's
-    AND-merges use the device intersect (ops/scanops). On the CPU the
-    route is off unless `device_query_index=True`, as the reference's
-    policy keeps it off on XLA's CPU backend; both routes store the same
+    AND-merges use the device intersect (ops/scanops). The route follows
+    ops/merge.device_merge_pays (on CUDA, not on the CPU, as the
+    reference's policy keeps it off on XLA's CPU backend);
+    `device_query_index=True`
+    or `False` picks it for one machine. Both routes store the same
     table bytes.
 
   - Storage work that the commit path defers runs in `compact_beat`, once
@@ -37,8 +39,8 @@ re-expresses upstream's StateMachine (src/state_machine.zig:34):
     `request_major_compaction` queues a major compaction (a storm) on
     every tree, which later beats drain while the machine keeps serving.
     The trees fold multi-run chunks on the device on the route the query
-    index takes (ops/merge.compact_fold_kernel; on the CPU only with
-    `device_query_index=True`), else with the host's C k-way merge; both
+    index takes (ops/merge.compact_fold_kernel), else with the host's
+    C k-way merge; both
     write the same bytes.
 
 The device is CUDA unless the caller passes `device="cpu"`, where every
@@ -186,7 +188,7 @@ class StateMachine:
 
     def __init__(
         self, config: Config = PRODUCTION, device=None, grid=None,
-        device_query_index: bool = False, mesh=None,
+        device_query_index: Optional[bool] = None, mesh=None,
     ) -> None:
         from tigerbeetle_tpu_torch.io.grid import MemGrid
 
@@ -268,9 +270,15 @@ class StateMachine:
         # The device query-index route (ops/qindex.py): key build and sort
         # on the device, lazy runs in the tree, the flush's fold and the
         # query intersect on the device, and every tree's compaction fold
-        # (ops/merge.compact_fold_kernel). Always on CUDA; on the CPU only
-        # when asked, so that the plain versions drive the same code.
-        self._qindex_device = self.device.type == "cuda" or bool(device_query_index)
+        # (ops/merge.compact_fold_kernel). None takes the route policy
+        # (ops/merge.device_merge_pays: on CUDA, not on the CPU); True runs it on
+        # the CPU too (the plain versions drive the same code), False
+        # keeps the host route on the card. Both write the same bytes.
+        if device_query_index is None:
+            from tigerbeetle_tpu_torch.ops.merge import device_merge_pays
+
+            device_query_index = device_merge_pays(self.device)
+        self._qindex_device = bool(device_query_index)
         tree_device = self.device if self._qindex_device else None
         self.transfer_index = DurableIndex(
             self.grid, unique=True,
@@ -1530,8 +1538,14 @@ class StateMachine:
         has_pv, has_chains = bool(np.any(is_pv)), bool(np.any(linked))
         devicestats.note_call(
             self._entry("create_transfers_exact"),
-            (self.state, b, host_code_p, pinfo, chain_t, has_pv, has_chains),
-            bucket=n_pad,
+            (self.state, b, host_code_p, pinfo, chain_t, None),
+            {"has_pv": has_pv, "has_chains": has_chains}, bucket=n_pad,
+        )
+        # Without a host plan the exact entry first launches the device
+        # sort plan (ops/commit_exact.sort_plan) on the same batch.
+        devicestats.note_call(
+            self._entry("exact_sort_plan"),
+            (b, pinfo, chain_t, self.config.accounts_max), bucket=n_pad,
         )
         t_disp = tracer.device_dispatch(
             self._entry("create_transfers_exact"),

@@ -339,9 +339,9 @@ class NetFault:
     link, and the recovery path for everything (view protocol, repair) is
     peer traffic, which is exactly what must be exercised.
 
-    Built from a comma-separated spec (the reference package reads it
-    from its TIGERBEETLE_TPU_NET_FAULT variable; here the embedder sets
-    `ReplicaServer.net_fault = NetFault(spec)`):
+    Enabled by `TIGERBEETLE_TPU_NET_FAULT` (`from_env`, read once when a
+    ReplicaServer is built; an embedder may also set
+    `ReplicaServer.net_fault = NetFault(spec)`), a comma-separated spec:
 
         drop=0.02       P(drop) per outbound peer frame
         dup=0.01        P(send twice)
@@ -355,8 +355,9 @@ class NetFault:
         blackhole=1|2   peer replica indexes to isolate, both directions
         seed=7          fault RNG seed (deterministic schedules)
 
-    Without one, `ReplicaServer.net_fault` is None and the hot send path
-    pays exactly one `is not None` check."""
+    Unset or empty: `ReplicaServer.net_fault` is None and the hot send
+    path pays exactly one `is not None` check (servers built without the
+    variable behave as if the shim did not exist)."""
 
     __slots__ = (
         "drop", "dup", "corrupt", "delay_s", "delay_to", "blackhole", "rng",
@@ -398,11 +399,18 @@ class NetFault:
                 # A typo'd fault key silently injecting nothing would be
                 # a dangerous way to believe a chaos run passed.
                 raise ValueError(
-                    f"net fault spec: unknown key {k!r} in "
+                    f"TIGERBEETLE_TPU_NET_FAULT: unknown key {k!r} in "
                     f"{spec!r} (known: drop dup corrupt delay_ms "
                     "delay_to blackhole seed)"
                 )
         self.rng = _random.Random(seed)
+
+    @staticmethod
+    def from_env() -> Optional["NetFault"]:
+        import os
+
+        spec = os.environ.get("TIGERBEETLE_TPU_NET_FAULT", "")  # tidy: allow=env-read — chaos harness switch, fixed per process; peer frames only, never the replicated state's bytes
+        return NetFault(spec) if spec.strip() else None
 
 
 class ReplicaServer:
@@ -445,10 +453,10 @@ class ReplicaServer:
         # saturated, so a firehose sender backs up into TCP instead of
         # our heap.
         self._rx_stalled = 0  # tidy: owner=loop
-        # Wire-level fault injection on peer frames, set by the embedder
-        # (the fault tests). None: the peer send path pays one `is not
-        # None` check and nothing else.
-        self.net_fault: Optional[NetFault] = None
+        # Wire-level fault injection on peer frames
+        # (TIGERBEETLE_TPU_NET_FAULT). None when the variable is unset: the
+        # peer send path pays one `is not None` check and nothing else.
+        self.net_fault: Optional[NetFault] = NetFault.from_env()
         # Per-peer bus counter names, preformatted (the tx path runs per
         # outbound peer frame on the loop — no f-string per message).
         # Bounded by the address list, so the counter families are too.

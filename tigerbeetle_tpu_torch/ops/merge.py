@@ -29,7 +29,9 @@ never takes the plain version:
     `compact_fold_materialize` (the one sync) brings back the real rows;
     `compact_fold_discard` drops a handle on the fault path.
 
-Host helpers: `bucket_pow2` (the one bucket formula of every run's
+`device_merge_pays(device)` is the one route policy of the device query
+pipeline (qindex.device_sort_pays and scanops.device_scan_pays follow
+it). Host helpers: `bucket_pow2` (the one bucket formula of every run's
 padding), `to_device_run` / `from_device_run` (and `to_host_kv`, its
 counterpart for tensors), `merge_device` (a host
 merge through the kernel), and the numpy references `merge_host` and
@@ -92,6 +94,16 @@ def merge_kernel_plain(keys_a, vals_a, keys_b, vals_b):
     keys = _concat_u32(keys_a, keys_b)
     order = stable_order(keys)
     return take_rows(keys, order), take_rows(_concat_u32(vals_a, vals_b), order)
+
+
+def device_merge_pays(device) -> bool:
+    """Whether the device query-index route (the sorted key build, lazy
+    runs, the flush's device fold, compaction's fold and the device
+    intersect) runs on `device`: on CUDA yes, on the CPU no (the plain
+    versions lose to the host's C merges there). A machine picks the
+    other route with `StateMachine(device_query_index=)`. Both routes
+    write the same bytes."""
+    return torch.device(device).type == "cuda"
 
 
 def _check_tiled(n: int, m: int, tile: int) -> None:

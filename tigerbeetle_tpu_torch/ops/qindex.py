@@ -32,6 +32,10 @@ asynchronous copy, launches the kernels and returns a `QueryKeyRun`
 without synchronising. The bytes come back later, at a memtable flush
 (the device fold's one copy, `materialize_fold`), at a read barrier
 (`QueryKeyRun.materialize`) or through the tree's idle prefetch.
+
+Whether a machine takes this route at all is ops/merge.device_merge_pays's
+one policy (the state machine's `device_query_index`), as for the flush's
+fold, compaction's fold and the intersect (ops/scanops).
 """
 
 from __future__ import annotations

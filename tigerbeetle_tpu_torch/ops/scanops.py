@@ -10,7 +10,9 @@ compresses the candidates by the mask. Both routes give the same rows.
 
 `intersect_sorted_device` stages, dispatches and finishes in one call:
 the query path is allowed its read-side sync (`finish_intersect`, the
-sanctioned seam); the commit path never calls it.
+sanctioned seam); the commit path never calls it. A scan takes this
+route where its machine takes the device query-index route
+(ops/merge.device_merge_pays, one policy for the whole pipeline).
 """
 
 from __future__ import annotations

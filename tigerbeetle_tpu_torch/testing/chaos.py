@@ -53,6 +53,12 @@ Scenarios (the engines of a benchmark's recovery section):
                    piling an UNCOMMITTED suffix, rejoins via
                    request_start_view on heal and truncates it.
 
+`run_cluster_plane_bench` is the cluster plane's benchmark: three `cli
+start` processes, one backup restarted under a TIGERBEETLE_TPU_NET_FAULT
+delay towards the primary, batched transfers, and the primary's
+replication-lag and quorum-straggler p99s read back from its /lifecycle
+and /cluster.
+
 Metrics per scenario: `recovery_time_s`, `degraded_throughput_pct`
 (throughput LOST during the recovery window vs the pre-fault baseline,
 in percent — 0 is perfect, lower is better), `replay_ops_per_s` (WAL
@@ -1053,6 +1059,7 @@ def _spawn_replica(
     addresses: Optional[str] = None,
     replica: int = 0,
     log_path: Optional[str] = None,
+    env: Optional[Dict[str, str]] = None,
 ) -> "object":
     """Start `cli.py start` detached on `device` ("cuda" or "cpu");
     returns the Popen once the replica announces its listener (after
@@ -1063,7 +1070,9 @@ def _spawn_replica(
     loadgen passes --clients-max etc.). `addresses`/`replica` spawn one
     member of a multi-replica cluster (default: a single replica on its
     own port). `log_path` keeps the child's stderr in a file (else it is
-    discarded)."""
+    discarded). `env` overlays extra environment on the child
+    (per-replica fault injection: ONE replica started under
+    TIGERBEETLE_TPU_NET_FAULT models one degraded host)."""
     import subprocess
     import sys
     import threading
@@ -1080,6 +1089,7 @@ def _spawn_replica(
                 f"--metrics-port={mport}", *extra_args, path,
             ],
             stdout=subprocess.PIPE, stderr=stderr,
+            **({"env": {**os.environ, **env}} if env else {}),
         )
     finally:
         if log_path:
@@ -1626,3 +1636,178 @@ def run_all(
         proc["sim"] = sim
         out["kill_restart"] = proc
     return out
+
+
+# --- cluster-plane bench ---------------------------------------------------
+
+
+def run_cluster_plane_bench(
+    accounts: int = 2000,
+    batch: int = 512,
+    batches: int = 40,
+    delay_ms: float = 30.0,
+    delayed_replica: int = 2,
+    config: str = "development",
+    device: str = "cuda",
+    timeout_s: float = 120.0,
+    collect_traces: bool = False,
+    collect_launches: bool = False,
+) -> dict:
+    """The cluster-plane objectives as a benchmark: a REAL 3 × `cli start`
+    TCP cluster on `device` with ONE NetFault-delayed backup (its outbound
+    peer frames, prepare_oks included, ride TIGERBEETLE_TPU_NET_FAULT
+    delay_ms), batched transfers driven at the primary, then the
+    primary's scrape surface read back:
+
+      replication_lag_p99_ms    broadcast → prepare_ok arrival over
+                                every remote ack (/lifecycle flat)
+      quorum_straggler_p99_ms   q-th arrival → straggler arrival
+                                overhang (/lifecycle flat)
+
+    The injected delay dominates both distributions, so the numbers are
+    stable across hosts: a change means the telemetry or the replication
+    plane changed, not the weather. The per-peer separation (the delayed
+    backup's prepare_ok p99 against the healthy peer's) and the
+    straggler attribution naming it ride along.
+
+    Fault topology: the delay is injected AFTER the first election by
+    restarting one backup under `delay_ms=…,delay_to=<primary>`: only
+    that backup's frames TO the primary (prepare_oks, pongs) lag. A
+    blanket outbound delay would also slow its chain-forwarded prepares
+    and smear the injected latency onto the downstream peer's acks,
+    which is exactly the ambiguity per-peer attribution exists to
+    remove. `delayed_replica` is ignored when it would be the primary
+    (a backup is picked relative to the elected primary).
+    `collect_traces` adds every replica's /trace and /cluster documents
+    (`_traces`, `_statuses`) for tools/torch_cluster_trace.py;
+    `collect_launches` adds each replica's kernel launches off its
+    /metrics (`_launches`; empty on the CPU, where no kernel launches)."""
+    import json as _json
+    import tempfile
+
+    import numpy as np
+
+    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch.client import Client
+
+    t_section = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tbtorch-clusterplane-") as tmp:
+        procs, ports, mports, paths = spawn_cluster(
+            tmp, replica_count=3, config=config, device=device,
+        )
+        try:
+            primary, view, _ = wait_cluster_primary(mports, timeout_s)
+            if delayed_replica == primary:
+                delayed_replica = (primary + 1) % 3
+            fault_env = {
+                "TIGERBEETLE_TPU_NET_FAULT": (
+                    f"delay_ms={delay_ms:g},delay_to={primary},seed=7"
+                ),
+            }
+            # Restart the chosen backup under the one-slow-LINK fault (a
+            # backup restart needs no election: quorum holds on the other
+            # two while it replays and rejoins).
+            procs[delayed_replica].kill()
+            procs[delayed_replica].wait()
+            addresses_str = ",".join(f"127.0.0.1:{p}" for p in ports)
+            procs[delayed_replica] = _spawn_replica(
+                paths[delayed_replica], ports[delayed_replica],
+                mports[delayed_replica], config, device,
+                addresses=addresses_str, replica=delayed_replica,
+                env=fault_env,
+            )
+            deadline = time.perf_counter() + timeout_s
+            rejoined = False
+            while time.perf_counter() < deadline:
+                try:
+                    g = scrape_gauges(mports[delayed_replica], prefix="vsr.")
+                except (OSError, ValueError):
+                    time.sleep(0.1)
+                    continue
+                if g.get("vsr.recovery_state", -1.0) == 0.0:
+                    rejoined = True
+                    break
+                time.sleep(0.1)
+            assert rejoined, "delayed backup never rejoined after restart"
+
+            client = Client([("127.0.0.1", ports[primary])])
+            ev = np.zeros(accounts, dtype=types.ACCOUNT_DTYPE)
+            ev["id_lo"] = np.arange(1, accounts + 1, dtype=np.uint64)
+            ev["ledger"] = 1
+            ev["code"] = 10
+            client.create_accounts(ev)
+            rng = np.random.default_rng(0xC1A0)
+            next_id = 1
+            t_load = time.perf_counter()
+            for _ in range(batches):
+                tr = np.zeros(batch, dtype=types.TRANSFER_DTYPE)
+                tr["id_lo"] = np.arange(
+                    next_id, next_id + batch, dtype=np.uint64
+                )
+                next_id += batch
+                dr = rng.integers(1, accounts + 1, batch).astype(np.uint64)
+                cr = rng.integers(1, accounts + 1, batch).astype(np.uint64)
+                cr = np.where(cr == dr, (cr % accounts) + 1, cr)
+                tr["debit_account_id_lo"] = dr
+                tr["credit_account_id_lo"] = cr
+                tr["amount_lo"] = 1
+                tr["ledger"] = 1
+                tr["code"] = 7
+                res = client.create_transfers(tr)
+                assert len(res) == 0, f"transfer batch rejected: {res[:4]}"
+            load_s = time.perf_counter() - t_load
+
+            lc = _json.loads(_http_get_text(mports[primary], "/lifecycle"))
+            flat = lc.get("flat", {})
+            status = scrape_cluster_status(mports[primary])
+            peers = status.get("peers", {})
+            delayed = peers.get(str(delayed_replica), {})
+            healthy_p99 = [
+                p.get("prepare_ok_p99_ms", 0.0)
+                for rid, p in peers.items()
+                if int(rid) != delayed_replica
+                and p.get("prepare_ok_p99_ms") is not None
+            ]
+            out = {
+                "replication_lag_p99_ms": flat.get("replication_lag_p99_ms"),
+                "quorum_straggler_p99_ms": flat.get(
+                    "quorum_straggler_p99_ms"
+                ),
+                "replication_lag_p50_ms": flat.get("replication_lag_p50_ms"),
+                "quorum_straggler_p50_ms": flat.get(
+                    "quorum_straggler_p50_ms"
+                ),
+                "delayed_replica": delayed_replica,
+                "delay_ms": delay_ms,
+                "primary": primary,
+                "peer_table": peers,
+                "delayed_peer_ok_p99_ms": delayed.get("prepare_ok_p99_ms"),
+                "healthy_peer_ok_p99_ms": (
+                    max(healthy_p99) if healthy_p99 else None
+                ),
+                "slow_peer": slowest_peer(status),
+                "tx_per_s": round(batches * batch / max(load_s, 1e-9), 1),
+                "section_wall_s": round(
+                    time.perf_counter() - t_section, 1
+                ),
+            }
+            if "clock" in status:
+                out["skew_bound_ms"] = status["clock"].get("skew_bound_ms")
+            if collect_traces:
+                # Every replica's /trace + /cluster docs while still live,
+                # for the merged-trace check (tools/torch_cluster_trace.py).
+                out["_traces"] = [
+                    _json.loads(_http_get_text(mports[i], "/trace"))
+                    for i in range(3)
+                ]
+                out["_statuses"] = [
+                    scrape_cluster_status(mports[i]) for i in range(3)
+                ]
+            if collect_launches:
+                out["_launches"] = [scrape_launches(m) for m in mports]
+            return out
+        finally:
+            for p in procs:
+                if p is not None and p.poll() is None:
+                    p.kill()
+                    p.wait()

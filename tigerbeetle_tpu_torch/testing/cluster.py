@@ -192,7 +192,7 @@ class Cluster:
         seed: int = 0,
         loss: float = 0.0,
         device=None,
-        device_query_index: bool = False,
+        device_query_index: Optional[bool] = None,
         standby_count: int = 0,
         overlap: bool = False,
         store_async: bool = False,

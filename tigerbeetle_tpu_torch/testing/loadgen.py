@@ -31,8 +31,13 @@ Pieces:
               real `cli.py start` process management (reusing
               testing/chaos.py's spawn + port probing) and the post-run
               durability/consistency audit.
+  run_overload_bench
+              the front door under overload: a saturation probe, open-loop
+              points at 1x/2x/5x it, and a churn run at 2000 sessions,
+              audited.
 
-Used by `cli.py benchmark --open-loop` and tests/test_torch_loadgen.py.
+Used by `cli.py benchmark --open-loop`, chip_smoke.py's phase 13 and
+tests/test_torch_loadgen.py / test_torch_overload.py.
 """
 
 from __future__ import annotations
@@ -752,9 +757,12 @@ def spawn_front_door(
     config: str = "production",
     device: str = "cuda",
     clients_max: int = 12_000,
+    request_queue_max: Optional[int] = None,
+    admission_p99_ms: Optional[float] = None,
 ) -> Tuple[object, int, int, str]:
     """Format + start a single-replica `cli.py start` process sized for
-    the front door, on `device` ("cuda" or "cpu"). Returns (proc, port,
+    the front door, on `device` ("cuda" or "cpu"), with the admission
+    bounds given (None keeps the preset's). Returns (proc, port,
     metrics_port, data_path)."""
     import argparse
 
@@ -768,8 +776,12 @@ def spawn_front_door(
     assert rc == 0
     port = probe_free_port(3200 + os.getpid() % 800)
     mport = probe_free_port(port + 1)
-    proc = _spawn_replica(path, port, mport, config, device,
-                          extra_args=[f"--clients-max={clients_max}"])
+    extra = [f"--clients-max={clients_max}"]
+    if request_queue_max is not None:
+        extra.append(f"--request-queue-max={request_queue_max}")
+    if admission_p99_ms is not None:
+        extra.append(f"--admission-p99-ms={admission_p99_ms}")
+    proc = _spawn_replica(path, port, mport, config, device, extra_args=extra)
     return proc, port, mport, path
 
 
@@ -889,3 +901,125 @@ def audit_queries(
         "queries_matched": matched,
         "queries_empty_skipped": empty,
     }
+
+
+def run_overload_bench(
+    *,
+    sessions: int = 192,
+    churn_sessions: int = 2000,
+    accounts: int = 10_000,
+    batch: int = 512,
+    probe_s: float = 3.0,
+    point_s: float = 5.0,
+    churn_s: float = 8.0,
+    config: str = "production",
+    device: str = "cuda",
+    collect_launches: bool = False,
+) -> dict:
+    """The front door under overload, on a single-replica `cli start` on
+    `device` ("cuda" or "cpu"):
+
+    1. saturation probe: a closed-loop flood over the session pool gives
+       the accepted ceiling (the '1x' anchor);
+    2. open-loop points at 1x/2x/5x the ceiling: accepted-vs-offered
+       and perceived p50/p99 per point (graceful shed means accepted
+       holds near the ceiling while offered climbs);
+    3. a churn run at scale: `churn_sessions` concurrent sessions
+       through ramp-in, a disconnect storm, identity rotation, and slow
+       readers, audited for durability and liveness at the end.
+
+    The headline keys are accepted_tx_per_s_at_1x (higher is better) and
+    perceived_p99_ms_at_1x (lower is better). `collect_launches` adds the
+    server's kernel launches off its /metrics, read before it stops
+    (`_launches`; empty on the CPU, where no kernel launches)."""
+    import shutil
+    import tempfile
+
+    from tigerbeetle_tpu_torch.net import codec
+
+    out: dict = {"native_bus": int(codec.enabled())}
+    tmp = tempfile.mkdtemp(prefix="tbtorch-overload-")
+    proc = None
+    t_section = time.perf_counter()
+    try:
+        # Queue bound sized BELOW the session count: with one request in
+        # flight per session, the server's queue depth can never exceed
+        # the session population, so a bound above it would make the
+        # 2x/5x points accumulate client-side backlog without ever
+        # exercising the shed path this section exists to measure.
+        proc, port, mport, _path = spawn_front_door(
+            tmp, config=config, device=device,
+            clients_max=max(12_000, churn_sessions + sessions),
+            request_queue_max=max(32, sessions // 2),
+        )
+        addresses = [("127.0.0.1", port)]
+        create_accounts(addresses, accounts)
+
+        # 1. Saturation probe: closed loop with the SAME session shape
+        # as the open-loop points: the harness shares this host's cores
+        # with the server, so a slimmer probe would measure a ceiling the
+        # instrumented run can never reach and anchor '1x' in overload.
+        probe = LoadGen(
+            addresses, sessions=sessions, accounts=accounts, batch=batch,
+            offered_rate=None, duration_s=probe_s, ramp_s=1.0, seed=0xA11,
+        )
+        probe_res = asyncio.run(probe.run())
+        sat = max(probe_res["accepted_tx_per_s"], 1.0)
+        out["saturation_probe"] = probe_res
+        next_id = probe.factory.next_id
+
+        # 2. Open-loop points at 1x/2x/5x saturation.
+        for mult in (1, 2, 5):
+            lg = LoadGen(
+                addresses, sessions=sessions, accounts=accounts,
+                batch=batch, offered_rate=mult * sat,
+                duration_s=point_s, ramp_s=1.0, seed=0xB22 + mult,
+                first_id=next_id,
+            )
+            res = asyncio.run(lg.run())
+            out[f"at_{mult}x"] = res
+            next_id = lg.factory.next_id
+        out["accepted_tx_per_s_at_1x"] = out["at_1x"]["accepted_tx_per_s"]
+        out["perceived_p99_ms_at_1x"] = out["at_1x"]["perceived_p99_ms"]
+        at1 = max(out["at_1x"]["accepted_tx_per_s"], 1.0)
+        out["accepted_5x_over_1x_pct"] = round(
+            100.0 * out["at_5x"]["accepted_tx_per_s"] / at1, 1
+        )
+
+        # 3. Churn at session scale: offered rate well under saturation
+        # (the question is session-count and churn survival, not
+        # throughput), ramped registration, then a disconnect storm, an
+        # identity-rotation wave, and slow readers throughout.
+        churn = LoadGen(
+            addresses, sessions=churn_sessions, accounts=accounts,
+            batch=64, offered_rate=0.15 * sat, duration_s=churn_s,
+            ramp_s=max(4.0, churn_sessions / 400.0), seed=0xC33,
+            slow_readers=max(2, churn_sessions // 200),
+            churn=(
+                (churn_s * 0.3, "disconnect", 0.10),
+                (churn_s * 0.6, "rotate", 0.05),
+            ),
+            first_id=next_id,
+        )
+        churn_res = asyncio.run(churn.run())
+        churn_res["audit"] = audit(
+            addresses, churn.stats.acked_sample, mport
+        )
+        out["churn"] = churn_res
+        out["churn_sessions"] = churn_sessions
+        out["churn_audit_ok"] = churn_res["audit"]["ok"]
+        if collect_launches:
+            from tigerbeetle_tpu_torch.testing.chaos import scrape_launches
+
+            out["_launches"] = scrape_launches(mport)
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=5)
+            except Exception:  # noqa: BLE001
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["overload_wall_s"] = round(time.perf_counter() - t_section, 1)
+    return out

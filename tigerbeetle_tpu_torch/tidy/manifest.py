@@ -108,6 +108,9 @@ SYNCLINT_MODULES = (
     "tigerbeetle_tpu_torch/parallel/sharding.py",
     "tigerbeetle_tpu_torch/parallel/sharded_ops.py",
     "tigerbeetle_tpu_torch/tracer.py",
+    # note_call runs next to every launch; cost_table and device_status
+    # answer /device on the event loop: neither may wait on the card.
+    "tigerbeetle_tpu_torch/devicestats.py",
 )
 
 # Kernel wrappers (by callable tail name): their results are tensors on

@@ -275,11 +275,12 @@ def device_step(entry: str):
 
 
 class _Window:
-    __slots__ = ("t0", "event")
+    __slots__ = ("t0", "event", "h2d_bytes")
 
-    def __init__(self, t0: int, event) -> None:
+    def __init__(self, t0: int, event, h2d_bytes: int = 0) -> None:
         self.t0 = t0
         self.event = event
+        self.h2d_bytes = h2d_bytes
 
 
 def _cuda_event():
@@ -305,12 +306,16 @@ def device_dispatch(entry: str, h2d_bytes: int = 0):
         count("device.h2d_bytes", h2d_bytes)
     with _lock:
         _device_inflight[entry] = _device_inflight.get(entry, 0) + 1
-    return _Window(time.perf_counter_ns(), _cuda_event())
+    return _Window(time.perf_counter_ns(), _cuda_event(), h2d_bytes)
 
 
 def device_finish(entry: str, token, d2h_bytes: int = 0) -> None:
     """Close a dispatch window: `device.step.<entry>` gets the device
-    time between the dispatch and this call (host time off CUDA)."""
+    time between the dispatch and this call (host time off CUDA). Called
+    only at the sanctioned sync seams, so the transfer-bandwidth stamps
+    add no sync of their own: `device.xfer.{h2d,d2h}.gbps` hold RAW
+    values in MB/s (GB/s × 1000, so snapshot()'s `p50_us` field reads
+    directly as GB/s) over the window's time."""
     if not _enabled or not token:
         return
     with _lock:
@@ -320,11 +325,18 @@ def device_finish(entry: str, token, d2h_bytes: int = 0) -> None:
     if token.event is not None:
         end = _cuda_event()
         end.synchronize()
-        observe(f"device.step.{entry}", int(token.event.elapsed_time(end) * 1e6))
+        dur = int(token.event.elapsed_time(end) * 1e6)
     else:
-        observe(f"device.step.{entry}", time.perf_counter_ns() - token.t0)
+        dur = time.perf_counter_ns() - token.t0
+    observe(f"device.step.{entry}", dur)
+    if dur > 0:
+        if token.h2d_bytes:
+            observe("device.xfer.h2d.gbps", max(1, token.h2d_bytes * 1000 // dur))
+        if d2h_bytes:
+            observe("device.xfer.d2h.gbps", max(1, d2h_bytes * 1000 // dur))
     with _lock:
-        _device_pairs.append((entry, token.t0, time.perf_counter_ns(), 0, d2h_bytes))
+        _device_pairs.append((entry, token.t0, time.perf_counter_ns(),
+                              token.h2d_bytes, d2h_bytes))
 
 
 def device_bytes(h2d: int = 0, d2h: int = 0) -> None:

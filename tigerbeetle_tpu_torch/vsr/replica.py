@@ -149,7 +149,7 @@ class Replica:
         config: Config,
         bus,
         device=None,
-        device_query_index: bool = False,
+        device_query_index: Optional[bool] = None,
         on_event: Optional[Callable[[str, "Replica"], None]] = None,
         time=None,
         aof=None,

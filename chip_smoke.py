@@ -144,9 +144,9 @@ caught:
      256 accounts, 8190-event batches of simple transfers (amount 1,
      ledger 1, code 1; ids from 2^63), one create_transfers and one
      compact_beat per op on the CUDA machine (the device fold) and on its
-     CPU twin (the host's k-way merge): 400 batches preloaded (3,276,000
-     transfers, bench.py's default; BASELINE says 100M, cut for the run's
-     time limit), 16 steady ops, then request_major_compaction() and one
+     CPU twin (the host's k-way merge): 200 batches preloaded (1,638,000
+     transfers; bench.py's default is 400 and BASELINE says 100M, cut
+     for the run's time limit), 16 steady ops, then request_major_compaction() and one
      op at a time until the storm is drained. Every op's results and
      compact_backlog equal the twin's; both drain the storm in the same
      op; the five trees' manifests, fences and every table block are
@@ -280,6 +280,19 @@ caught:
      three lanes in tools/torch_cluster_trace.py's merge. The launches
      of (a)'s card machines and of every replica process ((b)-(d), off
      their /metrics) make the `launches_bench` column.
+  14. The in-process pipeline profiler on the card
+     (tigerbeetle_tpu_torch/profile_e2e.py, PRODUCTION, 10,000 accounts,
+     8 warm-up and PROFILE_BATCHES measured batches of 8190 transfers),
+     by default and then with --serial-commit --serial-store, A B in one
+     call, each with the launch counts set to 0 just before it and read
+     just after: the reference profiler's checks (every batch replied,
+     no shed, server.total within 5% of the wall clock, the disjoint
+     stage rows within server.total on the serial run) and no kernel
+     library built inside the window; each run's replies and account
+     balances equal to the same stream on the port's CPU; rows 1, 2, 7
+     and 9 launched (the others logged); both stage tables printed; and
+     tools/trace_summary.py reads each dumped trace. The two runs' launches
+     make the `launches_profile` column.
 
 With --mesh-cards N, phase 1 and then phase 9 alone run, on a mesh of
 the first N cards (make_mesh(N): N = 4 gives dp 2 x shard 2) against the
@@ -287,7 +300,8 @@ single-device machine on the first: the peer copies between cards.
 
 Kernel launch counts are reset to 0 just before each main-path run (each
 of phases 3-8, phase 7's storm, phase 9's two mesh runs, phase 10's card
-cluster, and each card run of phase 12's (a)-(c) and phase 13's (a);
+cluster, each card run of phase 12's (a)-(c) and phase 13's (a), and
+phase 14's two profiled runs;
 the replica processes of phases 11 and 13 start from 0 and are read
 through their /metrics) and read
 just after; each kernel of that path must have launched in it. merge_kernel is on no path (as in the
@@ -2155,7 +2169,9 @@ def phase_fold_kernel(torch, dev, rng, seen):
 
 # --- phase 8: compaction under load (BASELINE config 5) -------------------
 
-STORM_BATCHES = 400  # bench.py's STORM_TRANSFERS default, 3,276,000 transfers
+# bench.py's STORM_TRANSFERS default is 400 batches (3,276,000 transfers):
+# cut to 200 for the script's time limit (PERF.md section 4).
+STORM_BATCHES = 200
 STEADY_BATCHES = 16
 N_ACC_STORM = 256  # bench.py:503
 TREES = ("transfer_index", "account_rows", "query_rows")
@@ -3798,6 +3814,68 @@ def run_bench_phase(torch, rng, card="cuda", overload=None, cluster_plane=None):
     return total
 
 
+# --- phase 14: the in-process pipeline profiler ------------------------------
+
+PROFILE_BATCHES = 24  # measured batches of 8190 transfers a profiled run
+PROFILE_KERNELS = ("create_transfers_fast", "register_accounts", "query_index_keys_sorted",
+                   "merge_kernel_tiled")
+
+
+def run_profile_phase(torch, card="cuda", batches=PROFILE_BATCHES, config="production"):
+    """Phase 14: profile_e2e on `card` by default and with --serial-commit
+    --serial-store (A B, one call), each against the same stream on the
+    port's CPU. Returns the two card runs' launches, summed."""
+    import importlib.util
+
+    from tigerbeetle_tpu_torch import profile_e2e
+    from tigerbeetle_tpu_torch.ops import commit as C
+
+    name = "profile"
+    spec = importlib.util.spec_from_file_location(
+        "trace_summary", os.path.join(REPO, "tools", "trace_summary.py"))
+    ts = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ts)
+    out = lambda line: log(f"  {line}")  # noqa: E731 — the profiler's tables, indented
+    t0 = time.perf_counter()
+    cpu = profile_e2e.run(device="cpu", batches=batches, config=config, out=lambda line: None)
+    log(f"{name}: the CPU run took {time.perf_counter() - t0:.1f} s "
+        f"({cpu['tx_per_s']:.0f} transfers/s)")
+    total = dict.fromkeys(C.LAUNCHES, 0)
+    runs = {}
+    for label, stages in (("default", {}),
+                          ("serial-commit serial-store",
+                           {"overlap": False, "store_async": False})):
+        log(f"{name} ({label}) on {CARD[0]}:")
+        C.reset_launches()
+        rec = profile_e2e.run(device=card, batches=batches, config=config, out=out, **stages)
+        if card == "cuda":
+            torch.cuda.synchronize()
+        launches = dict(C.LAUNCHES)
+        for key in ("replies_digest", "balances_digest"):
+            if rec[key] != cpu[key]:
+                raise SystemExit(f"{name} ({label}): {key} differs from the CPU run's")
+        if rec["kernel_builds"]:
+            raise SystemExit(f"{name} ({label}): a kernel was built inside the window")
+        summary = ts.summarize(rec["trace"])
+        if "server.total" not in summary:
+            raise SystemExit(f"{name} ({label}): tools/trace_summary.py did not read "
+                             f"{rec['trace']}")
+        if card == "cuda" and min(launches[k] for k in PROFILE_KERNELS) == 0:
+            raise SystemExit(f"{name} ({label}): a kernel of the path did not launch: "
+                             + json.dumps({k: launches[k] for k in PROFILE_KERNELS}))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        runs[label] = rec
+        log(f"{name} ({label}): {rec['value']} ms/batch, {rec['tx_per_s']:.0f} transfers/s, "
+            f"replies and balances equal to the CPU run's, no kernel built in the window, "
+            f"trace read by tools/trace_summary.py; launches "
+            + json.dumps({k: v for k, v in launches.items() if v}))
+    a, b = runs["default"], runs["serial-commit serial-store"]
+    log(f"{name}: serial over default stages {100 * (b['value'] / a['value'] - 1):+.1f}% "
+        f"ms/batch ({a['value']} -> {b['value']}) on {CARD[0]}")
+    return total
+
+
 def gpu_name_power() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -3942,11 +4020,19 @@ def main() -> int:
         "`cli start` with its /device, the overload and the cluster-plane harnesses")
     torch.cuda.empty_cache()
     l13 = run_bench_phase(torch, np.random.default_rng(args.seed + 31))
-    log(f"chip_smoke: phases 1-13 took {time.perf_counter() - t_start:.1f} s")
+
+    log(f"phase 14: the in-process pipeline profiler (profile_e2e), {PROFILE_BATCHES} "
+        f"batches of 8190 by default and with --serial-commit --serial-store, against the "
+        f"CPU run")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    l14 = run_profile_phase(torch)
+    log(f"phase 14 took {time.perf_counter() - t0:.1f} s")
+    log(f"chip_smoke: phases 1-14 took {time.perf_counter() - t_start:.1f} s")
 
     phases = {"config1": l1, "config2": l2, "config3": l3, "config4": l4, "query": l7,
               "query_storm": l7s, "compaction": l8, "mesh": l9, "replica": l10, "frontdoor": l11,
-              "vopr": l12, "bench": l13}
+              "vopr": l12, "bench": l13, "profile": l14}
     for label, launches in phases.items():
         check_off_path(label, launches)
     for name, row in RESULTS.items():

@@ -276,3 +276,24 @@ def test_front_door_runs_without_jax_or_reference():
         "assert not bad\n"
     )
     assert out.returncode == 0, out.stderr + out.stdout
+
+
+def test_profiler_and_absint_run_without_jax_or_reference():
+    """The pipeline profiler (a small CPU run, its trace dumped) and the
+    absint pass over every target load neither jax nor the reference
+    package."""
+    out = _run(
+        "import sys, pathlib, tempfile, os\n"
+        "sys.modules['jax'] = None\n"
+        "from tigerbeetle_tpu_torch import profile_e2e\n"
+        "from tigerbeetle_tpu_torch.tidy import absint\n"
+        "d = tempfile.mkdtemp()\n"
+        "rec = profile_e2e.run(device='cpu', config='test_min', batches=3,\n"
+        "    trace_path=os.path.join(d, 't.json'), out=lambda s: None)\n"
+        "assert rec['kernel_builds'] == 0 and os.path.exists(rec['trace'])\n"
+        "assert absint.run(pathlib.Path('.')) == []\n"
+        "bad = [m for m in sys.modules if m == 'tigerbeetle_tpu'"
+        " or m.startswith('tigerbeetle_tpu.')]\n"
+        "assert not bad, bad\n"
+    )
+    assert out.returncode == 0, out.stderr + out.stdout

@@ -43,8 +43,8 @@ OWN = FIX / "tidy_torch"
 
 ALL_PASSES = [
     "ownership", "determinism", "markers", "host-sync", "reduction",
-    "native-layout", "native-abi", "native-absint", "vsrlint", "quorum",
-    "protomodel",
+    "native-layout", "native-abi", "native-absint", "absint", "vsrlint",
+    "quorum", "protomodel",
 ]
 
 

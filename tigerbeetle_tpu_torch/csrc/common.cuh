@@ -25,10 +25,11 @@ __device__ __forceinline__ bool sum_overflows(uint4 a, uint4 b) {
   unsigned long long ahi = ((unsigned long long)a.w << 32) | a.z;
   unsigned long long blo = ((unsigned long long)b.y << 32) | b.x;
   unsigned long long bhi = ((unsigned long long)b.w << 32) | b.z;
-  unsigned long long lo = alo + blo;
+  // The sums wrap by design: each wrap is the carry the next line reads.
+  unsigned long long lo = alo + blo;  // tidy: allow=limb-overflow — mod 2^64
   unsigned long long c = lo < alo;
-  unsigned long long s1 = ahi + bhi;
-  unsigned long long s2 = s1 + c;
+  unsigned long long s1 = ahi + bhi;  // tidy: allow=limb-overflow — mod 2^64
+  unsigned long long s2 = s1 + c;  // tidy: allow=limb-overflow — mod 2^64
   return (s1 < ahi) || (s2 < s1);
 }
 
@@ -49,15 +50,17 @@ __device__ __forceinline__ bool atomic_add_u128(uint32_t* row, uint4 v) {
   unsigned long long carry = 0;
   if (vlo) {
     unsigned long long old = atomicAdd(w, vlo);
-    carry = (old + vlo) < old;
+    carry = (old + vlo) < old;  // tidy: allow=limb-overflow — the wrap test
   }
   if (carry && vhi == ~0ull) {
     return true;  // adds 2^128: the row is unchanged mod 2^128
   }
-  unsigned long long add = vhi + carry;
+  // Cannot wrap: vhi == ~0 with a carry returned above (a relation the
+  // interval proof cannot carry past the branch).
+  unsigned long long add = vhi + carry;  // tidy: allow=limb-overflow
   if (!add) return false;
   unsigned long long old = atomicAdd(w + 1, add);
-  return (old + add) < old;
+  return (old + add) < old;  // tidy: allow=limb-overflow — the wrap test
 }
 
 // row (a 16-byte u128 in device memory) -= v, exactly, with atomics.
@@ -82,7 +85,8 @@ __device__ __forceinline__ bool atomic_sub_u128(uint32_t* row, uint4 v) {
   if (borrow && vhi == ~0ull) {
     return true;  // takes 2^128: the row is unchanged mod 2^128
   }
-  unsigned long long sub = vhi + borrow;
+  // Cannot wrap: vhi == ~0 with a borrow returned above.
+  unsigned long long sub = vhi + borrow;  // tidy: allow=limb-overflow
   if (!sub) return false;
   unsigned long long old = atomicAdd(w + 1, ~sub + 1ull);
   return old < sub;
@@ -112,9 +116,9 @@ struct Wide {
 
 __device__ __forceinline__ Wide add3(u128 a, u128 b, u128 c) {
   Wide w;
-  u128 s = a + b;
+  u128 s = a + b;  // tidy: allow=limb-overflow — mod 2^128, carry below
   w.hi = s < a;
-  w.lo = s + c;
+  w.lo = s + c;  // tidy: allow=limb-overflow — mod 2^128, carry below
   w.hi += w.lo < s;
   return w;
 }

@@ -64,6 +64,7 @@ __device__ __forceinline__ bool is_max(uint4 v) {
 }
 
 // The reference's ladder (validate_simple) for event i, then merge_codes.
+// tidy: range=a:1..0x7FFFFFFF — A rows, addressed by int32 slots
 __device__ __forceinline__ uint32_t ladder(const Batch& b, long long i,
                                            const uint32_t* acc_ledger,
                                            long long a) {
@@ -92,7 +93,8 @@ __device__ __forceinline__ uint32_t ladder(const Batch& b, long long i,
     if (dr_ledger != cr_ledger) code = ACCOUNTS_MUST_HAVE_THE_SAME_LEDGER;
     else if (b.ledger[i] != dr_ledger)
       code = TRANSFER_MUST_HAVE_THE_SAME_LEDGER_AS_ACCOUNTS;
-    else if (t + timeout_ns < t) code = OVERFLOWS_TIMEOUT;
+    // timeout_ns < 2^32 * 10^9 < 2^64 (proven); the sum's wrap is the test.
+    else if (t + timeout_ns < t) code = OVERFLOWS_TIMEOUT;  // tidy: allow=limb-overflow
   }
   // Nonzero minimum with the host's code (results are ordered by
   // precedence, and both sides emit their first failing rung).

@@ -17,7 +17,7 @@ namespace tb {
 constexpr int kTagBlocks = 5;
 
 // The five tag blocks in order (lsm/scan.py QUERY_TAG_FIELDS).
-__device__ __forceinline__ uint32_t tag_of(int b) {
+__device__ __forceinline__ uint32_t tag_of(int b) {  // tidy: range=b:0..4
   return b == 0 ? 5u : b == 1 ? 6u : b == 2 ? 7u : b == 3 ? 9u : 10u;
 }
 
@@ -42,6 +42,7 @@ __device__ __forceinline__ void fold56_u128(uint32_t lo0, uint32_t lo1, uint32_t
 
 // Tag block b's key words (lo0, lo1) of the record whose staged row is `c`
 // (9 words). Reads only the words of that block's field.
+// tidy: range=b:0..4 — b is a tag block, below kTagBlocks
 __device__ __forceinline__ void block_key(const uint32_t* __restrict__ c, int b,
                                           uint32_t& lo0, uint32_t& lo1) {
   uint32_t f1 = 0;

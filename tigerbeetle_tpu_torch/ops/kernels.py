@@ -97,6 +97,9 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}  # tidy: guarded-by=_lock
 # tidy: atomic — GIL-atomic dict get and store; two threads that bind one entry at once store the same function with the same argtypes
 _loaded: Dict[str, ctypes._CFuncPtr] = {}
+# nvcc processes started by build_all in this process (the profiler
+# checks that none starts inside its measured window).
+BUILD_COUNT = 0
 BUILD_LOG: Dict[str, str] = {}  # tidy: atomic — GIL-atomic stores of whole strings, one per source, read after the build — kernel -> nvcc's output (-Xptxas -v)
 
 
@@ -130,8 +133,10 @@ def build_all(names: List[str] = None) -> None:
     todo = [n for n in sources if not os.path.exists(_lib_path(n))]
     if not todo:
         return
+    global BUILD_COUNT
     os.makedirs(BUILD_DIR, exist_ok=True)
     exe = _nvcc()
+    BUILD_COUNT += len(todo)
     procs = []
     for n in todo:
         out = _lib_path(n)

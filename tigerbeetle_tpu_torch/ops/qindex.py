@@ -71,7 +71,7 @@ _COL_UD32, _COL_LEDGER, _COL_CODE = 6, 7, 8
 # The staged block of one batch: (column, uint32 words per record), in
 # order, one contiguous buffer.
 _STAGE = (("cols", 9), ("ts", 2), ("rows", 1), ("pad", 1))
-_STAGE_WORDS = sum(w for _, w in _STAGE)
+_STAGE_WORDS: int = sum(w for _, w in _STAGE)
 
 # The sort kernel holds one tag block in one thread block's shared memory.
 SORTED_ROWS_MAX = 8192
@@ -98,9 +98,11 @@ def _fold56_u128(lo0, lo1, hi0, hi1):
     return a0 ^ b0 ^ (hi1 >> 23), a1 ^ b1
 
 
-def _key_block(tag: int, f0, f1, pad):
+def _key_block(tag: int, f0, f1, pad):  # tidy: range=tag:0..10,f1:0..0xFFFFFF
     """One tag block's (n, 3) key words: the tag lands in lo1's top byte
-    (f1 < 2^24, so the OR is disjoint)."""
+    (f1 < 2^24, so the OR is disjoint, and tag <= 10 keeps the shift
+    inside 32 bits: both proven by tidy/absint from the declared
+    ranges)."""
     return torch.stack([f0, f1 | (tag << 24), pad], dim=1)
 
 
@@ -246,7 +248,7 @@ def stage_query_batch(recs: np.ndarray, rows: np.ndarray, tstamp: np.ndarray):
     bucket_pow2(n) (a MERGE_TILE multiple, so 5 n_pad is one too).
     Returns numpy (cols (n_pad, 9), ts (n_pad, 2), rows (n_pad,),
     pad (n_pad,))."""
-    n_pad = bucket_pow2(len(recs))
+    n_pad: int = bucket_pow2(len(recs))
     flat = np.empty(_STAGE_WORDS * n_pad, dtype=np.uint32)
     return _fill_stage(flat, recs, rows, tstamp, n_pad)
 
@@ -344,7 +346,7 @@ def build_run(recs: np.ndarray, rows: np.ndarray, tstamp: np.ndarray,
     (query_index_keys_sorted) on `device`; no device-to-host sync."""
     device = torch.device(device)
     n = len(recs)
-    n_pad = bucket_pow2(n)
+    n_pad: int = bucket_pow2(n)
     cuda = device.type == "cuda"
     with tracer.span("qindex.build.stage"):
         staged = torch.empty(_STAGE_WORDS * n_pad, dtype=torch.uint32, pin_memory=cuda)

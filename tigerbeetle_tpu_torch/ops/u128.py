@@ -25,8 +25,9 @@ def widen(limbs: torch.Tensor) -> torch.Tensor:
     return limbs.view(torch.int32).to(torch.int64) & LIMB_MASK
 
 
-def narrow(x: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2^32) → uint32 tensor of the same values."""
+def narrow(x: torch.Tensor) -> torch.Tensor:  # tidy: range=x:0..0xFFFFFFFF
+    """int64 values in [0, 2^32) → uint32 tensor of the same values (the
+    range is a call obligation that tidy/absint checks at every caller)."""
     return (x - ((x >> 31) << 32)).to(torch.int32).view(torch.uint32)
 
 
@@ -108,7 +109,8 @@ def _slot_sums(table, slots, values, mask) -> torch.Tensor:
     assert n < (1 << 16), "scatter exactness requires n < 2^16"
     keep = mask & (slots >= 0) & (slots < a)
     acc = torch.zeros((a, w), dtype=torch.int64, device=table.device)
-    acc.index_add_(0, slots[keep].to(torch.int64), widen(values)[keep])
+    # n < 2^16 rows of limbs < 2^32 each: a slot's sum is < 2^48.
+    acc.index_add_(0, slots[keep].to(torch.int64), widen(values)[keep])  # tidy: range=acc:0..0xFFFEFFFF0001
     return acc
 
 

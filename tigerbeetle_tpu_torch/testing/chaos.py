@@ -1053,7 +1053,7 @@ def peer_telemetry_snapshot() -> Dict[str, float]:
     return out
 
 
-def _spawn_replica(
+def _start_replica(
     path: str, port: int, mport: int, config: str, device: str,
     extra_args: Sequence[str] = (),
     addresses: Optional[str] = None,
@@ -1061,27 +1061,23 @@ def _spawn_replica(
     log_path: Optional[str] = None,
     env: Optional[Dict[str, str]] = None,
 ) -> "object":
-    """Start `cli.py start` detached on `device` ("cuda" or "cpu");
-    returns the Popen once the replica announces its listener (after
-    open(), i.e. after WAL replay — or at EOF, when the process died and
-    the caller's connect will fail). A daemon thread drains stdout
-    afterwards so a chatty replica can never block on a full pipe
-    mid-scenario. `extra_args` rides extra `start` flags (the front-door
-    loadgen passes --clients-max etc.). `addresses`/`replica` spawn one
-    member of a multi-replica cluster (default: a single replica on its
-    own port). `log_path` keeps the child's stderr in a file (else it is
-    discarded). `env` overlays extra environment on the child
-    (per-replica fault injection: ONE replica started under
-    TIGERBEETLE_TPU_NET_FAULT models one degraded host)."""
+    """Start `cli.py start` detached on `device` ("cuda" or "cpu") and
+    return its Popen at once (`_await_listening` waits for the announce).
+    `extra_args` rides extra `start` flags (the front-door loadgen passes
+    --clients-max etc.). `addresses`/`replica` spawn one member of a
+    multi-replica cluster (default: a single replica on its own port).
+    `log_path` keeps the child's stderr in a file (else it is discarded).
+    `env` overlays extra environment on the child (per-replica fault
+    injection: ONE replica started under TIGERBEETLE_TPU_NET_FAULT models
+    one degraded host)."""
     import subprocess
     import sys
-    import threading
 
     if addresses is None:
         addresses = f"127.0.0.1:{port}"
     stderr = open(log_path, "ab") if log_path else subprocess.DEVNULL
     try:
-        proc = subprocess.Popen(
+        return subprocess.Popen(
             [
                 sys.executable, "-m", "tigerbeetle_tpu_torch.cli", "start",
                 f"--addresses={addresses}", f"--replica={replica}",
@@ -1094,12 +1090,41 @@ def _spawn_replica(
     finally:
         if log_path:
             stderr.close()
+
+
+def _await_listening(proc) -> bool:
+    """Read `proc`'s stdout until the replica announces its listener
+    (after open(), i.e. after WAL replay) or the pipe ends (the process
+    died); True on the announce. A daemon thread drains stdout afterwards
+    so a chatty replica can never block on a full pipe mid-scenario."""
+    import threading
+
+    announced = False
     for _ in range(256):  # boot chatter (warnings, logging) before the announce
         line = proc.stdout.readline()
-        if not line or b"listening" in line:
+        if not line:
+            break
+        if b"listening" in line:
+            announced = True
             break
     threading.Thread(target=proc.stdout.read, daemon=True).start()
+    return announced
+
+
+def _spawn_replica(*args, **kwargs) -> "object":
+    """`_start_replica`, then wait for the announce; returns the Popen
+    (at EOF too, when the process died and the caller's connect will
+    fail)."""
+    proc = _start_replica(*args, **kwargs)
+    _await_listening(proc)
     return proc
+
+
+def _kill_all(procs) -> None:
+    for p in procs:
+        if p is not None and p.poll() is None:
+            p.kill()
+            p.wait()
 
 
 def spawn_cluster(
@@ -1111,8 +1136,12 @@ def spawn_cluster(
 ) -> Tuple[list, list, list, list]:
     """Format + start a REAL `cli.py start` cluster over TCP: one data
     file and one process per replica, a shared --addresses list, and a
-    /metrics port each (the failover timeline's scrape surface). Returns
-    (procs, ports, metric_ports, paths); the caller owns the kills."""
+    /metrics port each (the failover timeline's scrape surface). The
+    replicas boot together: every process starts before the first
+    announce is awaited. If one fails to start or dies before it
+    announces, every replica already started is killed before the error
+    is raised. Returns (procs, ports, metric_ports, paths); the caller
+    owns the kills."""
     import argparse
 
     from tigerbeetle_tpu_torch.cli import cmd_format
@@ -1134,11 +1163,20 @@ def spawn_cluster(
         ))
         assert rc == 0
         paths.append(path)
-    for i in range(replica_count):
-        procs.append(_spawn_replica(
-            paths[i], ports[i], mports[i], config, device,
-            extra_args=extra_args, addresses=addresses, replica=i,
-        ))
+    try:
+        for i in range(replica_count):
+            procs.append(_start_replica(
+                paths[i], ports[i], mports[i], config, device,
+                extra_args=extra_args, addresses=addresses, replica=i,
+            ))
+        for i, proc in enumerate(procs):
+            if not _await_listening(proc):
+                raise RuntimeError(
+                    f"replica {i} exited (rc {proc.wait()}) before it "
+                    "listened")
+    except BaseException:
+        _kill_all(procs)
+        raise
     return procs, ports, mports, paths
 
 

@@ -23,6 +23,12 @@ package's tidy gate checks on its own, pointed at this package's files
     ops/kernels.py SIGNATURES against the CUDA sources' `extern "C"`
     prototypes) against its C prototype, and the bounds of the C scan
     and gallop loops.
+  - `absint` (tidy/absint.py) — the interval proof of the limb
+    arithmetic: the plain u128 on its int64 carrier, the fold56 key
+    builds, and the CUDA device helpers that carry the kernels' u128 and
+    fold56 arithmetic (manifest.ABSINT_TARGETS, ABSINT_CUDA_FUNCS): no
+    add, product, shift or implicit conversion leaves its width unless a
+    `tidy: allow=` says why.
   - `vsrlint` / `quorum` (tidy/vsrlint.py) — handler exhaustiveness over
     the Command enum, wire-taint into replica state, monotone view/op/
     commit positions, quorum intersection for 1-6 replicas.
@@ -44,7 +50,7 @@ def all_pass_names():
     """Ordered tuple of every registered static pass."""
     return (
         "ownership", "determinism", "markers", "host-sync", "reduction",
-        "native-layout", "native-abi", "native-absint",
+        "native-layout", "native-abi", "native-absint", "absint",
         "vsrlint", "quorum", "protomodel",
     )
 
@@ -86,8 +92,8 @@ def _run_unit(root_str, unit):
     import time
 
     from tigerbeetle_tpu_torch.tidy import (
-        determinism, markers, nativecheck, ownership, protomodel, synclint,
-        vsrlint,
+        absint, determinism, markers, nativecheck, ownership, protomodel,
+        synclint, vsrlint,
     )
 
     root = pathlib.Path(root_str)
@@ -103,6 +109,7 @@ def _run_unit(root_str, unit):
             "native-layout": nativecheck.run_layout,
             "native-abi": nativecheck.run_abi,
             "native-absint": nativecheck.run_absint,
+            "absint": absint.run,
             "vsrlint": vsrlint.run,
             "quorum": vsrlint.run_quorum,
             "protomodel": protomodel.run,

@@ -16,7 +16,17 @@ real C compiler front end because the inputs are the repo's own shims
   - `parse_body` — a recursive-descent statement/expression parser for
     the analyzed function bodies (declarations, if/while/for, assignment,
     ++/--, calls, subscripts, casts, ternary, member access). Constructs
-    the small AST interpreted by nativecheck's interval analysis.
+    the small AST interpreted by nativecheck's interval analysis and by
+    tidy/absint.py's CUDA front end.
+
+The CUDA device helpers (`csrc/*.cuh` under the package) are read as the
+same subset plus what they use of C++: `namespace` blocks (transparent),
+`__device__` / `__forceinline__` / `constexpr` / `__restrict__`
+qualifiers, reference parameters (`CParam.ref`), `bool`, `unsigned
+__int128`, `reinterpret_cast<T>(e)` / `static_cast<T>(e)`, and the
+`typedef_types` / `parse_constexprs` / `collect_structs` tables. Casts
+keep their target type and literals their suffix, which the width-aware
+absint needs.
 
 `/* tidy: ... */` and `// tidy: ...` comments are collected into the same
 `LineAnnotations` objects the Python annotation module produces, so
@@ -207,6 +217,7 @@ class CType:
     width: Optional[int] = None
     signed: Optional[bool] = None
     ptr: int = 0
+    boolean: bool = False  # C++ `bool` (an 8-bit int whose values are 0, 1)
 
     @property
     def is_pointer(self) -> bool:
@@ -225,10 +236,13 @@ _FIXED = {
 _QUALIFIERS = frozenset((
     "const", "volatile", "restrict", "static", "inline", "extern",
     "register", "_Thread_local", "struct", "union", "enum",
+    # CUDA C++ function and pointer qualifiers.
+    "__device__", "__host__", "__global__", "__forceinline__",
+    "__noinline__", "constexpr", "__restrict__", "__restrict",
 ))
 _BASE_WORDS = frozenset((
     "void", "char", "short", "int", "long", "unsigned", "signed",
-    "float", "double", "_Bool",
+    "float", "double", "_Bool", "bool", "__int128",
 ))
 TYPE_START = _QUALIFIERS | _BASE_WORDS | frozenset(_FIXED)
 
@@ -244,10 +258,14 @@ def type_from_tokens(words: List[str], ptr: int) -> CType:
         return CType("void", None, None, ptr)
     if "float" in ws or "double" in ws:
         return CType("float", 64 if "double" in ws else 32, True, ptr)
-    if any(w in ("char", "short", "int", "long", "unsigned", "signed")
-           for w in ws):
+    if "bool" in ws or "_Bool" in ws:
+        return CType("int", 8, False, ptr, boolean=True)
+    if any(w in ("char", "short", "int", "long", "unsigned", "signed",
+                 "__int128") for w in ws):
         signed = "unsigned" not in ws
-        if "char" in ws:
+        if "__int128" in ws:
+            width = 128
+        elif "char" in ws:
             width = 8
         elif "short" in ws:
             width = 16
@@ -271,12 +289,84 @@ def collect_typedefs(source: str) -> frozenset:
     return frozenset(names)
 
 
+def typedef_types(source: str) -> Dict[str, CType]:
+    """Scalar typedefs, `typedef <type words> name;` -> the aliased type
+    (`typedef unsigned __int128 u128;`)."""
+    out: Dict[str, CType] = {}
+    for m in re.finditer(r"\btypedef\s+([\w\s\*]+?)\b(\w+)\s*;", source):
+        words = m.group(1).split()
+        if words and words[0] not in ("struct", "union", "enum"):
+            out[m.group(2)] = type_from_tokens(
+                [w.strip("*") for w in words], m.group(1).count("*"))
+    return out
+
+
+_CONSTEXPR_RE = re.compile(
+    r"\bconstexpr\s+([\w\s]+?)\s+(\w+)\s*=\s*([^;{}]+);")
+
+
+def parse_constexprs(source: str) -> Dict[str, int]:
+    """`constexpr <int type> NAME = <const-expr>;` -> value, folded in
+    source order and wrapped to the declared width (so `~0x3Fu` is the
+    unsigned word it denotes)."""
+    out: Dict[str, int] = {}
+    for m in _CONSTEXPR_RE.finditer(_strip_comments(source)):
+        ct = type_from_tokens(m.group(1).split(), 0)
+        v = _fold_const(m.group(3), dict(out))
+        if v is None or ct.base != "int":
+            continue
+        if not ct.signed:
+            v &= (1 << ct.width) - 1
+        out[m.group(2)] = v
+    return out
+
+
+def _strip_comments(source: str) -> str:
+    return re.sub(r"//[^\n]*|/\*.*?\*/", " ", source, flags=re.DOTALL)
+
+
+def collect_structs(source: str) -> Dict[str, List[Tuple[str, CType]]]:
+    """`struct Name { <fields> };` -> [(field, type)] for the data
+    members (member functions and their bodies are skipped)."""
+    text = _strip_comments(source)
+    out: Dict[str, List[Tuple[str, CType]]] = {}
+    for m in re.finditer(r"\bstruct\s+(\w+)\s*\{", text):
+        k, depth = m.end(), 1
+        while k < len(text) and depth:
+            depth += {"{": 1, "}": -1}.get(text[k], 0)
+            k += 1
+        body = text[m.end():k - 1]
+        # Drop nested bodies (member functions) before splitting fields.
+        flat, depth = [], 0
+        for ch in body:
+            if ch == "{":
+                depth += 1
+            elif ch == "}":
+                depth -= 1
+                flat.append(";")
+            elif depth == 0:
+                flat.append(ch)
+        fields = []
+        for decl in "".join(flat).split(";"):
+            if "(" in decl or not decl.strip():
+                continue
+            words = decl.replace("*", " * ").split()
+            names = [w for w in words if w != "*"]
+            if len(names) < 2:
+                continue
+            fields.append((names[-1], type_from_tokens(
+                names[:-1], words.count("*"))))
+        out[m.group(1)] = fields
+    return out
+
+
 # --- function declarations ----------------------------------------------
 
 @dataclass(frozen=True)
 class CParam:
     name: str
     ctype: CType
+    ref: bool = False  # a C++ reference parameter (`T& name`)
 
 
 @dataclass
@@ -290,16 +380,20 @@ class CFunc:
 
 
 def _parse_param(toks: List[Tok], typedefs: frozenset) -> Optional[CParam]:
-    words, ptr, name = [], 0, ""
+    words, ptr, name, ref = [], 0, "", False
     for t in toks:
+        if t.kind == "punct" and t.text == "=":
+            break  # a C++ default argument: the declarator is complete
         if t.kind == "punct" and t.text == "*":
             ptr += 1
+        elif t.kind == "punct" and t.text == "&":
+            ref = True
         elif t.kind == "punct" and t.text in ("[", "]"):
             if t.text == "[":
                 ptr += 1  # `T a[]` parameter decays to pointer
         elif t.kind == "id":
             if (t.text in TYPE_START or t.text in typedefs
-                    or (not name and not words)):
+                    or not [w for w in words if w not in _QUALIFIERS]):
                 words.append(t.text)
                 name = t.text  # last id wins as the name
             else:
@@ -311,15 +405,15 @@ def _parse_param(toks: List[Tok], typedefs: frozenset) -> Optional[CParam]:
     # The final identifier is the parameter name unless it is the sole
     # type word (unnamed parameter, e.g. prototypes in headers).
     if name in _FIXED or name in _BASE_WORDS or name in typedefs:
-        return CParam("", type_from_tokens(words, ptr))
+        return CParam("", type_from_tokens(words, ptr), ref)
     twords = [w for w in words if w != name] or words
-    return CParam(name, type_from_tokens(twords, ptr))
+    return CParam(name, type_from_tokens(twords, ptr), ref)
 
 
 def parse_functions(source: str) -> List[CFunc]:
     """Top-level function declarations and definitions."""
     toks, _ = lex(source)
-    typedefs = collect_typedefs(source)
+    typedefs = collect_typedefs(source) | frozenset(collect_structs(source))
     out: List[CFunc] = []
     i, depth = 0, 0
     decl_start = 0
@@ -327,10 +421,16 @@ def parse_functions(source: str) -> List[CFunc]:
     while i < n:
         t = toks[i]
         if t.kind == "punct" and t.text == "{":
-            # `extern "C" {` is transparent: its contents are top-level.
-            if not (i >= 2 and toks[i - 1].kind == "str"
-                    and toks[i - 2].kind == "id"
-                    and toks[i - 2].text == "extern"):
+            # `extern "C" {` and `namespace [name] {` are transparent:
+            # their contents are top-level.
+            extern_c = (i >= 2 and toks[i - 1].kind == "str"
+                        and toks[i - 2].kind == "id"
+                        and toks[i - 2].text == "extern")
+            namespace = depth == 0 and any(
+                i >= k and toks[i - k].kind == "id"
+                and toks[i - k].text == "namespace" for k in (1, 2)
+            )
+            if not (extern_c or namespace):
                 depth += 1
             else:
                 decl_start = i + 1
@@ -428,6 +528,7 @@ def parse_functions(source: str) -> List[CFunc]:
 class Num:
     v: int
     line: int = 0
+    suffix: str = ""  # the literal's integer suffix, lower case ("u", "ull")
 
 
 @dataclass(frozen=True)
@@ -484,6 +585,7 @@ class Mem:
 class Cast:
     e: object
     line: int = 0
+    ctype: Optional[CType] = None  # the target type
 
 
 @dataclass(frozen=True)
@@ -690,8 +792,9 @@ class _Parser:
         decls = []
         while True:
             ptr = 0
-            while self.at("*") or (self.peek().kind == "id"
-                                   and self.peek().text == "const"):
+            while self.at("*") or self.at("&") or (
+                    self.peek().kind == "id"
+                    and self.peek().text in ("const", "__restrict__")):
                 if self.at("*"):
                     ptr += 1
                 self.next()
@@ -788,15 +891,21 @@ class _Parser:
         if self.at("(") and self._cast_ahead():
             self.next()
             depth = 1
+            words, ptr = [], 0
             while depth:
                 nt = self.next()
                 if nt.kind == "punct" and nt.text == "(":
                     depth += 1
                 elif nt.kind == "punct" and nt.text == ")":
                     depth -= 1
+                elif nt.kind == "punct" and nt.text == "*":
+                    ptr += 1
+                elif nt.kind == "id":
+                    words.append(nt.text)
                 elif nt.kind == "eof":
                     raise CParseError("unterminated cast", t.line)
-            return Cast(self.parse_unary(), t.line)
+            return Cast(self.parse_unary(), t.line,
+                        type_from_tokens(words, ptr))
         return self.parse_postfix()
 
     def _cast_ahead(self) -> bool:
@@ -846,6 +955,8 @@ class _Parser:
             else:
                 return e
 
+    _CXX_CASTS = frozenset(("reinterpret_cast", "static_cast", "const_cast"))
+
     def parse_primary(self):
         t = self.next()
         if t.kind == "num":
@@ -853,9 +964,26 @@ class _Parser:
             if body.startswith("'"):
                 return Num(0, t.line)  # char literal: value irrelevant
             try:
-                return Num(int(body, 0), t.line)
+                return Num(int(body, 0), t.line,
+                           t.text[len(body):].lower())
             except ValueError:
                 return Num(0, t.line)  # float literal
+        if t.kind == "id" and t.text in self._CXX_CASTS and self.at("<"):
+            self.next()
+            words, ptr = [], 0
+            while not self.at(">"):
+                nt = self.next()
+                if nt.kind == "punct" and nt.text == "*":
+                    ptr += 1
+                elif nt.kind == "id":
+                    words.append(nt.text)
+                elif nt.kind == "eof":
+                    raise CParseError("unterminated cast", t.line)
+            self.next()
+            self.expect("(")
+            e = self.parse_expr()
+            self.expect(")")
+            return Cast(e, t.line, type_from_tokens(words, ptr))
         if t.kind == "id":
             return Name(t.text, t.line)
         if t.kind == "str":

@@ -222,6 +222,37 @@ NATIVE_ABSINT_FUNCS = (
     ("csrc/hostops.c", "hostops_merge_kv_bloom"),
 )
 
+# --- absint: the interval proof of the limb arithmetic --------------------
+
+# Python targets and the mode each is read in (tidy/absint.py says why):
+# the plain u128 on its signed int64 carrier, the fold56 key build on
+# numpy uint64 words, and the device key build's int64-carried uint32
+# words, which must stay 32-bit words.
+ABSINT_TARGETS = {
+    "tigerbeetle_tpu_torch/ops/u128.py": "i64",
+    "tigerbeetle_tpu_torch/lsm/scan.py": "u64",
+    "tigerbeetle_tpu_torch/ops/qindex.py": "u32",
+}
+
+# The device helpers that carry the port's u128 and fold56 arithmetic,
+# (repo-relative CUDA source, function), proven by absint's CUDA front
+# end. A listed function that goes missing or leaves the subset is a
+# finding.
+ABSINT_CUDA_FUNCS = (
+    ("tigerbeetle_tpu_torch/csrc/common.cuh", "sum_overflows"),
+    ("tigerbeetle_tpu_torch/csrc/common.cuh", "atomic_add_u128"),
+    ("tigerbeetle_tpu_torch/csrc/common.cuh", "atomic_sub_u128"),
+    ("tigerbeetle_tpu_torch/csrc/common.cuh", "to_u128"),
+    ("tigerbeetle_tpu_torch/csrc/common.cuh", "from_u128"),
+    ("tigerbeetle_tpu_torch/csrc/common.cuh", "add3"),
+    ("tigerbeetle_tpu_torch/csrc/common.cuh", "wide_gt"),
+    ("tigerbeetle_tpu_torch/csrc/qindex_fold.cuh", "tag_of"),
+    ("tigerbeetle_tpu_torch/csrc/qindex_fold.cuh", "fold56_u64"),
+    ("tigerbeetle_tpu_torch/csrc/qindex_fold.cuh", "fold56_u128"),
+    ("tigerbeetle_tpu_torch/csrc/qindex_fold.cuh", "block_key"),
+    ("tigerbeetle_tpu_torch/csrc/ladder.cuh", "ladder"),
+)
+
 # Directories the pointer-lifetime lint walks for `.ctypes.data` captures.
 NATIVE_LIFETIME_SCAN_DIRS = ("tigerbeetle_tpu_torch",)
 

@@ -63,21 +63,8 @@ from typing import Dict, List, Optional, Tuple
 
 from tigerbeetle_tpu_torch.tidy import annotations as ann_mod
 from tigerbeetle_tpu_torch.tidy import cparse, manifest
+from tigerbeetle_tpu_torch.tidy.absint import Iv  # the shared interval
 from tigerbeetle_tpu_torch.tidy.findings import Finding
-
-
-
-@dataclass(frozen=True)
-class Iv:
-    """A closed integer interval [lo, hi] (the reference package's
-    absint interval, kept here: the port has no Python absint pass)."""
-
-    lo: int
-    hi: int
-
-    def join(self, other: "Iv") -> "Iv":
-        return Iv(min(self.lo, other.lo), max(self.hi, other.hi))
-
 
 _FULL = Iv(-(1 << 64), 1 << 64)
 _WIDEN_AFTER = 24

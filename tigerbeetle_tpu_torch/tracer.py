@@ -20,14 +20,19 @@ the LSM and the replica make).
     land in the span registry (`op.queue.*`, `op.service.*`).
   - `flight_trip` / `flight_exception`: keep the last completed op
     records (and the device windows and memory ledger) for post-hoc
-    inspection of a tail anomaly or a pipeline exception.
+    inspection of a tail anomaly or a pipeline exception (in memory,
+    `flight_dumps()`, and as files when `configure_flight(directory=...)`
+    names a directory: `tools/trace_summary.py --ops` reads them);
+    `flight_records()` is the completed-op ring itself and
+    `configure_flight` sets the recorder's policy and the ring's size.
   - The scrape surface: `snapshot()` (p50/p95/p99 from a log-bucketed
     histogram per event), `lifecycle_summary()`, `emit_json()`,
     `trace_events()` / `export_trace()` (Chrome trace-event JSON from a
     bounded ring of span records and the closed device windows),
-    `prometheus_text()`, and `serve_metrics(port)`, which serves
-    `/metrics`, `/trace` and `/lifecycle` (plus caller routes)
-    from the replica's own asyncio loop.
+    `prometheus_text()`, `dump(path)` (the trace as a Perfetto-loadable
+    file), and `serve_metrics(port)`, which serves `/metrics`, `/trace`,
+    `/lifecycle` and `/flight` (plus caller routes) from the replica's
+    own asyncio loop.
 
 Off until `enable()`; disabled, every call returns after one
 module-global check and allocates nothing.
@@ -533,7 +538,7 @@ _op_window = [0, 0, 0]  # tidy: guarded-by=_lock
 # Flight-recorder policy. latency_mult: trip when the perceived latency
 # exceeds mult x the running p99; stall_ns: trip when one component
 # exceeds it; min_ops: samples before the latency rule arms. Dumps are
-# kept in memory (flight_dumps()).
+# kept in memory (flight_dumps()) and, when `dir` is set, written there.
 _flight = {  # tidy: guarded-by=_lock
     "latency_mult": 8.0,
     "stall_ns": 2_000_000_000,
@@ -545,6 +550,7 @@ _flight = {  # tidy: guarded-by=_lock
     # limited: "did an exception happen" is answerable on its own.
     "exception_dumps": 0,
     "last_dump_ns": 0,
+    "dir": "",
 }
 _flight_docs: List[dict] = []  # tidy: guarded-by=_lock
 
@@ -713,7 +719,9 @@ def op_peer_release(rec: Optional[OpRecord]) -> None:
 
 
 def op_record_dict(rec: OpRecord) -> dict:
-    """JSON-ready view of one lifecycle record."""
+    """JSON-ready view of one lifecycle record. Its raw stamps share the
+    perf_counter timebase with trace_events(), so a flight dump and its
+    trace align op for op."""
     t = rec.t
     out = {
         "op": rec.op, "client": rec.client, "request": rec.request,
@@ -726,7 +734,60 @@ def op_record_dict(rec: OpRecord) -> dict:
     }
     if t[OP_REPLY] and t[OP_ARRIVE]:
         out["perceived_ms"] = round((t[OP_REPLY] - t[OP_ARRIVE]) / 1e6, 3)
+    if rec.peer_bcast:
+        # The primary's cluster-plane stamps: each peer's prepare_ok after
+        # the broadcast, and the quorum point (trace_summary --ops renders
+        # them under the quorum wait).
+        oks = {
+            str(r): round((rec.peer_t[r] - rec.peer_bcast) / 1e6, 3)
+            for r in range(OP_PEER_MAX) if rec.peer_t[r]
+        }
+        if oks:
+            out["peer_ok_ms"] = oks
+        if rec.quorum_t:
+            out["quorum_ms"] = round((rec.quorum_t - rec.peer_bcast) / 1e6, 3)
+            if rec.quorum_peer >= 0:
+                out["quorum_peer"] = rec.quorum_peer
     return out
+
+
+def flight_records() -> List[dict]:
+    """The completed-op ring as JSON-ready dicts (newest last), serialized
+    under the lock: an eviction may recycle a record concurrently, and a
+    dict mixing two ops would corrupt the artifact the ring exists for."""
+    with _lock:
+        return [op_record_dict(r) for r in _op_ring]
+
+
+def configure_flight(
+    latency_mult: Optional[float] = None,
+    stall_ms: Optional[float] = None,
+    min_ops: Optional[int] = None,
+    max_dumps: Optional[int] = None,
+    cooldown_s: Optional[float] = None,
+    directory: Optional[str] = None,
+    ring: Optional[int] = None,
+) -> None:
+    """Adjust the flight recorder's policy; `directory` also writes each
+    dump there; `ring` resizes (and clears) the completed-op ring."""
+    global _op_ring_size
+    with _lock:
+        if latency_mult is not None:
+            _flight["latency_mult"] = float(latency_mult)
+        if stall_ms is not None:
+            _flight["stall_ns"] = int(stall_ms * 1e6)
+        if min_ops is not None:
+            _flight["min_ops"] = int(min_ops)
+        if max_dumps is not None:
+            _flight["max_dumps"] = int(max_dumps)
+        if cooldown_s is not None:
+            _flight["cooldown_ns"] = int(cooldown_s * 1e9)
+        if directory is not None:
+            _flight["dir"] = directory
+        if ring is not None:
+            _op_ring_size = max(1, int(ring))
+            _op_ring.clear()
+            _op_pool.clear()
 
 
 def perceived_p99_ms(state: Optional[dict] = None) -> Optional[float]:
@@ -749,22 +810,24 @@ def perceived_p99_ms(state: Optional[dict] = None) -> Optional[float]:
     return _hist_percentile(delta, total - prev_total, 0.99) / 1e6
 
 
-def flight_trip(reason: str) -> None:
+def flight_trip(reason: str) -> Optional[str]:
     """Record a flight dump: the completed-op ring, the open device
     windows and the device memory ledger at the trip, kept in memory
-    (flight_dumps()). Rate limited: max_dumps a process, and a cooldown
-    between two."""
+    (flight_dumps()) and, when configure_flight named a directory, written
+    there with the span rings as a trace beside it. Rate limited:
+    max_dumps a process, and a cooldown between two. Returns the dump's
+    path (None when kept in memory only, or suppressed)."""
     if not _enabled:
-        return
+        return None
     with _lock:
         now = time.perf_counter_ns()
         if _flight["dumps"] >= _flight["max_dumps"]:
-            return
+            return None
         if now - _flight["last_dump_ns"] < _flight["cooldown_ns"] and _flight["dumps"]:
-            return
+            return None
         _flight["dumps"] += 1
         _flight["last_dump_ns"] = now
-        _flight_docs.append({
+        doc = {
             "reason": reason,
             "tripped_ns": now,
             "ops": [op_record_dict(r) for r in _op_ring],
@@ -773,17 +836,29 @@ def flight_trip(reason: str) -> None:
                 "mem": dict(_device_mem),
                 "mem_high_water_bytes": _device_mem_hw[0],
             },
-        })
+        }
+        _flight_docs.append(doc)
         _counters["mark.flight_dump"] = _counters.get("mark.flight_dump", 0) + 1
+        directory, seq = _flight["dir"], _flight["dumps"]
+    if not directory:
+        return None
+    base = os.path.join(directory, f"tbtorch_flight_{os.getpid()}_{seq}")
+    try:
+        with open(base + ".json", "w") as f:
+            json.dump(doc, f)
+        dump(base + "_trace.json")
+    except OSError:
+        return None  # a read-only disk must not take the pipeline down
+    return base + ".json"
 
 
-def flight_exception(reason: str) -> None:
+def flight_exception(reason: str) -> Optional[str]:
     """Pipeline-exception trip (stage poison, fail-stop dispatch): dump
     whatever the latency rules say, and count it apart from anomaly
     trips, even when the dump itself was rate limited."""
     with _lock:
         _flight["exception_dumps"] += 1
-    flight_trip(f"exception: {reason}")
+    return flight_trip(f"exception: {reason}")
 
 
 def flight_exceptions() -> int:
@@ -975,6 +1050,15 @@ def export_trace() -> dict:
     }
 
 
+def dump(path: str) -> str:
+    """Write export_trace() to `path` as Perfetto-loadable JSON
+    (ui.perfetto.dev; `tools/trace_summary.py` reads it); returns the
+    path."""
+    with open(path, "w") as f:
+        json.dump(export_trace(), f)
+    return path
+
+
 def _label_escape(s: str) -> str:
     return s.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
 
@@ -1024,7 +1108,9 @@ def prometheus_text() -> str:
 
 async def serve_metrics(port: int, host: str = "127.0.0.1", extra=None):
     """Serve GET /metrics (Prometheus text), /trace (trace-event JSON),
-    and /lifecycle (lifecycle_summary) on the running asyncio loop, and return the asyncio.Server. `extra` adds
+    /lifecycle (lifecycle_summary) and /flight (the completed-op ring, a
+    document `tools/trace_summary.py --ops` reads) on the running asyncio
+    loop, and return the asyncio.Server. `extra` adds
     caller routes: {path_prefix: callable() -> (body bytes, content
     type)} (`cli start` mounts /cluster there)."""
     import asyncio
@@ -1052,11 +1138,14 @@ async def serve_metrics(port: int, host: str = "127.0.0.1", extra=None):
             elif path.startswith("/lifecycle"):
                 body = json.dumps(lifecycle_summary()).encode()
                 ctype = "application/json"
+            elif path.startswith("/flight"):
+                body = json.dumps({"ops": flight_records()}).encode()
+                ctype = "application/json"
             elif extra is not None and any(path.startswith(p) for p in extra):
                 fn = next(extra[p] for p in extra if path.startswith(p))
                 body, ctype = fn()
             else:
-                routes = "/metrics /trace /lifecycle" + (
+                routes = "/metrics /trace /lifecycle /flight" + (
                     " " + " ".join(sorted(extra)) if extra else "")
                 body = f"tigerbeetle_tpu_torch observability: {routes}\n".encode()
                 ctype = "text/plain; charset=utf-8"

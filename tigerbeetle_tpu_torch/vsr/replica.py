@@ -23,6 +23,7 @@ an identical execution, byte-for-byte (SURVEY.md §4 keystone).
 
 from __future__ import annotations
 
+import importlib
 import logging
 from collections import deque
 from typing import Callable, Deque, Dict, List, Optional
@@ -110,6 +111,23 @@ def _event_dtype(operation: int, body_len: int = -1) -> np.dtype:
             return types.QUERY_FILTER_V2_DTYPE
         return types.QUERY_FILTER_DTYPE
     return types.ACCOUNT_FILTER_DTYPE
+
+
+# The modules the serving path imports inside functions: the store stage's
+# query index and scans, the flush and compaction folds, the exact route
+# and the stages themselves. A module's first import compiles and runs it
+# under the interpreter lock; in a replica's first store jobs on the card
+# that held its event loop for 10-20 ms and delayed its prepare_oks
+# (PERF.md section 7), so Replica._warm imports them at open.
+SERVING_MODULES = (
+    "tigerbeetle_tpu_torch.lsm.scan",
+    "tigerbeetle_tpu_torch.lsm.groove",
+    "tigerbeetle_tpu_torch.ops.qindex",
+    "tigerbeetle_tpu_torch.ops.merge",
+    "tigerbeetle_tpu_torch.ops.scanops",
+    "tigerbeetle_tpu_torch.ops.commit_exact",
+    "tigerbeetle_tpu_torch.vsr.pipeline",
+)
 
 
 class ClientSession:
@@ -463,9 +481,23 @@ class Replica:
             off += 4096
         storage.sync()
 
+    def _warm(self) -> None:
+        """First-call work, done at open before the replica serves: import
+        SERVING_MODULES and, on the card, load every kernel library
+        (ops/kernels.py builds one that is missing). It reads and writes
+        no tree, journal or grid, so no replicated byte can change."""
+        for name in SERVING_MODULES:
+            importlib.import_module(name)
+        if self.state_machine.device.type == "cuda":
+            from tigerbeetle_tpu_torch.ops import kernels
+
+            for name in kernels.SIGNATURES:
+                kernels.entry(name)
+
     def open(self) -> None:
         import time as _time
 
+        self._warm()
         t_open = _time.perf_counter()  # tidy: allow=wall-clock — recovery observability only, never reaches replicated state
         tracer.count("recovery.boot")
         tracer.gauge("vsr.recovery_state", RECOVERY_STATE_WAL_REPLAY)

@@ -7,11 +7,17 @@ prints one JSON line: the separation check of
 tests/test_torch_cluster_plane.py (the delayed peer's prepare_ok p99
 over twice the healthy peer's), both p99s, the section's seconds, and
 for each peer its largest prepare_ok on the primary's /trace with that
-ack's op index among the peer's acks. A last line sums the runs.
+ack's op index among the peer's acks. With `--spans`, what the healthy
+backup and the primary were doing during the healthy peer's first
+eight acks and its largest one follows: every span of 1 ms or more
+that overlaps the ack (thread, name, start relative to the broadcast,
+duration), from both replicas' /trace (one clock: the spans are
+perf_counter stamps of one host). A last line sums the runs.
 
     python tools/torch_cluster_plane_runs.py --runs 8              # the card, bench defaults
     python tools/torch_cluster_plane_runs.py --runs 4 --device cpu \\
         --accounts 500 --batch 128 --batches 12 --delay-ms 40     # the CPU test's sizes
+    python tools/torch_cluster_plane_runs.py --runs 8 --spans      # and what held the acks
 """
 
 import argparse
@@ -36,6 +42,29 @@ def largest_ack(trace: dict, replica: int) -> dict:
     return {"acks": len(acks), "op_index": i, "ms": round(acks[i].get("dur", 0) / 1e3, 3)}
 
 
+def ack_spans(traces: list, primary: int, replica: int, index: int,
+              min_ms: float = 1.0) -> list:
+    """The spans of `min_ms` or more, on the backup `replica` and on the
+    primary, that overlap the primary's `index`-th prepare_ok span of
+    that backup: [who, thread, name, start ms after the broadcast, ms]."""
+    acks = sorted((e for e in traces[primary]["traceEvents"]
+                   if e.get("name") == f"vsr.peer.{replica}.prepare_ok"),
+                  key=lambda e: e["ts"])
+    a = acks[index]
+    t0, t1 = a["ts"], a["ts"] + a.get("dur", 0)
+    out = []
+    for who, r in (("backup", replica), ("primary", primary)):
+        events = traces[r]["traceEvents"]
+        threads = {e["tid"]: e["args"]["name"] for e in events if e.get("ph") == "M"}
+        for e in events:
+            if (e.get("ph") == "X" and e["ts"] < t1 and e["ts"] + e["dur"] > t0
+                    and e["dur"] >= min_ms * 1e3 and not e["name"].endswith(".idle")
+                    and not e["name"].startswith(("vsr.peer.", "vsr.replication", "vsr.quorum"))):
+                out.append([who, threads.get(e["tid"], "?"), e["name"],
+                            round((e["ts"] - t0) / 1e3, 2), round(e["dur"] / 1e3, 2)])
+    return sorted(out, key=lambda x: x[3])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--runs", type=int, default=8)
@@ -44,6 +73,9 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--batches", type=int, default=40)
     ap.add_argument("--delay-ms", type=float, default=30.0)
+    ap.add_argument("--spans", action="store_true",
+                    help="print what both replicas did during the healthy peer's "
+                         "first eight acks and its largest")
     args = ap.parse_args(argv)
     passed = 0
     for k in range(args.runs):
@@ -65,6 +97,11 @@ def main(argv=None) -> int:
             "healthy_largest": largest_ack(traces[primary], healthy),
             "delayed_largest": largest_ack(traces[primary], delayed),
         }), flush=True)
+        if args.spans:
+            big = largest_ack(traces[primary], healthy)
+            for i in sorted(set(range(min(8, big["acks"]))) | {big.get("op_index", 0)}):
+                print(json.dumps({"run": k, "ack": i, "spans": ack_spans(
+                    traces, primary, healthy, i)}), flush=True)
     print(json.dumps({"runs": args.runs, "separated": passed, "device": args.device,
                       "delay_ms": args.delay_ms}))
     return 0

@@ -2769,6 +2769,7 @@ def run_replica_phase(torch, rng, cfg=None, n_accounts=REPLICA_ACCOUNTS,
 
 FRONT_BATCHES = 64  # uniform 8190-transfer batches over TCP, as in phase 10
 FRONT_WAIT_S = 600  # bound on a replica's boot, a request, and the catch-up
+FRONT_ACTIVE, FRONT_STANDBY = 3, 1  # `cli start --active-count 3` over 4 addresses
 
 
 def scrape_launches(http_get_text, mport):
@@ -2780,6 +2781,13 @@ def scrape_launches(http_get_text, mport):
         r'tbtpu_events_total\{event="kernel\.(\w+)\.launches"\} (\d+)', text)}
     merges = re.search(r'tbtpu_span_seconds_count\{event="lsm\.compact\.merge"\} (\d+)', text)
     return launches, int(merges.group(1)) if merges else 0
+
+
+def scrape_counter(http_get_text, mport, event):
+    """One counter of a replica's /metrics (0 where it never counted)."""
+    text = http_get_text(mport, "/metrics", timeout=60)
+    m = re.search(r'tbtpu_events_total\{event="' + re.escape(event) + r'"\} (\d+)', text)
+    return int(m.group(1)) if m else 0
 
 
 def wait_for(what, pred, timeout=FRONT_WAIT_S, every=0.2):
@@ -2795,9 +2803,11 @@ def run_front_door_phase(torch, rng, config="production", device="cuda",
                          n_accounts=REPLICA_ACCOUNTS, n_batches=FRONT_BATCHES,
                          n_exact=REPLICA_EXACT, batch=TX_BATCH, bench=True):
     """Phase 11: three `cli start` replica processes on `device` behind
-    TCP, the Python, C and async clients, a backup killed and restarted,
-    the replay of the AOFs on the CPU, then `cli benchmark`. Returns the
-    replica processes' kernel launches."""
+    TCP and a fourth as their standby (`--active-count 3`), the Python, C
+    and async clients, a backup killed and restarted, the standby's commit
+    checksums and checkpoint against the actives', the replay of the AOFs
+    on the CPU, then `cli benchmark`. Returns the replica processes'
+    kernel launches, the standby's included."""
     import asyncio
     import shutil
     import signal
@@ -2822,19 +2832,21 @@ def run_front_door_phase(torch, rng, config="production", device="cuda",
     C.reset_launches()
     tmp = tempfile.mkdtemp(prefix="tb-frontdoor-")
     procs, restart = {}, {}
+    total = FRONT_ACTIVE + FRONT_STANDBY
     try:
         ports = []
-        while len(ports) < 6:
+        while len(ports) < 2 * total:
             p = probe_free_port()
             if p not in ports:
                 ports.append(p)
-        ports, mports = ports[:3], ports[3:]
+        ports, mports = ports[:total], ports[total:]
         addresses = ",".join(f"127.0.0.1:{p}" for p in ports)
-        addrs = [("127.0.0.1", p) for p in ports]
-        paths = [os.path.join(tmp, f"r{i}.tigerbeetle") for i in range(3)]
+        addrs = [("127.0.0.1", p) for p in ports[:FRONT_ACTIVE]]  # clients: the actives
+        paths = [os.path.join(tmp, f"r{i}.tigerbeetle") for i in range(total)]
         cli = [sys.executable, "-m", "tigerbeetle_tpu_torch.cli"]
-        fmt = [subprocess.Popen(cli + ["format", path, f"--replica={i}", "--replica-count=3",
-                                       f"--config={config}"],
+        # The standby's data file is index 3 of a three-replica cluster.
+        fmt = [subprocess.Popen(cli + ["format", path, f"--replica={i}",
+                                       f"--replica-count={FRONT_ACTIVE}", f"--config={config}"],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                for i, path in enumerate(paths)]
         for p in fmt:
@@ -2844,16 +2856,16 @@ def run_front_door_phase(torch, rng, config="production", device="cuda",
 
         def spawn(i):
             return _spawn_replica(paths[i], ports[i], mports[i], config, device,
-                                  extra_args=["--aof"], addresses=addresses, replica=i,
-                                  log_path=paths[i] + ".log")
+                                  extra_args=["--aof", f"--active-count={FRONT_ACTIVE}"],
+                                  addresses=addresses, replica=i, log_path=paths[i] + ".log")
 
         def replica_log(i):
             with open(paths[i] + ".log", "rb") as f:
                 return f.read()[-4000:].decode("utf-8", "replace")
 
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(3) as ex:
-            procs = dict(enumerate(ex.map(spawn, range(3))))
+        with ThreadPoolExecutor(total) as ex:
+            procs = dict(enumerate(ex.map(spawn, range(total))))
         boot_s = time.perf_counter() - t0
         for i, p in procs.items():
             if p.poll() is not None:
@@ -2889,7 +2901,7 @@ def run_front_door_phase(torch, rng, config="production", device="cuda",
                 # After the uniform batches: SIGKILL a backup (its counts
                 # read first) and restart it with the same command; it
                 # recovers from its data file while the run goes on.
-                status = [http_get_json(m, "/cluster") for m in mports]
+                status = [http_get_json(m, "/cluster") for m in mports[:FRONT_ACTIVE]]
                 victim = next(k for k, st in enumerate(status) if not st["is_primary"])
                 pre_kill = scrape_launches(http_get_text, mports[victim])
                 procs[victim].send_signal(signal.SIGKILL)
@@ -2903,7 +2915,8 @@ def run_front_door_phase(torch, rng, config="production", device="cuda",
         n_transfers = sum(len(c) for c in created)
 
         # The C client, on the primary: one batch of transfers and a lookup.
-        status = [http_get_json(m, "/cluster") for k, m in enumerate(mports) if k != victim]
+        status = [http_get_json(m, "/cluster") for k, m in enumerate(mports[:FRONT_ACTIVE])
+                  if k != victim]
         primary = next(st["replica"] for st in status if st["is_primary"])
         h = lib.tbc_connect(b"127.0.0.1", ports[primary], 0, FRONT_WAIT_S * 1000)
         if not h:
@@ -2976,6 +2989,38 @@ def run_front_door_phase(torch, rng, config="production", device="cuda",
         catch_up_s = time.perf_counter() - restart["t0"]
         lifecycle = http_get_json(mports[primary], "/lifecycle")
 
+        # The standby: it commits every op with the actives' checksums,
+        # checkpoints where they do, and acks nothing.
+        standby = FRONT_ACTIVE
+        wait_for("the standby's catch-up",
+                 lambda: http_get_json(mports[standby], "/cluster")["commit_min"] >= top)
+        wait_for("one checkpoint on every replica", lambda: len({
+            http_get_json(m, "/commits")["checkpoint"]["op"] for m in mports}) == 1)
+        commits = [http_get_json(m, "/commits") for m in mports]
+        sb = commits[standby]
+        if not sb["standby"] or [c["standby"] for c in commits[:FRONT_ACTIVE]] != [False] * FRONT_ACTIVE:
+            raise SystemExit(f"{name}: replica {standby} is not the one standby")
+        if max(int(op) for op in sb["checksums"]) < top:
+            raise SystemExit(f"{name}: the standby holds no commit checksum of op {top}")
+        compared = 0
+        for k, c in enumerate(commits[:FRONT_ACTIVE]):
+            common = set(c["checksums"]) & set(sb["checksums"])
+            bad = sorted((int(op) for op in common if c["checksums"][op] != sb["checksums"][op]))
+            if bad:
+                raise SystemExit(f"{name}: the standby's commit checksum differs from replica "
+                                 f"{k}'s at op {bad[0]}")
+            compared += len(common)
+        if any(c["checkpoint"] != sb["checkpoint"] for c in commits):
+            raise SystemExit(f"{name}: the standby's checkpoint trailer differs from the actives'")
+        acks = [scrape_counter(http_get_text, m, "vsr.prepare_ok_sent") for m in mports]
+        backups = [k for k in range(FRONT_ACTIVE) if k not in (primary, victim)]
+        if acks[standby] or not all(acks[k] for k in backups):
+            raise SystemExit(f"{name}: prepare_oks sent {acks}: the standby must send none, "
+                             f"backup {backups} some")
+        sb_launches, _merges = scrape_launches(http_get_text, mports[standby])
+        if device == "cuda" and min(sb_launches.get(k, 0) for k in REPLICA_KERNELS) == 0:
+            raise SystemExit(f"{name}: a kernel did not launch on the standby: {sb_launches}")
+
         launches = dict.fromkeys(C.LAUNCHES, 0)
         merges = pre_kill[1]
         for k, m in enumerate(mports):
@@ -3023,7 +3068,13 @@ def run_front_door_phase(torch, rng, config="production", device="cuda",
                 raise SystemExit(f"{name}: a kernel of the front door did not launch: {launches}")
             if merges and not launches["compact_fold_kernel"]:
                 raise SystemExit(f"{name}: compaction merges ran but compact_fold_kernel did not launch")
-        log(f"{name}: 3 `cli start` replicas on {device}, booted together in {boot_s:.1f} s; "
+        log(f"{name}: standby {standby} (`--active-count {FRONT_ACTIVE}`) committed to op "
+            f"{max(int(op) for op in sb['checksums'])} with the actives' checksums ({compared} "
+            f"compared), checkpoint op {sb['checkpoint']['op']} with the same trailer digests "
+            f"({len(sb['checkpoint']['trailer'])} sections), prepare_oks sent {acks}; its "
+            f"launches " + json.dumps({k: sb_launches.get(k, 0) for k in REPLICA_KERNELS}))
+        log(f"{name}: 3 `cli start` replicas and a standby on {device}, booted together in "
+            f"{boot_s:.1f} s; "
             f"{len(codes)} creates ({n_transfers} transfers in {run_s:.1f} s over TCP: "
             f"{n_transfers / run_s:.0f} committed transfers/s, the kill, the restart and one "
             f"serial batch included) and lookups equal to the CPU replay of {len(merged)} "
@@ -4000,9 +4051,10 @@ def main() -> int:
     l10 = run_replica_phase(torch, np.random.default_rng(args.seed + 23))
     log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
-    log(f"phase 11: the front door, 3 `cli start` replica processes on the card over TCP, "
-        f"{FRONT_BATCHES} uniform and {REPLICA_EXACT} config-3 batches, a backup SIGKILLed and "
-        f"restarted, the C and async clients, against the CPU replay of the AOFs")
+    log(f"phase 11: the front door, 3 `cli start` replica processes and a standby "
+        f"(--active-count 3) on the card over TCP, {FRONT_BATCHES} uniform and {REPLICA_EXACT} "
+        f"config-3 batches, a backup SIGKILLed and restarted, the C and async clients, the "
+        f"standby's checksums against the actives', against the CPU replay of the AOFs")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     l11 = run_front_door_phase(torch, np.random.default_rng(args.seed + 29))

@@ -22,10 +22,18 @@ __device__ __forceinline__ uint32_t fits(uint32_t a, uint32_t b) {
   return a + b;
 }
 
-// A loop is outside the proven subset: one c-parse finding, never a pass.
+// A loop with a constant trip count: unrolled, 4 * 0xFF stays in 32 bits.
 __device__ __forceinline__ uint32_t loops(const uint32_t* v) {
   uint32_t s = 0;
   for (int i = 0; i < 4; ++i) s += v[i] & 0xFFu;
+  return s;
+}
+
+// A range-based for is outside the subset: one c-parse finding, never a
+// pass.
+__device__ __forceinline__ uint32_t loops_unread(const uint32_t (&v)[4]) {
+  uint32_t s = 0;
+  for (uint32_t x : v) s += x & 0xFFu;
   return s;
 }
 

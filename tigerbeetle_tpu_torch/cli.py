@@ -90,6 +90,15 @@ def cmd_start(args) -> int:
     from tigerbeetle_tpu_torch.vsr.clock import SystemTime
 
     addresses = parse_addresses(args.addresses)
+    # Standbys (reference standbys, constants.zig:33): addresses beyond
+    # --active-count are passive replicas at the chain tail.
+    active = len(addresses) if args.active_count is None else args.active_count
+    if not 1 <= active <= len(addresses):
+        print(
+            f"error: --active-count={active} must be between 1 and the "
+            f"number of addresses ({len(addresses)})", file=sys.stderr,
+        )
+        return 2
     storage = FileStorage(args.path)
     aof = None
     if args.aof:
@@ -99,7 +108,8 @@ def cmd_start(args) -> int:
     replica = Replica(
         cluster=args.cluster,
         replica_index=args.replica,
-        replica_count=len(addresses),
+        replica_count=active,
+        standby_count=len(addresses) - active,
         storage=storage,
         zone=zone,
         config=config,
@@ -182,13 +192,17 @@ def cmd_start(args) -> int:
                     ).encode(),
                     "application/json",
                 ),
+                "/commits": lambda: (
+                    _json.dumps(peerstats.commit_status(replica)).encode(),
+                    "application/json",
+                ),
             }
             metrics_server = await tracer.serve_metrics(
                 args.metrics_port, extra=routes
             )
             print(f"metrics on http://127.0.0.1:{args.metrics_port}/metrics "
                   f"(trace: /trace, lifecycle: /lifecycle, cluster: /cluster, "
-                  f"device: /device)",
+                  f"device: /device, commits: /commits)",
                   flush=True)
         print(f"replica {args.replica}/{len(addresses)} listening on {host}:{port} "
               f"(device={replica.state_machine.device}, status={replica.status})",
@@ -680,6 +694,9 @@ def main(argv=None) -> int:
                    help="where the state machine runs: the CUDA card "
                         "(raises without one) or the CPU (every kernel's "
                         "plain PyTorch version)")
+    s.add_argument("--active-count", type=int, default=None,
+                   help="active replicas (1 to the number of addresses; "
+                        "default all); addresses beyond this are standbys")
     s.add_argument("--commit-depth", type=int, default=0,
                    help="cross-batch commit pipelining: max batches in "
                         "flight through the commit stage (1 = no "

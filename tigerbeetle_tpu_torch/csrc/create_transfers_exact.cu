@@ -288,16 +288,19 @@ __device__ __forceinline__ void rung(uint32_t& c, bool cond, uint32_t r) {
 __device__ __forceinline__ uint32_t merge(uint32_t c, uint32_t host) {
   return (c == 0 || (host != 0 && host < c)) ? host : c;
 }
+// tidy: range=a:1..0x7FFFFFFF — A rows, addressed by int32 slots (the entry refuses other A)
 __device__ __forceinline__ long long clip(long long s, long long a) {
   return s < 0 ? 0 : s >= a ? a - 1 : s;
 }
 // A scatter's row: a negative slot counts from the end (the reference's
 // drop-mode scatter), and what is still outside [0, A) is dropped (-1).
+// tidy: range=a:1..0x7FFFFFFF — A rows, addressed by int32 slots (the entry refuses other A)
 __device__ __forceinline__ long long scatter_row(long long s, long long a) {
   if (s < 0) s += a;
   return (s >= 0 && s < a) ? s : -1;
 }
 
+// tidy: range=g.n:1..8192,r:0..16383 — r is one of the 2n posting records
 __device__ __forceinline__ int32_t rec_slot(const Args& g, int r) {
   return r < g.n ? g.eff_dr[r] : g.eff_cr[r - g.n];
 }
@@ -305,6 +308,7 @@ __device__ __forceinline__ int32_t rec_slot(const Args& g, int r) {
 // --- phase 0: the static ladders (reference _static_ladder,
 // _pv_static_ladder, _timeout_overflows, _pending_expired) --------------
 
+// tidy: range=g.a:1..0x7FFFFFFF — the kernel's contract
 __device__ void event_static(const Args& g, int e) {
   uint32_t flags = g.flags[e];
   bool pend = flags & F_PENDING, post = flags & F_POST, void_ = flags & F_VOID;
@@ -362,10 +366,12 @@ __device__ void event_static(const Args& g, int e) {
   // t.timestamp + t.timeout * 1e9 > maxInt(u64) (state_machine.zig:1326)
   unsigned long long ts = u64_of(g.timestamp[e]);
   unsigned long long tns = (unsigned long long)timeout * NS_PER_S;
+  // tidy: allow=limb-overflow — the wrap is the test: the carry the plain version's _timeout_overflows reads (ops/commit_exact.py:276-278)
   bool ts_over = ts + tns < ts;
   // p.timeout > 0 and t.timestamp >= p.timestamp + p.timeout * 1e9
   uint32_t p_timeout = g.p_timeout[e];
   unsigned long long p_ts = u64_of(g.p_ts[e]);
+  // tidy: allow=limb-overflow — a wrapped deadline is never reached: deadline >= p_ts below fails for it, as the plain version's ~over (ops/commit_exact.py:281-285)
   unsigned long long deadline = p_ts + (unsigned long long)p_timeout * NS_PER_S;
   bool expired = p_timeout != 0 && deadline >= p_ts && ts >= deadline;
 
@@ -394,12 +400,14 @@ struct Obs {
   u128 dp, dpo, cp, cpo;
 };
 
+// tidy: range=r:0..16383 — r is one of the 2n <= 16384 posting records
 __device__ __forceinline__ Obs load_obs(const Args& g, int r) {
   const uint4* o = g.obs + 4 * (size_t)r;
   return Obs{to_u128(ld(o)), to_u128(ld(o + 1)), to_u128(ld(o + 2)),
              to_u128(ld(o + 3))};
 }
 
+// tidy: range=g.a:1..0x7FFFFFFF,g.n:1..8192,r:0..16383 — the kernel's contract; r is a posting record
 __device__ __forceinline__ Obs base_obs(const Args& g, int r) {
   if (g.external) {
     return Obs{to_u128(g.base_dp[r]), to_u128(g.base_dpo[r]),
@@ -444,9 +452,13 @@ __device__ void evaluate(const Args& g, int e, const Obs& dr, const Obs& cr,
   }
   amt = amt2;
   // Overflow rungs (state_machine.zig:1308-1324), in reference order.
+  // tidy: allow=limb-overflow — the wrap is the test: amt + balance wraps iff the sum overflows u128, the plain version's u128.sum_overflows (ops/commit_exact.py:542-547)
   rung(c, pend && amt + dr.dp < amt, OVERFLOWS_DEBITS_PENDING);
+  // tidy: allow=limb-overflow — the wrap is the test: amt + balance wraps iff the sum overflows u128, the plain version's u128.sum_overflows (ops/commit_exact.py:542-547)
   rung(c, pend && amt + cr.cp < amt, OVERFLOWS_CREDITS_PENDING);
+  // tidy: allow=limb-overflow — the wrap is the test: amt + balance wraps iff the sum overflows u128, the plain version's u128.sum_overflows (ops/commit_exact.py:542-547)
   rung(c, amt + dr.dpo < amt, OVERFLOWS_DEBITS_POSTED);
+  // tidy: allow=limb-overflow — the wrap is the test: amt + balance wraps iff the sum overflows u128, the plain version's u128.sum_overflows (ops/commit_exact.py:542-547)
   rung(c, amt + cr.cpo < amt, OVERFLOWS_CREDITS_POSTED);
   Wide d_sum = add3(dr.dp, dr.dpo, amt);
   Wide c_sum = add3(cr.cp, cr.cpo, amt);
@@ -480,6 +492,7 @@ __device__ __forceinline__ u128 warp_sum_u128(u128 x) {
   for (int o = 16; o; o >>= 1) {
     unsigned long long lo = __shfl_xor_sync(0xFFFFFFFFu, (unsigned long long)x, o);
     unsigned long long hi = __shfl_xor_sync(0xFFFFFFFFu, (unsigned long long)(x >> 64), o);
+    // tidy: allow=limb-overflow — mod 2^128, as the plain version's lanes (ops/commit_exact.py:485-490, _seg_excl then _limbs_mod); a true sum past 2^128 overflows the posting's atomic_add_u128: bail
     x += ((u128)hi << 64) | lo;
   }
   return x;
@@ -539,6 +552,7 @@ __device__ __forceinline__ u128 warp_seg_scan(u128 x, const unsigned (&hs)[Steps
 #pragma unroll
   for (int j = 0; j < Steps; ++j) {
     u128 t = shfl_up_u128(x, 1 << j);
+    // tidy: allow=limb-overflow — mod 2^128, as the plain version's lanes (ops/commit_exact.py:485-490, _seg_excl then _limbs_mod); a true sum past 2^128 overflows the posting's atomic_add_u128: bail
     if (lane >= (1 << j) && !(hs[j] & bit)) x += t;
   }
   return x;
@@ -588,7 +602,9 @@ __device__ void tile_scan(ScanShared& s, unsigned& heads, Lanes<K>& v) {
   if (warp > 0) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
+      // tidy: allow=limb-overflow — mod 2^128, as the plain version's lanes (ops/commit_exact.py:485-490, _seg_excl then _limbs_mod); a true sum past 2^128 overflows the posting's atomic_add_u128: bail
       if (!(heads & S_HEAD_A)) v.a[k] += s.warp_pre[warp].a[k];
+      // tidy: allow=limb-overflow — mod 2^128, as the plain version's lanes (ops/commit_exact.py:485-490, _seg_excl then _limbs_mod); a true sum past 2^128 overflows the posting's atomic_add_u128: bail
       if (!(heads & S_HEAD_B)) v.b[k] += s.warp_pre[warp].b[k];
     }
     heads |= s.warp_pre_heads[warp];
@@ -599,6 +615,7 @@ __device__ void tile_scan(ScanShared& s, unsigned& heads, Lanes<K>& v) {
 // with S_INCL, its inclusive carry) for the tiles after it, then its
 // status word for this sweep.
 template <int K>
+// tidy: range=t:0..95,ver:1..0xFFFF — a tile of at most 64 + 32 (2n, n <= 8192); ver <= max_sweeps + 1 (the entry refuses max_sweeps > 0xFFFE)
 __device__ void publish(uint32_t* status, uint4* buf, int t, const Lanes<K>& v,
                         unsigned flags, unsigned ver) {
   uint4* dst = buf + (size_t)t * 2 * K;
@@ -616,6 +633,7 @@ __device__ void publish(uint32_t* status, uint4* buf, int t, const Lanes<K>& v,
 // time. Every tile of the chain runs at once on its own block, so each
 // publishes its aggregate without waiting.
 template <int K>
+// tidy: range=t:1..95,ver:1..0xFFFF — scan_tile's tile t > 0; ver as publish's
 __device__ void look_back(ScanShared& s, const uint32_t* status, const uint4* agg,
                           const uint4* incl, int t, unsigned ver) {
   const int lane = threadIdx.x;
@@ -644,6 +662,7 @@ __device__ void look_back(ScanShared& s, const uint32_t* status, const uint4* ag
     for (int k = 0; k < K; ++k) s.carry.a[k] = s.carry.b[k] = 0;
   }
   bool done_a = false, done_b = false;
+  // tidy: range=k0:-33..94 — a pass begun at k0 <= 30 has lane 31 below tile 0, which stops both views: a pass begins at k0 >= -1
   for (int k0 = t - 1; !(done_a && done_b); k0 -= 32) {
     const int kk = k0 - lane;
     st = 0;
@@ -665,7 +684,9 @@ __device__ void look_back(ScanShared& s, const uint32_t* status, const uint4* ag
       u128 xa = warp_sum_u128(use_a ? to_u128(__ldcg(src + k)) : 0);
       u128 xb = warp_sum_u128(use_b ? to_u128(__ldcg(src + K + k)) : 0);
       if (lane == 0) {
+        // tidy: allow=limb-overflow — mod 2^128, as the plain version's lanes (ops/commit_exact.py:485-490, _seg_excl then _limbs_mod); a true sum past 2^128 overflows the posting's atomic_add_u128: bail
         s.carry.a[k] += xa;
+        // tidy: allow=limb-overflow — mod 2^128, as the plain version's lanes (ops/commit_exact.py:485-490, _seg_excl then _limbs_mod); a true sum past 2^128 overflows the posting's atomic_add_u128: bail
         s.carry.b[k] += xb;
       }
     }
@@ -677,6 +698,7 @@ __device__ void look_back(ScanShared& s, const uint32_t* status, const uint4* ag
 // The scan of tile t of one chain (status, aggregates, inclusive carries):
 // on return v is each position's inclusive segmented sum over the chain.
 template <int K>
+// tidy: range=t:0..95,ver:1..0xFFFF — as publish's
 __device__ void scan_tile(ScanShared& s, uint32_t* status, uint4* agg, uint4* incl, int t,
                           unsigned ver, unsigned heads, Lanes<K>& v) {
   tile_scan<K>(s, heads, v);
@@ -687,7 +709,9 @@ __device__ void scan_tile(ScanShared& s, uint32_t* status, uint4* agg, uint4* in
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < K; ++k) {
+      // tidy: allow=limb-overflow — mod 2^128, as the plain version's lanes (ops/commit_exact.py:485-490, _seg_excl then _limbs_mod); a true sum past 2^128 overflows the posting's atomic_add_u128: bail
       if (!(heads & S_HEAD_A)) v.a[k] += s.carry.a[k];
+      // tidy: allow=limb-overflow — mod 2^128, as the plain version's lanes (ops/commit_exact.py:485-490, _seg_excl then _limbs_mod); a true sum past 2^128 overflows the posting's atomic_add_u128: bail
       if (!(heads & S_HEAD_B)) v.b[k] += s.carry.b[k];
     }
   }
@@ -713,6 +737,7 @@ __device__ __forceinline__ void event_lanes(Lanes<kEvLanes>& v, bool in_a, bool 
   v.b[1] = in_b && void_;
 }
 
+// tidy: range=g.a:1..0x7FFFFFFF — the kernel's contract
 __device__ void post_row(const Args& g, uint4* table, int32_t slot, uint4 v,
                          bool sub, bool& over) {
   long long r = scatter_row(slot, g.a);
@@ -721,6 +746,7 @@ __device__ void post_row(const Args& g, uint4* table, int32_t slot, uint4 v,
   over |= sub ? tb::atomic_sub_u128(row, v) : tb::atomic_add_u128(row, v);
 }
 
+// tidy: range=r:0..0x7FFFFFFE — a row of the A <= 2^31 - 1 tables
 __device__ __forceinline__ bool row_overflows(const uint4* dp, const uint4* dpo,
                                               const uint4* cp, const uint4* cpo,
                                               long long r) {
@@ -744,6 +770,7 @@ __device__ void sync_sweep_blocks(uint32_t* counter, unsigned target) {
 
 // Rows [first, A) by `stride` of the four tables into the new ones; true
 // if an old row's pending + posted overflows.
+// tidy: range=g.a:1..0x7FFFFFFF,first:0..0x7FFFFFFFFF,stride:0..0x7FFFFFFF00 — a copy block's first row and the copy blocks' threads (below 2^31 blocks of 256)
 __device__ bool copy_tables(const Args& g, long long first, long long stride) {
   bool over = false;
   for (long long r = first; r < g.a; r += stride) {
@@ -758,6 +785,10 @@ __device__ bool copy_tables(const Args& g, long long first, long long stride) {
   return over;
 }
 
+/* tidy: range=g.n:1..8192,g.max_sweeps:0..0xFFFE,g.a:1..0x7FFFFFFF,g.r_tiles:1..64,g.e_tiles:1..32,g.copy_blocks:0..0x7FFFFFFF
+   — the entry refuses n < 1, 2n > 16384, max_sweeps outside [0, 0xFFFE] and A outside
+   [1, 2^31 - 1] (tb_create_transfers_exact); the tiles are ceil(2n / 256) and ceil(n / 256);
+   the copy blocks are the resident blocks past the sweep blocks */
 __global__ void __launch_bounds__(kBlock, 2) exact_kernel(Args g) {
   const int n = g.n, e2 = 2 * n;
   const int tid = threadIdx.x;
@@ -783,6 +814,7 @@ __global__ void __launch_bounds__(kBlock, 2) exact_kernel(Args g) {
   const long long gid = (long long)blockIdx.x * kBlock + tid;
   const long long nthreads = (long long)sweep_blocks * kBlock;
   unsigned barriers = 0;
+  // tidy: range=barriers:0..0x1FFFF — one barrier before the sweeps, two a sweep (at most max_sweeps <= 0xFFFE), two after
   auto barrier = [&]() { sync_sweep_blocks(g.ctrl + C_BARRIER, ++barriers * sweep_blocks); };
 
   // This thread's scan position, loaded once for every sweep: a posting
@@ -796,12 +828,12 @@ __global__ void __launch_bounds__(kBlock, 2) exact_kernel(Args g) {
   unsigned heads0 = S_HEAD_A | S_HEAD_B;  // past the chain's end
   u128 p_amount = 0;
   if (live && record_tile) {
-    r = g.perm[p];
+    r = g.perm[p];  // tidy: range=r:0..16383 — the sort plan's perm permutes the 2n records
     credit = r >= n;
     e = credit ? r - n : r;
     heads0 = (g.head_pos[p] == p ? S_HEAD_A : 0) | (g.sub_head_pos[p] == p ? S_HEAD_B : 0);
   } else if (live) {
-    e = g.f_perm[p];
+    e = g.f_perm[p];  // tidy: range=e:0..8191 — the sort plan's f_perm permutes the n events
     heads0 = (g.f_head_pos[p] == p ? S_HEAD_A : 0) | (g.f_sub_head_pos[p] == p ? S_HEAD_B : 0);
   }
   if (live) {
@@ -879,15 +911,19 @@ __global__ void __launch_bounds__(kBlock, 2) exact_kernel(Args g) {
 #pragma unroll
         for (int f = 0; f < kRecLanes; ++f) {
           u128 x = record_field(f, credit, pend, pv, post_grp, amt, p_amount);
+          // tidy: allow=limb-overflow|limb-underflow — inclusive minus own, mod 2^128 (the plain version's exclusive _seg_excl, ops/commit_exact.py:485-490): the inclusive sum holds the own term, a relation the intervals cannot carry
           d[f] = (v.a[f] - (in_a ? x : 0)) + (v.b[f] - (in_b ? x : 0));
         }
+        // tidy: allow=limb-overflow — base + earlier adds, mod 2^128 as the plain version's u128.add(...)[0] (ops/commit_exact.py:492); a true balance past 2^128 overflows the posting (bail)
         u128 dp = to_u128(s_base[0][tid]) + d[0], cp = to_u128(s_base[2][tid]) + d[3];
         bool ud = dp < d[1], uc = cp < d[4];
         und = ud || uc;
         uint4* o = g.obs + 4 * (size_t)r;
         o[0] = from_u128(ud ? 0 : dp - d[1]);
+        // tidy: allow=limb-overflow — base + earlier adds, mod 2^128 as the plain version's u128.add(...)[0] (ops/commit_exact.py:492); a true balance past 2^128 overflows the posting (bail)
         o[1] = from_u128(to_u128(s_base[1][tid]) + d[2]);
         o[2] = from_u128(uc ? 0 : cp - d[4]);
+        // tidy: allow=limb-overflow — base + earlier adds, mod 2^128 as the plain version's u128.add(...)[0] (ops/commit_exact.py:492); a true balance past 2^128 overflows the posting (bail)
         o[3] = from_u128(to_u128(s_base[3][tid]) + d[5]);
       }
     } else if (g.has_pv) {
@@ -896,7 +932,9 @@ __global__ void __launch_bounds__(kBlock, 2) exact_kernel(Args g) {
       scan_tile<kEvLanes>(s, g.e_status, g.e_agg, g.e_incl, tile, ver, heads0, v);
       if (live) {
         event_lanes(own, in_a, in_b, post, pv && !post);
+        // tidy: allow=limb-overflow|limb-underflow — inclusive minus own, mod 2^128 (the plain version's exclusive _seg_excl, ops/commit_exact.py:485-490): the inclusive sum holds the own term, a relation the intervals cannot carry
         u128 posts = (v.a[0] - own.a[0]) + (v.b[0] - own.b[0]);
+        // tidy: allow=limb-overflow|limb-underflow — inclusive minus own, mod 2^128 (the plain version's exclusive _seg_excl, ops/commit_exact.py:485-490): the inclusive sum holds the own term, a relation the intervals cannot carry
         u128 voids = (v.a[1] - own.a[1]) + (v.b[1] - own.b[1]);
         g.epv[e] = (posts != 0 ? 1u : 0u) | (voids != 0 ? 2u : 0u);
       }
@@ -964,13 +1002,17 @@ __global__ void __launch_bounds__(kBlock, 2) exact_kernel(Args g) {
     u128 a_pend = (ok && epend && !epv) ? am : 0;
     u128 a_post = (ok && !epend && !epv) ? am : 0;
     Obs dr = load_obs(g, ev), cr = load_obs(g, ev + n);
+    // tidy: allow=limb-overflow — the post-event balance, mod 2^128 as the plain version's u128.add(...)[0] (ops/commit_exact.py:630-637); past 2^128 the posting overflows (:617) and the batch bails
     g.dr_dp[ev] = from_u128(dr.dp + a_pend);
+    // tidy: allow=limb-overflow — the post-event balance, mod 2^128 as the plain version's u128.add(...)[0] (ops/commit_exact.py:630-637); past 2^128 the posting overflows (:617) and the batch bails
     g.dr_dpo[ev] = from_u128(dr.dpo + a_post);
     g.dr_cp[ev] = from_u128(dr.cp);
     g.dr_cpo[ev] = from_u128(dr.cpo);
     g.cr_dp[ev] = from_u128(cr.dp);
     g.cr_dpo[ev] = from_u128(cr.dpo);
+    // tidy: allow=limb-overflow — the post-event balance, mod 2^128 as the plain version's u128.add(...)[0] (ops/commit_exact.py:630-637); past 2^128 the posting overflows (:617) and the batch bails
     g.cr_cp[ev] = from_u128(cr.cp + a_pend);
+    // tidy: allow=limb-overflow — the post-event balance, mod 2^128 as the plain version's u128.add(...)[0] (ops/commit_exact.py:630-637); past 2^128 the posting overflows (:617) and the batch bails
     g.cr_cpo[ev] = from_u128(cr.cpo + a_post);
     if (g.external) {
       // _apply's masks (reference :866-874) for the shards to post
@@ -1061,7 +1103,8 @@ extern "C" long long tb_create_transfers_exact_scratch(long long n,
 extern "C" int tb_create_transfers_exact(void* const* ptrs,
                                          const long long* dims, void* stream) {
   long long a = dims[0], n = dims[1], max_sweeps = dims[2];
-  if (n < 1 || 2 * n > 16384 || max_sweeps < 0 || max_sweeps > 0xFFFE || a < 1)
+  if (n < 1 || 2 * n > 16384 || max_sweeps < 0 || max_sweeps > 0xFFFE || a < 1 ||
+      a > 0x7FFFFFFF)
     return (int)cudaErrorInvalidValue;
   Layout lay = layout(n, max_sweeps);
   if ((long long)lay.end > dims[5]) return (int)cudaErrorInvalidValue;

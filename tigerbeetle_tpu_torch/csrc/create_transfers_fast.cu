@@ -48,6 +48,7 @@ struct Tables {
   uint4* cpo;
 };
 
+// tidy: range=a:1..0x7FFFFFFF — the entry refuses A outside [1, 2^31 - 1] (int32 slots)
 __global__ void copy_check(Tables old_t, Tables new_t, long long a,
                            bool* bail) {
   long long stride = (long long)gridDim.x * blockDim.x;
@@ -65,6 +66,7 @@ __global__ void copy_check(Tables old_t, Tables new_t, long long a,
   if (over) *bail = true;  // every writer stores the same value
 }
 
+// tidy: range=a:1..0x7FFFFFFF,n:0..0x7FFFFFFF — the entry refuses A outside [1, 2^31 - 1] (int32 slots) and n outside [0, 2^31 - 1]
 __global__ void ladder_post(Batch b, long long n, const uint32_t* acc_ledger,
                             long long a, Tables t, uint32_t* codes,
                             bool* bail) {
@@ -87,6 +89,7 @@ __global__ void ladder_post(Batch b, long long n, const uint32_t* acc_ledger,
   if (over) *bail = true;
 }
 
+// tidy: range=a:1..0x7FFFFFFF,n:0..0x7FFFFFFF — as ladder_post's
 __global__ void touched_check(Batch b, long long n, long long a, Tables t,
                               const uint32_t* codes, bool* bail) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -113,6 +116,9 @@ extern "C" int tb_create_transfers_fast(
     const void* ledger, const void* code, const void* flags,
     const void* timestamp, const void* host_code, void* codes, void* bail,
     long long a, long long n, void* stream) {
+  // A rows addressed by int32 slots, a batch below 2^31 events: the
+  // kernels' contract (ladder.cuh).
+  if (a < 1 || a > 0x7FFFFFFF || n < 0 || n > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Tables old_t{(uint4*)dp, (uint4*)dpo, (uint4*)cp, (uint4*)cpo};
   Tables new_t{(uint4*)new_dp, (uint4*)new_dpo, (uint4*)new_cp,

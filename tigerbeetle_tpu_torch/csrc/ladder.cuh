@@ -64,7 +64,7 @@ __device__ __forceinline__ bool is_max(uint4 v) {
 }
 
 // The reference's ladder (validate_simple) for event i, then merge_codes.
-// tidy: range=a:1..0x7FFFFFFF — A rows, addressed by int32 slots
+// tidy: range=i:0..0x7FFFFFFF,a:1..0x7FFFFFFF — an event of a batch below 2^31; A rows, addressed by int32 slots
 __device__ __forceinline__ uint32_t ladder(const Batch& b, long long i,
                                            const uint32_t* acc_ledger,
                                            long long a) {
@@ -106,6 +106,7 @@ __device__ __forceinline__ uint32_t ladder(const Batch& b, long long i,
 // An OK event of a supported kind posts; its slots are then >= 0 (the
 // ladder's not-found rungs), and a slot >= A is dropped by the callers, as
 // the reference's mode="drop" scatter drops it.
+// tidy: range=i:0..0x7FFFFFFF — an event of a batch below 2^31
 __device__ __forceinline__ bool posts(const Batch& b, long long i,
                                       uint32_t code) {
   return code == 0 && (b.flags[i] & F_UNSUPPORTED) == 0;

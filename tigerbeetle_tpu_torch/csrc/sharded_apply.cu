@@ -102,6 +102,7 @@ struct Args {
 
 // The local row of a global slot, or -1 where the shard at `base` does not
 // own it (a negative slot is never owned).
+// tidy: range=base:0..0x7FFFFFFF,rows:1..0x40000000 — the entry refuses other bases and rows (launch)
 __device__ __forceinline__ int local_row(int32_t slot, long long base, int rows) {
   long long l = (long long)slot - base;
   return (slot >= 0 && l >= 0 && l < rows) ? (int)l : -1;
@@ -130,6 +131,7 @@ struct Pair {
 };
 
 template <int N>
+// tidy: range=e:0..0x3FFFFFFF,n:1..0x40000000,rows:1..0x40000000,a.shard.base:0..0x7FFFFFFF — e < n * count <= 2^30 (the entry's refusals)
 __device__ __forceinline__ Pair load_pair(const Args<N>& a, int e, int n, int rows) {
   Pair p;
   p.j = e / n;
@@ -145,6 +147,10 @@ __device__ __forceinline__ Pair load_pair(const Args<N>& a, int e, int n, int ro
   return p;
 }
 
+/* tidy: range=a.count:1..32,a.rows:1..0x40000000,a.n:0..0x40000000,a.shard.base:0..0x7FFFFFFF,gridDim.x:1..2048,blockIdx.x:0..2047
+   — launch() refuses rows outside [1, 2^30], n < 0, n * count > 2^30 and a base outside
+   [0, 2^31 - 1], the grouped entry a count outside [1, kMaxShards]; the grid is at most
+   kMaxGrid blocks */
 template <int N>
 __global__ void __launch_bounds__(kBlock, kBlocksPerSm)
     apply(const __grid_constant__ Args<N> a) {
@@ -155,6 +161,7 @@ __global__ void __launch_bounds__(kBlock, kBlocksPerSm)
   const int tid = blockIdx.x * kBlock + threadIdx.x;
   const int stride = gridDim.x * kBlock;
   const int rows = (int)a.rows, n = (int)a.n;
+  // tidy: allow=limb-overflow; range=pairs:0..0x40000000 — launch() refuses n * count > 2^30, a relation of two arguments the intervals cannot carry
   const int pairs = n * count;
   if (threadIdx.x == 0) {
     s_over = 0;
@@ -273,6 +280,10 @@ int launch(Args<N>& args, void* stream) {
   if (args.rows < 1 || args.n < 0 || args.rows > (1ll << 30) ||
       args.n * args.count > (1ll << 30)) {
     return (int)cudaErrorInvalidValue;
+  }
+  // A shard's base is a global slot (an int32): the kernel's contract.
+  for (int j = 0; j < args.count; ++j) {
+    if (args.shard[j].base < 0 || args.shard[j].base > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
   }
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);

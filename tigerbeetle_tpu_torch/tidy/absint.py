@@ -45,24 +45,58 @@ Modes (manifest.ABSINT_TARGETS names each target's):
     leaves its receiver at the full range unless a line `range=` says
     more.
 
-The CUDA front end (`prove_cuda_function`) reads the device helpers where
-the port's carries now live (manifest.ABSINT_CUDA_FUNCS) through
-tidy/cparse.py, the C front end of `native-absint`. Each value carries its
-C type: widths and signedness come from the declarations (`uint32_t`,
-`unsigned long long`, `u128` = `unsigned __int128`, `uint2` / `uint4`
-members, struct fields, `constexpr` constants), the usual arithmetic
-conversions pick each operation's type, and an operation whose exact
-result may leave that type's range is a finding with the same codes. An
-implicit conversion that may truncate (an assignment or initialisation
-into a narrower type) is a `limb-overflow` too; an explicit cast is the
-source saying so. Atomics return an opaque value at the full width of
-their pointee. Calls to helpers of the same file are summarised at the
-callee's declared ranges (its return value and its reference
-parameters' final values), and their `range=` are call obligations.
+The CUDA front end (`prove_cuda_function`) reads the device code where
+the port's carries now live (manifest.ABSINT_CUDA_FUNCS: the shared
+helpers and the commit kernels whole) through tidy/cparse.py, the C front
+end of `native-absint`, with the quoted includes beside each file. Each
+value carries its C type: widths and signedness come from the
+declarations (`uint32_t`, `unsigned long long`, `u128` = `unsigned
+__int128`, `uint2` / `uint4` members, struct fields, `constexpr`
+constants), the usual arithmetic conversions pick each operation's type,
+and an operation whose exact result may leave that type's range is a
+finding with the same codes. An implicit conversion that may truncate (an
+assignment, an argument or a return into a narrower type) is a
+`limb-overflow` too; an explicit cast is the source saying so. So is an
+address offset whose bytes may leave the 64-bit range, and a division by
+a divisor that may be 0.
+
+  - Loops: a loop whose condition the intervals decide at every pass (a
+    `#pragma unroll` over a template constant, `for (int o = 16; o; o >>=
+    1)`) is read one iteration at a time; any other loop runs to a fixed
+    point with widening, then narrows by its condition. A loop the front
+    end cannot read is a `c-parse` finding, never a silent pass.
+  - Templates are read at each instantiation (`name<args>` in the
+    manifest; at a call, explicit or deduced from the arguments' types);
+    `[&]` lambdas inline at each call, in the caller's frame; aggregate
+    initialisers member by member; an inline asm output at the full range
+    of its register; a local array as the hull of its elements, and a
+    short one of constant length element by element.
+  - Intrinsics: a shuffle returns the interval of the value it moves; a
+    vote, a bit count or a barrier-reduction its result range; a
+    cache-hinted load and an atomic their pointee at full width.
+  - Guards: a branch narrows each local variable path (`blockIdx.x`,
+    `p.m`, `rows[k]` at a known k) its condition bounds, through casts
+    that keep the value and through `(x >> k) == 0`; `__all_sync(m, p)`
+    true (and `__any_sync(m, p)` false) narrow by p; a comparison `x >= y`
+    is remembered, so that `x - y` under it is not below 0 (also through
+    a bool defined as `x < y`), until a store to a name either reads; a
+    product at least 1 of non-negative factors bounds each factor, and a
+    quotient times its divisor stays below the dividend.
+  - Calls to functions of the translation unit are summarised at the
+    callee's declared ranges (its return value and its non-const
+    reference parameters' final values), and the callee's `range=` (on a
+    parameter or a path through it, `g.a`, `a.shard.base`) is a call
+    obligation. A kernel's own `range=` may bound the launch too
+    (`gridDim.x`, `blockIdx.x`); its threads are bounded by
+    `__launch_bounds__`. A value of unknown provenance (an unknown call)
+    that reaches arithmetic is a `c-parse` finding.
+
 Annotations are `/* tidy: range=... */` and `// tidy: allow=...`, the
-grammar `native-absint` reads. A loop is outside this front end (no
-listed helper has one): a listed function with a loop is a `c-parse`
-finding, never a silent pass.
+grammar `native-absint` reads; a comment-only annotation binds to the line
+after its end, and a function's contract may sit anywhere in its head
+from its `template` line on. A `range=` on a line bounds the named value
+where the line starts and after its store (a loop-carried count that a
+relation bounds).
 
 `prove_file` and `prove_cuda_function` return the checked-operation count
 so the tests can see that the interpreter visited the arithmetic instead
@@ -72,7 +106,10 @@ of skipping it.
 from __future__ import annotations
 
 import ast
+import functools
 import pathlib
+import posixpath
+import re
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -901,20 +938,44 @@ _VECTOR_TYPES = {  # CUDA's built-in vector structs
     "uint2": ("x", "y"), "uint4": ("x", "y", "z", "w"),
     "int2": ("x", "y"), "int4": ("x", "y", "z", "w"),
     "ulonglong2": ("x", "y"), "longlong2": ("x", "y"),
+    "uint3": ("x", "y", "z"), "dim3": ("x", "y", "z"),
 }
 _INT32 = cparse.CType("int", 32, True)
+_U32 = cparse.CType("int", 32, False)
 _U64 = cparse.CType("int", 64, False)
-# Device intrinsics that return their pointee's old value (opaque, full
-# width) or a value of a known type.
+_BOOL_T = cparse.CType("int", 8, False, boolean=True)
+# Device intrinsics: atomics return their pointee's old value (full width);
+# a shuffle returns the interval of the value it moves; a vote, a bit
+# count or a barrier-reduction returns its result range; a cache-hinted
+# load returns its pointee at full width.
 _ATOMICS = frozenset(("atomicAdd", "atomicSub", "atomicExch", "atomicMax",
                       "atomicMin", "atomicOr", "atomicAnd", "atomicCAS"))
+_SHUFFLES = frozenset(("__shfl_sync", "__shfl_up_sync", "__shfl_down_sync",
+                       "__shfl_xor_sync"))
+_VOTES = frozenset(("__any_sync", "__all_sync", "__syncthreads_or",
+                    "__syncthreads_and"))
+_RESULT_RANGES = {"__ffs": 32, "__ffsll": 64, "__popc": 32, "__popcll": 64,
+                  "__clz": 32, "__clzll": 64, "__syncthreads_count": 1024}
+_REDUCE_BITS = frozenset(("__reduce_or_sync", "__reduce_and_sync",
+                          "__reduce_xor_sync"))
+_LOADS = frozenset(("__ldcg", "__ldcs", "__ldg", "__ldca", "__ldlu", "__ldcv"))
+_VOID_CALLS = frozenset(("__syncthreads", "__syncwarp", "__threadfence",
+                         "__threadfence_block", "__threadfence_system",
+                         "__stcs", "__stcg", "__stwt", "__stcwb", "__nanosleep"))
+_ASM_BITS = {"r": 32, "l": 64, "h": 16, "c": 8}  # an asm output's register width
+_MAX_THREADS = 1024  # threads a block, without __launch_bounds__
+_C_WIDEN_AFTER = 3  # fixed-point passes over a loop before widening
+_CONVERGE_MAX = 64   # ... and before giving up (a c-parse finding)
+_UNROLL_MAX = 256    # iterations of a constant-trip loop read one by one
+_NEG = {"<": ">=", "<=": ">", ">": "<=", ">=": "<", "==": "!=", "!=": "=="}
+_SWAP = {"<": ">", ">": "<", "<=": ">=", ">=": "<=", "==": "==", "!=": "!="}
 
 
 @dataclass(frozen=True)
 class CI:
     """A C scalar: its interval and its type. `opaque` marks a value of
-    unknown provenance (an unknown call), which converts without a
-    finding."""
+    unknown provenance (an unknown call); arithmetic on one is a
+    `c-parse` finding, never a silent pass."""
 
     iv: Iv
     t: cparse.CType
@@ -944,6 +1005,54 @@ class CP:
     elem: cparse.CType
 
 
+@dataclass(frozen=True)
+class CA:
+    """A local array: the hull of its elements and, for a short array of
+    a constant length, each element (a store at a known index replaces
+    that element; at an unknown one it joins into every element)."""
+
+    elem: object
+    items: Optional[tuple] = None
+
+
+def _ca(items) -> CA:
+    hull = None
+    for v in items:
+        hull = v if hull is None else _join_vals(hull, v)
+    return CA(hull, tuple(items))
+
+
+def _join_vals(a, b):
+    """The hull of two values of one type (None: nothing known)."""
+    if a is None:
+        return b
+    if b is None:
+        return a
+    if isinstance(a, CI) and isinstance(b, CI):
+        return CI(a.iv.join(b.iv), a.t, a.opaque or b.opaque)
+    if isinstance(a, CS) and isinstance(b, CS) and a.tname == b.tname:
+        da, db = dict(a.fields), dict(b.fields)
+        return CS(a.tname, tuple(sorted(
+            (k, _join_vals(da.get(k), db.get(k))) for k in da)))
+    if isinstance(a, CA) and isinstance(b, CA):
+        if a.items is not None and b.items is not None and \
+                len(a.items) == len(b.items):
+            return _ca([_join_vals(x, y) for x, y in zip(a.items, b.items)])
+        return CA(_join_vals(a.elem, b.elem))
+    return a if a == b else b
+
+
+_ITEMS_MAX = 64  # elements a local array tracks one by one
+
+
+@dataclass(frozen=True, eq=False)
+class CL:
+    """A lambda, read inline at each call in its caller's frame (every
+    capture is by reference)."""
+
+    lam: object
+
+
 def _trange(t: cparse.CType) -> Iv:
     if t.boolean:
         return Iv(0, 1)
@@ -958,95 +1067,298 @@ def _tname(t: cparse.CType) -> str:
     return f"{'' if t.signed else 'u'}int{t.width}"
 
 
-class _CudaFile:
-    """The tables of one CUDA source: functions, typedefs, structs,
-    constants, annotations; and the memoized callee summaries."""
+def _cmp(op: str, x: Iv, y: Iv) -> Iv:
+    """A comparison's value: [1, 1] or [0, 0] where the intervals decide
+    it, else [0, 1]."""
+    if op == "<":
+        t, f = x.hi < y.lo, x.lo >= y.hi
+    elif op == "<=":
+        t, f = x.hi <= y.lo, x.lo > y.hi
+    elif op == ">":
+        t, f = x.lo > y.hi, x.hi <= y.lo
+    elif op == ">=":
+        t, f = x.lo >= y.hi, x.hi < y.lo
+    else:
+        same = x.lo == x.hi == y.lo == y.hi
+        apart = x.hi < y.lo or y.hi < x.lo
+        t, f = (same, apart) if op == "==" else (apart, same)
+    return Iv(1, 1) if t else Iv(0, 0) if f else BOOL
 
-    def __init__(self, src: str, rel: str) -> None:
+
+def _path_of(e, index=None) -> Optional[Tuple[str, ...]]:
+    """A local variable path (`x`, `s.carry`, `blockIdx.x`, and, where
+    `index` gives a subscript's constant value, `rows[1]` as `rows.#1`)
+    or None."""
+    if isinstance(e, cparse.Name):
+        return (e.n,)
+    if isinstance(e, cparse.Mem):
+        base = _path_of(e.base, index)
+        return None if base is None else base + (e.f,)
+    if isinstance(e, cparse.Idx) and index is not None:
+        i = index(e.idx)
+        base = _path_of(e.base, index)
+        return None if base is None or i is None else base + (f"#{i}",)
+    return None
+
+
+def _path_get(v, segs):
+    for s in segs:
+        if s.startswith("#"):
+            if not (isinstance(v, CA) and v.items is not None
+                    and int(s[1:]) < len(v.items)):
+                return None
+            v = v.items[int(s[1:])]
+            continue
+        while isinstance(v, CA):
+            v = v.elem
+        if not isinstance(v, CS):
+            return None
+        v = v.get(s)
+    return v
+
+
+def _path_set(v, segs, fn):
+    """`v` with the value at `segs` (through struct fields and array
+    elements: every element, or the one a `#i` segment names) replaced
+    by fn(old)."""
+    if not segs:
+        return fn(v)
+    if isinstance(v, CA):
+        if segs[0].startswith("#"):
+            k = int(segs[0][1:])
+            if v.items is None or k >= len(v.items):
+                return v
+            items = list(v.items)
+            items[k] = _path_set(items[k], segs[1:], fn)
+            return _ca(items)
+        if v.items is not None:
+            return _ca([_path_set(x, segs, fn) for x in v.items])
+        return CA(_path_set(v.elem, segs, fn))
+    if isinstance(v, CS) and v.get(segs[0]) is not None:
+        return v.with_field(segs[0], _path_set(v.get(segs[0]), segs[1:], fn))
+    return v
+
+
+_INCLUDE_RE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+class _CudaFile:
+    """The tables of one CUDA translation unit (the file and the quoted
+    includes beside it): functions, typedefs, structs, constants,
+    annotations by unit; and the memoized callee summaries."""
+
+    def __init__(self, src: str, rel: str,
+                 path: Optional[pathlib.Path] = None) -> None:
         self.rel = rel
-        self.toks, self.anns = cparse.lex(src)
-        self.typedefs = cparse.typedef_types(src)
-        self.structs = cparse.collect_structs(src)
-        self.consts = dict(cparse.parse_constexprs(src))
-        self.consts.update({k: v[0] for k, v in cparse.parse_defines(src).items()})
-        self.type_names = frozenset(
-            set(cparse.collect_typedefs(src)) | set(self.structs)
-            | set(_VECTOR_TYPES))
-        self.functions = {f.name: f for f in cparse.parse_functions(src)
-                          if f.body is not None}
+        self.units: Dict[str, tuple] = {}  # rel -> (toks, anns)
+        self.functions: Dict[str, Tuple[cparse.CFunc, str]] = {}
+        self.typedefs: Dict[str, cparse.CType] = {}
+        self.structs: Dict[str, list] = {}
+        self.consts: Dict[str, tuple] = {}  # name -> (value, CType or None)
+        names: set = set()
+        self._load(src, rel, path, set(), names)
+        self.type_names = frozenset(names | set(self.structs) | set(_VECTOR_TYPES))
+        self.templates = frozenset(
+            n for n, (f, _u) in self.functions.items() if f.tparams)
         self._bodies: Dict[str, cparse.SBlock] = {}
-        self._summaries: Dict[str, "_CudaFn"] = {}
+        self._summaries: Dict[tuple, "_CudaFn"] = {}
         self._in_progress: set = set()
+
+    def _load(self, src, rel, path, seen, names) -> None:
+        if rel in seen:
+            return
+        seen.add(rel)
+        if path is not None:
+            for inc in _INCLUDE_RE.findall(src):
+                p = path.parent / inc
+                if p.is_file():
+                    self._load(p.read_text(), posixpath.normpath(
+                        posixpath.join(posixpath.dirname(rel), inc)), p, seen, names)
+        self.units[rel] = cparse.lex(src)
+        self.typedefs.update(cparse.typedef_types(src))
+        names |= cparse.collect_typedefs(src)
+        self.structs.update(cparse.struct_fields(src))
+        for k, (v, _line) in cparse.parse_defines(src).items():
+            self.consts[k] = (v, None)
+        self.consts.update(cparse.parse_constexpr_types(src))
+        for f in cparse.parse_functions(src):
+            if f.body is not None:
+                self.functions[f.name] = (f, rel)
 
     def body(self, name: str) -> cparse.SBlock:
         if name not in self._bodies:
+            fn, unit = self.functions[name]
             self._bodies[name] = cparse.parse_body(
-                self.toks, self.functions[name].body, self.type_names)
+                self.units[unit][0], fn.body, self.type_names, self.templates)
         return self._bodies[name]
 
-    def resolve(self, t: cparse.CType) -> cparse.CType:
-        """Typedef names resolved to their type (pointer depth kept)."""
-        if t.base.startswith("named:"):
-            alias = self.typedefs.get(t.base[6:])
-            if alias is not None:
-                return cparse.CType(alias.base, alias.width, alias.signed,
-                                    alias.ptr + t.ptr, alias.boolean)
+    def resolve(self, t: cparse.CType, tenv=None) -> cparse.CType:
+        """Template type parameters and typedef names resolved to their
+        type (pointer depth kept)."""
+        for _ in range(8):
+            if not t.base.startswith("named:"):
+                return t
+            nm = t.base[6:]
+            b = (tenv or {}).get(nm)
+            if isinstance(b, cparse.CType):
+                t = cparse.CType(b.base, b.width, b.signed, b.ptr + t.ptr, b.boolean)
+                continue
+            alias = self.typedefs.get(nm)
+            if alias is None:
+                return t
+            t = cparse.CType(alias.base, alias.width, alias.signed,
+                             alias.ptr + t.ptr, alias.boolean)
         return t
 
     def fields_of(self, tname: str):
         if tname in _VECTOR_TYPES:
             w, signed = (64, tname.startswith("long")) if "longlong" in tname \
-                else (32, not tname.startswith("u"))
-            return [(f, cparse.CType("int", w, signed))
+                else (32, tname.startswith("int"))
+            return [(f, cparse.CType("int", w, signed), ())
                     for f in _VECTOR_TYPES[tname]]
         return self.structs.get(tname)
 
-    def top_of(self, t: cparse.CType):
+    def top_of(self, t: cparse.CType, tenv=None, dims=(), _depth=0):
         """The value a declaration of type `t` holds before anything is
-        known: the type's full range, a struct of such fields, or a
-        pointer."""
-        t = self.resolve(t)
+        known: the type's full range, a struct of such fields, an array
+        of such elements, or a pointer."""
+        if dims:
+            inner = self.top_of(t, tenv, dims[1:], _depth)
+            n = self.dim(dims[0])
+            return _ca([inner] * n) if n else CA(inner)
+        t = self.resolve(t, tenv)
         if t.ptr > 0:
             return CP(cparse.CType(t.base, t.width, t.signed, t.ptr - 1,
                                    t.boolean))
         if t.base == "int":
             return CI(_trange(t), t)
-        if t.base.startswith("named:"):
+        if t.base.startswith("named:") and _depth < 8:
             fields = self.fields_of(t.base[6:])
             if fields is not None:
                 return CS(t.base[6:], tuple(sorted(
-                    (f, self.top_of(ft)) for f, ft in fields)))
+                    (f, self.top_of(ft, tenv, fd, _depth + 1))
+                    for f, ft, fd in fields)))
         return CI(_trange(_U64), _U64, opaque=True)
 
-    def summary(self, name: str) -> Optional["_CudaFn"]:
-        """The callee analysed at its declared entry ranges (memoized;
-        None on recursion)."""
-        if name in self._summaries:
-            return self._summaries[name]
-        if name in self._in_progress:
+    def zero_of(self, t: cparse.CType, tenv=None, dims=(), _depth=0):
+        """The value of a value-initialised `t` (an aggregate's missing
+        members)."""
+        if dims:
+            inner = self.zero_of(t, tenv, dims[1:], _depth)
+            n = self.dim(dims[0])
+            return _ca([inner] * n) if n else CA(inner)
+        t = self.resolve(t, tenv)
+        if t.ptr > 0:
+            return self.top_of(t, tenv)
+        if t.base == "int":
+            return CI(Iv(0, 0), t)
+        if t.base.startswith("named:") and _depth < 8:
+            fields = self.fields_of(t.base[6:])
+            if fields is not None:
+                return CS(t.base[6:], tuple(sorted(
+                    (f, self.zero_of(ft, tenv, fd, _depth + 1))
+                    for f, ft, fd in fields)))
+        return self.top_of(t, tenv)
+
+    def dim_value(self, d, tenv=None) -> Optional[int]:
+        """An array bound's value where it is a constant (a number, a
+        constant of the file or a template argument), else None."""
+        if d is None or isinstance(d, int):
+            return d
+        d = d.strip()
+        if d.isdigit():
+            return int(d)
+        if isinstance((tenv or {}).get(d), int):
+            return tenv[d]
+        return self.consts[d][0] if d in self.consts else None
+
+    def dim(self, d, tenv=None) -> Optional[int]:
+        """An array bound's value where it is a short constant (an array
+        tracked element by element), else None."""
+        v = self.dim_value(d, tenv)
+        return v if v is not None and 0 < v <= _ITEMS_MAX else None
+
+    def sizeof(self, t: cparse.CType, tenv=None, _depth=0) -> int:
+        """Bytes of a value of type `t` (an address offset's scale)."""
+        t = self.resolve(t, tenv)
+        if t.ptr:
+            return 8
+        if t.base in ("int", "float"):
+            return max(1, (t.width or 8) // 8)
+        if t.base.startswith("named:") and _depth < 8:
+            fields = self.fields_of(t.base[6:])
+            if fields:
+                total = 0
+                for _f, ft, fd in fields:
+                    n = 1
+                    for d in fd:
+                        n *= self.dim_value(d, tenv) or 1
+                    total += n * self.sizeof(ft, tenv, _depth + 1)
+                return total
+        return 1
+
+    def const_targ(self, a, tenv):
+        """One template argument's value: an int, or a CType."""
+        if isinstance(a, cparse.Num):
+            return a.v
+        if isinstance(a, cparse.Name):
+            if isinstance((tenv or {}).get(a.n), int):
+                return tenv[a.n]
+            if a.n in self.consts:
+                return self.consts[a.n][0]
+            return cparse.CType(f"named:{a.n}")
+        if isinstance(a, cparse.CType):
+            return self.resolve(a, tenv)
+        return None
+
+    def summary(self, name: str, targs: tuple) -> Optional["_CudaFn"]:
+        """The callee (at these template arguments) analysed at its
+        declared entry ranges (memoized; None on recursion)."""
+        key = (name, targs)
+        if key in self._summaries:
+            return self._summaries[key]
+        if key in self._in_progress:
             return None
-        self._in_progress.add(name)
-        fa = _CudaFn(self, self.functions[name])
+        self._in_progress.add(key)
+        fn, unit = self.functions[name]
+        fa = _CudaFn(self, fn, unit, dict(zip([p for _k, p in fn.tparams], targs)))
         fa.suppress = True  # findings come from the function's own run
         fa.run()
-        self._in_progress.discard(name)
-        self._summaries[name] = fa
+        self._in_progress.discard(key)
+        self._summaries[key] = fa
         return fa
 
 
-class _CudaFn:
-    """Width-aware interval interpretation of one device function."""
+@functools.lru_cache(maxsize=16)
+def _cuda_file(src: str, rel: str, path: Optional[str]) -> _CudaFile:
+    return _CudaFile(src, rel, pathlib.Path(path) if path else None)
 
-    def __init__(self, cf: _CudaFile, fn: cparse.CFunc) -> None:
+
+class _CudaFn:
+    """Width-aware interval interpretation of one device function (at one
+    template instantiation)."""
+
+    def __init__(self, cf: _CudaFile, fn: cparse.CFunc, unit: str,
+                 tenv: Optional[dict] = None) -> None:
         self.cf = cf
         self.fn = fn
+        self.unit = unit
+        self.anns = cf.units[unit][1]
+        self.tenv = dict(tenv or {})
+        self.scope = fn.name + (
+            "<" + ",".join(str(v) if isinstance(v, int) else _tname(v)
+                           if v.base == "int" else v.base[6:]
+                           for v in self.tenv.values()) + ">"
+            if self.tenv else "")
         self.findings: List[Finding] = []
         self.checked_ops = 0
         self.suppress = False
         self.ret = None
+        self.ret_type = cf.resolve(fn.ret, self.tenv)
         self.out_params: Dict[str, object] = {}
         self.declared: Dict[str, Iv] = {}
-        self._ret_envs: List[dict] = []
+        self._frames: List[list] = []  # [return value, return envs] per body
+        self._loops: List[dict] = []   # break / continue envs per loop
 
     # --- reporting ---
 
@@ -1054,16 +1366,15 @@ class _CudaFn:
         if self.suppress:
             return
         for ln in (line, self.fn.line):
-            a = ann_mod.lookup(self.cf.anns, ln)
+            a = ann_mod.lookup(self.anns, ln)
             if a is not None and (a.allows(code) or a.allows("absint")):
                 return
-        f = Finding("absint", code, self.cf.rel, line, self.fn.name,
-                    subject, msg)
+        f = Finding("absint", code, self.unit, line, self.scope, subject, msg)
         if f not in self.findings:
             self.findings.append(f)
 
     def _line_ranges(self, line: int) -> Dict[str, Iv]:
-        a = ann_mod.lookup(self.cf.anns, line)
+        a = ann_mod.lookup(self.anns, line)
         if a is None or "range" not in a.clauses:
             return {}
         try:
@@ -1074,57 +1385,112 @@ class _CudaFn:
 
     # --- entry ---
 
+    def _builtins(self) -> dict:
+        mt = _MAX_THREADS
+        if self.fn.launch_bounds is not None:
+            b = self.fn.launch_bounds
+            mt = int(b.rstrip("uUlL"), 0) if b[:1].isdigit() else \
+                self.cf.consts.get(b, (_MAX_THREADS, None))[0]
+
+        def dim3(x, y, z):
+            return CS("dim3", tuple(sorted(
+                (f, CI(Iv(lo, hi), _U32))
+                for f, (lo, hi) in zip("xyz", (x, y, z)))))
+
+        return {
+            "threadIdx": dim3((0, mt - 1), (0, mt - 1), (0, 63)),
+            "blockDim": dim3((1, mt), (1, mt), (1, 64)),
+            "blockIdx": dim3((0, (1 << 31) - 2), (0, 65534), (0, 65534)),
+            "gridDim": dim3((1, (1 << 31) - 1), (1, 65535), (1, 65535)),
+        }
+
+    def _contract(self) -> Dict[str, Iv]:
+        """The `range=` on the declaration's head: on the line of its
+        name, or bound to any line from its `template` header on."""
+        first = self.fn.head_line or self.fn.line
+        for ln in range(self.fn.line, first - 1, -1):
+            got = self._line_ranges(ln)
+            if got:
+                return got
+        return {}
+
     def run(self) -> None:
-        self.declared = self._line_ranges(self.fn.line)
-        env: Dict[str, object] = {}
+        self.declared = self._contract()
+        env: Dict[str, object] = self._builtins()
         for p in self.fn.params:
-            if not p.name:
-                continue
-            v = self.cf.top_of(p.ctype)
-            d = self.declared.get(p.name)
-            if d is not None and isinstance(v, CI):
-                v = CI(Iv(d.lo, d.hi), v.t)
-            env[p.name] = v
+            if p.name:
+                env[p.name] = self.cf.top_of(p.ctype, self.tenv)
+        for path, iv in self.declared.items():
+            segs = tuple(path.split("."))
+            if segs[0] in env:
+                env[segs[0]] = _path_set(
+                    env[segs[0]], segs[1:],
+                    lambda v: CI(Iv(iv.lo, iv.hi), v.t) if isinstance(v, CI) else v)
+        env["$facts"] = frozenset()
+        env["$defs"] = frozenset()
+        self._frames.append([None, []])
         final = self._exec(self.cf.body(self.fn.name), env)
-        for r in self._ret_envs:  # every path out of the function
+        self.ret, ret_envs = self._frames.pop()
+        for r in ret_envs:  # every path out of the function
             final = self._join(final, r)
         for p in self.fn.params:
-            if p.ref and final is not None and p.name in final:
+            if p.ref and not p.const and final is not None and p.name in final:
                 self.out_params[p.name] = final[p.name]
 
     # --- values ---
 
-    @staticmethod
-    def _join_val(a, b):
-        if a is None:
-            return b
-        if b is None:
-            return a
-        if isinstance(a, CI) and isinstance(b, CI):
-            return CI(a.iv.join(b.iv), a.t, a.opaque or b.opaque)
-        if isinstance(a, CS) and isinstance(b, CS) and a.tname == b.tname:
-            da, db = dict(a.fields), dict(b.fields)
-            return CS(a.tname, tuple(sorted(
-                (k, _CudaFn._join_val(da.get(k), db.get(k))) for k in da)))
-        return a if a == b else b
-
-    @classmethod
-    def _join(cls, a: Optional[dict], b: Optional[dict]) -> Optional[dict]:
+    def _join(self, a: Optional[dict], b: Optional[dict]) -> Optional[dict]:
         if a is None:
             return None if b is None else dict(b)
         if b is None:
             return dict(a)
-        return {k: cls._join_val(a[k], b[k]) for k in a.keys() & b.keys()}
+        out = {}
+        for k in a.keys() & b.keys():
+            if k in ("$facts", "$defs"):
+                out[k] = a[k] & b[k]
+            else:
+                out[k] = _join_vals(a[k], b[k])
+        return out
+
+    def _join_all(self, envs) -> Optional[dict]:
+        out = None
+        for e in envs:
+            out = self._join(out, e) if out is not None else (
+                None if e is None else dict(e))
+        return out
+
+    def _widen_val(self, old, new):
+        if isinstance(old, CI) and isinstance(new, CI):
+            r = _trange(new.t)
+            lo = r.lo if new.iv.lo < old.iv.lo else new.iv.lo
+            hi = r.hi if new.iv.hi > old.iv.hi else new.iv.hi
+            return CI(Iv(lo, hi), new.t, new.opaque)
+        if isinstance(old, CS) and isinstance(new, CS) and old.tname == new.tname:
+            do = dict(old.fields)
+            return CS(new.tname, tuple(sorted(
+                (k, self._widen_val(do.get(k), v)) for k, v in new.fields)))
+        if isinstance(old, CA) and isinstance(new, CA):
+            if old.items is not None and new.items is not None and \
+                    len(old.items) == len(new.items):
+                return _ca([self._widen_val(x, y)
+                            for x, y in zip(old.items, new.items)])
+            return CA(self._widen_val(old.elem, new.elem))
+        return new
+
+    def _widen(self, old: dict, new: dict) -> dict:
+        return {k: v if k.startswith("$") or k not in old
+                else self._widen_val(old[k], v) for k, v in new.items()}
 
     def _convert(self, v, t: cparse.CType, line: int, explicit: bool):
         """`v` converted to type `t` (an initialisation, an assignment, an
-        argument or a cast). An implicit conversion that may truncate is
-        a `limb-overflow`; an explicit cast wraps as the source says."""
-        t = self.cf.resolve(t)
+        argument, a return or a cast). An implicit conversion that may
+        truncate is a `limb-overflow`; an explicit cast wraps as the
+        source says."""
+        t = self.cf.resolve(t, self.tenv)
         if t.ptr > 0:
-            return v if isinstance(v, CP) else self.cf.top_of(t)
+            return v if isinstance(v, CP) else self.cf.top_of(t, self.tenv)
         if t.base != "int":
-            return v if isinstance(v, CS) else self.cf.top_of(t)
+            return v if isinstance(v, (CS, CA, CL)) else self.cf.top_of(t, self.tenv)
         if not isinstance(v, CI):
             return CI(_trange(t), t)
         if t.boolean:
@@ -1133,8 +1499,9 @@ class _CudaFn:
             return CI(Iv(lo, hi), t)
         r = _trange(t)
         if r.lo <= v.iv.lo and v.iv.hi <= r.hi:
-            if not explicit and (v.t.width or 0) > t.width:
-                self.checked_ops += 1  # a narrowing proven exact
+            if not explicit and ((v.t.width or 0), v.t.signed, v.t.boolean) != (
+                    t.width, t.signed, t.boolean):
+                self.checked_ops += 1  # a conversion between types, proven exact
             return CI(Iv(v.iv.lo, v.iv.hi), t)
         if not explicit and not v.opaque:
             self.checked_ops += 1
@@ -1170,18 +1537,28 @@ class _CudaFn:
 
     # --- expressions ---
 
-    def _arith(self, op: str, a: CI, b: CI, line: int) -> CI:
+    def _arith(self, op: str, a: CI, b: CI, line: int,
+               floor0: bool = False) -> CI:
+        """`floor0`: the operands are known to satisfy a >= b (a guard
+        the caller read), so a difference is not below 0."""
         if op in ("<<", ">>"):
             t = self._promote(a.t)
         else:
             t = self._common(a.t, b.t)
         r = _trange(t)
         x, y = a.iv, b.iv
+        if a.opaque or b.opaque:
+            self._flag("c-parse", line, op,
+                       f"an operand of {op} is a value the front end cannot "
+                       "read (an unknown call or name)")
+            return CI(r, t, opaque=True)
         if op in ("+", "-", "*", "<<"):
             if op == "+":
                 lo, hi, what = x.lo + y.lo, x.hi + y.hi, "add"
             elif op == "-":
                 lo, hi, what = x.lo - y.hi, x.hi - y.lo, "subtract"
+                if floor0:
+                    lo = max(lo, 0)
             elif op == "*":
                 cs = (x.lo * y.lo, x.lo * y.hi, x.hi * y.lo, x.hi * y.hi)
                 lo, hi, what = min(cs), max(cs), "multiply"
@@ -1191,8 +1568,6 @@ class _CudaFn:
                 else:
                     lo, hi = x.lo << y.lo, x.hi << y.hi
                 what = "left shift"
-            if a.opaque or b.opaque:
-                return CI(r, t, opaque=True)
             self.checked_ops += 1
             msg = (f"[{x.lo},{x.hi}] {op} [{y.lo},{y.hi}] as {_tname(t)}")
             if hi > r.hi:
@@ -1204,84 +1579,102 @@ class _CudaFn:
                            f"{what} may go below {_tname(t)}'s range: {msg}")
                 return CI(r, t)
             return CI(Iv(lo, hi), t)
+        if op in ("/", "%"):
+            # A divisor that may be 0, or INT_MIN / -1, has no defined
+            # quotient.
+            self.checked_ops += 1
+            if y.lo <= 0 <= y.hi or (t.signed and x.lo <= r.lo and y.lo <= -1 <= y.hi):
+                self._flag("limb-overflow", line, op,
+                           f"divisor may be 0 (or the quotient leave the type): "
+                           f"[{x.lo},{x.hi}] {op} [{y.lo},{y.hi}] as {_tname(t)}")
+                return CI(r, t)
+            if x.lo < 0 or y.lo < 0:
+                return CI(r, t)
+            if op == "/":
+                return CI(Iv(x.lo // y.hi, x.hi // y.lo), t)
+            return CI(Iv(0, y.hi - 1), t)
         if x.lo < 0 or y.lo < 0:
-            return CI(r, t, a.opaque or b.opaque)
+            return CI(r, t)
         if op == ">>":
             return CI(Iv(x.lo >> min(y.hi, 1 << 16), x.hi >> y.lo), t)
         if op == "&":
             return CI(Iv(0, min(x.hi, y.hi)), t)
         if op in ("|", "^"):
             return CI(_bitlen_bound(x, y), t)
-        if op == "/" and y.lo > 0:
-            return CI(Iv(x.lo // y.hi, x.hi // y.lo), t)
-        if op == "%" and y.lo > 0:
-            return CI(Iv(0, y.hi - 1), t)
         return CI(r, t)
 
-    _CMP = frozenset(("==", "!=", "<", ">", "<=", ">=", "&&", "||"))
+    _CMP = frozenset(("==", "!=", "<", ">", "<=", ">="))
+
+    def _peek(self, e, env: dict):
+        """`e`'s value, read without reporting, counting or changing env."""
+        saved = (self.suppress, self.checked_ops)
+        self.suppress = True
+        try:
+            return self._eval(e, dict(env))
+        finally:
+            self.suppress, self.checked_ops = saved
+
+    def _comparable(self, a, b) -> bool:
+        """Whether C compares `a` and `b` as the integers they hold (a
+        negative value against an unsigned one does not)."""
+        if not (isinstance(a, CI) and isinstance(b, CI)) or a.opaque or b.opaque:
+            return False
+        t = self._common(a.t, b.t)
+        return t.signed or (a.iv.lo >= 0 and b.iv.lo >= 0)
+
+    def _name(self, n: str, env: dict):
+        if n in env:
+            return env[n]
+        if isinstance(self.tenv.get(n), int):
+            v = self.tenv[n]
+            return CI(Iv(v, v), _INT32)
+        if n in ("true", "false"):
+            b = int(n == "true")
+            return CI(Iv(b, b), _BOOL_T)
+        if n in self.cf.consts:
+            v, t = self.cf.consts[n]
+            if t is None:
+                t = _U64 if v > 0x7FFFFFFF else _INT32
+            return CI(Iv(v, v), t)
+        if n in ("nullptr", "NULL"):
+            return CP(cparse.CType("void"))
+        if n == "warpSize":
+            return CI(Iv(32, 32), _INT32)
+        return CI(_trange(_U64), _U64, opaque=True)
 
     def _eval(self, e, env: dict):
         if isinstance(e, cparse.Num):
             return self._literal(e)
         if isinstance(e, cparse.Name):
-            if e.n in env:
-                return env[e.n]
-            if e.n in ("true", "false"):
-                b = int(e.n == "true")
-                return CI(Iv(b, b), cparse.CType("int", 8, False, boolean=True))
-            if e.n in self.cf.consts:
-                v = self.cf.consts[e.n]
-                return CI(Iv(v, v), _U64 if v > 0x7FFFFFFF else _INT32)
-            return CI(_trange(_U64), _U64, opaque=True)
+            return self._name(e.n, env)
         if isinstance(e, cparse.Bin):
-            if e.op in ("&&", "||"):
-                self._eval(e.l, dict(env))
-                self._eval(e.r, dict(env))
-                return CI(BOOL, cparse.CType("int", 8, False, boolean=True))
-            lv, rv = self._eval(e.l, env), self._eval(e.r, env)
-            if e.op in self._CMP:
-                return CI(BOOL, cparse.CType("int", 8, False, boolean=True))
-            if isinstance(lv, CP) and isinstance(rv, CI):
-                return lv  # pointer arithmetic keeps the element type
-            if isinstance(lv, CI) and isinstance(rv, CI):
-                return self._arith(e.op, lv, rv, e.line)
-            return CI(_trange(_U64), _U64, opaque=True)
+            return self._bin(e, env)
         if isinstance(e, cparse.Un):
-            v = self._eval(e.e, env)
-            if e.op == "!":
-                return CI(BOOL, cparse.CType("int", 8, False, boolean=True))
-            if e.op == "*":
-                return self.cf.top_of(v.elem) if isinstance(v, CP) else v
-            if e.op == "&":
-                return CP(v.t if isinstance(v, CI) else _U64)
-            if not isinstance(v, CI):
-                return v
-            t = self._promote(v.t)
-            r = _trange(t)
-            if e.op == "~":
-                if v.iv.lo < 0 and not t.signed:
-                    return CI(r, t)
-                if t.signed:
-                    return CI(Iv(-v.iv.hi - 1, -v.iv.lo - 1), t)
-                return CI(Iv(r.hi - v.iv.hi, r.hi - v.iv.lo), t)
-            if e.op == "-":
-                return self._arith("-", CI(Iv(0, 0), t), v, e.line)
-            return CI(v.iv, t)
+            return self._unary(e, env)
         if isinstance(e, cparse.IncDec):
-            if isinstance(e.e, cparse.Name) and isinstance(env.get(e.e.n), CI):
-                old = env[e.e.n]
-                new = self._arith("+" if e.op == "++" else "-", old,
-                                  CI(Iv(1, 1), _INT32), e.line)
-                env[e.e.n] = self._convert(new, old.t, e.line, explicit=True)
-                return old if e.post else env[e.e.n]
-            return self._eval(e.e, env)
+            old = self._eval(e.e, env)
+            if not isinstance(old, CI):
+                return old
+            new = self._arith("+" if e.op == "++" else "-", old,
+                              CI(Iv(1, 1), _INT32), e.line)
+            self._store(e.e, new, env, e.line)
+            return old if e.post else self._peek(e.e, env)
         if isinstance(e, cparse.Call):
             return self._call(e, env)
         if isinstance(e, cparse.Idx):
             bv = self._eval(e.base, env)
-            self._eval(e.idx, env)
+            iv = self._eval(e.idx, env)
+            if isinstance(bv, CA):
+                k = iv.iv.lo if isinstance(iv, CI) and iv.iv.lo == iv.iv.hi \
+                    and not iv.opaque else None
+                if bv.items is not None and k is not None and \
+                        0 <= k < len(bv.items):
+                    return bv.items[k]
+                return bv.elem
             if isinstance(bv, CP):
-                return self.cf.top_of(bv.elem)
+                if isinstance(iv, CI):
+                    self._offset(bv, iv, e.line, "+")
+                return self.cf.top_of(bv.elem, self.tenv)
             return CI(_trange(_U64), _U64, opaque=True)
         if isinstance(e, cparse.Mem):
             bv = self._eval(e.base, env)
@@ -1289,6 +1682,10 @@ class _CudaFn:
                 v = bv.get(e.f)
                 if v is not None:
                     return v
+            if isinstance(bv, CP) and bv.elem.base.startswith("named:"):
+                for f, ft, fd in self.cf.fields_of(bv.elem.base[6:]) or ():
+                    if f == e.f:
+                        return self.cf.top_of(ft, self.tenv, fd)
             return CI(_trange(_U64), _U64, opaque=True)
         if isinstance(e, cparse.Cast):
             v = self._eval(e.e, env)
@@ -1296,27 +1693,308 @@ class _CudaFn:
                 return v
             return self._convert(v, e.ctype, e.line, explicit=True)
         if isinstance(e, cparse.Cond):
-            self._eval(e.c, dict(env))
-            a = self._eval(e.a, self._cond(dict(env), e.c, True) or dict(env))
-            b = self._eval(e.b, self._cond(dict(env), e.c, False) or dict(env))
+            self._eval(e.c, env)
+            t_env = self._cond(dict(env), e.c, True)
+            f_env = self._cond(dict(env), e.c, False)
+            a = self._eval(e.a, t_env) if t_env is not None else None
+            b = self._eval(e.b, f_env) if f_env is not None else None
+            if a is None or b is None:
+                return a if b is None else b
             if isinstance(a, CI) and isinstance(b, CI):
                 t = self._common(a.t, b.t)
                 return CI(a.iv.join(b.iv), t, a.opaque or b.opaque)
-            return self._join_val(a, b)
+            return _join_vals(a, b)
         if isinstance(e, cparse.Assign):
             return self._assign(e, env)
+        if isinstance(e, cparse.Compound):
+            return self._aggregate(cparse.CType(f"named:{e.tname}"), e.init,
+                                   env, e.line)
+        if isinstance(e, cparse.Lambda):
+            return CL(e)
         return CI(_trange(_U64), _U64, opaque=True)
 
+    def _bin(self, e: cparse.Bin, env: dict):
+        if e.op in ("&&", "||"):
+            lv = self._eval(e.l, env)
+            r_env = self._cond(dict(env), e.l, e.op == "&&")
+            rv = self._eval(e.r, r_env) if r_env is not None else None
+            lb = lv.iv if isinstance(lv, CI) and not lv.opaque else BOOL
+            rb = rv.iv if isinstance(rv, CI) and not rv.opaque else BOOL
+            l_t, l_f = lb.lo > 0 or lb.hi < 0, lb.lo == lb.hi == 0
+            r_t, r_f = rb.lo > 0 or rb.hi < 0, rb.lo == rb.hi == 0
+            if e.op == "&&":
+                v = Iv(0, 0) if l_f or (rv is not None and r_f) else \
+                    Iv(1, 1) if l_t and r_t else BOOL
+            else:
+                v = Iv(1, 1) if l_t or (rv is not None and r_t) else \
+                    Iv(0, 0) if l_f and r_f else BOOL
+            return CI(v, _BOOL_T)
+        lv, rv = self._eval(e.l, env), self._eval(e.r, env)
+        if e.op in self._CMP:
+            if self._comparable(lv, rv):
+                return CI(_cmp(e.op, lv.iv, rv.iv), _BOOL_T)
+            return CI(BOOL, _BOOL_T)
+        if isinstance(lv, CP) and isinstance(rv, CI) and e.op in ("+", "-"):
+            self._offset(lv, rv, e.line, e.op)
+            return lv  # pointer arithmetic keeps the element type
+        if isinstance(rv, CP) and isinstance(lv, CI) and e.op == "+":
+            self._offset(rv, lv, e.line, "+")
+            return rv
+        if isinstance(lv, CI) and isinstance(rv, CI):
+            if e.op == "*":
+                q = self._quotient_product(e, lv, rv, env)
+                if q is not None:
+                    return q
+            return self._arith(e.op, lv, rv, e.line,
+                               floor0=e.op == "-" and self._has_fact(env, e.l, e.r))
+        self._flag("c-parse", e.line, e.op,
+                   f"an operand of {e.op} is not an integer the front end reads")
+        return CI(_trange(_U64), _U64, opaque=True)
+
+    def _offset(self, p: CP, i: CI, line: int, op: str) -> None:
+        """`i` elements of `p`'s type past (or before) `p`: the byte offset
+        stays within the 64-bit address difference."""
+        if i.opaque:
+            self._flag("c-parse", line, op, "an address offset the front end "
+                       "cannot read")
+            return
+        size = self.cf.sizeof(p.elem, self.tenv)
+        lo, hi = (i.iv.lo, i.iv.hi) if op == "+" else (-i.iv.hi, -i.iv.lo)
+        self.checked_ops += 1
+        if hi * size > (1 << 63) - 1 or lo * size < -(1 << 63):
+            self._flag("limb-overflow", line, op,
+                       f"address offset may leave the 64-bit range: "
+                       f"[{i.iv.lo},{i.iv.hi}] elements of {size} bytes")
+
+    def _quotient_product(self, e: cparse.Bin, lv: CI, rv: CI, env: dict):
+        """(x / y) * y lies in [0, x] for x >= 0, y >= 1: a product whose
+        one factor was assigned the quotient of the other's value."""
+        for fac, other, ov in ((e.l, e.r, rv), (e.r, e.l, lv)):
+            k = self._key(fac, env)
+            d = self._def_of(env, k[0]) if k is not None else None
+            if d is None or not (isinstance(d, cparse.Bin) and d.op == "/"):
+                continue
+            ky, ko = self._key(d.r, env), self._key(other, env)
+            if ky is None or ko is None or ky[0] != ko[0]:
+                continue
+            xv = self._peek(d.l, env)
+            if isinstance(xv, CI) and not xv.opaque and xv.iv.lo >= 0 \
+                    and ov.iv.lo >= 1:
+                self.checked_ops += 1
+                return CI(Iv(0, xv.iv.hi), self._common(lv.t, rv.t))
+        return None
+
+    def _unary(self, e: cparse.Un, env: dict):
+        v = self._eval(e.e, env)
+        if e.op == "!":
+            if isinstance(v, CI) and not v.opaque:
+                if v.iv.lo > 0 or v.iv.hi < 0:
+                    return CI(Iv(0, 0), _BOOL_T)
+                if v.iv.lo == v.iv.hi == 0:
+                    return CI(Iv(1, 1), _BOOL_T)
+            return CI(BOOL, _BOOL_T)
+        if e.op == "*":
+            if isinstance(v, CP):
+                return self.cf.top_of(v.elem, self.tenv)
+            return v.elem if isinstance(v, CA) else v
+        if e.op == "&":
+            if isinstance(v, CI):
+                return CP(v.t)
+            if isinstance(v, CS):
+                return CP(cparse.CType(f"named:{v.tname}"))
+            return CP(_U64)
+        if not isinstance(v, CI):
+            return v
+        t = self._promote(v.t)
+        r = _trange(t)
+        if e.op == "~":
+            if v.iv.lo < 0 and not t.signed:
+                return CI(r, t)
+            if t.signed:
+                return CI(Iv(-v.iv.hi - 1, -v.iv.lo - 1), t)
+            return CI(Iv(r.hi - v.iv.hi, r.hi - v.iv.lo), t)
+        if e.op == "-":
+            return self._arith("-", CI(Iv(0, 0), t), v, e.line)
+        return CI(v.iv, t)
+
+    def _aggregate(self, t: cparse.CType, init, env: dict, line: int, dims=()):
+        """An aggregate initialiser's value: each item converted to its
+        member (or element) in order, the members it leaves out zero."""
+        items = init.items if isinstance(init, cparse.InitList) else (init,)
+        if dims:
+            vals = [self._aggregate(t, it, env, line, dims[1:])
+                    if isinstance(it, cparse.InitList) or dims[1:] else
+                    self._convert(self._eval(it, env), t, line, explicit=False)
+                    for it in items]
+            n = self.cf.dim(dims[0])
+            if n is not None and len(vals) <= n:
+                zero = self.cf.zero_of(t, self.tenv, dims[1:])
+                return _ca(vals + [zero] * (n - len(vals)))
+            out = None if vals else self.cf.zero_of(t, self.tenv, dims[1:])
+            for v in vals:
+                out = _join_vals(out, v)
+            return CA(out)
+        rt = self.cf.resolve(t, self.tenv)
+        fields = (self.cf.fields_of(rt.base[6:])
+                  if rt.base.startswith("named:") and not rt.ptr else None)
+        if fields is None:
+            if not items:
+                return self.cf.zero_of(rt, self.tenv)
+            if isinstance(items[0], cparse.InitList):
+                return self._aggregate(rt, items[0], env, line)
+            return self._convert(self._eval(items[0], env), rt, line,
+                                 explicit=False)
+        vals = []
+        for k, (f, ft, fd) in enumerate(fields):
+            if k < len(items):
+                it = items[k]
+                if isinstance(it, cparse.InitList) or fd:
+                    v = self._aggregate(ft, it, env, line, fd)
+                else:
+                    v = self._convert(self._eval(it, env), ft, line,
+                                      explicit=False)
+            else:
+                v = self.cf.zero_of(ft, self.tenv, fd)
+            vals.append((f, v))
+        return CS(rt.base[6:], tuple(sorted(vals)))
+
+    # --- facts: what a guard says of two expressions ---
+
+    def _key(self, e, env: dict):
+        """(canonical key, names read, reads memory) of a pure expression,
+        None otherwise. Integer casts that keep the value are transparent."""
+        names: set = set()
+        mem = [False]
+
+        def k(x):
+            if isinstance(x, cparse.Num):
+                return ("c", x.v)
+            if isinstance(x, cparse.Name):
+                names.add(x.n)
+                return ("n", x.n)
+            if isinstance(x, cparse.Mem):
+                b = k(x.base)
+                return None if b is None else ("m", b, x.f)
+            if isinstance(x, cparse.Idx):
+                b, i = k(x.base), k(x.idx)
+                if b is None or i is None:
+                    return None
+                if isinstance(self._peek(x.base, env), CP):
+                    mem[0] = True
+                return ("i", b, i)
+            if isinstance(x, cparse.Cast):
+                if x.ctype is None:
+                    return k(x.e)
+                t = self.cf.resolve(x.ctype, self.tenv)
+                if t.ptr or t.base != "int" or t.boolean:
+                    return None
+                inner = self._peek(x.e, env)
+                r = _trange(t)
+                if not (isinstance(inner, CI) and not inner.opaque
+                        and r.lo <= inner.iv.lo and inner.iv.hi <= r.hi):
+                    return None
+                return k(x.e)
+            if isinstance(x, cparse.Bin) and x.op not in ("&&", "||"):
+                a, b = k(x.l), k(x.r)
+                return None if a is None or b is None else ("b", x.op, a, b)
+            if isinstance(x, cparse.Un) and x.op in ("-", "~", "!", "*"):
+                if x.op == "*":
+                    mem[0] = True
+                a = k(x.e)
+                return None if a is None else ("u", x.op, a)
+            return None
+
+        key = k(e)
+        return None if key is None else (key, frozenset(names), mem[0])
+
+    def _add_fact(self, env: dict, ge, le) -> dict:
+        """Record ge >= le."""
+        a, b = self._key(ge, env), self._key(le, env)
+        if a is None or b is None:
+            return env
+        env = dict(env)
+        env["$facts"] = env.get("$facts", frozenset()) | {
+            (a[0], b[0], a[1] | b[1], a[2] or b[2])}
+        return env
+
+    def _has_fact(self, env: dict, ge, le) -> bool:
+        if not env.get("$facts"):
+            return False
+        a, b = self._key(ge, env), self._key(le, env)
+        return a is not None and b is not None and any(
+            f[0] == a[0] and f[1] == b[0] for f in env["$facts"])
+
+    def _def_of(self, env: dict, key):
+        for d in env.get("$defs", ()):
+            if d[0] == key:
+                return d[1]
+        return None
+
+    def _add_def(self, env: dict, target, value) -> None:
+        """Remember that the path `target` holds the pure expression
+        `value` (until a name either reads is stored to)."""
+        tk = self._key(target, env)
+        if tk is None or _path_of(target) is None:
+            return
+        vk = self._key(value, env)
+        if vk is None or _path_of(target)[0] in vk[1]:
+            return
+        env["$defs"] = env.get("$defs", frozenset()) | {
+            (tk[0], value, vk[1] | {_path_of(target)[0]}, vk[2])}
+
+    def _invalidate(self, env: dict, name: Optional[str]) -> None:
+        """A store to `name` (None: to memory) ends every fact and
+        definition that reads it."""
+        if name is None:
+            keep = lambda f: not f[3]  # noqa: E731
+        else:
+            keep = lambda f: name not in f[2]  # noqa: E731
+        if env.get("$facts"):
+            env["$facts"] = frozenset(f for f in env["$facts"] if keep(f))
+        if env.get("$defs"):
+            env["$defs"] = frozenset(d for d in env["$defs"] if keep(d))
+
+    # --- calls ---
+
     def _call(self, e: cparse.Call, env: dict):
-        name = e.fn.n if isinstance(e.fn, cparse.Name) else None
+        fn = e.fn
+        if isinstance(fn, cparse.Name) and isinstance(env.get(fn.n), CL):
+            return self._call_lambda(env[fn.n].lam, e, env)
+        name = fn.n.split("::")[-1] if isinstance(
+            fn, (cparse.Name, cparse.TplName)) else None
+        if isinstance(fn, cparse.Mem):
+            self._eval(fn.base, env)  # a method (`grid.sync()`)
         args = [self._eval(a, env) for a in e.args]
         if name in _ATOMICS and args and isinstance(args[0], CP):
-            return self.cf.top_of(args[0].elem)
+            self._invalidate(env, None)
+            a0 = e.args[0]
+            if isinstance(a0, cparse.Un) and a0.op == "&" and \
+                    _path_of(a0.e) is not None:  # atomicOr(&local, ...)
+                self._store(a0.e, self.cf.top_of(args[0].elem, self.tenv),
+                            env, e.line, explicit=True)
+            return self.cf.top_of(args[0].elem, self.tenv)
+        if name in _SHUFFLES and len(args) >= 2 and isinstance(args[1], CI):
+            return args[1]
+        if name in _VOTES:
+            return CI(BOOL, _INT32)
+        if name == "__ballot_sync":
+            return CI(_trange(_U32), _U32)
+        if name in _RESULT_RANGES:
+            return CI(Iv(0, _RESULT_RANGES[name]), _INT32)
+        if name in _REDUCE_BITS and len(args) >= 2 and isinstance(args[1], CI):
+            v = args[1]
+            return CI(_bitlen_bound(v.iv, v.iv) if v.iv.lo >= 0
+                      else _trange(v.t), v.t)
+        if name in _LOADS and args and isinstance(args[0], CP):
+            return self.cf.top_of(args[0].elem, self.tenv)
+        if name in _VOID_CALLS:
+            self._invalidate(env, None)
+            return CI(Iv(0, 0), _INT32)
         if name and name.startswith("make_") and name[5:] in _VECTOR_TYPES:
             fields = self.cf.fields_of(name[5:])
             return CS(name[5:], tuple(sorted(
                 (f, self._convert(a, ft, e.line, explicit=False))
-                for (f, ft), a in zip(fields, args))))
+                for (f, ft, _d), a in zip(fields, args))))
         if name in ("min", "max") and len(args) == 2 and all(
                 isinstance(a, CI) for a in args):
             a, b = args
@@ -1324,52 +2002,181 @@ class _CudaFn:
             return CI(Iv(pick(a.iv.lo, b.iv.lo), pick(a.iv.hi, b.iv.hi)),
                       self._common(a.t, b.t))
         if name not in self.cf.functions:
+            self._invalidate(env, None)
             return CI(_trange(_U64), _U64, opaque=True)
-        callee = self.cf.functions[name]
-        summ = self.cf.summary(name)
+        callee, _unit = self.cf.functions[name]
+        targs = self._targs(callee, fn, args)
+        summ = self.cf.summary(name, targs) if targs is not None else None
+        ctenv = dict(zip([p for _k, p in callee.tparams], targs or ()))
+        declared = summ.declared if summ is not None else {}
         for p, a in zip(callee.params, args):
-            d = summ.declared.get(p.name) if summ is not None else None
-            if d is not None and isinstance(a, CI) and not a.opaque:
-                self.checked_ops += 1
-                if a.iv.lo < d.lo or a.iv.hi > d.hi:
-                    self._flag(
-                        "range-obligation", e.line, f"{name}.{p.name}",
-                        f"argument [{a.iv.lo},{a.iv.hi}] may exceed "
-                        f"{name}()'s declared range {p.name}:[{d.lo},{d.hi}]")
-            elif p.ref or p.ctype.ptr:
-                continue
-            else:
-                self._convert(a, p.ctype, e.line, explicit=False)
+            mine = {path: d for path, d in declared.items()
+                    if path.split(".")[0] == p.name}
+            for path, d in mine.items():
+                v = _path_get(a, path.split(".")[1:])
+                while isinstance(v, CA):
+                    v = v.elem
+                if isinstance(v, CI) and not v.opaque:
+                    self.checked_ops += 1
+                    if v.iv.lo < d.lo or v.iv.hi > d.hi:
+                        self._flag(
+                            "range-obligation", e.line, f"{name}.{path}",
+                            f"argument [{v.iv.lo},{v.iv.hi}] may exceed "
+                            f"{name}()'s declared range {path}:[{d.lo},{d.hi}]")
+            if p.name not in mine and not p.ref and not p.ctype.ptr:
+                pt = self.cf.resolve(p.ctype, ctenv)
+                if pt.base == "int" and not pt.ptr:
+                    self._convert(a, pt, e.line, explicit=False)
+        self._invalidate(env, None)  # a callee may store through a pointer
         if summ is None:
-            return self.cf.top_of(callee.ret)
+            return self.cf.top_of(callee.ret, ctenv)
         # Reference parameters come back with the callee's final values.
         for p, arg in zip(callee.params, e.args):
-            if p.ref and p.name in summ.out_params:
-                self._store(arg, summ.out_params[p.name], env, e.line)
+            if p.ref and not p.const and p.name in summ.out_params:
+                self._store(arg, summ.out_params[p.name], env, e.line,
+                            explicit=True)
         if summ.ret is None:
-            return self.cf.top_of(callee.ret)
-        return self._convert(summ.ret, callee.ret, e.line, explicit=False)
+            return self.cf.top_of(summ.ret_type, ctenv)
+        return summ.ret
 
-    def _store(self, target, val, env: dict, line: int) -> None:
-        """Assign `val` to an lvalue: a name, or a member of a named
-        struct value (`w.hi`); stores through pointers change nothing
-        the domain tracks."""
-        if isinstance(target, cparse.Name):
-            cur = env.get(target.n)
-            if isinstance(cur, CI):
-                val = self._convert(val, cur.t, line, explicit=False)
-            env[target.n] = val
+    def _targs(self, callee: cparse.CFunc, fn, args) -> Optional[tuple]:
+        """The template arguments of a call: explicit (`f<5>(x)`), deduced
+        from the arguments' types (`ld(p)`), or, for a parameter neither
+        gives, the caller's own argument of that name."""
+        if not callee.tparams:
+            return ()
+        given = list(fn.args) if isinstance(fn, cparse.TplName) else []
+        out = []
+        for k, (kind, pname) in enumerate(callee.tparams):
+            if k < len(given):
+                out.append(self.cf.const_targ(given[k], self.tenv))
+                continue
+            got = None
+            if kind == "type":
+                for p, a in zip(callee.params, args):
+                    if p.ctype.base == f"named:{pname}":
+                        if isinstance(a, CP) and p.ctype.ptr:
+                            got = cparse.CType(a.elem.base, a.elem.width,
+                                               a.elem.signed, a.elem.ptr - p.ctype.ptr + 1,
+                                               a.elem.boolean)
+                        elif isinstance(a, CI):
+                            got = a.t
+                        elif isinstance(a, CS):
+                            got = cparse.CType(f"named:{a.tname}")
+                        break
+            elif pname in self.tenv:
+                got = self.tenv[pname]
+            if got is None:
+                return None
+            out.append(got)
+        return tuple(out)
+
+    def _call_lambda(self, lam: cparse.Lambda, e: cparse.Call, env: dict):
+        """A lambda's body read inline at its call, in the caller's frame
+        (its captures are by reference)."""
+        args = [self._eval(a, env) for a in e.args]
+        local = dict(env)
+        for p, a in zip(lam.params, args):
+            pt = self.cf.resolve(p.ctype, self.tenv)
+            local[p.name] = self._convert(a, pt, e.line, explicit=False) \
+                if isinstance(a, CI) and pt.base == "int" else a
+        self._frames.append([None, []])
+        saved_loops, self._loops = self._loops, []
+        try:
+            out = self._exec(lam.body, local)
+        finally:
+            self._loops = saved_loops
+            ret, renvs = self._frames.pop()
+        final = self._join_all([out] + renvs)
+        if final is not None:
+            shadow = {p.name for p in lam.params}
+            for k in list(env):
+                if k in final and k not in shadow:
+                    env[k] = final[k]
+        return ret if ret is not None else CI(Iv(0, 0), _INT32)
+
+    # --- stores ---
+
+    def _lvalue(self, e, env: dict):
+        """("local", root) for a local variable path, ("memory", element
+        type) for a store through a pointer, or (None, None)."""
+        if isinstance(e, cparse.Name):
+            return ("local", e.n) if e.n in env else (None, None)
+        if isinstance(e, cparse.Mem):
+            kind, x = self._lvalue(e.base, env)
+            if kind == "memory":
+                return "memory", None
+            if kind == "local":
+                return kind, x
+            bv = self._peek(e.base, env)
+            return ("memory", None) if isinstance(bv, CP) else (None, None)
+        if isinstance(e, cparse.Idx):
+            bv = self._peek(e.base, env)
+            if isinstance(bv, CP):
+                return "memory", bv.elem
+            return self._lvalue(e.base, env)
+        if isinstance(e, cparse.Un) and e.op == "*":
+            bv = self._peek(e.e, env)
+            return "memory", bv.elem if isinstance(bv, CP) else None
+        return None, None
+
+    def _update(self, e, fn, env: dict) -> None:
+        if isinstance(e, cparse.Name):
+            env[e.n] = fn(env[e.n])
+        elif isinstance(e, cparse.Mem):
+            f = e.f
+            self._update(e.base, lambda b: b.with_field(f, fn(b.get(f)))
+                         if isinstance(b, CS) and b.get(f) is not None else b, env)
+        elif isinstance(e, cparse.Idx):
+            k = self._index(e.idx, env)
+
+            def upd(b):
+                if not isinstance(b, CA):
+                    return b
+                if b.items is None:
+                    return CA(_join_vals(b.elem, fn(b.elem)))
+                if k is not None and 0 <= k < len(b.items):
+                    items = list(b.items)
+                    items[k] = fn(items[k])
+                    return _ca(items)
+                return _ca([_join_vals(x, fn(x)) for x in b.items])
+
+            self._update(e.base, upd, env)
+
+    def _index(self, ix, env: dict) -> Optional[int]:
+        """A subscript's value where it is one number."""
+        v = self._peek(ix, env)
+        if isinstance(v, CI) and not v.opaque and v.iv.lo == v.iv.hi:
+            return v.iv.lo
+        return None
+
+    def _store(self, target, val, env: dict, line: int,
+               explicit: bool = False) -> None:
+        """Assign `val` to an lvalue: a local variable, a member or an
+        element of one (an array keeps the hull of what it was given), or
+        memory through a pointer (converted to its element type; memory
+        is not tracked)."""
+        kind, x = self._lvalue(target, env)
+        if kind == "local":
+            def leaf(old):
+                if isinstance(old, CI):
+                    return self._convert(val, old.t, line, explicit)
+                return val
+
+            self._update(target, leaf, env)
+            self._invalidate(env, x)
+            path = _path_of(target)
             for name, iv in self._line_ranges(line).items():
-                if isinstance(env.get(name), CI):
-                    env[name] = CI(iv, env[name].t)
-        elif isinstance(target, cparse.Mem) and isinstance(
-                target.base, cparse.Name):
-            base = env.get(target.base.n)
-            if isinstance(base, CS):
-                cur = base.get(target.f)
-                if isinstance(cur, CI):
-                    val = self._convert(val, cur.t, line, explicit=False)
-                env[target.base.n] = base.with_field(target.f, val)
+                if path is not None and name == ".".join(path):
+                    env[x] = _path_set(
+                        env[x], path[1:],
+                        lambda v: CI(Iv(iv.lo, iv.hi), v.t) if isinstance(v, CI) else v)
+        elif kind == "memory":
+            if isinstance(x, cparse.CType):
+                t = self.cf.resolve(x, self.tenv)
+                if t.base == "int" and not t.ptr:
+                    self._convert(val, t, line, explicit)
+            self._invalidate(env, None)
         else:
             self._eval(target, env)
 
@@ -1378,17 +2185,28 @@ class _CudaFn:
         if e.op != "=":
             cur = self._eval(e.target, dict(env))
             if isinstance(cur, CI) and isinstance(val, CI):
-                val = self._arith(e.op[:-1], cur, val, e.line)
+                val = self._arith(
+                    e.op[:-1], cur, val, e.line,
+                    floor0=e.op == "-=" and self._has_fact(env, e.target, e.value))
             elif isinstance(cur, CP):
                 val = cur
         self._store(e.target, val, env, e.line)
+        if e.op == "=":
+            self._add_def(env, e.target, e.value)
         return val
 
     # --- conditions ---
 
     def _cond(self, env: Optional[dict], c, truth: bool) -> Optional[dict]:
+        """`env` where `c` evaluates to `truth`; None where it cannot."""
         if env is None:
             return None
+        v = self._peek(c, env)
+        if isinstance(v, CI) and not v.opaque:
+            if truth and v.iv.lo == v.iv.hi == 0:
+                return None
+            if not truth and (v.iv.lo > 0 or v.iv.hi < 0):
+                return None
         if isinstance(c, cparse.Un) and c.op == "!":
             return self._cond(env, c.e, not truth)
         if isinstance(c, cparse.Bin) and c.op == "&&":
@@ -1399,29 +2217,76 @@ class _CudaFn:
             if not truth:
                 return self._cond(self._cond(env, c.l, False), c.r, False)
             return env
-        if isinstance(c, cparse.Name) and isinstance(env.get(c.n), CI):
-            return self._narrow(env, c.n, "!=" if truth else "==", Iv(0, 0))
-        if isinstance(c, cparse.Bin) and c.op in (
-                "<", "<=", ">", ">=", "==", "!="):
-            op = c.op if truth else {
-                "<": ">=", "<=": ">", ">": "<=", ">=": "<",
-                "==": "!=", "!=": "=="}[c.op]
-            for side, other, o in ((c.l, c.r, op), (c.r, c.l, {
-                    "<": ">", ">": "<", "<=": ">=", ">=": "<=",
-                    "==": "==", "!=": "!="}[op])):
-                if isinstance(side, cparse.Name) and isinstance(
-                        env.get(side.n), CI):
-                    ov = self._eval(other, dict(env))
-                    if isinstance(ov, CI) and not ov.opaque:
-                        env = self._narrow(env, side.n, o, ov.iv)
-                        if env is None:
-                            return None
+        if isinstance(c, cparse.Call) and isinstance(c.fn, cparse.Name) \
+                and len(c.args) >= 2:
+            # Every lane's predicate held (__all_sync true), or none did
+            # (__any_sync false): so did this lane's.
+            if c.fn.n == "__all_sync" and truth:
+                return self._cond(env, c.args[1], True)
+            if c.fn.n == "__any_sync" and not truth:
+                return self._cond(env, c.args[1], False)
             return env
+        if isinstance(c, cparse.Cast) and c.ctype is not None and (
+                self.cf.resolve(c.ctype, self.tenv).boolean):
+            return self._cond(env, c.e, truth)
+        if isinstance(c, cparse.Bin) and c.op in self._CMP:
+            op = c.op if truth else _NEG[c.op]
+            lv, rv = self._peek(c.l, env), self._peek(c.r, env)
+            if not self._comparable(lv, rv):
+                return env
+            env = self._narrow_expr(env, c.l, op, rv.iv)
+            if env is None:
+                return None
+            env = self._narrow_expr(env, c.r, _SWAP[op], lv.iv)
+            if env is None:
+                return None
+            if op in (">=", ">", "=="):
+                env = self._add_fact(env, c.l, c.r)
+            if op in ("<=", "<", "=="):
+                env = self._add_fact(env, c.r, c.l)
+            return env
+        # Truthiness of a value, and of what it was defined as.
+        env = self._narrow_expr(env, c, "!=" if truth else "==", Iv(0, 0))
+        if env is None:
+            return None
+        k = self._key(c, env)
+        d = self._def_of(env, k[0]) if k is not None else None
+        if d is not None and isinstance(self._peek(c, env), CI) and \
+                self._peek(c, env).t.boolean:
+            return self._cond(env, d, truth)
         return env
 
-    @staticmethod
-    def _narrow(env: dict, name: str, op: str, r: Iv) -> Optional[dict]:
-        cur: CI = env[name]
+    def _narrow_expr(self, env: dict, e, op: str, r: Iv) -> Optional[dict]:
+        """`env` with `e`'s value narrowed by `e op r`: through a local
+        variable path, an integer cast that keeps the value, or a right
+        shift by a constant (`(x >> 58) == 0` bounds x below 2^58)."""
+        if isinstance(e, cparse.Cast) and e.ctype is not None:
+            t = self.cf.resolve(e.ctype, self.tenv)
+            inner = self._peek(e.e, env)
+            if t.base == "int" and not t.ptr and not t.boolean and isinstance(
+                    inner, CI) and _trange(t).lo <= inner.iv.lo and \
+                    inner.iv.hi <= _trange(t).hi:
+                return self._narrow_expr(env, e.e, op, r)
+            return env
+        k = self._index(e.r, env) if isinstance(e, cparse.Bin) and e.op == ">>" \
+            else None
+        if k is not None and 0 <= k < 256:
+            if op in ("<", "<=", "=="):
+                hi = r.hi - (1 if op == "<" else 0)
+                if hi < 0:
+                    return None
+                env = self._narrow_expr(env, e.l, "<=", Iv(((hi + 1) << k) - 1,
+                                                           ((hi + 1) << k) - 1))
+            if env is not None and op in (">", ">=", "=="):
+                lo = r.lo + (1 if op == ">" else 0)
+                env = self._narrow_expr(env, e.l, ">=", Iv(lo << k, lo << k))
+            return env
+        path = _path_of(e, lambda ix: self._index(ix, env))
+        if path is None or path[0] not in env:
+            return env
+        cur = _path_get(env[path[0]], path[1:]) if len(path) > 1 else env[path[0]]
+        if not isinstance(cur, CI) or cur.opaque:
+            return env
         lo, hi = cur.iv.lo, cur.iv.hi
         if op == "<":
             hi = min(hi, r.hi - 1)
@@ -1441,32 +2306,73 @@ class _CudaFn:
         if lo > hi:
             return None
         env = dict(env)
-        env[name] = CI(Iv(lo, hi), cur.t, cur.opaque)
+        new = CI(Iv(lo, hi), cur.t)
+        env[path[0]] = _path_set(env[path[0]], path[1:], lambda _v: new)
+        if lo >= 1 and cur.iv.lo < 1:
+            # A product of non-negative factors that is at least 1 has
+            # factors that are at least 1 (`pairs = n * count`).
+            k = self._key(e, env)
+            d = self._def_of(env, k[0]) if k is not None else None
+            if isinstance(d, cparse.Bin) and d.op == "*":
+                for fac in (d.l, d.r):
+                    fv = self._peek(fac, env)
+                    if env is not None and isinstance(fv, CI) and fv.iv.lo >= 0:
+                        env = self._narrow_expr(env, fac, ">=", Iv(1, 1))
         return env
 
     # --- statements ---
+
+    def _assume(self, env: dict, line: int) -> dict:
+        """A line's `range=` holds where the line starts too: it bounds a
+        value the line reads (a loop-carried count a relation bounds)."""
+        for path, iv in self._line_ranges(line).items():
+            segs = tuple(path.split("."))
+            if segs[0] not in env:
+                continue
+
+            def clamp(v, iv=iv):
+                if not isinstance(v, CI):
+                    return v
+                lo, hi = max(v.iv.lo, iv.lo), min(v.iv.hi, iv.hi)
+                return CI(Iv(lo, hi) if lo <= hi else Iv(iv.lo, iv.hi), v.t)
+
+            env[segs[0]] = _path_set(env[segs[0]], segs[1:], clamp)
+        return env
 
     def _exec(self, s, env: Optional[dict]) -> Optional[dict]:
         if env is None:
             return None
         if isinstance(s, cparse.SBlock):
+            before = dict(env)
+            declared: set = set()
             for st in s.stmts:
+                if isinstance(st, cparse.SDecl):
+                    declared |= {d[1] for d in st.decls}
                 env = self._exec(st, env)
                 if env is None:
                     return None
-            return env
+            return self._end_scope(env, before, declared)
+        if isinstance(s, (cparse.SExpr, cparse.SDecl, cparse.SAsm)):
+            env = self._assume(env, s.line)
         if isinstance(s, cparse.SDecl):
-            for (ct, name, arrsize, init, line) in s.decls:
-                if arrsize is not None:
-                    env[name] = self.cf.top_of(
-                        cparse.CType(ct.base, ct.width, ct.signed, ct.ptr + 1,
-                                     ct.boolean))
-                    continue
-                v = self.cf.top_of(ct)
-                if init is not None and not isinstance(init, cparse.InitList):
-                    v = self._convert(self._eval(init, env), ct, line,
-                                      explicit=False)
+            for k, (ct, name, arrsize, init, line) in enumerate(s.decls):
+                dims = s.dims[k] if s.dims else (
+                    (arrsize,) if arrsize is not None else ())
+                if dims:
+                    v = (self._aggregate(ct, init, env, line, dims)
+                         if init is not None else self.cf.top_of(ct, self.tenv, dims))
+                elif init is None:
+                    v = self.cf.top_of(ct, self.tenv)
+                elif isinstance(init, cparse.InitList):
+                    v = self._aggregate(ct, init, env, line)
+                else:
+                    val = self._eval(init, env)
+                    v = val if self.cf.resolve(ct, self.tenv).base == "named:auto" \
+                        else self._convert(val, ct, line, explicit=False)
                 env[name] = v
+                self._invalidate(env, name)
+                if init is not None and not isinstance(init, cparse.InitList):
+                    self._add_def(env, cparse.Name(name, line), init)
                 for n, iv in self._line_ranges(line).items():
                     if isinstance(env.get(n), CI):
                         env[n] = CI(iv, env[n].t)
@@ -1477,47 +2383,186 @@ class _CudaFn:
         if isinstance(s, cparse.SRet):
             if s.e is not None:
                 v = self._eval(s.e, env)
-                self.ret = self._join_val(self.ret, v)
-            self._ret_envs.append(dict(env))
+                if self._frames and len(self._frames) == 1 and isinstance(v, CI):
+                    v = self._convert(v, self.ret_type, s.line, explicit=False)
+                self._frames[-1][0] = _join_vals(self._frames[-1][0], v)
+            self._frames[-1][1].append(dict(env))
             return None
         if isinstance(s, cparse.SIf):
+            self._eval(s.c, env)
             t_env = self._cond(dict(env), s.c, True)
             e_env = self._cond(dict(env), s.c, False)
-            self._eval(s.c, dict(env))
             t_out = self._exec(s.t, t_env)
             e_out = self._exec(s.e, e_env) if s.e is not None else e_env
             return self._join(t_out, e_out)
-        if isinstance(s, (cparse.SWhile, cparse.SFor)):
-            # No listed helper loops; a loop's carried bounds need a
-            # fixed point this front end does not have yet (fail closed).
-            raise cparse.CParseError("a loop: outside the proven subset", s.line)
+        if isinstance(s, cparse.SFor):
+            before = dict(env)
+            declared = {d[1] for st in s.init if isinstance(st, cparse.SDecl)
+                        for d in st.decls}
+            out = self._loop(s.init, s.c, s.step, s.body, env, s.line)
+            return None if out is None else self._end_scope(out, before, declared)
+        if isinstance(s, cparse.SWhile):
+            return self._loop([], s.c, [], s.body, env, s.line)
+        if isinstance(s, cparse.SDo):
+            return self._loop([], s.c, [], s.body, env, s.line, do_while=True)
+        if isinstance(s, (cparse.SBrk, cparse.SCont)):
+            if not self._loops:
+                raise cparse.CParseError("a break or continue outside a loop", s.line)
+            self._loops[-1]["brk" if isinstance(s, cparse.SBrk) else "cont"].append(env)
+            return None
+        if isinstance(s, cparse.SAsm):
+            # An asm output holds anything its register's width holds.
+            for constraint, lv in s.outputs:
+                bits = _ASM_BITS.get(constraint.lstrip("=+&")[:1], 64)
+                self._store(lv, CI(Iv(0, (1 << bits) - 1),
+                                   cparse.CType("int", bits, False)),
+                            env, s.line, explicit=True)
+            return env
         return env
+
+    def _end_scope(self, env: dict, before: dict, declared: set) -> dict:
+        """Leaving a block: its own declarations go, a name they shadowed
+        comes back."""
+        for name in declared:
+            if name in before:
+                env[name] = before[name]
+            else:
+                env.pop(name, None)
+            self._invalidate(env, name)
+        return env
+
+    def _iterate(self, body, step, env: dict, exits: list) -> Optional[dict]:
+        self._loops.append({"brk": [], "cont": []})
+        try:
+            out = self._exec(body, dict(env))
+        finally:
+            ctx = self._loops.pop()
+        exits.extend(ctx["brk"])
+        out = self._join_all([out] + ctx["cont"])
+        for st in step:
+            out = self._exec(st, out)
+        return out
+
+    def _loop(self, init, cond, step, body, env: dict, line: int,
+              do_while: bool = False) -> Optional[dict]:
+        """A loop: read one iteration at a time while its condition is
+        decided (a constant trip count: `#pragma unroll` over a template
+        constant, `for (int o = 16; o; o >>= 1)`), then to a fixed point
+        with widening from where it is not."""
+        for st in init:
+            env = self._exec(st, env)
+        exits: list = []
+        cur, it = env, 0
+        while cur is not None and it < _UNROLL_MAX:
+            if cond is not None and (it > 0 or not do_while):
+                v = self._peek(cond, cur)
+                if not (isinstance(v, CI) and not v.opaque and v.iv.lo == v.iv.hi):
+                    break
+                self._eval(cond, cur)
+                if v.iv.lo == 0:
+                    exits.append(cur)
+                    cur = None
+                    break
+            elif cond is None:
+                break
+            cur = self._iterate(body, step, cur, exits)
+            it += 1
+        if cur is not None:
+            if do_while and it == 0:
+                cur = self._iterate(body, step, cur, exits)
+            exits.append(self._fixpoint(cond, step, body, cur, exits, line))
+        return self._join_all(exits)
+
+    def _fixpoint(self, cond, step, body, head: Optional[dict], exits: list,
+                  line: int) -> Optional[dict]:
+        if head is None:
+            return None
+        saved = (self.suppress, self.checked_ops)
+        self.suppress = True
+        entry = dict(head)
+        try:
+            for k in range(_CONVERGE_MAX):
+                b_in = self._cond(dict(head), cond, True) if cond is not None \
+                    else dict(head)
+                out = self._iterate(body, step, b_in, []) if b_in is not None \
+                    else None
+                new = self._join(head, out)
+                if k >= _C_WIDEN_AFTER:
+                    new = self._widen(head, new)
+                if new == head:
+                    break
+                head = new
+            else:
+                raise cparse.CParseError(
+                    "a loop whose bounds reach no fixed point", line)
+            # Narrowing: the loop entry joined with one pass from the
+            # fixed point is again a fixed point, and gives back what a
+            # widening took (a count the condition bounds).
+            for _ in range(2):
+                b_in = self._cond(dict(head), cond, True) if cond is not None \
+                    else dict(head)
+                out = self._iterate(body, step, b_in, []) if b_in is not None \
+                    else None
+                head = self._join(entry, out)
+        finally:
+            self.suppress, self.checked_ops = saved
+        # The reporting pass, at the fixed point.
+        if cond is not None:
+            self._eval(cond, dict(head))
+        b_in = self._cond(dict(head), cond, True) if cond is not None else dict(head)
+        if b_in is not None:
+            self._iterate(body, step, b_in, exits)
+        return self._cond(dict(head), cond, False) if cond is not None else None
+
+
+def _split_targs(spec: str):
+    """`tile_scan<kRecLanes>` -> ("tile_scan", ("kRecLanes",))."""
+    if "<" not in spec:
+        return spec, ()
+    name, rest = spec.split("<", 1)
+    return name.strip(), tuple(a.strip() for a in rest.rstrip(">").split(",") if a.strip())
 
 
 def prove_cuda_function(path, rel: str, fname: str,
                         source: Optional[str] = None
                         ) -> Tuple[List[Finding], int]:
     """(findings, checked-operation count) for one device function of a
-    CUDA source. A function that is missing or outside the subset is a
-    `c-parse` finding: the proof must not silently skip it."""
+    CUDA source, `name` or `name<args>` (a template at those arguments:
+    numbers, constants of the file or type names). A function that is
+    missing or outside the subset is a `c-parse` finding: the proof must
+    not silently skip it."""
     try:
         src = pathlib.Path(path).read_text() if source is None else source
     except OSError as e:
         return ([Finding("absint", "c-parse", rel, 0, fname, fname,
                          f"cannot read source: {e}")], 0)
-    cf = _CudaFile(src, rel)
-    fn = cf.functions.get(fname)
-    if fn is None:
+    cf = _cuda_file(src, rel, None if source is not None else str(path))
+    name, targ_text = _split_targs(fname)
+    entry = cf.functions.get(name)
+    if entry is None:
         return ([Finding(
             "absint", "c-parse", rel, 0, fname, fname,
             f"listed function {fname} not found in {rel}: the proof must "
             "not silently skip it")], 0)
+    fn, unit = entry
+    targs = []
+    for (kind, _p), text in zip(fn.tparams, targ_text):
+        if kind == "int":
+            v = int(text, 0) if text[:1].isdigit() else cf.consts.get(text, (None,))[0]
+        else:
+            v = cf.resolve(cparse.type_from_tokens(text.split(), 0))
+        targs.append(v)
+    if len(targs) != len(fn.tparams) or any(v is None for v in targs):
+        return ([Finding(
+            "absint", "c-parse", rel, fn.line, fname, fname,
+            f"{fname}: give each template parameter of {name} an argument "
+            "the file defines")], 0)
     try:
-        cf.body(fname)
+        cf.body(name)
     except cparse.CParseError as e:
         return ([Finding("absint", "c-parse", rel, e.line, fname, fname,
                          f"body outside the analysable subset: {e}")], 0)
-    fa = _CudaFn(cf, fn)
+    fa = _CudaFn(cf, fn, unit, dict(zip([p for _k, p in fn.tparams], targs)))
     try:
         fa.run()
     except (cparse.CParseError, RecursionError) as e:

@@ -19,14 +19,21 @@ real C compiler front end because the inputs are the repo's own shims
     the small AST interpreted by nativecheck's interval analysis and by
     tidy/absint.py's CUDA front end.
 
-The CUDA device helpers (`csrc/*.cuh` under the package) are read as the
-same subset plus what they use of C++: `namespace` blocks (transparent),
-`__device__` / `__forceinline__` / `constexpr` / `__restrict__`
-qualifiers, reference parameters (`CParam.ref`), `bool`, `unsigned
-__int128`, `reinterpret_cast<T>(e)` / `static_cast<T>(e)`, and the
-`typedef_types` / `parse_constexprs` / `collect_structs` tables. Casts
-keep their target type and literals their suffix, which the width-aware
-absint needs.
+The CUDA sources under the package are read as the same subset plus
+what they use of C++: `namespace` blocks (transparent) and `ns::name`
+identifiers, `__device__` / `__global__` / `__forceinline__` /
+`constexpr` / `__restrict__` / `__shared__` / `__grid_constant__`
+qualifiers, `template <...>` headers (`CFunc.tparams`) and
+`__launch_bounds__` (`CFunc.launch_bounds`), reference parameters
+(`CParam.ref`, `CParam.const`), `bool`, `auto`, `unsigned __int128`,
+`reinterpret_cast<T>(e)` / `static_cast<T>(e)`, template calls
+(`TplName`), `[&]` lambdas (`Lambda`), aggregate initialisers
+(`Compound`, brace-initialised declarations), multi-dimensional local
+arrays (`SDecl.dims`), `do ... while` (`SDo`), inline `asm` statements
+(`SAsm`, their outputs), and the `typedef_types` / `parse_constexprs` /
+`parse_constexpr_types` / `collect_structs` / `struct_fields` tables.
+Casts keep their target type and literals their suffix, which the
+width-aware absint needs.
 
 `/* tidy: ... */` and `// tidy: ...` comments are collected into the same
 `LineAnnotations` objects the Python annotation module produces, so
@@ -62,7 +69,7 @@ class Tok:
 
 _PUNCTS = (
     ">>=", "<<=", "...", "->", "++", "--", "<<", ">>", "<=", ">=", "==",
-    "!=", "&&", "||", "+=", "-=", "*=", "/=", "%=", "&=", "|=", "^=",
+    "!=", "&&", "||", "+=", "-=", "*=", "/=", "%=", "&=", "|=", "^=", "::",
 )
 
 _TOKEN_RE = re.compile(
@@ -118,8 +125,11 @@ def lex(source: str) -> Tuple[List[Tok], Dict[int, LineAnnotations]]:
                 )
                 src_line = lines[line - 1] if line <= len(lines) else ""
                 own = src_line.lstrip().startswith(("/*", "//"))
-                anns[line] = LineAnnotations(
-                    line, clauses, reason, own_line=own
+                # A comment-only annotation binds to the line after its
+                # end: a block comment may span several lines.
+                at = line + tok.count("\n") if own else line
+                anns[at] = LineAnnotations(
+                    at, clauses, reason, own_line=own
                 )
         elif kind == "ws":
             pass
@@ -239,17 +249,19 @@ _QUALIFIERS = frozenset((
     # CUDA C++ function and pointer qualifiers.
     "__device__", "__host__", "__global__", "__forceinline__",
     "__noinline__", "constexpr", "__restrict__", "__restrict",
+    "__shared__", "__constant__", "__managed__", "__grid_constant__",
+    "typename",
 ))
 _BASE_WORDS = frozenset((
     "void", "char", "short", "int", "long", "unsigned", "signed",
-    "float", "double", "_Bool", "bool", "__int128",
+    "float", "double", "_Bool", "bool", "__int128", "auto",
 ))
 TYPE_START = _QUALIFIERS | _BASE_WORDS | frozenset(_FIXED)
 
 
 def type_from_tokens(words: List[str], ptr: int) -> CType:
     """CType from the identifier words of a declaration specifier."""
-    ws = [w for w in words if w not in _QUALIFIERS]
+    ws = [w.split("::")[-1] for w in words if w not in _QUALIFIERS]
     for w in ws:
         if w in _FIXED:
             width, signed = _FIXED[w]
@@ -309,15 +321,20 @@ def parse_constexprs(source: str) -> Dict[str, int]:
     """`constexpr <int type> NAME = <const-expr>;` -> value, folded in
     source order and wrapped to the declared width (so `~0x3Fu` is the
     unsigned word it denotes)."""
-    out: Dict[str, int] = {}
+    return {k: v for k, (v, _t) in parse_constexpr_types(source).items()}
+
+
+def parse_constexpr_types(source: str) -> Dict[str, Tuple[int, CType]]:
+    """`parse_constexprs` with each constant's declared type."""
+    out: Dict[str, Tuple[int, CType]] = {}
     for m in _CONSTEXPR_RE.finditer(_strip_comments(source)):
         ct = type_from_tokens(m.group(1).split(), 0)
-        v = _fold_const(m.group(3), dict(out))
+        v = _fold_const(m.group(3), {k: x for k, (x, _t) in out.items()})
         if v is None or ct.base != "int":
             continue
         if not ct.signed:
             v &= (1 << ct.width) - 1
-        out[m.group(2)] = v
+        out[m.group(2)] = (v, ct)
     return out
 
 
@@ -328,15 +345,23 @@ def _strip_comments(source: str) -> str:
 def collect_structs(source: str) -> Dict[str, List[Tuple[str, CType]]]:
     """`struct Name { <fields> };` -> [(field, type)] for the data
     members (member functions and their bodies are skipped)."""
+    return {k: [(f, t) for f, t, _d in v] for k, v in struct_fields(source).items()}
+
+
+def struct_fields(source: str) -> Dict[str, List[Tuple[str, CType, tuple]]]:
+    """`[template <...>] struct Name { <fields> };` -> [(field, type,
+    dims)] in declaration order, for the data members: `u128 a[K], b[K];`
+    declares two array fields (dims hold each bound's text), a template
+    argument of a field's type (`Lanes<K> v;`) is dropped, and member
+    functions are skipped."""
     text = _strip_comments(source)
-    out: Dict[str, List[Tuple[str, CType]]] = {}
+    out: Dict[str, List[Tuple[str, CType, tuple]]] = {}
     for m in re.finditer(r"\bstruct\s+(\w+)\s*\{", text):
         k, depth = m.end(), 1
         while k < len(text) and depth:
             depth += {"{": 1, "}": -1}.get(text[k], 0)
             k += 1
         body = text[m.end():k - 1]
-        # Drop nested bodies (member functions) before splitting fields.
         flat, depth = [], 0
         for ch in body:
             if ch == "{":
@@ -350,12 +375,16 @@ def collect_structs(source: str) -> Dict[str, List[Tuple[str, CType]]]:
         for decl in "".join(flat).split(";"):
             if "(" in decl or not decl.strip():
                 continue
-            words = decl.replace("*", " * ").split()
-            names = [w for w in words if w != "*"]
-            if len(names) < 2:
+            decl = re.sub(r"<[^<>]*>", " ", decl).replace("*", " * ")
+            head = re.match(r"\s*((?:[\w:]+\s+)+?)((?:\*\s*)*\w+\s*(?:\[[^\]]*\]\s*)*)"
+                            r"((?:,\s*(?:\*\s*)*\w+\s*(?:\[[^\]]*\]\s*)*)*)\s*$", decl)
+            if head is None:
                 continue
-            fields.append((names[-1], type_from_tokens(
-                names[:-1], words.count("*"))))
+            words = head.group(1).split()
+            for d in [head.group(2)] + [x for x in head.group(3).split(",") if x.strip()]:
+                name = re.search(r"\w+", d).group(0)
+                dims = tuple(x.strip() for x in re.findall(r"\[([^\]]*)\]", d))
+                fields.append((name, type_from_tokens(words, d.count("*")), dims))
         out[m.group(1)] = fields
     return out
 
@@ -367,6 +396,7 @@ class CParam:
     name: str
     ctype: CType
     ref: bool = False  # a C++ reference parameter (`T& name`)
+    const: bool = False  # declared `const` (a const reference is read-only)
 
 
 @dataclass
@@ -377,13 +407,53 @@ class CFunc:
     line: int
     static: bool
     body: Optional[Tuple[int, int]] = None  # token span of `{...}` or None
+    # `template <int K, class T>`: (("int", "K"), ("type", "T")).
+    tparams: tuple = ()
+    # `__launch_bounds__(max_threads, ...)`: the first argument's text.
+    launch_bounds: Optional[str] = None
+    # The line the declaration starts on (its `template` header, or its
+    # first specifier), where a contract above it binds.
+    head_line: Optional[int] = None
+
+
+def _skip_angles(toks: List[Tok], i: int) -> int:
+    """Index just past the `>` matching the `<` at toks[i]."""
+    depth = 0
+    while i < len(toks):
+        t = toks[i]
+        if t.kind == "punct" and t.text == "<":
+            depth += 1
+        elif t.kind == "punct" and t.text == ">":
+            depth -= 1
+            if depth == 0:
+                return i + 1
+        elif t.kind == "punct" and t.text == ">>":
+            depth -= 2
+            if depth <= 0:
+                return i + 1
+        i += 1
+    return i
 
 
 def _parse_param(toks: List[Tok], typedefs: frozenset) -> Optional[CParam]:
     words, ptr, name, ref = [], 0, "", False
+    const = any(t.kind == "id" and t.text == "const" for t in toks)
+    # A template argument list of a parameter's type (`Lanes<K>& v`) says
+    # nothing the front end reads.
+    kept, j = [], 0
+    while j < len(toks):
+        if toks[j].kind == "punct" and toks[j].text == "<" and kept:
+            j = _skip_angles(toks, j)
+            continue
+        kept.append(toks[j])
+        j += 1
+    toks = kept
+    bracket = 0
     for t in toks:
         if t.kind == "punct" and t.text == "=":
             break  # a C++ default argument: the declarator is complete
+        if bracket and not (t.kind == "punct" and t.text == "]"):
+            continue  # an array bound (`unsigned (&hs)[Steps]`)
         if t.kind == "punct" and t.text == "*":
             ptr += 1
         elif t.kind == "punct" and t.text == "&":
@@ -391,6 +461,9 @@ def _parse_param(toks: List[Tok], typedefs: frozenset) -> Optional[CParam]:
         elif t.kind == "punct" and t.text in ("[", "]"):
             if t.text == "[":
                 ptr += 1  # `T a[]` parameter decays to pointer
+                bracket += 1
+            else:
+                bracket -= 1
         elif t.kind == "id":
             if (t.text in TYPE_START or t.text in typedefs
                     or not [w for w in words if w not in _QUALIFIERS]):
@@ -405,9 +478,9 @@ def _parse_param(toks: List[Tok], typedefs: frozenset) -> Optional[CParam]:
     # The final identifier is the parameter name unless it is the sole
     # type word (unnamed parameter, e.g. prototypes in headers).
     if name in _FIXED or name in _BASE_WORDS or name in typedefs:
-        return CParam("", type_from_tokens(words, ptr), ref)
+        return CParam("", type_from_tokens(words, ptr), ref, const)
     twords = [w for w in words if w != name] or words
-    return CParam(name, type_from_tokens(twords, ptr), ref)
+    return CParam(name, type_from_tokens(twords, ptr), ref, const)
 
 
 def parse_functions(source: str) -> List[CFunc]:
@@ -418,8 +491,40 @@ def parse_functions(source: str) -> List[CFunc]:
     i, depth = 0, 0
     decl_start = 0
     n = len(toks)
+    tparams: tuple = ()  # the pending `template <...>` header
+    tmpl_line = 0
+    bounds, bounds_span = None, (-1, -1)  # the pending __launch_bounds__
     while i < n:
         t = toks[i]
+        if (depth == 0 and t.kind == "id" and t.text == "template"
+                and i + 1 < n and toks[i + 1].text == "<"):
+            end = _skip_angles(toks, i + 1)
+            params = []
+            for part in _split_commas(toks[i + 2:end - 1]):
+                words = [x.text for x in part if x.kind == "id"]
+                if len(words) >= 2:
+                    kind = "type" if words[0] in ("class", "typename") else "int"
+                    params.append((kind, words[-1]))
+            tparams = tuple(params)
+            tmpl_line = t.line
+            i = end
+            decl_start = end
+            continue
+        if (depth == 0 and t.kind == "id" and t.text == "__launch_bounds__"
+                and i + 1 < n and toks[i + 1].text == "("):
+            k, pd = i + 1, 0
+            while k < n:
+                if toks[k].text == "(":
+                    pd += 1
+                elif toks[k].text == ")":
+                    pd -= 1
+                    if pd == 0:
+                        break
+                k += 1
+            bounds = toks[i + 2].text if i + 2 < k else None
+            bounds_span = (i, k)
+            i = k + 1
+            continue
         if t.kind == "punct" and t.text == "{":
             # `extern "C" {` and `namespace [name] {` are transparent:
             # their contents are top-level.
@@ -440,15 +545,17 @@ def parse_functions(source: str) -> List[CFunc]:
                 decl_start = i + 1
         elif t.kind == "punct" and t.text == ";" and depth == 0:
             decl_start = i + 1
+            tparams, bounds = (), None
         elif (depth == 0 and t.kind == "id" and i + 1 < n
               and toks[i + 1].kind == "punct" and toks[i + 1].text == "("
               and i > decl_start):
             prev = toks[i - 1]
-            if not (prev.kind == "id" or
-                    (prev.kind == "punct" and prev.text == "*")):
+            if not (prev.kind == "id" or i - 1 == bounds_span[1] or
+                    (prev.kind == "punct" and prev.text in ("*", "&"))):
                 i += 1
                 continue
-            spec = toks[decl_start:i]
+            spec = [x for k, x in enumerate(toks[decl_start:i], decl_start)
+                    if not bounds_span[0] <= k <= bounds_span[1]]
             if any(s.kind == "id" and s.text == "typedef" for s in spec):
                 i += 1
                 continue
@@ -513,13 +620,33 @@ def parse_functions(source: str) -> List[CFunc]:
                 line=t.line,
                 static="static" in words,
                 body=body,
+                tparams=tparams,
+                launch_bounds=bounds,
+                head_line=tmpl_line if tparams else (
+                    spec[0].line if spec else t.line),
             )
+            tparams, bounds = (), None
             out.append(fn)
             if body is None:
                 i = j + 1  # at the `;`
                 decl_start = j + 2
         i += 1
     return out
+
+
+def _split_commas(toks: List[Tok]) -> List[List[Tok]]:
+    out: List[List[Tok]] = [[]]
+    depth = 0
+    for t in toks:
+        if t.kind == "punct" and t.text in ("(", "<", "[", "{"):
+            depth += 1
+        elif t.kind == "punct" and t.text in (")", ">", "]", "}"):
+            depth -= 1
+        if t.kind == "punct" and t.text == "," and depth == 0:
+            out.append([])
+        else:
+            out[-1].append(t)
+    return [p for p in out if p]
 
 
 # --- expression / statement AST -----------------------------------------
@@ -603,6 +730,34 @@ class InitList:
 
 
 @dataclass(frozen=True)
+class TplName:
+    """A template function named with its arguments (`warp_seg_scan<5>`):
+    each argument a Num, a Name or a CType."""
+
+    n: str
+    args: tuple
+    line: int = 0
+
+
+@dataclass(frozen=True)
+class Compound:
+    """An aggregate initialisation of a named type (`Pair{0, 0, {}}`)."""
+
+    tname: str
+    init: object  # InitList
+    line: int = 0
+
+
+@dataclass(frozen=True)
+class Lambda:
+    """`[&](params) { body }`: params are CParams; the body an SBlock."""
+
+    params: tuple
+    body: object
+    line: int = 0
+
+
+@dataclass(frozen=True)
 class Assign:
     target: object
     op: str  # "=", "+=", ...
@@ -644,6 +799,24 @@ class SFor:
 class SDecl:
     decls: list  # [(CType, name, arrsize:Optional[int], init, line)]
     line: int = 0
+    # Per declarator, its array bounds (ints, or None where symbolic);
+    # () for a scalar.
+    dims: Optional[list] = None
+
+
+@dataclass
+class SDo:
+    body: object
+    c: object
+    line: int = 0
+
+
+@dataclass
+class SAsm:
+    """An inline `asm [volatile] (...)`: its outputs, (constraint, lvalue)."""
+
+    outputs: list
+    line: int = 0
 
 
 @dataclass
@@ -677,9 +850,21 @@ class CParseError(Exception):
 class _Parser:
     """Recursive-descent parser over one function body's token span."""
 
-    def __init__(self, toks: List[Tok], typedefs: frozenset) -> None:
-        self.toks = toks
+    def __init__(self, toks: List[Tok], typedefs: frozenset,
+                 templates: frozenset = frozenset()) -> None:
+        # `ns::name` reads as one identifier.
+        merged: List[Tok] = []
+        for t in toks:
+            if (t.kind == "id" and len(merged) >= 2 and merged[-1].text == "::"
+                    and merged[-2].kind == "id"):
+                merged.pop()
+                head = merged.pop()
+                merged.append(Tok("id", f"{head.text}::{t.text}", head.line))
+            else:
+                merged.append(t)
+        self.toks = merged
         self.typedefs = typedefs
+        self.templates = templates
         self.i = 0
 
     def peek(self, k: int = 0) -> Tok:
@@ -703,9 +888,14 @@ class _Parser:
 
     def _is_type_ahead(self) -> bool:
         t = self.peek()
-        return t.kind == "id" and (
-            t.text in TYPE_START or t.text in self.typedefs
-        )
+        if t.kind != "id":
+            return False
+        last = t.text.split("::")[-1]
+        if t.text in TYPE_START or last in self.typedefs:
+            return True
+        # A qualified type the tables do not know (`cg::grid_group g`).
+        nxt = self.peek(1)
+        return "::" in t.text and nxt.kind == "id"
 
     # --- statements ---
 
@@ -758,6 +948,19 @@ class _Parser:
                 step = [SExpr(e, t.line) for e in self._expr_list()]
             self.expect(")")
             return SFor(init, cond, step, self.parse_stmt(), t.line)
+        if t.kind == "id" and t.text == "do":
+            self.next()
+            body = self.parse_stmt()
+            w = self.next()
+            if w.text != "while":
+                raise CParseError(f"expected 'while', got {w.text!r}", w.line)
+            self.expect("(")
+            c = self.parse_expr()
+            self.expect(")")
+            self.expect(";")
+            return SDo(body, c, t.line)
+        if t.kind == "id" and t.text in ("asm", "__asm__"):
+            return self._parse_asm()
         if t.kind == "id" and t.text == "return":
             self.next()
             e = None if self.at(";") else self.parse_expr()
@@ -777,6 +980,33 @@ class _Parser:
         self.expect(";")
         return SExpr(e, t.line)
 
+    def _parse_asm(self) -> SAsm:
+        t = self.next()
+        if self.peek().kind == "id" and self.peek().text in ("volatile", "__volatile__"):
+            self.next()
+        self.expect("(")
+        while self.peek().kind == "str":
+            self.next()
+        outputs = []
+        if self.at(":"):
+            self.next()
+            while self.peek().kind == "str":
+                constraint = self.next().text.strip('"')
+                self.expect("(")
+                outputs.append((constraint, self.parse_expr()))
+                self.expect(")")
+                if self.at(","):
+                    self.next()
+        depth = 0  # inputs and clobbers: read nothing the domain tracks
+        while not (depth == 0 and self.at(")")):
+            nt = self.next()
+            if nt.kind == "eof":
+                raise CParseError("unterminated asm", t.line)
+            depth += {"(": 1, ")": -1}.get(nt.text, 0) if nt.kind == "punct" else 0
+        self.expect(")")
+        self.expect(";")
+        return SAsm(outputs, t.line)
+
     def _expr_list(self) -> list:
         out = [self.parse_expr()]
         while self.at(","):
@@ -789,7 +1019,9 @@ class _Parser:
         words = []
         while self._is_type_ahead():
             words.append(self.next().text)
-        decls = []
+            if self.at("<"):  # a template type's arguments (`Lanes<K> v`)
+                self.i = _skip_angles(self.toks, self.i)
+        decls, dims = [], []
         while True:
             ptr = 0
             while self.at("*") or self.at("&") or (
@@ -803,30 +1035,36 @@ class _Parser:
                 raise CParseError(
                     f"expected declarator, got {nt.text!r}", nt.line)
             arrsize = None
-            if self.at("["):
+            bounds = []
+            while self.at("["):
                 self.next()
                 st = self.next()
                 if st.kind == "num":
-                    arrsize = int(st.text.rstrip("uUlL"), 0)
-                elif st.kind == "id":
-                    arrsize = None  # symbolic size: treated as unbounded
+                    bounds.append(int(st.text.rstrip("uUlL"), 0))
+                else:
+                    bounds.append(None)  # symbolic size: treated as unbounded
                 self.expect("]")
+            if bounds:
+                arrsize = bounds[0]
             init = None
             if self.at("="):
                 self.next()
                 init = (self._init_list() if self.at("{")
                         else self.parse_expr())
+            elif self.at("{"):  # `Tables t{...}`
+                init = self._init_list()
             decls.append(
                 (type_from_tokens(words, ptr), nt.text, arrsize, init,
                  nt.line)
             )
+            dims.append(tuple(bounds))
             if self.at(","):
                 self.next()
                 continue
             break
         if consume_semi:
             self.expect(";")
-        return SDecl(decls, t.line)
+        return SDecl(decls, t.line, dims)
 
     def _init_list(self) -> InitList:
         t = self.expect("{")
@@ -957,6 +1195,61 @@ class _Parser:
 
     _CXX_CASTS = frozenset(("reinterpret_cast", "static_cast", "const_cast"))
 
+    def _template_args(self) -> Optional[tuple]:
+        """`<...>` of a template call, at `<`: each argument a Num, a Name
+        or a CType; None where the tokens are no argument list."""
+        self.expect("<")
+        args, cur = [], []
+        while True:
+            nt = self.next()
+            if nt.kind == "eof" or (nt.kind == "punct" and nt.text not in (",", ">", "*")):
+                return None
+            if nt.kind == "punct" and nt.text in (",", ">"):
+                if len(cur) == 1 and cur[0].kind == "num":
+                    args.append(Num(int(cur[0].text.rstrip("uUlL"), 0), cur[0].line))
+                elif len(cur) == 1 and cur[0].kind == "id" and not (
+                        cur[0].text in TYPE_START or cur[0].text in self.typedefs):
+                    args.append(Name(cur[0].text, cur[0].line))
+                elif cur:
+                    args.append(type_from_tokens(
+                        [x.text for x in cur if x.kind == "id"],
+                        sum(1 for x in cur if x.text == "*")))
+                cur = []
+                if nt.text == ">":
+                    return tuple(args)
+                continue
+            cur.append(nt)
+
+    def _lambda(self, t: Tok) -> Lambda:
+        """`[captures](params) { body }`, after the `[`: every capture is
+        by reference (`[&]`), which is how the body is read."""
+        while not self.at("]"):
+            if self.next().kind == "eof":
+                raise CParseError("unterminated lambda capture", t.line)
+        self.next()
+        params = []
+        if self.at("("):
+            self.next()
+            depth, part, parts = 0, [], []
+            while not (depth == 0 and self.at(")")):
+                nt = self.next()
+                if nt.kind == "eof":
+                    raise CParseError("unterminated lambda parameters", t.line)
+                if nt.kind == "punct" and nt.text == "," and depth == 0:
+                    parts.append(part)
+                    part = []
+                    continue
+                depth += {"(": 1, ")": -1}.get(nt.text, 0) if nt.kind == "punct" else 0
+                part.append(nt)
+            self.next()
+            if part:
+                parts.append(part)
+            for ptoks in parts:
+                prm = _parse_param(ptoks, self.typedefs)
+                if prm is not None:
+                    params.append(prm)
+        return Lambda(tuple(params), self.parse_block(), t.line)
+
     def parse_primary(self):
         t = self.next()
         if t.kind == "num":
@@ -984,8 +1277,20 @@ class _Parser:
             e = self.parse_expr()
             self.expect(")")
             return Cast(e, t.line, type_from_tokens(words, ptr))
+        if t.kind == "id" and t.text.split("::")[-1] in self.templates \
+                and self.at("<"):
+            save = self.i
+            targs = self._template_args()
+            if targs is not None and self.at("("):
+                return TplName(t.text.split("::")[-1], targs, t.line)
+            self.i = save
+        if t.kind == "id" and self.at("{") and (
+                t.text.split("::")[-1] in self.typedefs):
+            return Compound(t.text.split("::")[-1], self._init_list(), t.line)
         if t.kind == "id":
             return Name(t.text, t.line)
+        if t.kind == "punct" and t.text == "[":
+            return self._lambda(t)
         if t.kind == "str":
             return Name("<str>", t.line)
         if t.kind == "punct" and t.text == "(":
@@ -996,7 +1301,9 @@ class _Parser:
 
 
 def parse_body(toks: List[Tok], span: Tuple[int, int],
-               typedefs: frozenset) -> SBlock:
-    """Parse a function definition's `{...}` token span into statements."""
-    p = _Parser(toks[span[0]:span[1]], typedefs)
+               typedefs: frozenset, templates: frozenset = frozenset()) -> SBlock:
+    """Parse a function definition's `{...}` token span into statements.
+    `templates` names the template functions a call may instantiate
+    (`f<5>(x)`)."""
+    p = _Parser(toks[span[0]:span[1]], typedefs, templates)
     return p.parse_block()

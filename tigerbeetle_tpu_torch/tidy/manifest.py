@@ -234,10 +234,11 @@ ABSINT_TARGETS = {
     "tigerbeetle_tpu_torch/ops/qindex.py": "u32",
 }
 
-# The device helpers that carry the port's u128 and fold56 arithmetic,
+# The device code that carries the port's u128 and fold56 arithmetic,
 # (repo-relative CUDA source, function), proven by absint's CUDA front
-# end. A listed function that goes missing or leaves the subset is a
-# finding.
+# end: the shared helpers, then the commit kernels whole, with every
+# helper they call (`name<args>` is a template at those arguments). A
+# listed function that goes missing or leaves the subset is a finding.
 ABSINT_CUDA_FUNCS = (
     ("tigerbeetle_tpu_torch/csrc/common.cuh", "sum_overflows"),
     ("tigerbeetle_tpu_torch/csrc/common.cuh", "atomic_add_u128"),
@@ -250,7 +251,37 @@ ABSINT_CUDA_FUNCS = (
     ("tigerbeetle_tpu_torch/csrc/qindex_fold.cuh", "fold56_u64"),
     ("tigerbeetle_tpu_torch/csrc/qindex_fold.cuh", "fold56_u128"),
     ("tigerbeetle_tpu_torch/csrc/qindex_fold.cuh", "block_key"),
+    ("tigerbeetle_tpu_torch/csrc/ladder.cuh", "is_zero"),
+    ("tigerbeetle_tpu_torch/csrc/ladder.cuh", "is_max"),
     ("tigerbeetle_tpu_torch/csrc/ladder.cuh", "ladder"),
+    ("tigerbeetle_tpu_torch/csrc/ladder.cuh", "posts"),
+) + tuple(
+    ("tigerbeetle_tpu_torch/csrc/create_transfers_exact.cu", f) for f in (
+        # the event ladders and their helpers
+        "is_zero", "is_max", "u64_of", "rung", "merge", "clip",
+        "scatter_row", "rec_slot", "event_static", "ld<uint4>",
+        "ld<uint32_t>", "load_obs", "base_obs", "evaluate",
+        # the sweeps' segmented scans, at both lane counts
+        "shfl_up_u128", "warp_sum_u128", "ld_acquire", "st_release",
+        "head_steps<5>", "head_steps<3>", "warp_seg_scan<5>",
+        "warp_seg_scan<3>",
+        "tile_scan<kRecLanes>", "tile_scan<kEvLanes>",
+        "publish<kRecLanes>", "publish<kEvLanes>",
+        "look_back<kRecLanes>", "look_back<kEvLanes>",
+        "scan_tile<kRecLanes>", "scan_tile<kEvLanes>",
+        # the records, the posting and the kernel
+        "record_field", "event_lanes", "post_row", "row_overflows",
+        "sync_sweep_blocks", "copy_tables", "exact_kernel",
+    )
+) + tuple(
+    ("tigerbeetle_tpu_torch/csrc/sharded_apply.cu", f) for f in (
+        "local_row", "row_overflows", "post", "load_pair<1>",
+        "load_pair<kMaxShards>", "apply<1>", "apply<kMaxShards>",
+    )
+) + tuple(
+    ("tigerbeetle_tpu_torch/csrc/create_transfers_fast.cu", f) for f in (
+        "copy_check", "ladder_post", "touched_check",
+    )
 )
 
 # Directories the pointer-lifetime lint walks for `.ctypes.data` captures.

@@ -238,3 +238,33 @@ def cluster_status(replica, server=None) -> dict:
             "inflight_depth": inflight["window_depth"],
         }
     return out
+
+
+def commit_status(replica) -> dict:
+    """The /commits endpoint body: this replica's commit checksum of
+    every op it holds one for (hex, by op) and the section digests of its
+    current checkpoint trailer (sha256 hex, client_replies excluded: the
+    one per-replica section), so that a harness can hold a standby's
+    chain and checkpoint to the actives' across processes."""
+    import hashlib
+    import io
+
+    import numpy as np
+
+    out = {
+        "replica": replica.replica,
+        "standby": bool(replica.is_standby),
+        "commit_min": replica.commit_min,
+        "checksums": {str(op): f"{v:032x}"
+                      for op, v in sorted(replica.commit_checksums.items())},
+        "checkpoint": {"op": 0, "trailer": {}},
+    }
+    st = replica.superblock.state
+    if st.op_checkpoint:
+        blob, _blocks = replica._trailer_blob(st.trailer_block)
+        with np.load(io.BytesIO(blob)) as z:
+            out["checkpoint"] = {"op": st.op_checkpoint, "trailer": {
+                k: hashlib.sha256(np.ascontiguousarray(z[k]).tobytes()).hexdigest()
+                for k in sorted(z.files) if k != "client_replies"}}
+    return out
+

@@ -26,7 +26,7 @@ from __future__ import annotations
 import importlib
 import logging
 from collections import deque
-from typing import Callable, Deque, Dict, List, Optional
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -1348,6 +1348,7 @@ class Replica:
             replica=self.replica, timestamp=prepare_header["timestamp"],
             epoch=self.config_epoch,
         )
+        tracer.count("vsr.prepare_ok_sent")
         self.bus.send_to_replica(self.primary_index(self.view), Message(ok).seal())
 
     def _peer_ack(self, op: int, replica: int) -> None:
@@ -3612,6 +3613,12 @@ class Replica:
         """Read the checkpoint blob back from its trailer blocks; also
         records the trailer block set (so the next checkpoint can
         stage-release it)."""
+        blob, self._trailer_blocks = self._trailer_blob(index_block)
+        return blob
+
+    def _trailer_blob(self, index_block: int) -> Tuple[bytes, List[int]]:
+        """The checkpoint blob of the trailer at `index_block` and its
+        block set, read without changing the replica."""
         grid = self.state_machine.grid
         payload = grid.read_block(index_block)
         head = np.frombuffer(
@@ -3627,5 +3634,4 @@ class Replica:
         want = int(head["cks_lo"]) | (int(head["cks_hi"]) << 64)
         if len(blob) != int(head["blob_len"]) or hdr.checksum(blob) != want:
             raise IOError("checkpoint trailer corrupt")
-        self._trailer_blocks = [index_block] + [int(b) for b in chunks]
-        return blob
+        return blob, [index_block] + [int(b) for b in chunks]

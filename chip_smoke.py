@@ -292,7 +292,10 @@ caught:
      balances equal to the same stream on the port's CPU; rows 1, 2, 7
      and 9 launched (the others logged); both stage tables printed; and
      tools/trace_summary.py reads each dumped trace. The two runs' launches
-     make the `launches_profile` column.
+     make the `launches_profile` column. Each dumped trace holds one
+     named lane a stage thread, each with spans (the loop, the WAL
+     writer and, by default, the commit and store executors), and the
+     device window of every kernel its run launched (TRACE_WINDOWS).
 
 With --mesh-cards N, phase 1 and then phase 9 alone run, on a mesh of
 the first N cards (make_mesh(N): N = 4 gives dp 2 x shard 2) against the
@@ -3870,6 +3873,65 @@ def run_bench_phase(torch, rng, card="cuda", overload=None, cluster_plane=None):
 PROFILE_BATCHES = 24  # measured batches of 8190 transfers a profiled run
 PROFILE_KERNELS = ("create_transfers_fast", "register_accounts", "query_index_keys_sorted",
                    "merge_kernel_tiled")
+# The stage threads' lanes in a profiled run's trace: the loop (the
+# profiler's own thread) and, with the overlapped stages, the WAL writer
+# and the commit and store executors (serial stages run on the loop).
+PROFILE_LANES = {"default": ("MainThread", "wal-writer", "commit-executor", "store-executor"),
+                 "serial-commit serial-store": ("MainThread",)}
+# The trace event that carries each kernel's device time: its dispatch
+# window (`device.step.<entry>`, also an async pair on the device lane),
+# or the span of the blocking call that launches it (`device.<entry>`).
+# The sort plan launches inside the exact kernel's window; the general
+# merge (merge_device) has no window of its own, as in the reference.
+TRACE_WINDOWS = {
+    "create_transfers_fast": "device.step.create_transfers_fast",
+    "create_transfers_exact": "device.step.create_transfers_exact",
+    "exact_sort_plan": "device.step.create_transfers_exact",
+    "register_accounts": "device.register_accounts",
+    "read_balances": "device.read_balances",
+    "write_balances": "device.write_balances",
+    "query_index_keys_sorted": "device.step.query_index_keys_sorted",
+    "merge_kernel_tiled": "device.step.merge_kernel_tiled",
+    "compact_fold_kernel": "device.step.compact_fold_kernel",
+    "scan_intersect_mask": "device.step.scan_intersect_mask",
+    "merge_kernel": None,
+}
+
+
+def check_trace_lanes(name, path, lanes, launches):
+    """A profiled run's dumped trace: one named lane a stage thread of
+    `lanes`, each with spans, and the device window of every kernel
+    launched while it was traced (`launches`, the record's
+    traced_launches). Returns {lane: spans} and {window: count} for the
+    log."""
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    names = {e["tid"]: e["args"]["name"] for e in evs if e["ph"] == "M"}
+    spans, events = {}, {}
+    for e in evs:
+        if e["ph"] == "X":
+            spans[names[e["tid"]]] = spans.get(names[e["tid"]], 0) + 1
+            events[e["name"]] = events.get(e["name"], 0) + 1
+    pairs = {e["name"] for e in evs if e.get("cat") == "device" and e["ph"] == "b"}
+    if len(names) != len(set(names.values())):
+        raise SystemExit(f"{name}: two lanes share a thread name: {sorted(names.values())}")
+    missing = [lane for lane in lanes if not spans.get(lane)]
+    if missing:
+        raise SystemExit(f"{name}: no spans on the lanes of {missing} in {path}: "
+                         + json.dumps(spans))
+    windows = {}
+    for k, n in launches.items():
+        if not n or TRACE_WINDOWS.get(k, "") is None:
+            continue
+        if k not in TRACE_WINDOWS:
+            raise SystemExit(f"{name}: {k} launched, and TRACE_WINDOWS names no window for it")
+        w = TRACE_WINDOWS[k]
+        windows[w] = events.get(w, 0)
+        entry = w[len("device.step."):] if w.startswith("device.step.") else None
+        if not windows[w] or (entry is not None and entry not in pairs):
+            raise SystemExit(f"{name}: {k} launched {n} times, but the trace holds no {w}"
+                             + ("" if entry is None else " window on the device lane"))
+    return spans, windows
 
 
 def run_profile_phase(torch, card="cuda", batches=PROFILE_BATCHES, config="production"):
@@ -3908,9 +3970,14 @@ def run_profile_phase(torch, card="cuda", batches=PROFILE_BATCHES, config="produ
         if rec["kernel_builds"]:
             raise SystemExit(f"{name} ({label}): a kernel was built inside the window")
         summary = ts.summarize(rec["trace"])
-        if "server.total" not in summary:
+        if "server.total" not in summary or any(
+                lane not in summary for lane in PROFILE_LANES[label]):
             raise SystemExit(f"{name} ({label}): tools/trace_summary.py did not read "
                              f"{rec['trace']}")
+        lanes, windows = check_trace_lanes(f"{name} ({label})", rec["trace"],
+                                           PROFILE_LANES[label], rec["traced_launches"])
+        log(f"{name} ({label}): trace lanes (spans) {json.dumps(lanes)}; device windows "
+            f"of the launched kernels {json.dumps(windows)}")
         if card == "cuda" and min(launches[k] for k in PROFILE_KERNELS) == 0:
             raise SystemExit(f"{name} ({label}): a kernel of the path did not launch: "
                              + json.dumps({k: launches[k] for k in PROFILE_KERNELS}))

@@ -79,6 +79,7 @@ from tigerbeetle_tpu_torch.ops import commit as commit_ops
 from tigerbeetle_tpu_torch.ops import commit_exact
 from tigerbeetle_tpu_torch.results import CreateAccountResult as AR
 from tigerbeetle_tpu_torch.results import CreateTransferResult as TR
+from tigerbeetle_tpu_torch.tidy import manifest
 from tigerbeetle_tpu_torch.tidy import runtime as tidy_runtime
 
 U64_MAX = types.U64_MAX
@@ -775,7 +776,7 @@ class StateMachine:
     def _entry(self, name: str) -> str:
         """The device window and call-shape name of kernel entry `name`:
         `sharded.<name>` on a mesh."""
-        return name if self.mesh is None else f"sharded.{name}"
+        return name if self.mesh is None else manifest.MESH_ENTRY_PREFIX + name
 
     def _to_device(self, *arrs) -> list:
         return [torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrs]

@@ -305,6 +305,7 @@ def run(device: str = "cuda", batches: int = 40, warmup: int = 8,
         builds0 = kernels.BUILD_COUNT
 
         tracer.reset()  # measure only the transfer load (all threads re-arm)
+        launches0 = dict(kernels.LAUNCHES)
         n0 = len(bus.replies)
         wall0 = time.perf_counter()
         with tracer.span("server.total"):
@@ -352,6 +353,10 @@ def run(device: str = "cuda", batches: int = 40, warmup: int = 8,
         record["balances_digest"] = balances_digest(sm, accounts)
         record["commit_checksum"] = replica.commit_checksums.get(replica.commit_min)
         record["commit_checksums"] = dict(replica.commit_checksums)
+        # The kernels launched since the tracer's reset: those whose
+        # device windows the trace holds.
+        record["traced_launches"] = {
+            k: n - launches0.get(k, 0) for k, n in kernels.LAUNCHES.items()}
         record["trace"] = tracer.dump(
             trace_path or os.path.join(tmp, "trace_e2e.json"))
         out(f"\ntrace: {record['trace']} (ui.perfetto.dev; summarize: "

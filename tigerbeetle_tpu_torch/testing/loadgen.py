@@ -528,11 +528,17 @@ class LoadGen:
         request_timeout: Optional[float] = None,
         read_fraction: float = 0.0,
         query_limit: int = 256,
+        min_acked: int = 0,
     ) -> None:
         self.addresses = list(addresses)
         self.n_sessions = sessions
         self.offered_rate = offered_rate
         self.duration_s = duration_s
+        # Open loop only: while fewer than `min_acked` transfer ids are
+        # sampled as acknowledged, arrivals go on at the same rate past
+        # the window, for at most max(10 s, the window) more (an audit of
+        # an empty sample proves nothing).
+        self.min_acked = min_acked
         self.ramp_s = ramp_s
         self.read_fraction = read_fraction
         self.query_limit = query_limit
@@ -570,9 +576,13 @@ class LoadGen:
         next_t = time.perf_counter()
         i = 0
         n_sess = len(self.sessions)
+        t_limit = t_end + (max(10.0, self.duration_s) if self.min_acked else 0.0)
         while True:
             next_t += float(self.rng.exponential(1.0 / rate_arrivals))
-            if next_t >= t_end:
+            if next_t >= t_end and (
+                next_t >= t_limit
+                or len(self.stats.acked_sample) >= self.min_acked
+            ):
                 return
             delay = next_t - time.perf_counter()
             if delay > 0:
@@ -808,7 +818,7 @@ def audit(
     """Post-run consistency check: every sampled acked transfer must be
     durable and readable, the replica must still be serving, and the
     flight recorder must not have dumped an exception. The run passes
-    only with ok=1."""
+    only with ok=1, and never on an empty sample."""
     from tigerbeetle_tpu_torch.client import Client
     from tigerbeetle_tpu_torch.net.scrape import http_get_json
 
@@ -834,7 +844,9 @@ def audit(
         exceptions = int(lc.get("flight", {}).get("exception_dumps", 0))
     except (OSError, ValueError):
         pass
-    ok = int(alive == 1 and found == len(sample) and exceptions <= 0)
+    # An empty sample checks nothing: it fails the audit.
+    ok = int(alive == 1 and len(sample) > 0 and found == len(sample)
+             and exceptions <= 0)
     return {
         "ok": ok,
         "alive": alive,
@@ -901,6 +913,18 @@ def audit_queries(
         "queries_matched": matched,
         "queries_empty_skipped": empty,
     }
+
+
+CHURN_BATCH = 64
+# The churn window offers at least this many batches on average, however
+# low the saturation probe read (a loaded host slows the probe).
+CHURN_MIN_BATCHES = 8
+
+
+def churn_offered_rate(sat: float, churn_s: float) -> float:
+    """The churn run's offered rate, tx/s: 15% of the saturation ceiling,
+    and never fewer than CHURN_MIN_BATCHES batches over the window."""
+    return max(0.15 * sat, CHURN_MIN_BATCHES * CHURN_BATCH / churn_s)
 
 
 def run_overload_bench(
@@ -989,10 +1013,13 @@ def run_overload_bench(
         # 3. Churn at session scale: offered rate well under saturation
         # (the question is session-count and churn survival, not
         # throughput), ramped registration, then a disconnect storm, an
-        # identity-rotation wave, and slow readers throughout.
+        # identity-rotation wave, and slow readers throughout. The audit
+        # needs acknowledged transfers: the rate has a floor, and the
+        # window extends until some are acknowledged.
         churn = LoadGen(
             addresses, sessions=churn_sessions, accounts=accounts,
-            batch=64, offered_rate=0.15 * sat, duration_s=churn_s,
+            batch=CHURN_BATCH, offered_rate=churn_offered_rate(sat, churn_s),
+            duration_s=churn_s, min_acked=2,
             ramp_s=max(4.0, churn_sessions / 400.0), seed=0xC33,
             slow_readers=max(2, churn_sessions // 200),
             churn=(

@@ -113,9 +113,13 @@ SYNCLINT_MODULES = (
     "tigerbeetle_tpu_torch/devicestats.py",
 )
 
-# Kernel wrappers (by callable tail name): their results are tensors on
-# the card, and materializing one off the seam is a sync.
-SYNCLINT_KERNEL_ENTRIES = frozenset((
+# The kernel entries, by wrapper name (callable tail name). The host-sync
+# pass reads them as the calls whose results are tensors on the card
+# (materializing one off the seam is a sync); the tracer admits exactly
+# these names to its device windows (tracer.device_step /
+# device_dispatch), and on a mesh the state machine names them
+# MESH_ENTRY_PREFIX + entry.
+KERNEL_ENTRIES = frozenset((
     "create_transfers_fast", "create_transfers_exact", "exact_sort_plan",
     "register_accounts", "register_accounts_sharded", "write_balances",
     "write_balances_sharded", "read_balances", "merge_kernel",
@@ -124,6 +128,7 @@ SYNCLINT_KERNEL_ENTRIES = frozenset((
     "sharded_apply_grouped", "sharded_validate", "sharded_validate_grouped",
     "sharded_read", "sharded_read_grouped",
 ))
+MESH_ENTRY_PREFIX = "sharded."
 
 # (repo-relative file, qualified function) pairs forming the sanctioned
 # dispatch/finish seam: the only places of the hot set allowed to wait on

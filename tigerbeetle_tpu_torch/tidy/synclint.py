@@ -387,7 +387,7 @@ def analyze_file(path, root, passes=(PASS_SYNC, PASS_REDUCTION), seam=(),
     rel = path.resolve().relative_to(root.resolve()).as_posix()
     tree = ast.parse(source)
     lint = _Lint(rel, tree, ann_mod.collect(source), set(passes),
-                 manifest.SYNCLINT_KERNEL_ENTRIES if entries is None else entries)
+                 manifest.KERNEL_ENTRIES if entries is None else entries)
     fns = _functions(tree)
     quals = {q for q, _ in fns}
     skip = set(seam) | set(host_only)

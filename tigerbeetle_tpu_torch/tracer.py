@@ -1,20 +1,39 @@
-"""Spans, counters, gauges, device windows and the per-op lifecycle (slim
-copy of the reference package's tracer.py: the calls the state machine,
-the LSM and the replica make).
+"""Spans, counters, gauges, device windows and the per-op lifecycle: the
+port of the reference package's tracer.py, recorded the way it records.
 
-  - `span(event)` times a scoped host region: per-event count, total and
-    max nanoseconds.
-  - `count` / `gauge`: counters and last-write-wins gauges.
-  - `device_mem_set` / `device_mem_adjust` / `device_mem_retire_prefix`:
-    the owner-tagged device memory ledger (`device.mem.<owner>.bytes`
-    gauges plus a high-water total).
-  - `device_step(entry)`: a span over a blocking kernel call.
+Thread model (the reference's): every recording path (`span`, `observe`,
+`count`) writes only its own thread's arena, created at the thread's
+first record and registered for the merge; after that first record it
+takes no lock and allocates nothing (span objects are pooled per thread,
+ring slots are preallocated arrays). Each thread keeps its own bounded
+ring of span records, `configure(ring_size)` records per thread, so a
+busy thread never evicts another's timeline. `snapshot()` and
+`trace_events()` read across the arenas without stopping their writers
+(exact once they quiesce). `reset()` bumps a generation: threads
+re-create their arena at their next record, so no cross-thread mutation
+races a writer. The arena of a thread that died stays, ring and all,
+until DEAD_ARENAS_MAX younger dead arenas exist; then its aggregates
+fold into the registry and its ring goes (snapshot totals unchanged).
+
+  - `span(event)` times a scoped host region; `observe(event, ns)`
+    records a duration the caller measured: per-event count, total, max
+    and a log-bucketed histogram, plus the thread's span ring.
+  - `count` (per thread, exact under concurrent bumps) / `gauge`
+    (last-write-wins, under the registry lock).
+  - `device_mem_set` / `device_mem_adjust` / `device_mem_release` /
+    `device_mem_retire_prefix`: the owner-tagged device memory ledger
+    (`device.mem.<owner>.bytes` gauges plus a high-water total).
+  - `device_step(entry)`: a span over a blocking kernel call. Entry
+    names are checked against tidy/manifest.KERNEL_ENTRIES (the list
+    the host-sync pass reads; `sharded.<entry>` on a mesh) or
+    `register_device_entry`.
   - `device_dispatch(entry)` / `device_finish(entry, token)`: the
     split-phase window. On a CUDA stream the token carries a CUDA event
     recorded at dispatch; finish records a second event, waits for it (it
     runs only where the caller synchronises anyway) and records the
     device time between the two under `device.step.<entry>`. Off CUDA the
-    window is the host clock between the two calls.
+    window is the host clock between the two calls. Open windows are
+    bounded per entry (an abandoned one is evicted, never leaked).
   - `op_begin` / `op_stamp` / `op_finish` / `op_store_done`: one record
     per prepare, stamped at every pipeline hand-off, whose components
     land in the span registry (`op.queue.*`, `op.service.*`).
@@ -25,17 +44,19 @@ the LSM and the replica make).
     names a directory: `tools/trace_summary.py --ops` reads them);
     `flight_records()` is the completed-op ring itself and
     `configure_flight` sets the recorder's policy and the ring's size.
-  - The scrape surface: `snapshot()` (p50/p95/p99 from a log-bucketed
-    histogram per event), `lifecycle_summary()`, `emit_json()`,
-    `trace_events()` / `export_trace()` (Chrome trace-event JSON from a
-    bounded ring of span records and the closed device windows),
+  - The scrape surface: `snapshot()` (p50/p95/p99 from the merged
+    histograms), `lifecycle_summary()`, `emit_json()`, `trace_events()`
+    / `export_trace()` (Chrome trace-event JSON: one named lane per
+    thread, and the closed device windows as async pairs),
     `prometheus_text()`, `dump(path)` (the trace as a Perfetto-loadable
     file), and `serve_metrics(port)`, which serves `/metrics`, `/trace`,
     `/lifecycle` and `/flight` (plus caller routes) from the replica's
     own asyncio loop.
 
 Off until `enable()`; disabled, every call returns after one
-module-global check and allocates nothing.
+module-global check and allocates nothing. The port reads no
+environment variable: `configure` and `configure_flight` set what the
+reference reads from one.
 """
 
 from __future__ import annotations
@@ -46,352 +67,17 @@ import threading
 import time
 from array import array
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
+
+from tigerbeetle_tpu_torch.tidy import manifest
 
 _enabled = False
 
-_lock = threading.Lock()
-_agg: Dict[str, list] = {}  # tidy: guarded-by=_lock — event -> [count, total_ns, max_ns]
-_hist: Dict[str, array] = {}  # tidy: guarded-by=_lock — event -> log-bucketed duration histogram
-# The last RING_DEFAULT span records (event, thread name, thread id,
-# t0_ns, t1_ns) for the timeline export, and the last closed device
-# windows (entry, t0_ns, t1_ns, h2d bytes, d2h bytes).
-RING_DEFAULT = 1 << 15
-_ring: deque = deque(maxlen=RING_DEFAULT)  # tidy: guarded-by=_lock
-_device_pairs: deque = deque(maxlen=4096)  # tidy: guarded-by=_lock
-_counters: Dict[str, int] = {}  # tidy: guarded-by=_lock
-_gauges: Dict[str, float] = {}  # tidy: guarded-by=_lock
-_device_mem: Dict[str, int] = {}  # tidy: guarded-by=_lock
-_device_mem_hw = [0]  # tidy: guarded-by=_lock
-_device_inflight: Dict[str, int] = {}  # tidy: guarded-by=_lock — entry -> open dispatch windows
-
-# The kernel entries whose device windows the state machine opens.
-DEVICE_ENTRIES = frozenset({
-    "create_transfers_fast", "create_transfers_exact", "register_accounts",
-    "read_balances", "write_balances",
-    # the store stage's query index and the query intersect
-    "query_index_keys", "query_index_keys_sorted", "merge_kernel_tiled",
-    "scan_intersect_mask",
-    # compaction: the chunk fold and the rank merge
-    "compact_fold_kernel", "merge_kernel",
-    # the commit path over balance tables sharded on a device mesh
-    "sharded.create_transfers_fast", "sharded.create_transfers_exact",
-    "sharded.register_accounts", "sharded.read_balances", "sharded.write_balances",
-})
-
-
-def enable() -> None:
-    global _enabled
-    _enabled = True
-
-
-def disable() -> None:
-    global _enabled
-    _enabled = False
-
-
-def enabled() -> bool:
-    return _enabled
-
-
-def reset() -> None:
-    with _lock:
-        _agg.clear()
-        _hist.clear()
-        _ring.clear()
-        _device_pairs.clear()
-        _counters.clear()
-        _gauges.clear()
-        _device_mem.clear()
-        _device_mem_hw[0] = 0
-        _device_inflight.clear()
-        # The lifecycle re-arms with the spans: ring, pool, running
-        # perceived histogram, summary window and the dump budget.
-        _op_ring.clear()
-        _op_pool.clear()
-        _op_hist[:] = array("q", _HIST_ZEROS)
-        _op_window[:] = [0, 0, 0]
-        _flight.update(dumps=0, exception_dumps=0, last_dump_ns=0)
-        _flight_docs.clear()
-
-
-def _record(event: str, t0: int, t1: int) -> None:
-    dt = t1 - t0
-    t = threading.current_thread()
-    with _lock:
-        agg = _agg.get(event)
-        if agg is None:
-            agg = _agg[event] = [0, 0, 0]
-            _hist[event] = array("q", _HIST_ZEROS)
-        agg[0] += 1
-        agg[1] += dt
-        if dt > agg[2]:
-            agg[2] = dt
-        _hist[event][bucket_index(dt if dt > 0 else 0)] += 1
-        _ring.append((event, t.name, t.ident or 0, t0, t1))
-
-
-def observe(event: str, duration_ns: int) -> None:
-    """Record a duration measured by the caller, ending now."""
-    if not _enabled:
-        return
-    t1 = time.perf_counter_ns()
-    _record(event, t1 - duration_ns, t1)
-
-
-class _Span:
-    __slots__ = ("event", "t0")
-
-    def __init__(self, event: str) -> None:
-        self.event = event
-
-    def __enter__(self) -> "_Span":
-        self.t0 = time.perf_counter_ns()
-        return self
-
-    def __exit__(self, exc_type, exc, tb) -> bool:
-        _record(self.event, self.t0, time.perf_counter_ns())
-        return False
-
-
-class _NullSpan:
-    __slots__ = ()
-
-    def __enter__(self) -> "_NullSpan":
-        return self
-
-    def __exit__(self, exc_type, exc, tb) -> bool:
-        return False
-
-
-_NULL_SPAN = _NullSpan()
-
-
-def null_span() -> _NullSpan:
-    return _NULL_SPAN
-
-
-def span(event: str):
-    """Time a scoped region under `event`."""
-    if not _enabled:
-        return _NULL_SPAN
-    return _Span(event)
-
-
-def count(event: str, n: int = 1) -> None:
-    if not _enabled:
-        return
-    with _lock:
-        _counters[event] = _counters.get(event, 0) + n
-
-
-def gauge(name: str, value: float) -> None:
-    if not _enabled:
-        return
-    with _lock:
-        _gauges[name] = value
-
-
-def remove_gauge(name: str) -> None:
-    """Retire a gauge whose identity died: per-instance gauge families
-    must not grow without bound."""
-    if not _enabled:
-        return
-    with _lock:
-        _gauges.pop(name, None)
-
-
-def remove_gauges_prefix(prefix: str) -> None:
-    """Retire every gauge under a name prefix (a peer's `vsr.peer.<r>.*`
-    family when it goes away)."""
-    if not _enabled:
-        return
-    with _lock:
-        for name in [n for n in _gauges if n.startswith(prefix)]:
-            del _gauges[name]
-
-
-def gauges() -> Dict[str, float]:
-    with _lock:
-        return dict(_gauges)
-
-
-def device_mem_totals() -> dict:
-    """Ledger snapshot: per-owner live bytes, the live total and the
-    process high-water total."""
-    with _lock:
-        owners = dict(_device_mem)
-        hw = _device_mem_hw[0]
-    return {"owners": owners, "total_bytes": sum(owners.values()), "high_water_bytes": hw}
-
-
-def device_inflight() -> dict:
-    """Open dispatch windows: per-entry count and the total depth."""
-    with _lock:
-        per = {e: n for e, n in _device_inflight.items() if n}
-    return {"entries": per, "window_depth": sum(per.values())}
-
-
-def device_mem_set(owner: str, nbytes: int) -> None:
-    """Set an owner's live device bytes (absolute)."""
-    if not _enabled:
-        return
-    with _lock:
-        _device_mem[owner] = int(nbytes)
-        _gauges[f"device.mem.{owner}.bytes"] = float(nbytes)
-        _device_mem_hw[0] = max(_device_mem_hw[0], sum(_device_mem.values()))
-
-
-def device_mem_adjust(owner: str, delta: int) -> None:
-    """Adjust an owner's live device bytes by a delta (clamped at 0: a
-    release racing a reset must not publish negative residency)."""
-    if not _enabled:
-        return
-    with _lock:
-        v = max(0, _device_mem.get(owner, 0) + int(delta))
-        _device_mem[owner] = v
-        _gauges[f"device.mem.{owner}.bytes"] = float(v)
-        _device_mem_hw[0] = max(_device_mem_hw[0], sum(_device_mem.values()))
-
-
-def device_mem_retire_prefix(prefix: str) -> None:
-    """Retire every ledger owner (and gauge) under a tag prefix."""
-    if not _enabled:
-        return
-    with _lock:
-        for owner in [o for o in _device_mem if o.startswith(prefix)]:
-            del _device_mem[owner]
-        gp = f"device.mem.{prefix}"
-        for name in [n for n in _gauges if n.startswith(gp)]:
-            del _gauges[name]
-
-
-def _check_entry(entry: str) -> None:
-    if entry not in DEVICE_ENTRIES:
-        raise ValueError(f"unknown device entry {entry!r}")
-
-
-def device_step(entry: str):
-    """Span over a BLOCKING kernel entry (call + materialization)."""
-    if not _enabled:
-        return _NULL_SPAN
-    _check_entry(entry)
-    return span(f"device.{entry}")
-
-
-class _Window:
-    __slots__ = ("t0", "event", "h2d_bytes")
-
-    def __init__(self, t0: int, event, h2d_bytes: int = 0) -> None:
-        self.t0 = t0
-        self.event = event
-        self.h2d_bytes = h2d_bytes
-
-
-def _cuda_event():
-    """A timing event recorded on the current CUDA stream, or None when
-    CUDA was never initialised in this process."""
-    import torch
-
-    if not torch.cuda.is_initialized():
-        return None
-    ev = torch.cuda.Event(enable_timing=True)
-    ev.record()
-    return ev
-
-
-def device_dispatch(entry: str, h2d_bytes: int = 0):
-    """Open a dispatch window; returns the token for device_finish (0
-    when disabled)."""
-    if not _enabled:
-        return 0
-    _check_entry(entry)
-    count(f"device.{entry}.dispatches")
-    if h2d_bytes:
-        count("device.h2d_bytes", h2d_bytes)
-    with _lock:
-        _device_inflight[entry] = _device_inflight.get(entry, 0) + 1
-    return _Window(time.perf_counter_ns(), _cuda_event(), h2d_bytes)
-
-
-def device_finish(entry: str, token, d2h_bytes: int = 0) -> None:
-    """Close a dispatch window: `device.step.<entry>` gets the device
-    time between the dispatch and this call (host time off CUDA). Called
-    only at the sanctioned sync seams, so the transfer-bandwidth stamps
-    add no sync of their own: `device.xfer.{h2d,d2h}.gbps` hold RAW
-    values in MB/s (GB/s × 1000, so snapshot()'s `p50_us` field reads
-    directly as GB/s) over the window's time."""
-    if not _enabled or not token:
-        return
-    with _lock:
-        _device_inflight[entry] = max(0, _device_inflight.get(entry, 0) - 1)
-    if d2h_bytes:
-        count("device.d2h_bytes", d2h_bytes)
-    if token.event is not None:
-        end = _cuda_event()
-        end.synchronize()
-        dur = int(token.event.elapsed_time(end) * 1e6)
-    else:
-        dur = time.perf_counter_ns() - token.t0
-    observe(f"device.step.{entry}", dur)
-    if dur > 0:
-        if token.h2d_bytes:
-            observe("device.xfer.h2d.gbps", max(1, token.h2d_bytes * 1000 // dur))
-        if d2h_bytes:
-            observe("device.xfer.d2h.gbps", max(1, d2h_bytes * 1000 // dur))
-    with _lock:
-        _device_pairs.append((entry, token.t0, time.perf_counter_ns(),
-                              token.h2d_bytes, d2h_bytes))
-
-
-def device_bytes(h2d: int = 0, d2h: int = 0) -> None:
-    """Count transfer bytes for a blocking entry (device_step path)."""
-    if not _enabled:
-        return
-    if h2d:
-        count("device.h2d_bytes", h2d)
-    if d2h:
-        count("device.d2h_bytes", d2h)
-
-
-def _merged():
-    """(agg, hists, counters): copies of the registry, taken under the
-    lock."""
-    with _lock:
-        return ({k: list(v) for k, v in _agg.items()},
-                {k: list(v) for k, v in _hist.items()}, dict(_counters))
-
-
-def snapshot() -> Dict[str, dict]:
-    """event → {count, total_ms, avg_us, max_us, p50_us, p95_us, p99_us}
-    for spans; counters appear with total_ms 0 and no percentiles."""
-    agg, hists, counters = _merged()
-    out: Dict[str, dict] = {}
-    for event in sorted(agg):
-        n, total, mx = agg[event]
-        h = hists[event]
-        hn = sum(h)
-        out[event] = {
-            "count": n,
-            "total_ms": total / 1e6,
-            "avg_us": total / n / 1e3 if n else 0.0,
-            "max_us": mx / 1e3,
-            "p50_us": _hist_percentile(h, hn, 0.50) / 1e3,
-            "p95_us": _hist_percentile(h, hn, 0.95) / 1e3,
-            "p99_us": _hist_percentile(h, hn, 0.99) / 1e3,
-        }
-    for event in sorted(counters):
-        rec = out.setdefault(
-            event, {"count": 0, "total_ms": 0.0, "avg_us": 0.0, "max_us": 0.0}
-        )
-        rec["count"] += counters[event]
-    return out
-
-
-
-# --- histogram of the perceived latency -----------------------------------
-# Log-linear buckets over nanoseconds: 2^HIST_SUB_BITS sub-buckets per
-# octave (the reference's layout).
+# --- histogram geometry (log-linear) --------------------------------------
+#
+# Values are nanoseconds. 2^HIST_SUB_BITS sub-buckets per power of two
+# bound the relative quantization error at 12.5%; the buckets cover the
+# whole u64 range, so a merge is an elementwise sum.
 
 HIST_SUB_BITS = 3
 _HIST_SUB = 1 << HIST_SUB_BITS
@@ -432,6 +118,542 @@ def _hist_percentile(buckets, total: int, q: float) -> int:
             if cum > rank:
                 return bucket_value(i)
     return bucket_value(HIST_BUCKETS - 1)
+
+
+# --- per-thread recording state -------------------------------------------
+
+RING_DEFAULT = 1 << 15  # span records per thread (~0.75 MiB each)
+# Arenas of dead threads kept whole (ring included) before the oldest
+# fold into the registry's retired table.
+DEAD_ARENAS_MAX = 16
+
+_ring_size = RING_DEFAULT
+_registry_lock = threading.Lock()
+_states: List["_ThreadState"] = []  # tidy: guarded-by=_registry_lock
+_generation = 0
+# The folded aggregates of dead threads' arenas: [agg, hist, counters],
+# the same tables an arena holds.
+_retired = [{}, {}, {}]  # tidy: guarded-by=_registry_lock
+# Gauges are last-write-wins from any thread while a scrape iterates
+# them, so even the single-key set takes the lock.
+_gauges: Dict[str, float] = {}  # tidy: guarded-by=_registry_lock
+# Device-plane ledgers. _device_mem: owner tag -> live device bytes.
+# _device_inflight: entry -> its open windows, oldest first (a dict used
+# as an ordered set), bounded per entry.
+# _device_pairs: the last closed windows (entry, t0_ns, t1_ns, h2d bytes,
+# d2h bytes) for the trace's device lane.
+_device_mem: Dict[str, int] = {}  # tidy: guarded-by=_registry_lock
+_device_mem_hw = [0]  # tidy: guarded-by=_registry_lock
+_device_inflight: Dict[str, dict] = {}  # tidy: guarded-by=_registry_lock
+_DEVICE_INFLIGHT_MAX = 64  # per entry; beyond = abandoned windows
+_device_pairs: deque = deque(maxlen=4096)  # tidy: guarded-by=_registry_lock
+# Entry names admitted at run time (register_device_entry).
+_device_entries_extra: set = set()  # tidy: guarded-by=_registry_lock
+_tls = threading.local()
+
+
+class _ThreadState:
+    """One thread's private recording arena: aggregate table, histograms,
+    counters, span-object pool, and the bounded span ring (parallel
+    preallocated arrays: no allocation per record)."""
+
+    __slots__ = (
+        "gen", "thread", "tid", "name", "agg", "hist", "counters", "pool",
+        "ring_event", "ring_t0", "ring_t1", "ring_n", "ring_mask",
+    )
+
+    def __init__(self, gen: int, ring_size: int) -> None:
+        t = threading.current_thread()
+        self.gen = gen
+        self.thread = t
+        self.tid = t.ident or 0
+        self.name = t.name
+        self.agg: Dict[str, list] = {}  # event -> [count, total_ns, max_ns]
+        self.hist: Dict[str, array] = {}
+        self.counters: Dict[str, int] = {}
+        self.pool: List[_Span] = []
+        self.ring_mask = ring_size - 1
+        self.ring_event: List[Optional[str]] = [None] * ring_size
+        self.ring_t0 = array("q", bytes(8 * ring_size))
+        self.ring_t1 = array("q", bytes(8 * ring_size))
+        self.ring_n = 0
+
+    def record(self, event: str, t0: int, t1: int) -> None:
+        dt = t1 - t0
+        agg = self.agg.get(event)
+        if agg is None:
+            agg = self.agg[event] = [0, 0, 0]
+            self.hist[event] = array("q", _HIST_ZEROS)
+        agg[0] += 1
+        agg[1] += dt
+        if dt > agg[2]:
+            agg[2] = dt
+        self.hist[event][bucket_index(dt if dt > 0 else 0)] += 1
+        i = self.ring_n & self.ring_mask
+        self.ring_event[i] = event
+        self.ring_t0[i] = t0
+        self.ring_t1[i] = t1
+        self.ring_n += 1
+
+
+def _state() -> _ThreadState:
+    st = getattr(_tls, "state", None)
+    while st is None or st.gen != _generation:
+        st = _ThreadState(_generation, _ring_size)
+        with _registry_lock:
+            # Registration is atomic with the generation check: a reset()
+            # that raced the arena's creation already cleared the
+            # registry, and registering the stale arena would leak it
+            # (and its records) into every later snapshot. Rebuild
+            # against the new generation instead.
+            if st.gen == _generation:
+                _fold_dead_locked()
+                # One lane a thread: a new thread that reuses a dead
+                # one's ident gets a lane id of its own.
+                taken = {other.tid for other in _states}
+                if st.tid in taken:
+                    st.tid = max(taken) + 1
+                _states.append(st)
+                _tls.state = st
+                break
+        st = None
+    return st
+
+
+def _merge_tables(into: list, agg_items, hist_items, counter_items) -> None:
+    """Add one arena's (agg, hist, counters) items into `into`'s tables."""
+    agg, hists, counters = into
+    for event, (n, total, mx) in agg_items:
+        rec = agg.get(event)
+        if rec is None:
+            agg[event] = [n, total, mx]
+        else:
+            rec[0] += n
+            rec[1] += total
+            if mx > rec[2]:
+                rec[2] = mx
+    for event, h in hist_items:
+        merged = hists.get(event)
+        if merged is None:
+            hists[event] = list(h)
+        else:
+            for i, v in enumerate(h):
+                if v:
+                    merged[i] += v
+    for event, n in counter_items:
+        counters[event] = counters.get(event, 0) + n
+
+
+def _fold_dead_locked() -> None:  # tidy: holds=_registry_lock
+    """Fold the oldest dead threads' arenas into the retired table once
+    more than DEAD_ARENAS_MAX are registered, dropping their rings. A
+    dead thread writes nothing more, so its tables are read whole."""
+    dead = [st for st in _states if not st.thread.is_alive()]
+    if len(dead) <= DEAD_ARENAS_MAX:
+        return
+    for st in dead[: len(dead) - DEAD_ARENAS_MAX]:
+        _merge_tables(_retired, st.agg.items(), st.hist.items(), st.counters.items())
+        _states.remove(st)
+
+
+class _Span:
+    """Reusable timed-region context manager (pooled per thread)."""
+
+    __slots__ = ("state", "event", "t0")
+
+    def __enter__(self) -> "_Span":
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        state = self.state
+        state.record(self.event, self.t0, time.perf_counter_ns())
+        if len(state.pool) < 64:
+            state.pool.append(self)
+        return False
+
+
+class _NullSpan:
+    """Singleton no-op span: the disabled path allocates nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+def null_span() -> _NullSpan:
+    """The shared no-op span, for callers that decide span identity
+    themselves."""
+    return _NULL_SPAN
+
+
+# --- control ----------------------------------------------------------------
+
+
+def enable() -> None:
+    global _enabled
+    _enabled = True
+
+
+def disable() -> None:
+    global _enabled
+    _enabled = False
+
+
+def enabled() -> bool:
+    return _enabled
+
+
+def reset() -> None:
+    """Discard every thread's recorded data, the gauges, the device
+    ledgers and the lifecycle state. Threads re-create their arena
+    lazily (generation bump), so no cross-thread mutation races an active
+    writer; a span straddling the reset lands in its old, now
+    unregistered arena and is dropped."""
+    global _generation
+    with _registry_lock:
+        _generation += 1
+        _states.clear()
+        for table in _retired:
+            table.clear()
+        _gauges.clear()
+        _device_mem.clear()
+        _device_mem_hw[0] = 0
+        _device_inflight.clear()
+        _device_pairs.clear()
+        # The lifecycle re-arms with the spans: ring, pool, running
+        # perceived histogram, summary window and the dump budget.
+        _op_ring.clear()
+        _op_pool.clear()
+        _op_hist[:] = array("q", _HIST_ZEROS)
+        _op_window[:] = [0, 0, 0]
+        _flight.update(dumps=0, exception_dumps=0, last_dump_ns=0)
+        _flight_docs.clear()
+
+
+def configure(ring_size: Optional[int] = None) -> None:
+    """Set the per-thread span-ring capacity (rounded up to a power of
+    two). Implies reset(): existing rings are discarded."""
+    global _ring_size
+    if ring_size is not None:
+        n = 1
+        while n < ring_size:
+            n <<= 1
+        _ring_size = n
+    reset()
+
+
+# --- recording ----------------------------------------------------------------
+
+
+def span(event: str):
+    """Time a scoped region under `event`. Enabled: two perf_counter_ns
+    calls and one pooled object; disabled: one flag check."""
+    if not _enabled:
+        return _NULL_SPAN
+    st = _state()
+    pool = st.pool
+    s = pool.pop() if pool else _Span()
+    s.state = st
+    s.event = event
+    return s
+
+
+def observe(event: str, duration_ns: int) -> None:
+    """Record a duration measured by the caller, ending now: the same
+    aggregate, histogram and ring as a span."""
+    if not _enabled:
+        return
+    t1 = time.perf_counter_ns()
+    _state().record(event, t1 - duration_ns, t1)
+
+
+def count(event: str, n: int = 1) -> None:
+    """Bump a counter without timing, in the calling thread's arena."""
+    if not _enabled:
+        return
+    st = _state()
+    st.counters[event] = st.counters.get(event, 0) + n
+
+
+def gauge(name: str, value: float) -> None:
+    """Set a last-write-wins gauge (queue depths, table counts)."""
+    if not _enabled:
+        return
+    with _registry_lock:
+        _gauges[name] = value
+
+
+def remove_gauge(name: str) -> None:
+    """Retire a gauge whose identity died: per-instance gauge families
+    must not grow without bound."""
+    if not _enabled:
+        return
+    with _registry_lock:
+        _gauges.pop(name, None)
+
+
+def remove_gauges_prefix(prefix: str) -> None:
+    """Retire every gauge under a name prefix (a peer's `vsr.peer.<r>.*`
+    family when it goes away)."""
+    if not _enabled:
+        return
+    with _registry_lock:
+        for name in [n for n in _gauges if n.startswith(prefix)]:
+            del _gauges[name]
+
+
+def gauges() -> Dict[str, float]:
+    with _registry_lock:
+        return dict(_gauges)
+
+
+# --- device memory ledger -------------------------------------------------------
+
+
+def device_mem_totals() -> dict:
+    """Ledger snapshot: per-owner live bytes, the live total and the
+    process high-water total."""
+    with _registry_lock:
+        owners = dict(_device_mem)
+        hw = _device_mem_hw[0]
+    return {"owners": owners, "total_bytes": sum(owners.values()), "high_water_bytes": hw}
+
+
+def device_inflight() -> dict:
+    """Open dispatch windows: per-entry count and the total depth."""
+    with _registry_lock:
+        per = {e: len(wins) for e, wins in _device_inflight.items() if wins}
+    return {"entries": per, "window_depth": sum(per.values())}
+
+
+def device_mem_set(owner: str, nbytes: int) -> None:
+    """Set an owner's live device bytes (absolute)."""
+    if not _enabled:
+        return
+    with _registry_lock:
+        _device_mem[owner] = int(nbytes)
+        _gauges[f"device.mem.{owner}.bytes"] = float(nbytes)
+        _device_mem_hw[0] = max(_device_mem_hw[0], sum(_device_mem.values()))
+
+
+def device_mem_adjust(owner: str, delta: int) -> None:
+    """Adjust an owner's live device bytes by a delta (clamped at 0: a
+    release racing a reset must not publish negative residency)."""
+    if not _enabled:
+        return
+    with _registry_lock:
+        v = max(0, _device_mem.get(owner, 0) + int(delta))
+        _device_mem[owner] = v
+        _gauges[f"device.mem.{owner}.bytes"] = float(v)
+        _device_mem_hw[0] = max(_device_mem_hw[0], sum(_device_mem.values()))
+
+
+def device_mem_release(owner: str) -> None:
+    """Drop an owner whose device allocation died, gauge included (the
+    high-water total stays)."""
+    if not _enabled:
+        return
+    with _registry_lock:
+        _device_mem.pop(owner, None)
+        _gauges.pop(f"device.mem.{owner}.bytes", None)
+
+
+def device_mem_retire_prefix(prefix: str) -> None:
+    """Retire every ledger owner (and gauge) under a tag prefix."""
+    if not _enabled:
+        return
+    with _registry_lock:
+        for owner in [o for o in _device_mem if o.startswith(prefix)]:
+            del _device_mem[owner]
+        gp = f"device.mem.{prefix}"
+        for name in [n for n in _gauges if n.startswith(gp)]:
+            del _gauges[name]
+
+
+# --- device-step profiler ---------------------------------------------------------
+#
+# Per-entry device time and transfer byte counters, keyed by the kernel
+# entries of tidy/manifest.KERNEL_ENTRIES: an entry name this module has
+# never heard of raises, so every kernel's numbers stay attributable to a
+# declared entry.
+
+
+def register_device_entry(name: str) -> None:
+    """Admit an entry built at run time to the device-step namespace."""
+    with _registry_lock:
+        _device_entries_extra.add(name)
+
+
+def _device_entry_check(entry: str) -> None:
+    base = entry[len(manifest.MESH_ENTRY_PREFIX):] if entry.startswith(
+        manifest.MESH_ENTRY_PREFIX) else entry
+    if base in manifest.KERNEL_ENTRIES:
+        return
+    with _registry_lock:
+        known = entry in _device_entries_extra
+    if not known:
+        raise ValueError(
+            f"unknown device entry {entry!r}: add it to "
+            "tidy/manifest.KERNEL_ENTRIES (or register_device_entry) so its "
+            "kernel numbers stay attributable"
+        )
+
+
+def device_step(entry: str):
+    """Span over a BLOCKING kernel entry (call + materialization):
+    `device.<entry>`."""
+    if not _enabled:
+        return _NULL_SPAN
+    _device_entry_check(entry)
+    return span(f"device.{entry}")
+
+
+class _Window:
+    __slots__ = ("t0", "event", "h2d_bytes")
+
+    def __init__(self, t0: int, event, h2d_bytes: int = 0) -> None:
+        self.t0 = t0
+        self.event = event
+        self.h2d_bytes = h2d_bytes
+
+
+def _cuda_event():
+    """A timing event recorded on the current CUDA stream, or None when
+    CUDA was never initialised in this process."""
+    import torch
+
+    if not torch.cuda.is_initialized():
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def device_dispatch(entry: str, h2d_bytes: int = 0):
+    """Open a dispatch window; returns the token for device_finish (0
+    when disabled). Counts the host-to-device bytes staged for the call;
+    the window stays open until its finish (at most _DEVICE_INFLIGHT_MAX
+    an entry: the oldest abandoned one is evicted)."""
+    if not _enabled:
+        return 0
+    _device_entry_check(entry)
+    count(f"device.{entry}.dispatches")
+    if h2d_bytes:
+        count("device.h2d_bytes", h2d_bytes)
+    token = _Window(time.perf_counter_ns(), _cuda_event(), h2d_bytes)
+    with _registry_lock:
+        wins = _device_inflight.setdefault(entry, {})
+        wins[token] = None
+        while len(wins) > _DEVICE_INFLIGHT_MAX:
+            del wins[next(iter(wins))]
+    return token
+
+
+def device_finish(entry: str, token, d2h_bytes: int = 0) -> None:
+    """Close a dispatch window: `device.step.<entry>` gets the device
+    time between the dispatch and this call (host time off CUDA). Called
+    only at the sanctioned sync seams, so the transfer-bandwidth stamps
+    add no sync of their own: `device.xfer.{h2d,d2h}.gbps` hold RAW
+    values in MB/s (GB/s × 1000, so snapshot()'s `p50_us` field reads
+    directly as GB/s) over the window's time."""
+    if not _enabled or not token:
+        return
+    with _registry_lock:
+        wins = _device_inflight.get(entry)
+        if wins:
+            wins.pop(token, None)
+    if d2h_bytes:
+        count("device.d2h_bytes", d2h_bytes)
+    if token.event is not None:
+        end = _cuda_event()
+        end.synchronize()
+        dur = int(token.event.elapsed_time(end) * 1e6)
+    else:
+        dur = time.perf_counter_ns() - token.t0
+    observe(f"device.step.{entry}", dur)
+    if dur > 0:
+        if token.h2d_bytes:
+            observe("device.xfer.h2d.gbps", max(1, token.h2d_bytes * 1000 // dur))
+        if d2h_bytes:
+            observe("device.xfer.d2h.gbps", max(1, d2h_bytes * 1000 // dur))
+    with _registry_lock:
+        _device_pairs.append((entry, token.t0, time.perf_counter_ns(),
+                              token.h2d_bytes, d2h_bytes))
+
+
+def device_bytes(h2d: int = 0, d2h: int = 0) -> None:
+    """Count transfer bytes for a blocking entry (device_step path)."""
+    if not _enabled:
+        return
+    if h2d:
+        count("device.h2d_bytes", h2d)
+    if d2h:
+        count("device.d2h_bytes", d2h)
+
+
+# --- merge / snapshot ---------------------------------------------------------------
+
+
+def _merged() -> Tuple[Dict[str, list], Dict[str, list], Dict[str, int]]:
+    """(agg, hists, counters) merged across every registered arena and
+    the retired table, in registration order. Reads race active writers
+    benignly: a concurrent insert can make one retry; totals are exact
+    once writers quiesce."""
+    out = [{}, {}, {}]
+    with _registry_lock:
+        states = list(_states)
+        _merge_tables(out, _retired[0].items(), _retired[1].items(), _retired[2].items())
+    for st in states:
+        for attempt in range(4):
+            try:
+                a_items = list(st.agg.items())
+                h_items = list(st.hist.items())
+                c_items = list(st.counters.items())
+                break
+            except RuntimeError:  # dict resized mid-iteration
+                if attempt == 3:
+                    a_items, h_items, c_items = [], [], []
+        _merge_tables(out, a_items, h_items, c_items)
+    return out[0], out[1], out[2]
+
+
+def snapshot() -> Dict[str, dict]:
+    """event → {count, total_ms, avg_us, max_us, p50_us, p95_us, p99_us}
+    for spans; counters appear with total_ms 0 and no percentiles.
+    Merged deterministically across every thread that recorded."""
+    agg, hists, counters = _merged()
+    out: Dict[str, dict] = {}
+    for event in sorted(agg):
+        n, total, mx = agg[event]
+        rec = {
+            "count": n,
+            "total_ms": round(total / 1e6, 3),
+            "avg_us": round(total / n / 1e3, 1) if n else 0.0,
+            "max_us": round(mx / 1e3, 1),
+        }
+        h = hists.get(event)
+        if h is not None:
+            hn = sum(h)
+            rec["p50_us"] = round(_hist_percentile(h, hn, 0.50) / 1e3, 1)
+            rec["p95_us"] = round(_hist_percentile(h, hn, 0.95) / 1e3, 1)
+            rec["p99_us"] = round(_hist_percentile(h, hn, 0.99) / 1e3, 1)
+        out[event] = rec
+    for event in sorted(counters):
+        rec = out.get(event)
+        if rec is None:
+            out[event] = {"count": counters[event], "total_ms": 0.0,
+                          "avg_us": 0.0, "max_us": 0.0}
+        else:
+            rec["count"] += counters[event]
+    return out
 
 
 # --- per-operation lifecycle ------------------------------------------------
@@ -527,19 +749,19 @@ class OpRecord:
 OP_RING_DEFAULT = 128  # completed records retained for the flight dump
 
 _op_ring_size = OP_RING_DEFAULT
-_op_ring: deque = deque()  # tidy: guarded-by=_lock
-_op_pool: List[OpRecord] = []  # tidy: guarded-by=_lock
+_op_ring: deque = deque()  # tidy: guarded-by=_registry_lock
+_op_pool: List[OpRecord] = []  # tidy: guarded-by=_registry_lock
 # Running histogram of the perceived latency (arrive -> reply): the
 # anomaly rule's running p99 and the admission control's source.
-_op_hist = array("q", _HIST_ZEROS)  # tidy: guarded-by=_lock
+_op_hist = array("q", _HIST_ZEROS)  # tidy: guarded-by=_registry_lock
 # [first_finalize_ns, last_finalize_ns, perceived_count]
-_op_window = [0, 0, 0]  # tidy: guarded-by=_lock
+_op_window = [0, 0, 0]  # tidy: guarded-by=_registry_lock
 
 # Flight-recorder policy. latency_mult: trip when the perceived latency
 # exceeds mult x the running p99; stall_ns: trip when one component
 # exceeds it; min_ops: samples before the latency rule arms. Dumps are
 # kept in memory (flight_dumps()) and, when `dir` is set, written there.
-_flight = {  # tidy: guarded-by=_lock
+_flight = {  # tidy: guarded-by=_registry_lock
     "latency_mult": 8.0,
     "stall_ns": 2_000_000_000,
     "min_ops": 64,
@@ -552,7 +774,7 @@ _flight = {  # tidy: guarded-by=_lock
     "last_dump_ns": 0,
     "dir": "",
 }
-_flight_docs: List[dict] = []  # tidy: guarded-by=_lock
+_flight_docs: List[dict] = []  # tidy: guarded-by=_registry_lock
 
 
 def op_begin() -> Optional[OpRecord]:
@@ -560,7 +782,7 @@ def op_begin() -> Optional[OpRecord]:
     every op_* accessor accepts None and returns at once)."""
     if not _enabled:
         return None
-    with _lock:
+    with _registry_lock:
         rec = _op_pool.pop() if _op_pool else None
     if rec is None:
         return OpRecord()
@@ -642,7 +864,7 @@ def op_finish(rec: Optional[OpRecord]) -> None:
         observe("op.queue.total", queue_total)
         observe("op.service.total", service_total)
     trip = None
-    with _lock:
+    with _registry_lock:
         now = time.perf_counter_ns()
         if not _op_window[0]:
             _op_window[0] = now
@@ -693,7 +915,7 @@ def op_store_done(rec: Optional[OpRecord]) -> None:
         observe(event, d)
         if d > worst[1]:
             worst = (event, d)
-    with _lock:
+    with _registry_lock:
         stall_ns = _flight["stall_ns"]
     if worst[1] > stall_ns:
         flight_trip(
@@ -714,7 +936,7 @@ def op_peer_release(rec: Optional[OpRecord]) -> None:
     t = rec.t
     if rec.released and (not t[OP_WAL_ENQUEUE] or t[OP_WAL_DURABLE]):
         rec.ring_evicted = False
-        with _lock:
+        with _registry_lock:
             _op_pool.append(rec)
 
 
@@ -755,7 +977,7 @@ def flight_records() -> List[dict]:
     """The completed-op ring as JSON-ready dicts (newest last), serialized
     under the lock: an eviction may recycle a record concurrently, and a
     dict mixing two ops would corrupt the artifact the ring exists for."""
-    with _lock:
+    with _registry_lock:
         return [op_record_dict(r) for r in _op_ring]
 
 
@@ -771,7 +993,7 @@ def configure_flight(
     """Adjust the flight recorder's policy; `directory` also writes each
     dump there; `ring` resizes (and clears) the completed-op ring."""
     global _op_ring_size
-    with _lock:
+    with _registry_lock:
         if latency_mult is not None:
             _flight["latency_mult"] = float(latency_mult)
         if stall_ms is not None:
@@ -796,7 +1018,7 @@ def perceived_p99_ms(state: Optional[dict] = None) -> Optional[float]:
     covers only ops finalized since the previous call with that dict; an
     empty window returns None ("no evidence": the caller holds its
     previous decision)."""
-    with _lock:
+    with _registry_lock:
         cur = list(_op_hist)
         total = _op_window[2]
     if state is None:
@@ -819,7 +1041,7 @@ def flight_trip(reason: str) -> Optional[str]:
     path (None when kept in memory only, or suppressed)."""
     if not _enabled:
         return None
-    with _lock:
+    with _registry_lock:
         now = time.perf_counter_ns()
         if _flight["dumps"] >= _flight["max_dumps"]:
             return None
@@ -827,19 +1049,22 @@ def flight_trip(reason: str) -> Optional[str]:
             return None
         _flight["dumps"] += 1
         _flight["last_dump_ns"] = now
+        inflight = {e: len(wins) for e, wins in _device_inflight.items() if wins}
         doc = {
             "reason": reason,
             "tripped_ns": now,
             "ops": [op_record_dict(r) for r in _op_ring],
             "device": {
-                "inflight": {e: n for e, n in _device_inflight.items() if n},
+                "inflight": inflight,
+                "window_depth": sum(inflight.values()),
                 "mem": dict(_device_mem),
+                "mem_total_bytes": sum(_device_mem.values()),
                 "mem_high_water_bytes": _device_mem_hw[0],
             },
         }
         _flight_docs.append(doc)
-        _counters["mark.flight_dump"] = _counters.get("mark.flight_dump", 0) + 1
         directory, seq = _flight["dir"], _flight["dumps"]
+    count("mark.flight_dump")
     if not directory:
         return None
     base = os.path.join(directory, f"tbtorch_flight_{os.getpid()}_{seq}")
@@ -856,20 +1081,20 @@ def flight_exception(reason: str) -> Optional[str]:
     """Pipeline-exception trip (stage poison, fail-stop dispatch): dump
     whatever the latency rules say, and count it apart from anomaly
     trips, even when the dump itself was rate limited."""
-    with _lock:
+    with _registry_lock:
         _flight["exception_dumps"] += 1
     return flight_trip(f"exception: {reason}")
 
 
 def flight_exceptions() -> int:
     """Pipeline-exception trips so far in this process."""
-    with _lock:
+    with _registry_lock:
         return _flight["exception_dumps"]
 
 
 def flight_dumps() -> List[dict]:
     """The flight dumps recorded so far, oldest first."""
-    with _lock:
+    with _registry_lock:
         return list(_flight_docs)
 
 
@@ -884,7 +1109,7 @@ _OCCUPANCY_STAGES = {  # tidy: atomic — immutable constant table, never writte
 
 
 def _op_window_ns() -> int:
-    with _lock:
+    with _registry_lock:
         return max(0, _op_window[1] - _op_window[0])
 
 
@@ -906,7 +1131,7 @@ def lifecycle_summary() -> dict:
     (queue_wait_* / service_* / occupancy_* and the store, query,
     replication and commit-window rows)."""
     agg, hists, _ = _merged()
-    with _lock:
+    with _registry_lock:
         first, last, _n = _op_window
         flight = {
             "dumps": _flight["dumps"],
@@ -1012,20 +1237,32 @@ def emit_json() -> str:
 
 
 def trace_events() -> List[tuple]:
-    """[(event, thread_name, tid, t0_ns, t1_ns)] of the span ring, sorted
-    by start time (the last RING_DEFAULT records)."""
-    with _lock:
-        out = list(_ring)
+    """[(event, thread_name, tid, t0_ns, t1_ns)] merged across the
+    threads' rings, sorted by start time (ties in registration order).
+    Each thread contributes at most its ring's capacity, its newest
+    records."""
+    out: List[tuple] = []
+    with _registry_lock:
+        states = list(_states)
+    for st in states:
+        n = st.ring_n
+        size = st.ring_mask + 1
+        for j in range(max(0, n - size), n):
+            i = j & st.ring_mask
+            ev = st.ring_event[i]
+            if ev is not None:
+                out.append((ev, st.name, st.tid, st.ring_t0[i], st.ring_t1[i]))
     out.sort(key=lambda r: r[3])
     return out
 
 
 def export_trace() -> dict:
     """Chrome trace-event JSON (ui.perfetto.dev, chrome://tracing): one
-    complete event ('X') per span record with thread-name metadata, one
-    async pair ('b' / 'e') per closed device window, and a timebase
-    anchor pairing the process-local perf_counter with the wall clock so
-    traces of separate replica processes can be merged."""
+    complete event ('X') per span record on its thread's lane, named by
+    thread-name metadata, one async pair ('b' / 'e') per closed device
+    window, and a timebase anchor pairing the process-local perf_counter
+    with the wall clock so traces of separate replica processes can be
+    merged."""
     pid = os.getpid()
     evs: List[dict] = []
     named: set = set()
@@ -1036,7 +1273,7 @@ def export_trace() -> dict:
                         "args": {"name": name}})
         evs.append({"name": event, "cat": "tbtpu", "ph": "X", "pid": pid,
                     "tid": tid, "ts": t0 / 1e3, "dur": (t1 - t0) / 1e3})
-    with _lock:
+    with _registry_lock:
         pairs = list(_device_pairs)
     for i, (entry, t0, t1, h2d, d2h) in enumerate(pairs):
         common = {"name": entry, "cat": "device", "pid": pid, "tid": 0, "id": i}
